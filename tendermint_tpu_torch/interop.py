@@ -1,0 +1,45 @@
+"""Carrying state across from the JAX package, by bytes and arrays only.
+
+The port never imports tendermint_tpu; these functions read what the
+JAX package writes:
+
+- commit_from_proto: the wire bytes of tendermint_tpu's
+  Commit.to_proto() (types/commit.py:438) -> the port's Commit;
+- validator_set_from_proto: the wire bytes of
+  ValidatorSet.to_proto() (types/validator.py:516) -> the port's
+  ValidatorSet;
+- points_from_numpy: a (k, 20, N) int32 limb stack from the JAX field
+  and point functions (as numpy) -> a tensor for kernel K1 and the
+  point-level functions here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import field25519 as F
+from .types.commit import Commit
+from .types.validator import ValidatorSet
+
+__all__ = [
+    "commit_from_proto",
+    "points_from_numpy",
+    "validator_set_from_proto",
+]
+
+
+def commit_from_proto(data: bytes) -> Commit:
+    return Commit.from_proto(bytes(data))
+
+
+def validator_set_from_proto(data: bytes) -> ValidatorSet:
+    return ValidatorSet.from_proto(bytes(data))
+
+
+def points_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """(..., k, 20, N) int32 limbs -> contiguous int32 tensor on device."""
+    a = np.array(arr, dtype=np.int32, order="C")  # a writable copy
+    if a.ndim < 2 or a.shape[-2] != F.NLIMBS:
+        raise ValueError(f"want (..., {F.NLIMBS}, N) limbs, got {a.shape}")
+    return torch.from_numpy(a).to(device)

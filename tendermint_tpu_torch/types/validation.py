@@ -1,0 +1,304 @@
+"""Commit verification: the north-star path.
+
+Counterpart: tendermint_tpu/types/validation.py:74-190 (verify_commit,
+verify_commit_light, verify_commit_light_trusting and their errors), the
+batch path :403-475 with the scalar reference tally :752-865, the drain
+:868-895 and the single path :898-964. Error types and messages are
+byte-identical to the JAX package's.
+
+The batch path packs a Commit's (pubkey, sign-bytes, signature) triples
+into one crypto.batch verifier per key type; with the device verifier
+installed (crypto/gpu_verifier.install) that is the CUDA kernels on the
+padded batch. Left out on purpose: the verified-signature cache, the
+commit-level memo and tracing. A cache would skip the kernels on the
+very path being brought up.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from ..crypto.batch import create_batch_verifier, supports_batch_verifier
+from .block_id import BlockID
+from .commit import Commit, CommitSig
+from .validator import ValidatorSet
+
+__all__ = [
+    "BATCH_VERIFY_THRESHOLD",
+    "Fraction",
+    "InvalidCommitError",
+    "NotEnoughVotingPowerError",
+    "verify_commit",
+    "verify_commit_light",
+    "verify_commit_light_trusting",
+]
+
+BATCH_VERIFY_THRESHOLD = 2  # reference: types/validation.go:12
+
+
+@dataclass(frozen=True)
+class Fraction:
+    """Trust level, e.g. 1/3."""
+
+    numerator: int
+    denominator: int
+
+    def validate(self) -> None:
+        if self.denominator == 0:
+            raise ValueError("fraction has zero denominator")
+
+
+class InvalidCommitError(ValueError):
+    pass
+
+
+class NotEnoughVotingPowerError(InvalidCommitError):
+    def __init__(self, got: int, needed: int) -> None:
+        super().__init__(
+            f"invalid commit -- insufficient voting power: got {got}, "
+            f"needed more than {needed}"
+        )
+        self.got = got
+        self.needed = needed
+
+
+def _should_batch_verify(vals: ValidatorSet, commit: Commit) -> bool:
+    return len(
+        commit.signatures
+    ) >= BATCH_VERIFY_THRESHOLD and supports_batch_verifier(
+        vals.get_proposer().pub_key
+    )
+
+
+def _verify(
+    chain_id, vals, commit, needed, ignore, count, count_all, by_index
+) -> None:
+    if _should_batch_verify(vals, commit):
+        _verify_commit_batch(
+            chain_id, vals, commit, needed, ignore, count, count_all, by_index
+        )
+    else:
+        _verify_commit_single(
+            chain_id, vals, commit, needed, ignore, count, count_all, by_index
+        )
+
+
+def verify_commit(
+    chain_id: str,
+    vals: ValidatorSet,
+    block_id: BlockID,
+    height: int,
+    commit: Commit,
+) -> None:
+    """+2/3 signed, verifying ALL signatures (the full bitmap is needed
+    for incentivization)."""
+    _verify_basic(vals, commit, height, block_id)
+    needed = vals.total_voting_power() * 2 // 3
+    _verify(
+        chain_id, vals, commit, needed,
+        lambda c: c.is_absent(), lambda c: c.is_for_block(), True, True,
+    )
+
+
+def verify_commit_light(
+    chain_id: str,
+    vals: ValidatorSet,
+    block_id: BlockID,
+    height: int,
+    commit: Commit,
+) -> None:
+    """+2/3 signed, stopping once the tally crosses 2/3."""
+    _verify_basic(vals, commit, height, block_id)
+    needed = vals.total_voting_power() * 2 // 3
+    _verify(
+        chain_id, vals, commit, needed,
+        lambda c: not c.is_for_block(), lambda c: True, False, True,
+    )
+
+
+def verify_commit_light_trusting(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    trust_level: Fraction,
+) -> None:
+    """trust_level (e.g. 1/3) of a TRUSTED validator set signed; lookup
+    by address since the sets need not match."""
+    if vals is None:
+        raise InvalidCommitError("nil validator set")
+    trust_level.validate()
+    if commit is None:
+        raise InvalidCommitError("nil commit")
+    total_mul = vals.total_voting_power() * trust_level.numerator
+    if total_mul >= 1 << 63:
+        raise InvalidCommitError(
+            "int64 overflow while calculating voting power needed"
+        )
+    needed = total_mul // trust_level.denominator
+    _verify(
+        chain_id, vals, commit, needed,
+        lambda c: not c.is_for_block(), lambda c: True, False, False,
+    )
+
+
+def _verify_basic(
+    vals: Optional[ValidatorSet],
+    commit: Optional[Commit],
+    height: int,
+    block_id: BlockID,
+) -> None:
+    if vals is None:
+        raise InvalidCommitError("nil validator set")
+    if commit is None:
+        raise InvalidCommitError("nil commit")
+    if vals.size() != len(commit.signatures):
+        raise InvalidCommitError(
+            f"invalid commit -- wrong set size: {vals.size()} vs "
+            f"{len(commit.signatures)}"
+        )
+    if height != commit.height:
+        raise InvalidCommitError(
+            f"invalid commit -- wrong height: {height} vs {commit.height}"
+        )
+    if block_id != commit.block_id:
+        raise InvalidCommitError(
+            f"invalid commit -- wrong block ID: want {block_id}, "
+            f"got {commit.block_id}"
+        )
+
+
+def _verify_commit_batch(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    voting_power_needed: int,
+    ignore_sig: Callable[[CommitSig], bool],
+    count_sig: Callable[[CommitSig], bool],
+    count_all_signatures: bool,
+    look_up_by_index: bool,
+) -> None:
+    """The reference scan: per-vote predicates, incremental tally, early
+    exit by running total. Triples are grouped per key type and drained
+    after the scan, so each group's verifier gets its own size hint; a
+    key type with no batch support verifies inline."""
+    tallied = 0
+    seen_vals: dict[int, int] = {}
+    # key type -> [(pub_key, sign_bytes, signature, commit idx)]
+    pending: dict[str, list] = {}
+    batchable: dict[str, bool] = {}
+    all_sign_bytes = (
+        commit.sign_bytes_batch(chain_id) if count_all_signatures else None
+    )
+    for idx, commit_sig in enumerate(commit.signatures):
+        if ignore_sig(commit_sig):
+            continue
+        if look_up_by_index:
+            val = vals.validators[idx]
+        else:
+            val_idx, val = vals.get_by_address(commit_sig.validator_address)
+            if val is None:
+                continue
+            if val_idx in seen_vals:
+                raise InvalidCommitError(
+                    f"double vote from {val.address.hex()} "
+                    f"({seen_vals[val_idx]} and {idx})"
+                )
+            seen_vals[val_idx] = idx
+        vote_sign_bytes = (
+            all_sign_bytes[idx]
+            if all_sign_bytes is not None
+            else commit.vote_sign_bytes(chain_id, idx)
+        )
+        pub_key = val.pub_key
+        key_type = pub_key.type()
+        can_batch = batchable.get(key_type)
+        if can_batch is None:
+            can_batch = batchable[key_type] = supports_batch_verifier(pub_key)
+        if not can_batch:
+            if not pub_key.verify_signature(
+                vote_sign_bytes, commit_sig.signature
+            ):
+                raise InvalidCommitError(
+                    f"wrong signature (#{idx}): "
+                    f"{commit_sig.signature.hex()}"
+                )
+        else:
+            pending.setdefault(key_type, []).append(
+                (pub_key, vote_sign_bytes, commit_sig.signature, idx)
+            )
+        if count_sig(commit_sig):
+            tallied += val.voting_power
+        if not count_all_signatures and tallied > voting_power_needed:
+            break
+    if tallied <= voting_power_needed:
+        raise NotEnoughVotingPowerError(tallied, voting_power_needed)
+    _drain_pending(commit, pending)
+
+
+def _drain_pending(commit: Commit, pending: dict) -> None:
+    """Drain the per-key-type batches and raise the reference error for
+    the LOWEST bad commit index across groups."""
+    first_bad: Optional[int] = None
+    for items in pending.values():
+        bv = create_batch_verifier(items[0][0], size_hint=len(items))
+        for pub_key, sb, sig, _idx in items:
+            bv.add(pub_key, sb, sig)
+        ok, valid_sigs = bv.verify()
+        if ok:
+            continue
+        bad = [items[i][3] for i, good in enumerate(valid_sigs) if not good]
+        if not bad:
+            raise RuntimeError(
+                "BUG: batch verification failed with no invalid signatures"
+            )
+        if first_bad is None or bad[0] < first_bad:
+            first_bad = bad[0]
+    if first_bad is not None:
+        raise InvalidCommitError(
+            f"wrong signature (#{first_bad}): "
+            f"{commit.signatures[first_bad].signature.hex()}"
+        )
+
+
+def _verify_commit_single(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    voting_power_needed: int,
+    ignore_sig: Callable[[CommitSig], bool],
+    count_sig: Callable[[CommitSig], bool],
+    count_all_signatures: bool,
+    look_up_by_index: bool,
+) -> None:
+    """One verify per signature (reference: types/validation.go:265-328)."""
+    tallied = 0
+    seen_vals: dict[int, int] = {}
+    for idx, commit_sig in enumerate(commit.signatures):
+        if ignore_sig(commit_sig):
+            continue
+        if look_up_by_index:
+            val = vals.validators[idx]
+        else:
+            val_idx, val = vals.get_by_address(commit_sig.validator_address)
+            if val is None:
+                continue
+            if val_idx in seen_vals:
+                raise InvalidCommitError(
+                    f"double vote from {val.address.hex()} "
+                    f"({seen_vals[val_idx]} and {idx})"
+                )
+            seen_vals[val_idx] = idx
+        vote_sign_bytes = commit.vote_sign_bytes(chain_id, idx)
+        if not val.pub_key.verify_signature(
+            vote_sign_bytes, commit_sig.signature
+        ):
+            raise InvalidCommitError(
+                f"wrong signature (#{idx}): {commit_sig.signature.hex()}"
+            )
+        if count_sig(commit_sig):
+            tallied += val.voting_power
+        if not count_all_signatures and tallied > voting_power_needed:
+            return
+    if tallied <= voting_power_needed:
+        raise NotEnoughVotingPowerError(tallied, voting_power_needed)

@@ -1,0 +1,115 @@
+"""The port's import boundary, and its refusal to fall back to the CPU.
+
+tendermint_tpu_torch imports torch and numpy, never jax and nothing of
+tendermint_tpu (not even the JAX package's framework-free modules), and
+chip_smoke.py imports neither. Its entry points target CUDA unless the
+caller passes device="cpu"; without a card they raise instead of running
+the plain versions.
+"""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "tendermint_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _forbidden(name: str) -> bool:
+    return (
+        name == "jax"
+        or name.startswith("jax.")
+        or name.startswith("jaxlib")
+        or name == "tendermint_tpu"
+        or name.startswith("tendermint_tpu.")
+    )
+
+
+def test_importing_every_module_loads_no_jax_and_no_jax_package():
+    mods = _port_modules()
+    assert len(mods) > 20
+    code = (
+        "import importlib, json, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(set(sys.modules) - before)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    added = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "tendermint_tpu_torch.ops.ed25519_kernel" in added
+    assert [m for m in added if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+    + ["chip_smoke.py"],
+)
+def test_source_names_no_forbidden_import(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not [n for n in names if _forbidden(n)], (path, names)
+
+
+def test_verifier_without_cuda_raises_instead_of_running_on_cpu():
+    from tendermint_tpu_torch.crypto import batch, gpu_verifier
+    from tendermint_tpu_torch.ops.ed25519_kernel import Ed25519Verifier
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Ed25519Verifier()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gpu_verifier.install()
+    assert gpu_verifier.installed() is None
+    assert not batch.device_factory_installed("ed25519")
+
+
+def test_wrappers_take_the_plain_version_only_on_cpu():
+    """A tensor that is neither on the CPU nor on CUDA is refused: the
+    plain version is chosen by the tensor's device, never as a fallback."""
+    from tendermint_tpu_torch.ops import ed25519_cuda, sha512_kernel
+
+    meta = torch.empty((64, 4), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sha512_kernel.sha512_fixed(meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ed25519_cuda.verify_tile(meta[:32], meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ed25519_cuda.dual_mult(
+            torch.empty((4, 20, 4), dtype=torch.int32, device="meta"),
+            meta.int(),
+            meta.int(),
+        )
