@@ -11,10 +11,17 @@ and types.validation.verify_commit on a 10,000-validator ed25519 Commit
 a 10,000-validator Commit with one bad signature that must be rejected at
 that index. Keys, messages and timestamps come from --seed.
 
+Before the main path, every kernel is held against its plain version at
+the widest bucket, K2 also on the ZIP-215 corpus at buckets 128 and
+12288 and at a width that no block of signatures divides.
+
 Phases print one JSON line each. The line before the last two is the
 card as nvidia-smi names it, with its power limit; the line before the
 last is {"kernels": [...]} (launches on the main path, the kernel's and
-its plain version's times, and the card's least time for the same work);
+its plain version's times, and the card's least time for the same work;
+for K2 and K1 also one launch's time and bound at each width in
+K2_WIDTHS / K1_WIDTHS; for every kernel its registers, stack frame and
+spill bytes from ptxas -v);
 the last line is {"ok": true, "device": {...}}. Any failed phase raises
 and the script exits non-zero without that line. It exits non-zero at
 once when CUDA is not available or when the package is not beside it.
@@ -26,6 +33,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,10 +49,11 @@ INT32_INSTR_PER_S = 67e12 / 4
 # lower bounds on the int32 instructions of one item: the field
 # multiplies and squarings the check needs (the kernels' formulas), at 4
 # 32-bit multiplies per 64x64->128 limb product, 25 products per general
-# multiply and 15 per squaring (5 diagonal + 10 doubled cross products;
-# the kernels take squarings as general multiplies, which is their
-# choice, not the function's need). Additions, carries and loads are not
-# counted. Per signature (squarings, multiplies):
+# multiply and 15 per squaring (5 diagonal + 10 doubled cross products).
+# This counts what the check needs, whatever a kernel does: additions,
+# carries, lane exchanges and loads are not counted, nor T coordinates
+# that a kernel computes and never reads. Per signature (squarings,
+# multiplies):
 #   decompression of A: pow_p58 (251, 11) + 4 squarings, 8 multiplies;
 #   decompression of R: the same less the T coordinate it never uses;
 #   table of -A: 4 doublings with T (4, 4) + 3 additions with T (0, 8)
@@ -71,6 +80,9 @@ INSTR_PER_SHA512_BLOCK = 80 * 30 + 64 * 20
 # the widest bucket (config.DEFAULT_BUCKET_SIZES), the width the kernels
 # are held against their plain versions at
 WIDE = 12288
+# the widths each ed25519 kernel is timed at, one launch each
+K2_WIDTHS = (512, 2048, WIDE)
+K1_WIDTHS = (2048, WIDE)
 
 CHAIN_ID = "chip-smoke-chain"
 HEIGHT = 1234
@@ -119,6 +131,31 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_resources(log: str) -> dict:
+    """Registers of the source's entry kernels, and the largest stack
+    frame and spill bytes over all of its functions, from `ptxas -v`."""
+    regs, stack, st, ld = [], [0], [0], [0]
+    for line in log.splitlines():
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs.append(int(m.group(1)))
+        m = re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads",
+            line,
+        )
+        if m:
+            stack.append(int(m.group(1)))
+            st.append(int(m.group(2)))
+            ld.append(int(m.group(3)))
+    return {
+        "registers": max(regs) if regs else None,
+        "stack_frame_bytes": max(stack),
+        "spill_store_bytes": max(st),
+        "spill_load_bytes": max(ld),
+    }
 
 
 def bound_ms(nbytes: float, instr: float):
@@ -216,7 +253,7 @@ def time_commit(fn, reps: int):
 
 
 def phase_report(torch, out_dir: str) -> None:
-    from tendermint_tpu_torch.ops import build
+    from tendermint_tpu_torch.ops import build, sass_count
 
     t0 = time.perf_counter()
     build.kernels()
@@ -235,6 +272,8 @@ def phase_report(torch, out_dir: str) -> None:
             "nvcc": nvcc_version(),
             "build_seconds": seconds,
             "libraries": sorted(rep["libraries"]),
+            # one field multiply and squaring per radix considered
+            "fe_sass": sass_count.count(),
         }
     )
 
@@ -352,6 +391,47 @@ def phase_verify_tile(torch, dev, seed: int) -> None:
             raise AssertionError(f"K2 corpus check at {bucket}: {checks}")
         out[str(bucket)] = {"n": count, "valid": int(exp.sum())}
     emit({"phase": "k2_vs_plain_and_oracle", "buckets": out, "ok": True})
+
+
+# a K2 width that no block of signatures divides: RAGGED - PAD corpus
+# lanes and PAD all-zero lanes
+RAGGED, PAD = 2048 - 3, 5
+
+
+def phase_ragged_width(torch, dev, seed: int) -> None:
+    """K2 at a width that is not a multiple of a block's signatures,
+    with zero padding lanes at the end: identical to its plain version
+    and, on the corpus lanes, to the host oracle."""
+    from tendermint_tpu_torch.crypto import zip215_corpus
+    from tendermint_tpu_torch.ops import ed25519_cuda as C
+    from tendermint_tpu_torch.ops import ed25519_kernel as K
+
+    triples = zip215_corpus.corpus(16, seed + 2)
+    count = RAGGED - PAD
+    tr = (triples * (count // len(triples) + 1))[:count]
+    want = np.array(zip215_corpus.expected(tr))
+    pks, msgs, sigs = (list(x) for x in zip(*tr))
+    verifier = K.Ed25519Verifier(bucket_sizes=[RAGGED], device=dev)
+    pk_b, sig_b, dig_b, size_ok = verifier.pack(pks, msgs, sigs)
+    if pk_b.shape[1] != RAGGED:
+        raise AssertionError(f"packed width {pk_b.shape[1]} != {RAGGED}")
+    kern = C.verify_tile(pk_b, sig_b, dig_b).cpu().numpy()
+    plain = K._verify_tile(pk_b, sig_b, dig_b).cpu().numpy()
+    checks = {
+        "kernel_eq_plain_all_lanes": np.array_equal(kern, plain),
+        "kernel_eq_oracle": np.array_equal(kern[:count] & size_ok, want),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"K2 at width {RAGGED}: {checks}")
+    emit(
+        {
+            "phase": "k2_ragged_width",
+            "width": RAGGED,
+            "padding_lanes": PAD,
+            "valid": int(want.sum()),
+            "ok": True,
+        }
+    )
 
 
 def phase_main_path(torch, seed: int) -> dict:
@@ -570,15 +650,16 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
     )
 
     # K1 on the hybrid program's inputs for the same windows
-    k1_in = []
-    for pk_b, sig_b, dig_b, _ok in packed:
+    def k1_inputs(pk_b, sig_b, dig_b):
         pk = pk_b.int()
         topclear = K._col([0xFF] * 31 + [0x7F], dev)
         y = K._fe_from_bytes_dev(pk & topclear)
         A, _okA = E.decompress(y, pk[31] >> 7)
         ds = K._nibbles_dev(sig_b.int()[32:])
         dk = K._nibbles_dev(K._mod_l_dev(dig_b.int()))
-        k1_in.append((A.contiguous(), ds.contiguous(), dk.contiguous()))
+        return A.contiguous(), ds.contiguous(), dk.contiguous()
+
+    k1_in = [k1_inputs(*p[:3]) for p in packed]
     k1 = lambda: [C.dual_mult(*a) for a in k1_in]  # noqa: E731
     k1_plain = lambda: [  # noqa: E731
         K.dual_mult_sb_minus_ka(*a) for a in k1_in
@@ -598,9 +679,54 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
             lanes * field_instr(SQ_K1, MUL_K1),
         )
     )
+    # one launch at each width that matters: 512 is the light commit's
+    # bucket, 2048 the streaming window, 12288 the widest bucket (the
+    # 10k commit's signatures, zero lanes after)
+    def packed_at(w):
+        return verifier.pack(pks[:w], msgs[:w], sigs[:w])[:3]
+
+    k2_w = {w: packed_at(w) for w in K2_WIDTHS}
+    k1_w = {w: k1_inputs(*k2_w[w]) for w in K1_WIDTHS}
+    by_width = {
+        "ed25519_verify_tile": {
+            w: (
+                lambda p=p: C.verify_tile(*p),
+                w * (32 + 64 + 64 + 1),
+                w * field_instr(SQ_K2, MUL_K2),
+                p[0].shape[1],
+            )
+            for w, p in k2_w.items()
+        },
+        "ed25519_dual_mult": {
+            w: (
+                lambda a=a: C.dual_mult(*a),
+                w * (4 * 20 * 4 + 2 * 64 * 4 + 3 * 20 * 4),
+                w * field_instr(SQ_K1, MUL_K1),
+                a[0].shape[-1],
+            )
+            for w, a in k1_w.items()
+        },
+    }
+    from tendermint_tpu_torch.ops import build
+
+    ptxas = build.build_report()["ptxas"]
+    stems = {
+        "sha512_rows": "sha512",
+        "ed25519_verify_tile": "ed25519_verify",
+        "ed25519_dual_mult": "ed25519_dual_mult",
+    }
     for r in rows:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{r['name']} differs from its plain version")
+        r.update(ptxas_resources(ptxas[stems[r["name"]]]))
+        widths = by_width.get(r["name"], {})
+        for w, (fn, nbytes, instr, got_w) in widths.items():
+            if got_w != w:
+                raise AssertionError(f"{r['name']}: width {got_w} != {w}")
+            r.setdefault("ms_by_width", {})[str(w)] = cuda_ms(torch, fn, 10)
+            r.setdefault("bound_ms_by_width", {})[str(w)] = bound_ms(
+                nbytes, instr
+            )[0]
         r["card"] = card
         r["power_limit"] = power
     return {"kernels": rows}
@@ -708,6 +834,7 @@ def main() -> int:
     phase_sha512(torch, dev, args.seed)
     phase_dual_mult(torch, dev, args.seed)
     phase_verify_tile(torch, dev, args.seed)
+    phase_ragged_width(torch, dev, args.seed)
     main_run = phase_main_path(torch, args.seed)
     kernels = phase_kernels(torch, dev, main_run, card, power)
     if args.profile:

@@ -1,34 +1,40 @@
-// GF(2^255 - 19) and ed25519 group arithmetic for one thread per
-// signature: the device functions shared by kernels K1
+// GF(2^255 - 19) and ed25519 group arithmetic with four threads ("lanes")
+// per signature: the device functions shared by kernels K1
 // (ed25519_dual_mult.cu) and K2 (ed25519_verify.cu).
 //
 // Counterparts: tendermint_tpu/ops/field25519.py (field) and
 // tendermint_tpu/ops/edwards.py (points). The TPU forced 20 x 13-bit int32
-// limbs in a batch-minor vector layout; a Hopper thread has native 64-bit
-// adds and 32x32->64 multiplies, so one field element here is five 51-bit
-// limbs in uint64 (radix 2^51) and products are taken in unsigned __int128.
-// Formulas are the same as the JAX package's (add-2008-hwcd-3 with the
-// second operand in cached form, dbl-2008-hwcd), so every intermediate is
+// limbs in a batch-minor vector layout; a Hopper thread multiplies 32x32->64
+// and adds into 64 bits in one instruction (IMAD.WIDE), so one field
+// element here is ten limbs of 26 and 25 bits in uint32 (radix 2^25.5, as
+// ref10), a product 100 such multiply-adds. Radix 2^51 (five limbs,
+// unsigned __int128 products) takes 341 SASS instructions a multiply and
+// 227 a squaring against 205 and 152 here (ops/sass_count.py). Formulas
+// are the same as the JAX package's (add-2008-hwcd-3 with the second
+// operand in cached form, dbl-2008-hwcd), split over four lanes
+// (see "the four lanes of one signature" below), so every intermediate is
 // the same field element, only in other limbs.
 //
 // The header includes no CUDA runtime header, so a host compiler can build
-// it too (with the CUDA qualifiers defined away) for checking the arithmetic
-// against the host oracle without a card.
+// it too (with the CUDA qualifiers defined away and the lane exchange
+// emulated) for checking the arithmetic against the host oracle without a
+// card.
 //
-// Limb invariant: every fe handed between functions here is "carried":
-// every limb < 2^52. fe_mul's column sums then stay below 2^111, its top
-// carry times 19 below 2^60, and fe_sub's 4p bias exceeds every limb.
+// Limb invariants, in multiples of a limb's width w (26 or 25 bits). A
+// "carried" fe has every limb < 2^w + 2^18: fe_add, fe_sub, fe_mul and
+// fe_sq return carried values, and fe_sub's 2p bias exceeds every carried
+// limb of what it subtracts. Sums and differences of carried values
+// without a carry pass (fe_add_nc, fe_sub_nc) are "k-loose", every limb <
+// k 2^w, and go only into fe_mul and fe_sq: fe_mul(h, f, g) takes f up to
+// 4-loose and g up to 3-loose (19 g must fit 32 bits), fe_sq up to
+// 3-loose; every column sum then stays below 2^63.
 
 #pragma once
 #include <stddef.h>
 #include <stdint.h>
 
-typedef unsigned __int128 u128;
-
-#define FE_MASK51 0x7ffffffffffffULL
-
 struct fe {
-  uint64_t v[5];
+  uint32_t v[10];
 };
 
 // extended homogeneous coordinates: x = X/Z, y = Y/Z, xy = T/Z
@@ -36,143 +42,204 @@ struct ge_p3 {
   fe X, Y, Z, T;
 };
 
-// second operand of an addition: (Y - X, Y + X, 2d*T, 2Z)
-struct ge_cached {
-  fe YmX, YpX, T2d, Z2;
-};
+#define FE_M26 0x3ffffffu
+#define FE_M25 0x1ffffffu
 
-// -- constants (radix 2^51 limbs; tests/test_torch_csrc.py builds this
+// limb i holds bits FE_OFF(i) .. FE_OFF(i + 1) - 1: 26 bits at even i,
+// 25 at odd
+#define FE_OFF(i) (((i) * 51 + 1) / 2)
+#define FE_BITS(i) (((i) & 1) ? 25 : 26)
+
+// -- constants (radix 2^25.5 limbs; tests/test_torch_csrc.py builds this
 //    header with the host C++ compiler and holds it against the oracle) --
 
-__device__ __constant__ uint64_t FE_D[5] = {
-    0x34dca135978a3ULL, 0x1a8283b156ebdULL, 0x5e7a26001c029ULL,
-    0x739c663a03cbbULL, 0x52036cee2b6ffULL};
-__device__ __constant__ uint64_t FE_D2[5] = {
-    0x69b9426b2f159ULL, 0x35050762add7aULL, 0x3cf44c0038052ULL,
-    0x6738cc7407977ULL, 0x2406d9dc56dffULL};
-__device__ __constant__ uint64_t FE_SQRTM1[5] = {
-    0x61b274a0ea0b0ULL, 0x0d5a5fc8f189dULL, 0x7ef5e9cbd0c60ULL,
-    0x78595a6804c9eULL, 0x2b8324804fc1dULL};
-
-// j*B for j = 0..8 in cached form with Z = 1: (y-x, y+x, 2d*xy, 2).
-// Counterpart: tendermint_tpu/ops/edwards.py niels_table_b.
-__device__ __constant__ uint64_t GE_BASE_TABLE[9][4][5] = {
-    {{0x0000000000001ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL},
-     {0x0000000000001ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL},
-     {0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
-    {{0x03905d740913eULL, 0x0ba2817d673a2ULL, 0x23e2827f4e67cULL, 0x133d2e0c21a34ULL, 0x44fd2f9298f81ULL},
-     {0x493c6f58c3b85ULL, 0x0df7181c325f7ULL, 0x0f50b0b3e4cb7ULL, 0x5329385a44c32ULL, 0x07cf9d3a33d4bULL},
-     {0x11205877aaa68ULL, 0x479955893d579ULL, 0x50d66309b67a0ULL, 0x2d42d0dbee5eeULL, 0x6f117b689f0c6ULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
-    {{0x1a56042b4d5a8ULL, 0x189cc159ed153ULL, 0x5b8deaa3cae04ULL, 0x2aaf04f11b5d8ULL, 0x6bb595a669c92ULL},
-     {0x4e7fc933c71d7ULL, 0x2cf41feb6b244ULL, 0x7581c0a7d1a76ULL, 0x7172d534d32f0ULL, 0x590c063fa87d2ULL},
-     {0x2a8b3a59b7a5fULL, 0x3abb359ef087fULL, 0x4f5a8c4db05afULL, 0x5b9a807d04205ULL, 0x701af5b13ea50ULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
-    {{0x11fe8a4fcd265ULL, 0x7bcb8374faaccULL, 0x52f5af4ef4d4fULL, 0x5314098f98d10ULL, 0x2ab91587555bdULL},
-     {0x5b0a84cee9730ULL, 0x61d10c97155e4ULL, 0x4059cc8096a10ULL, 0x47a608da8014fULL, 0x7a164e1b9a80fULL},
-     {0x6933f0dd0d889ULL, 0x44386bb4c4295ULL, 0x3cb6d3162508cULL, 0x26368b872a2c6ULL, 0x5a2826af12b9bULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
-    {{0x6050a056818bfULL, 0x62acc1f5532bfULL, 0x28141ccc9fa25ULL, 0x24d61f471e683ULL, 0x27933f4c7445aULL},
-     {0x351b98efc099fULL, 0x68fbfa4a7050eULL, 0x42a49959d971bULL, 0x393e51a469efdULL, 0x680e910321e58ULL},
-     {0x3fbe9c476ff09ULL, 0x0af6b982e4b42ULL, 0x0ad1251ba78e5ULL, 0x715aeedee7c88ULL, 0x7f9d0cbf63553ULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
-    {{0x182c3a447d6baULL, 0x22964e536eff2ULL, 0x192821f540053ULL, 0x2f9f19e788e5cULL, 0x154a7e73eb1b5ULL},
-     {0x2bc4408a5bb33ULL, 0x078ebdda05442ULL, 0x2ffb112354123ULL, 0x375ee8df5862dULL, 0x2945ccf146e20ULL},
-     {0x3dbf1812a8285ULL, 0x0fa17ba3f9797ULL, 0x6f69cb49c3820ULL, 0x34d5a0db3858dULL, 0x43aabe696b3bbULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
-    {{0x006b67b7d8ca4ULL, 0x084fa44e72933ULL, 0x1154ee55d6f8aULL, 0x4425d842e7390ULL, 0x38b64c41ae417ULL},
-     {0x4eeeb77157131ULL, 0x1201915f10741ULL, 0x1669cda6c9c56ULL, 0x45ec032db346dULL, 0x51e57bb6a2cc3ULL},
-     {0x4326702ea4b71ULL, 0x06834376030b5ULL, 0x0ef0512f9c380ULL, 0x0f1a9f2512584ULL, 0x10b8e91a9f0d6ULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
-    {{0x72c9aaa3221b1ULL, 0x267774474f74dULL, 0x064b0e9b28085ULL, 0x3f04ef53b27c9ULL, 0x1d6edd5d2e531ULL},
-     {0x25cd0944ea3bfULL, 0x75673b81a4d63ULL, 0x150b925d1c0d4ULL, 0x13f38d9294114ULL, 0x461bea69283c9ULL},
-     {0x36dc801b8b3a2ULL, 0x0e0a7d4935e30ULL, 0x1deb7cecc0d7dULL, 0x053a94e20dd2cULL, 0x7a9fbb1c6a0f9ULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
-    {{0x75dedf39234d9ULL, 0x01c36ab1f3c54ULL, 0x0f08fee58f5daULL, 0x0e19613a0d637ULL, 0x3a9024a1320e0ULL},
-     {0x7596604dd3e8fULL, 0x6fc510e058b36ULL, 0x3670c8db2cc0dULL, 0x297d899ce332fULL, 0x0915e76061bceULL},
-     {0x1f5d9c9a2911aULL, 0x7117994fafcf8ULL, 0x2d8a8cae28dc5ULL, 0x74ab1b2090c87ULL, 0x26907c5c2ecc4ULL},
-     {0x0000000000002ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL, 0x0000000000000ULL}},
+__device__ __constant__ uint32_t FE_D[10] = {0x35978a3, 0x0d37284, 0x3156ebd, 0x06a0a0e, 0x001c029, 0x179e898, 0x3a03cbb, 0x1ce7198, 0x2e2b6ff, 0x1480db3};
+__device__ __constant__ uint32_t FE_D2[10] = {0x2b2f159, 0x1a6e509, 0x22add7a, 0x0d4141d, 0x0038052, 0x0f3d130, 0x3407977, 0x19ce331, 0x1c56dff, 0x0901b67};
+__device__ __constant__ uint32_t FE_SQRTM1[10] = {0x20ea0b0, 0x186c9d2, 0x08f189d, 0x035697f, 0x0bd0c60, 0x1fbd7a7, 0x2804c9e, 0x1e16569, 0x004fc1d, 0x0ae0c92};
+__device__ __constant__ uint32_t GE_BASE_TABLE[9][4][10] = {
+    {{0x0000001, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000},
+     {0x0000001, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000},
+     {0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
+    {{0x340913e, 0x00e4175, 0x3d673a2, 0x02e8a05, 0x3f4e67c, 0x08f8a09, 0x0c21a34, 0x04cf4b8, 0x1298f81, 0x113f4be},
+     {0x18c3b85, 0x124f1bd, 0x1c325f7, 0x037dc60, 0x33e4cb7, 0x03d42c2, 0x1a44c32, 0x14ca4e1, 0x3a33d4b, 0x01f3e74},
+     {0x37aaa68, 0x0448161, 0x093d579, 0x11e6556, 0x09b67a0, 0x143598c, 0x1bee5ee, 0x0b50b43, 0x289f0c6, 0x1bc45ed},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
+    {{0x2b4d5a8, 0x0695810, 0x19ed153, 0x0627305, 0x23cae04, 0x16e37aa, 0x311b5d8, 0x0aabc13, 0x2669c92, 0x1aed656},
+     {0x33c71d7, 0x139ff24, 0x2b6b244, 0x0b3d07f, 0x27d1a76, 0x1d60702, 0x34d32f0, 0x1c5cb54, 0x3fa87d2, 0x1643018},
+     {0x19b7a5f, 0x0aa2ce9, 0x1ef087f, 0x0eaecd6, 0x0db05af, 0x13d6a31, 0x3d04205, 0x16e6a01, 0x313ea50, 0x1c06bd6},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
+    {{0x0fcd265, 0x047fa29, 0x34faacc, 0x1ef2e0d, 0x0ef4d4f, 0x14bd6bd, 0x0f98d10, 0x14c5026, 0x07555bd, 0x0aae456},
+     {0x0ee9730, 0x16c2a13, 0x17155e4, 0x1874432, 0x0096a10, 0x1016732, 0x1a8014f, 0x11e9823, 0x1b9a80f, 0x1e85938},
+     {0x1d0d889, 0x1a4cfc3, 0x34c4295, 0x110e1ae, 0x162508c, 0x0f2db4c, 0x072a2c6, 0x098da2e, 0x2f12b9b, 0x168a09a},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
+    {{0x16818bf, 0x1814281, 0x35532bf, 0x18ab307, 0x0c9fa25, 0x0a05073, 0x071e683, 0x093587d, 0x0c7445a, 0x09e4cfd},
+     {0x2fc099f, 0x0d46e63, 0x0a7050e, 0x1a3efe9, 0x19d971b, 0x10a9265, 0x2469efd, 0x0e4f946, 0x0321e58, 0x1a03a44},
+     {0x076ff09, 0x0fefa71, 0x02e4b42, 0x02bdae6, 0x1ba78e5, 0x02b4494, 0x1ee7c88, 0x1c56bbb, 0x3f63553, 0x1fe7432},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
+    {{0x047d6ba, 0x060b0e9, 0x136eff2, 0x08a5939, 0x3540053, 0x064a087, 0x2788e5c, 0x0be7c67, 0x33eb1b5, 0x05529f9},
+     {0x0a5bb33, 0x0af1102, 0x1a05442, 0x01e3af7, 0x2354123, 0x0bfec44, 0x1f5862d, 0x0dd7ba3, 0x3146e20, 0x0a51733},
+     {0x12a8285, 0x0f6fc60, 0x23f9797, 0x03e85ee, 0x09c3820, 0x1bda72d, 0x1b3858d, 0x0d35683, 0x296b3bb, 0x10eaaf9},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
+    {{0x37d8ca4, 0x001ad9e, 0x0e72933, 0x0213e91, 0x15d6f8a, 0x04553b9, 0x02e7390, 0x1109761, 0x01ae417, 0x0e2d931},
+     {0x3157131, 0x13bbadd, 0x1f10741, 0x0480645, 0x26c9c56, 0x059a736, 0x2db346d, 0x117b00c, 0x36a2cc3, 0x14795ee},
+     {0x2ea4b71, 0x10c99c0, 0x36030b5, 0x01a0d0d, 0x2f9c380, 0x03bc144, 0x2512584, 0x03c6a7c, 0x1a9f0d6, 0x042e3a4},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
+    {{0x23221b1, 0x1cb26aa, 0x074f74d, 0x099ddd1, 0x1b28085, 0x0192c3a, 0x13b27c9, 0x0fc13bd, 0x1d2e531, 0x075bb75},
+     {0x04ea3bf, 0x0973425, 0x01a4d63, 0x1d59cee, 0x1d1c0d4, 0x0542e49, 0x1294114, 0x04fce36, 0x29283c9, 0x1186fa9},
+     {0x1b8b3a2, 0x0db7200, 0x0935e30, 0x03829f5, 0x2cc0d7d, 0x077adf3, 0x220dd2c, 0x014ea53, 0x1c6a0f9, 0x1ea7eec},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
+    {{0x39234d9, 0x1d77b7c, 0x31f3c54, 0x0070daa, 0x258f5da, 0x03c23fb, 0x3a0d637, 0x0386584, 0x21320e0, 0x0ea4092},
+     {0x0dd3e8f, 0x1d65981, 0x2058b36, 0x1bf1443, 0x1b2cc0d, 0x0d9c323, 0x1ce332f, 0x0a5f626, 0x2061bce, 0x024579d},
+     {0x1a2911a, 0x07d7672, 0x0fafcf8, 0x1c45e65, 0x2e28dc5, 0x0b62a32, 0x2090c87, 0x1d2ac6c, 0x1c2ecc4, 0x09a41f1},
+     {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000}},
 };
-
-// L = 2^252 + 27742317777372353535851937790883648493, little-endian bytes
-__device__ __constant__ uint8_t SC_L[32] = {
-    237, 211, 245, 92, 26, 99, 18, 88, 214, 156, 247, 162, 222, 249, 222, 20,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 16};
 
 // -- field --
 
-__device__ __forceinline__ void fe_set_u64(fe &h, uint64_t x) {
-  h.v[0] = x; h.v[1] = 0; h.v[2] = 0; h.v[3] = 0; h.v[4] = 0;
-}
-
-__device__ __forceinline__ void fe_load_const(fe &h, const uint64_t *c) {
+__device__ __forceinline__ void fe_set_u32(fe &h, uint32_t x) {
+  h.v[0] = x;
 #pragma unroll
-  for (int i = 0; i < 5; i++) h.v[i] = c[i];
+  for (int i = 1; i < 10; i++) h.v[i] = 0;
 }
 
-// one carry pass; the carry out of limb 4 wraps into limb 0 times 19
-// (2^255 = 19 mod p)
-__device__ __forceinline__ void fe_carry(fe &h) {
-  uint64_t c;
-  c = h.v[0] >> 51; h.v[0] &= FE_MASK51; h.v[1] += c;
-  c = h.v[1] >> 51; h.v[1] &= FE_MASK51; h.v[2] += c;
-  c = h.v[2] >> 51; h.v[2] &= FE_MASK51; h.v[3] += c;
-  c = h.v[3] >> 51; h.v[3] &= FE_MASK51; h.v[4] += c;
-  c = h.v[4] >> 51; h.v[4] &= FE_MASK51; h.v[0] += c * 19;
+__device__ __forceinline__ void fe_load_const(fe &h, const uint32_t *c) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = c[i];
+}
+
+// one carry pass, limb 0 to limb 9; the carry out of limb 9 wraps into
+// limb 0 times 19 (2^255 = 19 mod p)
+__device__ __forceinline__ void fe_carry_seq(fe &h) {
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    const uint32_t c = h.v[i] >> FE_BITS(i);
+    h.v[i] &= (i & 1) ? FE_M25 : FE_M26;
+    h.v[i + 1] += c;
+  }
+  const uint32_t c = h.v[9] >> 25;
+  h.v[9] &= FE_M25;
+  h.v[0] += 19 * c;
+}
+
+// The carry pass in two interleaved chains (limbs 0-5 and 4-9, then the
+// wrap), as ref10 orders it: half the dependent depth of fe_carry_seq.
+// T is uint32_t (sums) or uint64_t (a product's column sums).
+#define FE_CARRY_STEP(t, i)                 \
+  {                                         \
+    const auto c = (t)[i] >> FE_BITS(i);    \
+    (t)[i + 1] += c;                        \
+    (t)[i] &= (i & 1) ? FE_M25 : FE_M26;    \
+  }
+template <typename T>
+__device__ __forceinline__ void fe_carry_chains(T *t) {
+  FE_CARRY_STEP(t, 0) FE_CARRY_STEP(t, 4)
+  FE_CARRY_STEP(t, 1) FE_CARRY_STEP(t, 5)
+  FE_CARRY_STEP(t, 2) FE_CARRY_STEP(t, 6)
+  FE_CARRY_STEP(t, 3) FE_CARRY_STEP(t, 7)
+  FE_CARRY_STEP(t, 4) FE_CARRY_STEP(t, 8)
+  {
+    const auto c = t[9] >> 25;
+    t[0] += 19 * c;
+    t[9] &= FE_M25;
+  }
+  FE_CARRY_STEP(t, 0)
+}
+#undef FE_CARRY_STEP
+
+__device__ __forceinline__ void fe_carry(fe &h) { fe_carry_chains(h.v); }
+
+// 2p, limb by limb: every limb exceeds the same limb of any carried value
+#define FE_2P0 0x7ffffdau
+#define FE_2PE 0x7fffffeu
+#define FE_2PO 0x3fffffeu
+
+__device__ __forceinline__ void fe_add_nc(fe &h, const fe &f, const fe &g) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = f.v[i] + g.v[i];
+}
+
+// f - g + 2p, g carried
+__device__ __forceinline__ void fe_sub_nc(fe &h, const fe &f, const fe &g) {
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    h.v[i] = f.v[i] + (i == 0 ? FE_2P0 : (i & 1) ? FE_2PO : FE_2PE) - g.v[i];
 }
 
 __device__ __forceinline__ void fe_add(fe &h, const fe &f, const fe &g) {
-#pragma unroll
-  for (int i = 0; i < 5; i++) h.v[i] = f.v[i] + g.v[i];
+  fe_add_nc(h, f, g);
   fe_carry(h);
 }
 
-// f - g + 4p: every limb of 4p exceeds any carried limb of g
 __device__ __forceinline__ void fe_sub(fe &h, const fe &f, const fe &g) {
-  h.v[0] = f.v[0] + 0x1fffffffffffb4ULL - g.v[0];
-  h.v[1] = f.v[1] + 0x1ffffffffffffcULL - g.v[1];
-  h.v[2] = f.v[2] + 0x1ffffffffffffcULL - g.v[2];
-  h.v[3] = f.v[3] + 0x1ffffffffffffcULL - g.v[3];
-  h.v[4] = f.v[4] + 0x1ffffffffffffcULL - g.v[4];
+  fe_sub_nc(h, f, g);
   fe_carry(h);
 }
 
 __device__ __forceinline__ void fe_neg(fe &h, const fe &f) {
   fe z;
-  fe_set_u64(z, 0);
+  fe_set_u32(z, 0);
   fe_sub(h, z, f);
 }
 
-__device__ void fe_mul(fe &h, const fe &f, const fe &g) {
-  const uint64_t f0 = f.v[0], f1 = f.v[1], f2 = f.v[2], f3 = f.v[3],
-                 f4 = f.v[4];
-  const uint64_t g0 = g.v[0], g1 = g.v[1], g2 = g.v[2], g3 = g.v[3],
-                 g4 = g.v[4];
-  const uint64_t g1_19 = 19 * g1, g2_19 = 19 * g2, g3_19 = 19 * g3,
-                 g4_19 = 19 * g4;
-  u128 t0 = (u128)f0 * g0 + (u128)f1 * g4_19 + (u128)f2 * g3_19 +
-            (u128)f3 * g2_19 + (u128)f4 * g1_19;
-  u128 t1 = (u128)f0 * g1 + (u128)f1 * g0 + (u128)f2 * g4_19 +
-            (u128)f3 * g3_19 + (u128)f4 * g2_19;
-  u128 t2 = (u128)f0 * g2 + (u128)f1 * g1 + (u128)f2 * g0 +
-            (u128)f3 * g4_19 + (u128)f4 * g3_19;
-  u128 t3 = (u128)f0 * g3 + (u128)f1 * g2 + (u128)f2 * g1 +
-            (u128)f3 * g0 + (u128)f4 * g4_19;
-  u128 t4 = (u128)f0 * g4 + (u128)f1 * g3 + (u128)f2 * g2 +
-            (u128)f3 * g1 + (u128)f4 * g0;
-  uint64_t r0, r1, r2, r3, r4, c;
-  r0 = (uint64_t)t0 & FE_MASK51; t1 += (uint64_t)(t0 >> 51);
-  r1 = (uint64_t)t1 & FE_MASK51; t2 += (uint64_t)(t1 >> 51);
-  r2 = (uint64_t)t2 & FE_MASK51; t3 += (uint64_t)(t2 >> 51);
-  r3 = (uint64_t)t3 & FE_MASK51; t4 += (uint64_t)(t3 >> 51);
-  r4 = (uint64_t)t4 & FE_MASK51; c = (uint64_t)(t4 >> 51);
-  r0 += c * 19;
-  c = r0 >> 51; r0 &= FE_MASK51; r1 += c;
-  h.v[0] = r0; h.v[1] = r1; h.v[2] = r2; h.v[3] = r3; h.v[4] = r4;
+// The column sums t of a product -> carried limbs
+__device__ __forceinline__ void fe_reduce(fe &h, uint64_t *t) {
+  fe_carry_chains(t);
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = (uint32_t)t[i];
 }
 
-__device__ __forceinline__ void fe_sq(fe &h, const fe &f) { fe_mul(h, f, f); }
+// h = f g: f_i g_j lands in column (i + j) mod 10, times 19 past 2^255
+// and times 2 where i and j are both odd (the radix's half bit); 100
+// 32x32->64 products summed in 64 bits
+__device__ __forceinline__ void fe_mul(fe &h, const fe &f, const fe &g) {
+  uint32_t g19[10];
+#pragma unroll
+  for (int j = 0; j < 10; j++) g19[j] = 19 * g.v[j];
+  uint64_t t[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const uint32_t fi = f.v[i], fi2 = 2 * f.v[i];
+#pragma unroll
+    for (int j = 0; j < 10; j++) {
+      const uint32_t a = (i & 1) && (j & 1) ? fi2 : fi;
+      const uint32_t b = i + j >= 10 ? g19[j] : g.v[j];
+      t[(i + j) % 10] += (uint64_t)a * b;
+    }
+  }
+  fe_reduce(h, t);
+}
+
+// 2^dbl f^2 (dbl 0 or 1; 1 only for a carried f) with the cross products
+// doubled: 55 products where fe_mul takes 100. The column sums are
+// fe_mul(f, f)'s, so fe_sq's limbs are fe_mul(f, f)'s.
+__device__ __forceinline__ void fe_sq_shift(fe &h, const fe &f, int dbl) {
+  uint32_t f19[10], f2[10];
+#pragma unroll
+  for (int j = 0; j < 10; j++) {
+    f19[j] = 19 * f.v[j];
+    f2[j] = 2 * f.v[j];
+  }
+  uint64_t t[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+#pragma unroll
+    for (int j = i; j < 10; j++) {
+      // (2 if i != j) (2 if both odd) f_i f_j (19 if past 2^255)
+      const int k = (i != j) + ((i & 1) && (j & 1));
+      const uint32_t a = k == 0 ? f.v[i] : k == 1 ? f2[i] : 2 * f2[i];
+      const uint32_t b = i + j >= 10 ? f19[j] : f.v[j];
+      t[(i + j) % 10] += (uint64_t)a * b;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 10; i++) t[i] <<= dbl;
+  fe_reduce(h, t);
+}
+
+__device__ __forceinline__ void fe_sq(fe &h, const fe &f) {
+  fe_sq_shift(h, f, 0);
+}
 
 // h = f^(2^k)
 __device__ void fe_pow2k(fe &h, const fe &f, int k) {
@@ -180,29 +247,32 @@ __device__ void fe_pow2k(fe &h, const fe &f, int k) {
   for (int i = 1; i < k; i++) fe_sq(h, h);
 }
 
-// Fully reduce to [0, p): two carry passes leave every limb below 2^51
-// (value < 2^255 < 2p), then subtract p once if value + 19 reaches 2^255.
+// Fully reduce a carried value to [0, p): two carry passes leave every
+// limb within its width (value < 2^255 + 19), then subtract p once if
+// value + 19 reaches 2^255.
 __device__ void fe_canonical(fe &h) {
-  fe_carry(h);
-  fe_carry(h);
-  uint64_t q = (h.v[0] + 19) >> 51;
-  q = (h.v[1] + q) >> 51;
-  q = (h.v[2] + q) >> 51;
-  q = (h.v[3] + q) >> 51;
-  q = (h.v[4] + q) >> 51;
+  fe_carry_seq(h);
+  fe_carry_seq(h);
+  uint32_t q = (h.v[0] + 19) >> 26;
+#pragma unroll
+  for (int i = 1; i < 10; i++) q = (h.v[i] + q) >> FE_BITS(i);
   h.v[0] += 19 * q;
-  uint64_t c;
-  c = h.v[0] >> 51; h.v[0] &= FE_MASK51; h.v[1] += c;
-  c = h.v[1] >> 51; h.v[1] &= FE_MASK51; h.v[2] += c;
-  c = h.v[2] >> 51; h.v[2] &= FE_MASK51; h.v[3] += c;
-  c = h.v[3] >> 51; h.v[3] &= FE_MASK51; h.v[4] += c;
-  h.v[4] &= FE_MASK51;
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    const uint32_t c = h.v[i] >> FE_BITS(i);
+    h.v[i] &= (i & 1) ? FE_M25 : FE_M26;
+    h.v[i + 1] += c;
+  }
+  h.v[9] &= FE_M25;
 }
 
 __device__ __forceinline__ bool fe_is_zero(const fe &f) {
   fe t = f;
   fe_canonical(t);
-  return (t.v[0] | t.v[1] | t.v[2] | t.v[3] | t.v[4]) == 0;
+  uint32_t x = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) x |= t.v[i];
+  return x == 0;
 }
 
 __device__ __forceinline__ bool fe_eq(const fe &a, const fe &b) {
@@ -211,23 +281,29 @@ __device__ __forceinline__ bool fe_eq(const fe &a, const fe &b) {
   return fe_is_zero(d);
 }
 
-// 32 little-endian bytes with bit 255 already cleared. The value may be
-// >= p (ZIP-215 accepts non-canonical y); every op here takes any
+// 4 little-endian 64-bit words with bit 255 already cleared. The value may
+// be >= p (ZIP-215 accepts non-canonical y); every op here takes any
 // representative.
-__device__ void fe_from_bytes(fe &h, const uint8_t *s) {
-  uint64_t w[4];
+__device__ __forceinline__ void fe_from_words(fe &h, const uint64_t *w) {
 #pragma unroll
-  for (int i = 0; i < 4; i++) {
-    uint64_t x = 0;
-#pragma unroll
-    for (int j = 7; j >= 0; j--) x = (x << 8) | s[8 * i + j];
-    w[i] = x;
+  for (int i = 0; i < 10; i++) {
+    const int off = FE_OFF(i), k = off >> 6, s = off & 63;
+    uint64_t x = w[k] >> s;
+    if (s + FE_BITS(i) > 64) x |= w[k + 1] << (64 - s);
+    h.v[i] = (uint32_t)x & ((i & 1) ? FE_M25 : FE_M26);
   }
-  h.v[0] = w[0] & FE_MASK51;
-  h.v[1] = ((w[0] >> 51) | (w[1] << 13)) & FE_MASK51;
-  h.v[2] = ((w[1] >> 38) | (w[2] << 26)) & FE_MASK51;
-  h.v[3] = ((w[2] >> 25) | (w[3] << 39)) & FE_MASK51;
-  h.v[4] = (w[3] >> 12) & FE_MASK51;
+}
+
+// a canonical value -> 4 little-endian 64-bit words
+__device__ __forceinline__ void fe_to_words(uint64_t *w, const fe &f) {
+#pragma unroll
+  for (int k = 0; k < 4; k++) w[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const int off = FE_OFF(i), k = off >> 6, s = off & 63;
+    w[k] |= (uint64_t)f.v[i] << s;
+    if (s + FE_BITS(i) > 64) w[k + 1] |= (uint64_t)f.v[i] >> (64 - s);
+  }
 }
 
 // x^((p-5)/8) = x^(2^252 - 3): the addition chain of field25519.pow_p58
@@ -258,221 +334,160 @@ __device__ void fe_pow_p58(fe &out, const fe &x) {
   fe_mul(out, t, x);
 }
 
-// -- points --
+// -- the four lanes of one signature --
+//
+// Four consecutive threads work on one signature; lane l = thread & 3.
+// A point is spread over the lanes one coordinate each: lane 0 holds X,
+// 1 Y, 2 Z, 3 T. A cached operand likewise: (Y - X, Y + X, 2Z, 2d*T).
+// Each group operation is two rounds of one field multiply per lane (the
+// "4-processor" forms of Hisil, Wong, Carter, Dawson, Twisted Edwards
+// Curves Revisited, 2008), with the operands exchanged between rounds by
+// lane_shfl. Control flow is the same on the four lanes of a signature:
+// they differ only in data, picked by lane with fe_sel4.
+//
+// lane_id, lane_shfl (this lane reads v of lane `src` of its group) and
+// lane_sync are the device's __shfl_sync and __syncwarp; a host harness
+// that runs the four lanes in lock-step defines ED25519_HOST_LANES and its
+// own three functions before including this header.
 
-__device__ __forceinline__ void ge_identity(ge_p3 &p) {
-  fe_set_u64(p.X, 0);
-  fe_set_u64(p.Y, 1);
-  fe_set_u64(p.Z, 1);
-  fe_set_u64(p.T, 0);
+#ifndef ED25519_HOST_LANES
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 3; }
+__device__ __forceinline__ uint32_t lane_shfl(uint32_t v, int src) {
+  return __shfl_sync(0xffffffffu, v, src, 4);
+}
+__device__ __forceinline__ void lane_sync() { __syncwarp(); }
+#endif
+
+// signatures per block of the kernels (four threads each)
+#define ED25519_SIGS_PER_BLOCK 16
+
+__device__ __forceinline__ void fe_shfl(fe &r, const fe &v, int src) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = lane_shfl(v.v[i], src);
 }
 
-__device__ void ge_to_cached(ge_cached &c, const ge_p3 &p) {
-  fe d2;
+// Selects by lane are masks, not conditional expressions: nvcc turns a
+// chain of lane-dependent ?: into a divergent branch per limb, which
+// serialises the four lanes of every signature.
+__device__ __forceinline__ uint32_t fe_mask(bool p) {
+  return 0u - (uint32_t)p;
+}
+
+// r = (a, b, c, d)[lane]
+__device__ __forceinline__ void fe_sel4(fe &r, int lane, const fe &a,
+                                        const fe &b, const fe &c,
+                                        const fe &d) {
+  const uint32_t m0 = fe_mask(lane == 0), m1 = fe_mask(lane == 1),
+                 m2 = fe_mask(lane == 2), m3 = fe_mask(lane == 3);
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    r.v[i] = (a.v[i] & m0) | (b.v[i] & m1) | (c.v[i] & m2) | (d.v[i] & m3);
+}
+
+// r = p ? a : b
+__device__ __forceinline__ void fe_sel(fe &r, bool p, const fe &a,
+                                       const fe &b) {
+  const uint32_t m = fe_mask(p);
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = b.v[i] ^ ((a.v[i] ^ b.v[i]) & m);
+}
+
+// The second round shared by the doubling and the addition: from E, F, G,
+// H (the same on every lane) lane 0 takes X3 = F E, lane 1 Y3 = G H,
+// lane 2 Z3 = F G, lane 3 T3 = E H. F, the loosest, is never the second
+// operand (the one fe_mul multiplies by 19).
+__device__ __forceinline__ void ge4_finish(fe &v, int lane, const fe &e,
+                                           const fe &f, const fe &g,
+                                           const fe &h) {
+  fe p, q;
+  fe_sel4(p, lane, f, g, f, e);
+  fe_sel4(q, lane, e, h, g, h);
+  fe_mul(v, p, q);
+}
+
+// 2P, dbl-2008-hwcd in the sign convention of edwards.point_double. Round
+// one squares X, Y, Z (doubled), X + Y. Lane 3's round-two product T3 is
+// not read by the T-less doublings that follow, and costs them nothing:
+// its lane has no other work in that round. Sums and differences feeding
+// a multiply are left loose, but for H.
+__device__ void ge4_double(fe &v) {
+  const int lane = lane_id();
+  fe x, y, u, s;
+  fe_shfl(x, v, 0);
+  fe_shfl(y, v, 1);
+  fe_add_nc(u, x, y);
+  fe_sel(u, lane == 3, u, v);
+  fe_sq_shift(s, u, lane == 2);  // lanes: A = X^2, B = Y^2, 2 Z^2, S
+  fe a, b, z2, sq, h, e, g, f;
+  fe_shfl(a, s, 0);
+  fe_shfl(b, s, 1);
+  fe_shfl(z2, s, 2);
+  fe_shfl(sq, s, 3);
+  fe_add(h, a, b);      // H = A + B, carried: E below is then 3-loose
+  fe_sub_nc(e, h, sq);  // E = A + B - S
+  fe_sub_nc(g, a, b);   // G = A - B
+  fe_add_nc(f, z2, a);
+  fe_sub_nc(f, f, b);   // F = 2 Z^2 + A - B
+  ge4_finish(v, lane, e, f, g, h);
+}
+
+// P + Q, add-2008-hwcd-3: q is this lane's coordinate of Q cached
+// (carried).
+__device__ void ge4_add_cached(fe &v, const fe &q) {
+  const int lane = lane_id();
+  fe x, y, ymx, ypx, u, m;
+  fe_shfl(x, v, 0);
+  fe_shfl(y, v, 1);
+  fe_sub_nc(ymx, y, x);
+  fe_add_nc(ypx, y, x);
+  fe_sel4(u, lane, ymx, ypx, v, v);
+  fe_mul(m, u, q);  // lanes: a, b, d = Z 2Z', c = T 2dT'
+  fe a, b, d, c, e, f, g, h;
+  fe_shfl(a, m, 0);
+  fe_shfl(b, m, 1);
+  fe_shfl(d, m, 2);
+  fe_shfl(c, m, 3);
+  fe_sub_nc(e, b, a);
+  fe_sub_nc(f, d, c);
+  fe_add_nc(g, d, c);
+  fe_add_nc(h, b, a);
+  ge4_finish(v, lane, e, f, g, h);
+}
+
+// this lane's coordinate of P cached
+__device__ void ge4_to_cached(fe &c, const fe &v) {
+  const int lane = lane_id();
+  fe x, y, ymx, ypx, z2, t2d, d2;
+  fe_shfl(x, v, 0);
+  fe_shfl(y, v, 1);
   fe_load_const(d2, FE_D2);
-  fe_sub(c.YmX, p.Y, p.X);
-  fe_add(c.YpX, p.Y, p.X);
-  fe_mul(c.T2d, p.T, d2);
-  fe_add(c.Z2, p.Z, p.Z);
+  fe_sub(ymx, y, x);
+  fe_add(ypx, y, x);
+  fe_add(z2, v, v);
+  fe_mul(t2d, v, d2);
+  fe_sel4(c, lane, ymx, ypx, z2, t2d);
 }
 
-__device__ __forceinline__ void ge_neg(ge_p3 &r, const ge_p3 &p) {
-  fe_neg(r.X, p.X);
-  r.Y = p.Y;
-  r.Z = p.Z;
-  fe_neg(r.T, p.T);
+// -P (X and T negated)
+__device__ __forceinline__ void ge4_neg(fe &v) {
+  const int lane = lane_id();
+  fe n;
+  fe_neg(n, v);
+  fe_sel(v, lane == 0 || lane == 3, n, v);
 }
 
-// p + q (q cached). with_t = false skips the T output (the next op is a
-// doubling or a projective compare, neither reads T).
-__device__ void ge_add_cached(ge_p3 &r, const ge_p3 &p, const ge_cached &q,
-                              bool with_t) {
-  fe a, b, c, d, e, f, g, h;
-  fe_sub(a, p.Y, p.X);
-  fe_mul(a, a, q.YmX);
-  fe_add(b, p.Y, p.X);
-  fe_mul(b, b, q.YpX);
-  fe_mul(c, p.T, q.T2d);
-  fe_mul(d, p.Z, q.Z2);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(r.X, e, f);
-  fe_mul(r.Y, g, h);
-  fe_mul(r.Z, f, g);
-  if (with_t) fe_mul(r.T, e, h);
+// this lane's coordinate of the identity (0, 1, 1, 0)
+__device__ __forceinline__ void ge4_identity(fe &v) {
+  const int lane = lane_id();
+  fe_set_u32(v, lane == 1 || lane == 2 ? 1 : 0);
 }
 
-// dbl-2008-hwcd in the sign convention of edwards.point_double: reads
-// X, Y, Z only
-__device__ void ge_double(ge_p3 &r, const ge_p3 &p, bool with_t) {
-  fe a, b, zs, s, e, f, g, h, xy;
-  fe_sq(a, p.X);
-  fe_sq(b, p.Y);
-  fe_sq(zs, p.Z);
-  fe_add(xy, p.X, p.Y);
-  fe_sq(s, xy);
-  fe_add(h, a, b);   // H = A + B
-  fe_sub(e, h, s);   // E = A + B - S
-  fe_sub(g, a, b);   // G = A - B
-  fe_add(f, zs, zs);
-  fe_add(f, f, g);   // F = 2Zs + A - B
-  fe_mul(r.X, e, f);
-  fe_mul(r.Y, g, h);
-  fe_mul(r.Z, f, g);
-  if (with_t) fe_mul(r.T, e, h);
-}
-
-// -- scalars --
-
-// (64,) radix-16 digits in [0, 15], little-endian -> signed digits in
-// [-8, 7]. A carry out of digit 63 is dropped, exactly as
-// ed25519_kernel._recode_signed drops it (only S >= 2^256 - 8*16^63 can
-// produce one, and such S fail the S < L check anyway).
-__device__ __forceinline__ void sc_recode_signed(int8_t *e, const uint8_t *d) {
-  int c = 0;
-  for (int i = 0; i < 64; i++) {
-    int t = d[i] + c;
-    c = t >= 8;
-    e[i] = (int8_t)(t - 16 * c);
-  }
-}
-
-__device__ __forceinline__ void sc_nibbles(uint8_t *d, const uint8_t *b) {
-  for (int i = 0; i < 32; i++) {
-    d[2 * i] = b[i] & 15;
-    d[2 * i + 1] = b[i] >> 4;
-  }
-}
-
-// value < L for 32 little-endian bytes (ZIP-215 rule 2: S canonical)
-__device__ __forceinline__ bool sc_lt_l(const uint8_t *s) {
-  for (int i = 31; i >= 0; i--) {
-    if (s[i] < SC_L[i]) return true;
-    if (s[i] > SC_L[i]) return false;
-  }
-  return false;
-}
-
-// 64 little-endian digest bytes -> 32 little-endian bytes of the value
-// mod L. Bit-serial shift-and-subtract over the 512 bits (r < L < 2^253
-// so 2r + 1 fits four 64-bit words). Simple and exact; about 5% of the
-// per-signature work.
-__device__ void sc_reduce512(uint8_t *out, const uint8_t *dig) {
-  uint64_t l[4], r[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int i = 0; i < 4; i++) {
-    uint64_t x = 0;
-#pragma unroll
-    for (int j = 7; j >= 0; j--) x = (x << 8) | SC_L[8 * i + j];
-    l[i] = x;
-  }
-  for (int bit = 511; bit >= 0; bit--) {
-    uint64_t in = (dig[bit >> 3] >> (bit & 7)) & 1;
-    r[3] = (r[3] << 1) | (r[2] >> 63);
-    r[2] = (r[2] << 1) | (r[1] >> 63);
-    r[1] = (r[1] << 1) | (r[0] >> 63);
-    r[0] = (r[0] << 1) | in;
-    // t = r - L; keep it when no borrow (r >= L)
-    uint64_t t[4], borrow = 0;
-#pragma unroll
-    for (int i = 0; i < 4; i++) {
-      uint64_t a = r[i], b = l[i];
-      uint64_t d = a - b - borrow;
-      borrow = (a < b) | ((a == b) & borrow);
-      t[i] = d;
-    }
-    if (!borrow) {
-#pragma unroll
-      for (int i = 0; i < 4; i++) r[i] = t[i];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-#pragma unroll
-    for (int j = 0; j < 8; j++) out[8 * i + j] = (uint8_t)(r[i] >> (8 * j));
-}
-
-// -- the dual scalar multiplication (body of K1, called inside K2) --
-
-// r may alias q
-__device__ __forceinline__ void ge_cached_neg(ge_cached &r, const ge_cached &q) {
-  fe ymx = q.YmX;
-  r.YmX = q.YpX;
-  r.YpX = ymx;
-  fe_neg(r.T2d, q.T2d);
-  r.Z2 = q.Z2;
-}
-
-__device__ __forceinline__ void ge_base_entry(ge_cached &r, int j) {
-  fe_load_const(r.YmX, GE_BASE_TABLE[j][0]);
-  fe_load_const(r.YpX, GE_BASE_TABLE[j][1]);
-  fe_load_const(r.T2d, GE_BASE_TABLE[j][2]);
-  fe_load_const(r.Z2, GE_BASE_TABLE[j][3]);
-}
-
-// [S]B - [k]A for one signature: dS, dk are 64 radix-16 digits in
-// [0, 15], little-endian. Horner over 64 windows, most significant
-// first: acc <- 16*acc + e_k*(-A) + e_S*B with signed digits, a 9-entry
-// cached table of -A built here and the constant table of B. Entries are
-// read by index: verification handles public data only.
-// Counterpart: ed25519_kernel.dual_mult_sb_minus_ka.
-__device__ void ge_dual_mult(ge_p3 &acc, const ge_p3 &A, const uint8_t *dS,
-                             const uint8_t *dk) {
-  ge_cached ta[9];
-  ge_p3 e1, e2, e3, e4, t;
-  ge_neg(e1, A);
-  ge_p3 id;
-  ge_identity(id);
-  ge_to_cached(ta[0], id);
-  ge_to_cached(ta[1], e1);
-  ge_double(e2, e1, true);
-  ge_to_cached(ta[2], e2);
-  ge_add_cached(e3, e2, ta[1], true);
-  ge_to_cached(ta[3], e3);
-  ge_double(e4, e2, true);
-  ge_to_cached(ta[4], e4);
-  ge_add_cached(t, e4, ta[1], true);
-  ge_to_cached(ta[5], t);
-  ge_double(t, e3, true);
-  ge_to_cached(ta[6], t);
-  ge_add_cached(t, t, ta[1], true);
-  ge_to_cached(ta[7], t);
-  ge_double(t, e4, true);
-  ge_to_cached(ta[8], t);
-
-  int8_t es[64], ek[64];
-  sc_recode_signed(es, dS);
-  sc_recode_signed(ek, dk);
-
-  ge_identity(acc);
-  ge_cached q;
-  for (int w = 63; w >= 0; w--) {
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, true);
-    int e = ek[w];
-    if (e < 0) {
-      ge_cached_neg(q, ta[-e]);
-    } else {
-      q = ta[e];
-    }
-    ge_add_cached(acc, acc, q, true);
-    e = es[w];
-    ge_base_entry(q, e < 0 ? -e : e);
-    if (e < 0) ge_cached_neg(q, q);
-    ge_add_cached(acc, acc, q, false);
-  }
-}
-
-// ZIP-215 decompression (RFC 8032 5.1.3 accepting y >= p): y already has
-// bit 255 cleared, sign is that bit. Returns ok; rejects x = 0 with
-// sign = 1. Counterpart: edwards.decompress.
+// ZIP-215 decompression (RFC 8032 5.1.3 accepting y >= p) on one lane: y
+// already has bit 255 cleared, sign is that bit. Returns ok; rejects x = 0
+// with sign = 1. Counterpart: edwards.decompress.
 __device__ bool ge_decompress(ge_p3 &p, const fe &y, int sign) {
   fe one, d, y2, u, v, v2, v3, v7, uv7, t, x, vx2, nu, sqm1;
-  fe_set_u64(one, 1);
+  fe_set_u32(one, 1);
   fe_load_const(d, FE_D);
   fe_sq(y2, y);
   fe_sub(u, y2, one);
@@ -491,137 +506,415 @@ __device__ bool ge_decompress(ge_p3 &p, const fe &y, int sign) {
   fe_neg(nu, u);
   bool root_ok = fe_eq(vx2, u);
   bool neg_root_ok = fe_eq(vx2, nu);
-  if (neg_root_ok) {
-    fe_load_const(sqm1, FE_SQRTM1);
-    fe_mul(x, x, sqm1);
-  }
+  fe_load_const(sqm1, FE_SQRTM1);
+  fe xi;
+  fe_mul(xi, x, sqm1);
+  fe_sel(x, neg_root_ok, xi, x);
   bool ok = root_ok || neg_root_ok;
-  fe xc = x;
+  fe xc = x, xn;
   fe_canonical(xc);
-  if ((int)(xc.v[0] & 1) != sign) fe_neg(x, x);
+  fe_neg(xn, x);
+  fe_sel(x, (int)(xc.v[0] & 1) != sign, xn, x);
   if (fe_is_zero(x) && sign == 1) ok = false;
   p.X = x;
   p.Y = y;
-  fe_set_u64(p.Z, 1);
+  fe_set_u32(p.Z, 1);
   fe_mul(p.T, x, y);
   return ok;
 }
 
-// -- one signature: the bodies of kernels K2 and K1 --
+// -- scalars, as little-endian 64-bit words --
 
-// The whole ZIP-215 cofactored check for one signature: a (32) public key,
-// sig (64) = R || S, dig (64) = SHA-512(R || A || M), all little-endian
-// bytes. Counterpart: ed25519_kernel._verify_tile.
-__device__ bool ed25519_verify_one(const uint8_t *a, const uint8_t *sig,
-                                   const uint8_t *dig) {
-  uint8_t a_b[32], r_b[32], s_b[32], k_b[32];
-  for (int j = 0; j < 32; j++) {
-    a_b[j] = a[j];
-    r_b[j] = sig[j];
-    s_b[j] = sig[32 + j];
+// L = 2^252 + 27742317777372353535851937790883648493
+__device__ __constant__ uint64_t SC_L64[4] = {
+    0x5812631a5cf5d3edULL, 0x14def9dea2f79cd6ULL, 0, 0x1000000000000000ULL};
+
+// s < L (ZIP-215 rule 2: S canonical)
+__device__ __forceinline__ bool sc_lt_l(const uint64_t *s) {
+  bool lt = false, decided = false;
+#pragma unroll
+  for (int i = 3; i >= 0; i--) {
+    const uint64_t l = SC_L64[i];
+    lt = lt || (!decided && s[i] < l);
+    decided = decided || s[i] != l;
   }
-  int sign_a = a_b[31] >> 7;
-  a_b[31] &= 0x7f;
-  int sign_r = r_b[31] >> 7;
-  r_b[31] &= 0x7f;
-  bool s_ok = sc_lt_l(s_b);
+  return lt;
+}
 
-  fe ya, yr;
-  fe_from_bytes(ya, a_b);
-  fe_from_bytes(yr, r_b);
-  ge_p3 A, R, acc;
-  bool ok_a = ge_decompress(A, ya, sign_a);
-  bool ok_r = ge_decompress(R, yr, sign_r);
+// out = dig mod L for a 512-bit dig. Bit-serial shift-and-subtract (r < L <
+// 2^253, so 2r + 1 fits four words); exact, and small beside the curve
+// work. Every lane runs it: each needs all the digits.
+__device__ __forceinline__ void sc_reduce512(uint64_t *out,
+                                             const uint64_t *dig) {
+  const uint64_t l0 = SC_L64[0], l1 = SC_L64[1], l2 = SC_L64[2],
+                 l3 = SC_L64[3];
+  uint64_t r0 = 0, r1 = 0, r2 = 0, r3 = 0;
+#pragma unroll
+  for (int wi = 7; wi >= 0; wi--) {
+    const uint64_t w = dig[wi];
+#pragma unroll 1
+    for (int bit = 63; bit >= 0; bit--) {
+      r3 = (r3 << 1) | (r2 >> 63);
+      r2 = (r2 << 1) | (r1 >> 63);
+      r1 = (r1 << 1) | (r0 >> 63);
+      r0 = (r0 << 1) | ((w >> bit) & 1);
+      uint64_t t0 = r0 - l0, b = r0 < l0;
+      uint64_t t1 = r1 - l1 - b;
+      b = (r1 < l1) | ((r1 == l1) & b);
+      uint64_t t2 = r2 - l2 - b;
+      b = (r2 < l2) | ((r2 == l2) & b);
+      uint64_t t3 = r3 - l3 - b;
+      b = (r3 < l3) | ((r3 == l3) & b);
+      if (!b) {  // r >= L
+        r0 = t0; r1 = t1; r2 = t2; r3 = t3;
+      }
+    }
+  }
+  out[0] = r0; out[1] = r1; out[2] = r2; out[3] = r3;
+}
 
-  uint8_t ds[64], dk[64];
-  sc_nibbles(ds, s_b);
-  sc_reduce512(k_b, dig);
-  sc_nibbles(dk, k_b);
-  ge_dual_mult(acc, A, ds, dk);
+// 64 radix-16 digits in [0, 15], packed eight to a 32-bit word (digit i
+// in bits 4(i % 8) of word i / 8, as a little-endian scalar's words hold
+// them) -> the same value as signed digits in [-8, 7], packed alike as
+// 4-bit two's complement. A carry out of digit 63 is dropped, exactly as
+// ed25519_kernel._recode_signed drops it (only S >= 2^256 - 8*16^63 can
+// produce one, and such S fail the S < L check anyway).
+__device__ __forceinline__ void sc_recode_packed(uint32_t *e,
+                                                 const uint32_t *d) {
+  int c = 0;
+#pragma unroll
+  for (int m = 0; m < 8; m++) {
+    uint32_t o = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      int t = (int)((d[m] >> (4 * j)) & 15) + c;
+      c = t >= 8;
+      o |= (uint32_t)((t - 16 * c) & 15) << (4 * j);
+    }
+    e[m] = o;
+  }
+}
 
+__device__ __forceinline__ void sc_recode_words(uint32_t *e,
+                                                const uint64_t *w) {
+  uint32_t d[8];
+#pragma unroll
+  for (int m = 0; m < 8; m++) d[m] = (uint32_t)(w[m >> 1] >> (32 * (m & 1)));
+  sc_recode_packed(e, d);
+}
+
+// -- the dual scalar multiplication (body of K1, inside K2) --
+
+// Coordinate `coord` of cached entry m, negated for neg: -(Y-X, Y+X, 2Z,
+// 2dT) = (Y+X, Y-X, 2Z, -2dT), so lanes 0 and 1 read each other's
+// coordinate and lane 3 negates. tab holds entry j's coordinate c, limb k
+// at tab[(10 j + k) * stride + c].
+__device__ __forceinline__ void tab_load_signed(fe &q, const uint32_t *tab,
+                                                int stride, int e, int lane) {
+  const bool neg = e < 0;
+  const int m = neg ? -e : e;
+  const int coord = (neg && lane < 2) ? lane ^ 1 : lane;
+#pragma unroll
+  for (int k = 0; k < 10; k++) q.v[k] = tab[(10 * m + k) * stride + coord];
+  fe n;
+  fe_neg(n, q);
+  fe_sel(q, neg && lane == 3, n, q);
+}
+
+// The same from B's table, a copy of GE_BASE_TABLE ([j][YmX, YpX, T2d,
+// Z2][limb]: lanes 2 and 3 read its coordinates 3 and 2).
+__device__ __forceinline__ void btab_load_signed(fe &q, const uint32_t *btab,
+                                                 int e, int lane) {
+  const bool neg = e < 0;
+  const int m = neg ? -e : e;
+  int coord = (neg && lane < 2) ? lane ^ 1 : lane;
+  coord = coord < 2 ? coord : 5 - coord;
+#pragma unroll
+  for (int k = 0; k < 10; k++) q.v[k] = btab[(4 * m + coord) * 10 + k];
+  fe n;
+  fe_neg(n, q);
+  fe_sel(q, neg && lane == 3, n, q);
+}
+
+__device__ __forceinline__ void tab_store(uint32_t *tab, int stride, int j,
+                                          int lane, const fe &c) {
+#pragma unroll
+  for (int k = 0; k < 10; k++) tab[(10 * j + k) * stride + lane] = c.v[k];
+}
+
+// [S]B - [k]A for one signature, this lane's coordinate of each: a of A
+// (extended), acc of the result (X, Y, Z valid; T not). es, ek: packed
+// signed digits (sc_recode_packed). Horner over 64 windows, most
+// significant first: acc <- 16*acc + e_k*(-A) + e_S*B, with the 9-entry
+// cached table of -A built here into tab (shared by the four lanes) and
+// B's table in btab. Entries are read by index: verification handles
+// public data only. Counterpart: ed25519_kernel.dual_mult_sb_minus_ka.
+__device__ __forceinline__ void ge4_dual_mult(fe &acc, const fe &a,
+                                              const uint32_t *es_in,
+                                              const uint32_t *ek_in,
+                                              uint32_t *tab, int stride,
+                                              const uint32_t *btab) {
+  const int lane = lane_id();
+  fe e1 = a, c1, c, e2, e3, e4, t;
+  ge4_neg(e1);
+  ge4_identity(t);
+  ge4_to_cached(c, t);
+  tab_store(tab, stride, 0, lane, c);
+  ge4_to_cached(c1, e1);
+  tab_store(tab, stride, 1, lane, c1);
+  e2 = e1;
+  ge4_double(e2);
+  ge4_to_cached(c, e2);
+  tab_store(tab, stride, 2, lane, c);
+  e3 = e2;
+  ge4_add_cached(e3, c1);
+  ge4_to_cached(c, e3);
+  tab_store(tab, stride, 3, lane, c);
+  e4 = e2;
+  ge4_double(e4);
+  ge4_to_cached(c, e4);
+  tab_store(tab, stride, 4, lane, c);
+  t = e4;
+  ge4_add_cached(t, c1);
+  ge4_to_cached(c, t);
+  tab_store(tab, stride, 5, lane, c);
+  t = e3;
+  ge4_double(t);
+  ge4_to_cached(c, t);
+  tab_store(tab, stride, 6, lane, c);
+  ge4_add_cached(t, c1);
+  ge4_to_cached(c, t);
+  tab_store(tab, stride, 7, lane, c);
+  t = e4;
+  ge4_double(t);
+  ge4_to_cached(c, t);
+  tab_store(tab, stride, 8, lane, c);
+  lane_sync();  // the table is read by the other lanes of the signature
+
+  // digits in registers: the word of the current eight windows is taken
+  // from the top and the words shifted up, so no array is indexed at run
+  // time
+  uint32_t es[8], ek[8];
+#pragma unroll
+  for (int m = 0; m < 8; m++) {
+    es[m] = es_in[m];
+    ek[m] = ek_in[m];
+  }
+  ge4_identity(acc);
+  fe q;
+#pragma unroll 1
+  for (int wo = 0; wo < 8; wo++) {
+    uint32_t cs = es[7], ck = ek[7];
+#pragma unroll
+    for (int m = 7; m > 0; m--) {
+      es[m] = es[m - 1];
+      ek[m] = ek[m - 1];
+    }
+#pragma unroll 1
+    for (int j = 0; j < 8; j++) {
+      const int ds = (int32_t)cs >> 28, dk = (int32_t)ck >> 28;
+      cs <<= 4;
+      ck <<= 4;
+      ge4_double(acc);
+      ge4_double(acc);
+      ge4_double(acc);
+      ge4_double(acc);
+      tab_load_signed(q, tab, stride, dk, lane);
+      ge4_add_cached(acc, q);
+      btab_load_signed(q, btab, ds, lane);
+      ge4_add_cached(acc, q);
+    }
+  }
+}
+
+// -- one signature on four lanes: the bodies of kernels K2 and K1 --
+
+// NW little-endian 64-bit words of column i, rows row0 .. row0 + 8 NW - 1,
+// of (k, n) byte rows, batch-minor, whose elements are `es` bytes wide (1
+// for uint8 rows, 4 for int32 rows: the byte is the element's low byte on
+// this little-endian card). Zero where !in.
+template <int NW>
+__device__ __forceinline__ void load_words(uint64_t *w, const uint8_t *rows,
+                                           int row0, int n, int i, int es,
+                                           bool in) {
+#pragma unroll
+  for (int k = 0; k < NW; k++) {
+    uint64_t x = 0;
+#pragma unroll
+    for (int j = 7; j >= 0; j--) {
+      const uint64_t b =
+          in ? rows[((size_t)(row0 + 8 * k + j) * n + i) * es] : 0;
+      x = (x << 8) | b;
+    }
+    w[k] = x;
+  }
+}
+
+// The whole ZIP-215 cofactored check of signature i on this lane, from
+// (32, n) public keys, (64, n) R || S and (64, n) SHA-512(R || A || M) byte
+// rows; lane 0 writes out[i]. Lanes of an i >= n run on zeros and write
+// nothing (every lane of a warp must reach each shuffle). tab: this
+// signature's table of -A (9 x 10 rows of `stride` words, 4 used); btab: B's
+// table. Counterpart: ed25519_kernel._verify_tile.
+__device__ __forceinline__ void ed25519_verify_lane(
+    const uint8_t *pk, const uint8_t *sig, const uint8_t *dig, bool *out,
+    int n, int es, int i, uint32_t *tab, int stride, const uint32_t *btab) {
+  const int lane = lane_id();
+  const bool in = i < n;
+  uint64_t aw[4], rw[4], sw[4], dw[8], yw[4];
+  load_words<4>(aw, pk, 0, n, i, es, in);
+  load_words<4>(rw, sig, 0, n, i, es, in);
+  load_words<4>(sw, sig, 32, n, i, es, in);
+  load_words<8>(dw, dig, 0, n, i, es, in);
+
+  // lanes 0 and 1 decompress A, lanes 2 and 3 R: the two pow_p58 chains
+  // run side by side
+#pragma unroll
+  for (int k = 0; k < 4; k++) yw[k] = lane < 2 ? aw[k] : rw[k];
+  const int sign = (int)(yw[3] >> 63);
+  yw[3] &= 0x7fffffffffffffffULL;
+  fe y;
+  fe_from_words(y, yw);
+  ge_p3 P;
+  const bool ok = ge_decompress(P, y, sign);
+  fe one, zero, ax, ay, at, rx, ry, av, rv;
+  fe_set_u32(one, 1);
+  fe_set_u32(zero, 0);
+  fe_shfl(ax, P.X, 0);
+  fe_shfl(ay, P.Y, 0);
+  fe_shfl(at, P.T, 0);
+  fe_shfl(rx, P.X, 2);
+  fe_shfl(ry, P.Y, 2);
+  fe_sel4(av, lane, ax, ay, one, at);
+  fe_sel4(rv, lane, rx, ry, one, zero);  // R: T is never read
+  const bool ok_a = lane_shfl(ok, 0) != 0;
+  const bool ok_r = lane_shfl(ok, 2) != 0;
+
+  // the scalars, on every lane: each needs every digit
+  const bool s_ok = sc_lt_l(sw);
+  uint64_t kw[4];
+  sc_reduce512(kw, dw);
+  uint32_t esd[8], ekd[8];
+  sc_recode_words(esd, sw);
+  sc_recode_words(ekd, kw);
+
+  fe acc;
+  ge4_dual_mult(acc, av, esd, ekd, tab, stride, btab);
   for (int j = 0; j < 3; j++) {  // cofactor 8, both sides
-    ge_double(acc, acc, false);
-    ge_double(R, R, false);
+    ge4_double(acc);
+    ge4_double(rv);
   }
-  fe l, r;
-  fe_mul(l, acc.X, R.Z);
-  fe_mul(r, R.X, acc.Z);
-  bool same = fe_eq(l, r);
-  fe_mul(l, acc.Y, R.Z);
-  fe_mul(r, R.Y, acc.Z);
-  same = same && fe_eq(l, r);
-  return same && ok_a && ok_r && s_ok;
+  // X_acc Z_R = X_R Z_acc and Y_acc Z_R = Y_R Z_acc: one product a lane,
+  // lanes 0 and 1 compare the first, 2 and 3 the second
+  fe xa, ya, za, xr, yr, zr, p, q, m, pm;
+  fe_shfl(xa, acc, 0);
+  fe_shfl(ya, acc, 1);
+  fe_shfl(za, acc, 2);
+  fe_shfl(xr, rv, 0);
+  fe_shfl(yr, rv, 1);
+  fe_shfl(zr, rv, 2);
+  fe_sel4(p, lane, xa, xr, ya, yr);
+  fe_sel4(q, lane, zr, za, zr, za);
+  fe_mul(m, p, q);
+  fe_shfl(pm, m, lane ^ 1);
+  const bool eq = fe_eq(m, pm);
+  // both exchanges on every lane: no short circuit around a shuffle
+  const uint64_t eq0 = lane_shfl(eq, 0), eq2 = lane_shfl(eq, 2);
+  const bool same = (eq0 & eq2) != 0;
+  if (lane == 0 && in) out[i] = same && ok_a && ok_r && s_ok;
 }
 
 // 20 x 13-bit limbs (any normalized representative, nonnegative value)
-// at rows[limb * n + i] -> radix 2^51
-__device__ void fe_from_limbs13(fe &h, const int32_t *rows, int n, int i) {
+// at rows[limb * n + i] -> radix 2^25.5
+__device__ __forceinline__ void fe_from_limbs13(fe &h, const int32_t *rows,
+                                                int n, int i) {
   int64_t d[20];
   int64_t c = 0;
+#pragma unroll
   for (int k = 0; k < 20; k++) {
     int64_t t = (int64_t)rows[(size_t)k * n + i] + c;
     d[k] = t & 8191;
     c = t >> 13;
   }
-  // 2^260 = 608 mod p: fold the carry out once more
-  for (int pass = 0; pass < 2 && c != 0; pass++) {
+  // 2^260 = 608 mod p: fold the carry out twice more
+#pragma unroll
+  for (int pass = 0; pass < 2; pass++) {
     int64_t cin = c * 608;
     c = 0;
+#pragma unroll
     for (int k = 0; k < 20; k++) {
       int64_t t = d[k] + (k == 0 ? cin : 0) + c;
       d[k] = t & 8191;
       c = t >> 13;
     }
   }
-  uint64_t acc[6] = {0, 0, 0, 0, 0, 0};
+  // digit k covers bits 13k .. 13k + 12: at most two limbs; bits >= 255
+  // (limb 10) wrap into limb 0 times 19
+  uint32_t acc[11] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
   for (int k = 0; k < 20; k++) {
-    int bit = 13 * k;
-    int w = bit / 51, off = bit % 51;
-    uint64_t v = (uint64_t)d[k] << off;  // < 2^63
-    acc[w] += v & FE_MASK51;
-    acc[w + 1] += v >> 51;
+    const int bit = 13 * k;
+    int l = 0;
+#pragma unroll
+    for (int j = 1; j < 11; j++) l += FE_OFF(j) <= bit;
+    const int s = bit - FE_OFF(l);
+    const uint64_t v = (uint64_t)d[k] << s;
+    const int w = l < 10 ? FE_BITS(l) : 64;
+    acc[l] += (uint32_t)(v & ((1ULL << w) - 1));
+    if (l < 10) acc[l + 1] += (uint32_t)(v >> w);
   }
-  h.v[0] = acc[0] + 19 * acc[5];  // bits >= 255: 2^255 = 19 mod p
-  h.v[1] = acc[1];
-  h.v[2] = acc[2];
-  h.v[3] = acc[3];
-  h.v[4] = acc[4];
+#pragma unroll
+  for (int l = 0; l < 10; l++) h.v[l] = acc[l];
+  h.v[0] += 19 * acc[10];
   fe_carry(h);
   fe_carry(h);
 }
 
 // canonical value -> 20 x 13-bit limbs at rows[limb * n + i]
-__device__ void fe_to_limbs13(int32_t *rows, const fe &f, int n, int i) {
+__device__ __forceinline__ void fe_to_limbs13(int32_t *rows, const fe &f,
+                                              int n, int i) {
   fe t = f;
   fe_canonical(t);
+  uint64_t w[4];
+  fe_to_words(w, t);
+#pragma unroll
   for (int k = 0; k < 20; k++) {
-    int bit = 13 * k;
-    int w = bit / 51, off = bit % 51;
-    uint64_t v = t.v[w] >> off;
-    if (off > 38 && w < 4) v |= t.v[w + 1] << (51 - off);
+    const int bit = 13 * k, q = bit >> 6, s = bit & 63;
+    uint64_t v = w[q] >> s;
+    if (s > 51 && q < 3) v |= w[q + 1] << (64 - s);
     rows[(size_t)k * n + i] = (int32_t)(v & 8191);
   }
 }
 
-// [S]B - [k]A for column i of the JAX contract: a (4, 20, n) int32 extended
-// point, ds/dk (64, n) int32 digits in [0, 15] -> out (3, 20, n) int32
-// canonical limbs of (X, Y, Z). Counterpart: dual_mult_sb_minus_ka.
-__device__ void ed25519_dual_mult_one(const int32_t *a, const int32_t *ds,
-                                      const int32_t *dk, int32_t *out, int n,
-                                      int i) {
+// [S]B - [k]A for column i of the JAX contract on this lane: a (4, 20, n)
+// int32 extended point, ds/dk (64, n) int32 digits in [0, 15] -> out (3,
+// 20, n) int32 canonical limbs of (X, Y, Z), lanes 0-2 writing one
+// coordinate each. i >= n as in ed25519_verify_lane. Counterpart:
+// dual_mult_sb_minus_ka.
+__device__ __forceinline__ void ed25519_dual_mult_lane(
+    const int32_t *a, const int32_t *ds, const int32_t *dk, int32_t *out,
+    int n, int i, uint32_t *tab, int stride, const uint32_t *btab) {
+  const int lane = lane_id();
+  const bool in = i < n;
   const size_t coord = (size_t)20 * n;
-  ge_p3 A, acc;
-  fe_from_limbs13(A.X, a, n, i);
-  fe_from_limbs13(A.Y, a + coord, n, i);
-  fe_from_limbs13(A.Z, a + 2 * coord, n, i);
-  fe_from_limbs13(A.T, a + 3 * coord, n, i);
-  uint8_t dsv[64], dkv[64];
-  for (int j = 0; j < 64; j++) {
-    dsv[j] = (uint8_t)ds[(size_t)j * n + i];
-    dkv[j] = (uint8_t)dk[(size_t)j * n + i];
+  fe av, acc;
+  fe_set_u32(av, 0);
+  if (in) fe_from_limbs13(av, a + lane * coord, n, i);
+  uint32_t dsw[8], dkw[8], esd[8], ekd[8];
+#pragma unroll
+  for (int m = 0; m < 8; m++) {
+    uint32_t xs = 0, xk = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      const size_t at = (size_t)(8 * m + j) * n + i;
+      xs |= (in ? (uint32_t)ds[at] & 15 : 0) << (4 * j);
+      xk |= (in ? (uint32_t)dk[at] & 15 : 0) << (4 * j);
+    }
+    dsw[m] = xs;
+    dkw[m] = xk;
   }
-  ge_dual_mult(acc, A, dsv, dkv);
-  fe_to_limbs13(out, acc.X, n, i);
-  fe_to_limbs13(out + coord, acc.Y, n, i);
-  fe_to_limbs13(out + 2 * coord, acc.Z, n, i);
+  sc_recode_packed(esd, dsw);
+  sc_recode_packed(ekd, dkw);
+  ge4_dual_mult(acc, av, esd, ekd, tab, stride, btab);
+  if (in && lane < 3) fe_to_limbs13(out + lane * coord, acc, n, i);
 }

@@ -1,24 +1,36 @@
 // Kernel K2 (ed25519_verify_tile): the whole ZIP-215 cofactored check,
 //   [8]([S]B - [k]A) == [8]R,  k = SHA512(R || A || M) mod L,  S < L,
-// one signature per thread, byte rows in, validity bitmap out.
+// four threads per signature, byte rows in, validity bitmap out.
 //
 // Replaces tendermint_tpu/ops/ed25519_pallas.py:verify_pallas (body
-// ops/ed25519_kernel.py:_verify_tile). The per-signature body is
-// ed25519_verify_one in ed25519_device.cuh, shared with kernel K1.
+// ops/ed25519_kernel.py:_verify_tile). The per-lane body is
+// ed25519_verify_lane in ed25519_device.cuh, whose dual scalar
+// multiplication kernel K1 shares.
 //
-// What bounds it on an H100: integer multiplies. One signature costs about
-// 1.9k field multiplies of 25 64x64->128 limb products and 1.6k squarings
-// that need only 15 (64 windows x (4 doublings + 2 additions), the 9-entry
-// table of -A, two ~250-squaring pow_p58 chains for decompressing A and R),
-// while it moves 160 bytes in and 1 out. The design is the simplest
-// correct one: one thread per signature, radix-2^51 limbs, squarings taken
-// as general multiplies, table entries read by index (verification
-// handles public data only), the table of -A in local memory. The batch
-// verifier streams a commit in windows of 2048 signatures, 16 blocks of
-// 128 threads on 132 SMs, and the compiler keeps 255 registers a thread
-// with spills, so the card is far from full; filling it (several threads
-// per signature, or batching several signatures per thread group) is
-// later work.
+// What bounds it on an H100: integer multiplies, ~1.9k field multiplies of
+// 100 32x32->64 limb products and ~1.6k squarings of 55 per signature
+// against 161 bytes moved; but a batch verifier streams windows of only
+// 2048 signatures, so what sets the time is how long one signature's chain
+// of dependent field operations takes, not the card's multiply rate.
+// The design shortens that chain and fills the card:
+//   - four lanes per signature, one point coordinate each: a doubling or
+//     an addition is two rounds of one field multiply per lane, lanes
+//     exchanging operands by warp shuffle, and the pow_p58 chains of A and
+//     R run side by side on two lane pairs (~1.1k operations on the
+//     critical path instead of ~3.5k);
+//   - 16 signatures (64 threads) a block, so a 2048 window is 128 blocks
+//     on 132 SMs;
+//   - no divergence: what differs between the lanes is data, chosen by
+//     bit masks (fe_sel4), never by a branch;
+//   - no local memory: the table of -A in shared memory (each lane writes
+//     its coordinate of the 9 entries, the lanes of a signature read them
+//     by digit), B's table copied from constant to shared memory once a
+//     block (divergent digits cost bank accesses, not serialised constant
+//     reads), digits packed into registers;
+//   - fewer instructions per field operation: radix 2^25.5 (a multiply is
+//     100 one-instruction 32x32->64 multiply-adds), dedicated squarings
+//     (55 products), sums and differences left unreduced into the
+//     multiplies.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,26 +39,24 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kSigs = ED25519_SIGS_PER_BLOCK;
+constexpr int kThreads = 4 * kSigs;
+// -A's table: entry j, limb k, signature s, coordinate c at
+// ((10 j + k) * kSigs + s) * 4 + c, so the 32 threads of a warp read 32
+// different banks whatever their digits
+constexpr int kTabStride = 4 * kSigs;
 
-// byte j of column i of (k, n) byte rows, batch-minor, whose elements are
-// `es` bytes wide: 1 for uint8 rows, 4 for int32 rows (the JAX contract;
-// the byte is the element's low byte on this little-endian card)
-__device__ __forceinline__ void load_col(uint8_t *dst, const uint8_t *rows,
-                                         int k, int n, int i, int es) {
-  for (int j = 0; j < k; j++) dst[j] = rows[((size_t)j * n + i) * es];
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     verify_tile_kernel(const uint8_t *pk, const uint8_t *sig,
                        const uint8_t *dig, bool *out, int n, int es) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint8_t a_b[32], sig_b[64], d_b[64];
-  load_col(a_b, pk, 32, n, i, es);
-  load_col(sig_b, sig, 64, n, i, es);
-  load_col(d_b, dig, 64, n, i, es);
-  out[i] = ed25519_verify_one(a_b, sig_b, d_b);
+  __shared__ uint32_t btab[9 * 4 * 10];
+  __shared__ uint32_t atab[9 * 10 * kTabStride];
+  const uint32_t *b = &GE_BASE_TABLE[0][0][0];
+  for (int k = threadIdx.x; k < 9 * 4 * 10; k += kThreads) btab[k] = b[k];
+  __syncthreads();
+  const int s = threadIdx.x >> 2;
+  ed25519_verify_lane(pk, sig, dig, out, n, es, blockIdx.x * kSigs + s,
+                      atab + 4 * s, kTabStride, btab);
 }
 
 }  // namespace
@@ -63,7 +73,7 @@ int tm_ed25519_verify_tile(const void *pk, const void *sig, const void *dig,
   if (n <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  verify_tile_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+  verify_tile_kernel<<<(n + kSigs - 1) / kSigs, kThreads, 0,
                        (cudaStream_t)stream>>>(
       (const uint8_t *)pk, (const uint8_t *)sig, (const uint8_t *)dig,
       (bool *)out, n, elem_bytes);

@@ -10,13 +10,19 @@ K1 `dual_mult` (csrc/ed25519_dual_mult.cu) replaces
 ed25519_pallas.py:171 `dual_mult_pallas` (body
 ed25519_kernel.dual_mult_sb_minus_ka): [S]B - [k]A with the JAX contract
 at its interface, (4, 20, N) 13-bit-limb int32 in, (3, 20, N) out; the
-kernel converts to and from its own radix-2^51 limbs once per
-signature. Its plain version is ed25519_kernel.dual_mult_sb_minus_ka.
+kernel converts to and from its own radix-2^25.5 limbs, one coordinate per
+thread. Its plain version is ed25519_kernel.dual_mult_sb_minus_ka.
 
-What bounds both on an H100 is integer multiplies (per signature,
-~1.9k field multiplies of 25 64x64->128 products and ~1.6k squarings of
-15 for K2, against 161 bytes moved); the design notes are in the two
-sources.
+Both run four threads per signature, one point coordinate each
+(csrc/ed25519_device.cuh): a group operation is two rounds of one field
+multiply per thread, with operands exchanged by warp shuffle, 16
+signatures a block, the tables in shared memory and nothing in local
+memory. What bounds both on an H100 is integer multiplies (per
+signature, ~1.9k field multiplies of 100 32x32->64 products and ~1.6k
+squarings of 55 for K2, against 161 bytes moved), but at the 2048-wide
+windows a batch verifier streams, the time of a launch is that of one
+signature's chain of dependent field operations, which the four lanes
+shorten; the design notes are in the two sources.
 
 Each wrapper takes the plain version only for a CPU tensor. For a CUDA
 tensor it checks device, dtype, shape and contiguity, allocates the
