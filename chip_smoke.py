@@ -13,15 +13,18 @@ that index. Keys, messages and timestamps come from --seed.
 
 Before the main path, every kernel is held against its plain version at
 the widest bucket, K2 also on the ZIP-215 corpus at buckets 128 and
-12288 and at a width that no block of signatures divides.
+12288 and at a width that no block of signatures divides, X1 also on
+rows of mixed lengths 0-300 at widths 2045 and 12288 (and hashlib).
 
 Phases print one JSON line each. The line before the last two is the
 card as nvidia-smi names it, with its power limit; the line before the
-last is {"kernels": [...]} (launches on the main path, the kernel's and
-its plain version's times, and the card's least time for the same work;
-for K2 and K1 also one launch's time and bound at each width in
-K2_WIDTHS / K1_WIDTHS; for every kernel its registers, stack frame and
-spill bytes from ptxas -v);
+last is {"kernels": [...]} (launches in one call of the main path, the
+kernel's and its plain version's times (CUDA events around the calls,
+host gaps included, and the profiler's time of the kernel alone), and
+the card's least time for the same work; for K2 and K1 also one launch's time and bound at each
+width in K2_WIDTHS / K1_WIDTHS; for X1 its time per window, SASS
+instructions per compression and the latency floor of one row; for
+every kernel its registers, stack frame and spill bytes from ptxas -v);
 the last line is {"ok": true, "device": {...}}. Any failed phase raises
 and the script exits non-zero without that line. It exits non-zero at
 once when CUDA is not available or when the package is not beside it.
@@ -77,17 +80,26 @@ def field_instr(squarings: int, multiplies: int) -> int:
 # schedule steps x ~20 (64-bit rotates, adds and three-input logic ops)
 INSTR_PER_SHA512_BLOCK = 80 * 30 + 64 * 20
 
+# each wrapper's kernel as the profiler names it
+KERNEL_NAMES = {
+    "sha512_ram": "sha512_ram_kernel",
+    "ed25519_verify_tile": "verify_tile_kernel",
+    "ed25519_dual_mult": "dual_mult_kernel",
+}
+
 # the widest bucket (config.DEFAULT_BUCKET_SIZES), the width the kernels
 # are held against their plain versions at
 WIDE = 12288
 # the widths each ed25519 kernel is timed at, one launch each
-K2_WIDTHS = (512, 2048, WIDE)
+K2_WIDTHS = (128, 512, 2048, WIDE)
 K1_WIDTHS = (2048, WIDE)
 
 CHAIN_ID = "chip-smoke-chain"
 HEIGHT = 1234
 # the north-star commit (BASELINE.md config 5) and the timed repetitions
 N_VALIDATORS = 10_000
+# the light-client commit (BASELINE.md config 3)
+LIGHT_VALIDATORS = 150
 REPS = 20
 
 
@@ -133,11 +145,39 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ptxas_resources(log: str) -> dict:
+def device_ms(torch, fn, reps: int, kernel: str) -> float:
+    """Device milliseconds of the kernels whose name holds `kernel`, per
+    call of fn, from torch.profiler over `reps` calls after one warm-up:
+    the kernels' own time, without the host's gaps between launches that
+    CUDA events around the calls include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if kernel in e.key
+    )
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no {kernel} on the card")
+    return total / 1e3 / reps
+
+
+def ptxas_resources(log: str, entry: str = "") -> dict:
     """Registers of the source's entry kernels, and the largest stack
-    frame and spill bytes over all of its functions, from `ptxas -v`."""
+    frame and spill bytes over all of its functions, from `ptxas -v`;
+    only those of the entry kernels whose name holds `entry`."""
     regs, stack, st, ld = [], [0], [0], [0]
-    for line in log.splitlines():
+    sections = re.split(r"(?=ptxas info\s+: Compiling entry function)", log)
+    picked = [sec for sec in sections if entry in sec.split("\n", 1)[0]]
+    if entry and not picked:
+        raise AssertionError(f"ptxas -v reports no entry kernel {entry}")
+    for line in "\n".join(picked).splitlines():
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs.append(int(m.group(1)))
@@ -252,7 +292,9 @@ def time_commit(fn, reps: int):
 # -- phases --
 
 
-def phase_report(torch, out_dir: str) -> None:
+def phase_report(torch, out_dir: str) -> dict:
+    """Build the kernels and report the toolchain; returns the SASS
+    counts of the probes."""
     from tendermint_tpu_torch.ops import build, sass_count
 
     t0 = time.perf_counter()
@@ -263,6 +305,9 @@ def phase_report(torch, out_dir: str) -> None:
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
         for stem, log in rep["ptxas"].items():
             f.write(f"== {stem}\n{log}\n")
+    # one field multiply and squaring per radix considered, one SHA-512
+    # compression as X1 has it and as it had it
+    sass = sass_count.count()
     emit(
         {
             "phase": "report",
@@ -272,10 +317,10 @@ def phase_report(torch, out_dir: str) -> None:
             "nvcc": nvcc_version(),
             "build_seconds": seconds,
             "libraries": sorted(rep["libraries"]),
-            # one field multiply and squaring per radix considered
-            "fe_sass": sass_count.count(),
+            "sass": sass,
         }
     )
+    return sass
 
 
 def phase_sha512(torch, dev, seed: int) -> None:
@@ -303,6 +348,49 @@ def phase_sha512(torch, dev, seed: int) -> None:
         if not (np.array_equal(got, plain) and np.array_equal(got, ref)):
             raise AssertionError(f"X1 digest mismatch at M={m}")
     emit({"phase": "x1_vs_plain_and_hashlib", "n": n, "ok": True})
+
+
+def ragged_rows(torch, dev, n: int, max_len: int, seed: int):
+    """Seeded sig (64, n) and pk (32, n) rows and n messages of lengths
+    0..max_len, as sha512_ragged takes them: the flat buffer starts the
+    first message 3 bytes past its 16-byte aligned start. Returns the
+    device tensors and the host messages."""
+    rng = np.random.default_rng(seed)
+    sig = rng.integers(0, 256, (64, n), dtype=np.uint8)
+    pk = rng.integers(0, 256, (32, n), dtype=np.uint8)
+    lens = rng.integers(0, max_len + 1, n)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32) + 3
+    flat = rng.integers(0, 256, -(-(int(off[-1]) + 1) // 16) * 16, np.uint8)
+    msgs = [flat[off[i] : off[i + 1]].tobytes() for i in range(n)]
+    tensors = [torch.from_numpy(a).to(dev) for a in (sig, pk, flat, off)]
+    return tensors, msgs
+
+
+def hashlib_ram(sig, pk, msgs) -> np.ndarray:
+    """(64, n) SHA-512(R || A || M) of host (64, n) / (32, n) rows."""
+    cols = [
+        hashlib.sha512(sig[:32, i].tobytes() + pk[:, i].tobytes() + m).digest()
+        for i, m in enumerate(msgs)
+    ]
+    return np.frombuffer(b"".join(cols), np.uint8).reshape(-1, 64).T
+
+
+def phase_x1_ragged(torch, dev, seed: int) -> None:
+    """X1's ragged entry against its plain version and hashlib: mixed
+    message lengths 0-300 in one launch, at a width no block of rows
+    divides and at the widest bucket."""
+    from tendermint_tpu_torch.ops import sha512_kernel as S
+
+    out = {}
+    for n in (RAGGED, WIDE):
+        (sig, pk, flat, off), msgs = ragged_rows(torch, dev, n, 300, seed + n)
+        got = S.sha512_ragged(sig, pk, flat, off, 300).cpu().numpy()
+        plain = S.sha512_ragged_plain(sig, pk, flat, off).cpu().numpy()
+        ref = hashlib_ram(sig.cpu().numpy(), pk.cpu().numpy(), msgs)
+        if not (np.array_equal(got, plain) and np.array_equal(got, ref)):
+            raise AssertionError(f"X1 ragged digests differ at width {n}")
+        out[str(n)] = {"lengths": len({len(m) for m in msgs})}
+    emit({"phase": "x1_ragged_vs_plain_and_hashlib", "widths": out, "ok": True})
 
 
 def _decoded_points(torch, dev, n: int, seed: int):
@@ -434,10 +522,48 @@ def phase_ragged_width(torch, dev, seed: int) -> None:
     )
 
 
+def count_one_call(fn, windows: int, kernels) -> dict:
+    """Launch counts of one call of fn, zeroed just before it and read
+    just after: each of `kernels` must have launched exactly once per
+    window the call dispatched, and `windows` windows must have gone."""
+    from tendermint_tpu_torch.crypto import gpu_verifier
+
+    batches = gpu_verifier.stats()["batches"]
+    reset_launches()
+    fn()
+    counts = launches()
+    dispatched = gpu_verifier.stats()["batches"] - batches
+    if dispatched != windows:
+        raise AssertionError(f"{dispatched} windows dispatched, not {windows}")
+    for name in kernels:
+        if counts[name] != windows:
+            raise AssertionError(
+                f"{name} launched {counts[name]} times for {windows} windows"
+            )
+    return counts
+
+
+def phase_x1_latency() -> dict:
+    """The latency floor of an X1 launch at the streaming window: SM
+    cycles and nanoseconds of one row's two compressions, from clock64
+    and %globaltimer stamps in a copy of the kernel."""
+    from tendermint_tpu_torch.crypto.gpu_verifier import (
+        GpuEd25519BatchVerifier,
+    )
+    from tendermint_tpu_torch.ops import x1_latency
+
+    floor = x1_latency.measure(GpuEd25519BatchVerifier.STREAM_CHUNK)
+    emit({"phase": "x1_latency_floor", **floor})
+    return floor
+
+
 def phase_main_path(torch, seed: int) -> dict:
     """The entry points a user calls, on the card, with launch counts
     zeroed just before each path and read just after."""
     from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.crypto.gpu_verifier import (
+        GpuEd25519BatchVerifier,
+    )
     from tendermint_tpu_torch.types.validation import (
         InvalidCommitError,
         verify_commit,
@@ -446,35 +572,41 @@ def phase_main_path(torch, seed: int) -> dict:
 
     t0 = time.perf_counter()
     vals, bid, commit = build_commit(N_VALIDATORS, seed)
-    vals150, bid150, commit150 = build_commit(150, seed + 1)
+    vals150, bid150, commit150 = build_commit(LIGHT_VALIDATORS, seed + 1)
     lengths = sorted({len(m) for m in commit.sign_bytes_batch(CHAIN_ID)})
     if len(lengths) < 2:
         raise AssertionError("the commit's sign-bytes share one length")
     build_s = time.perf_counter() - t0
+    step = GpuEd25519BatchVerifier.STREAM_CHUNK
+    windows = -(-N_VALIDATORS // step)
 
     # the 150-validator commit through the host oracle first: the
     # reference outcome the device path must reproduce
     verify_commit_light(CHAIN_ID, vals150, bid150, HEIGHT, commit150)
 
+    def full():
+        verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)
+
+    def light():
+        verify_commit_light(CHAIN_ID, vals150, bid150, HEIGHT, commit150)
+
     gpu_verifier.install()
     try:
-        reset_launches()
-        p50, p95 = time_commit(
-            lambda: verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit), REPS
+        # one call each, counted: X1 and K2 once per dispatched window
+        tile_kernels = ("sha512_ram", "ed25519_verify_tile")
+        per_call = count_one_call(full, windows, tile_kernels)
+        per_call_light = count_one_call(
+            light, -(-LIGHT_VALIDATORS // step), tile_kernels
         )
-        l50, l95 = time_commit(
-            lambda: verify_commit_light(
-                CHAIN_ID, vals150, bid150, HEIGHT, commit150
-            ),
-            REPS,
-        )
+        p50, p95 = time_commit(full, REPS)
+        l50, l95 = time_commit(light, REPS)
         bad_idx = N_VALIDATORS * 7 // 9
         good_sig = commit.signatures[bad_idx].signature
         commit.signatures[bad_idx].signature = (
             good_sig[:9] + bytes([good_sig[9] ^ 0x20]) + good_sig[10:]
         )
         try:
-            verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)
+            full()
         except InvalidCommitError as e:
             if f"wrong signature (#{bad_idx})" not in str(e):
                 raise AssertionError(f"rejected at the wrong index: {e}")
@@ -482,10 +614,6 @@ def phase_main_path(torch, seed: int) -> dict:
             raise AssertionError("the corrupted commit verified")
         finally:
             commit.signatures[bad_idx].signature = good_sig
-        main_launches = launches()
-        for name in ("ed25519_verify_tile", "sha512_rows"):
-            if main_launches[name] == 0:
-                raise AssertionError(f"the main path never launched {name}")
         stats = gpu_verifier.stats()
     finally:
         gpu_verifier.uninstall()
@@ -493,11 +621,7 @@ def phase_main_path(torch, seed: int) -> dict:
     # the hybrid program: plain preparation and compare around kernel K1
     gpu_verifier.install(program="hybrid")
     try:
-        reset_launches()
-        verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)
-        hybrid_launches = launches()
-        if hybrid_launches["ed25519_dual_mult"] == 0:
-            raise AssertionError("the hybrid path never launched K1")
+        hybrid = count_one_call(full, windows, ("sha512_ram", "ed25519_dual_mult"))
     finally:
         gpu_verifier.uninstall()
 
@@ -514,8 +638,9 @@ def phase_main_path(torch, seed: int) -> dict:
                 "reps": REPS,
             },
             "rejected_bad_index": bad_idx,
-            "launches_tile_program": main_launches,
-            "launches_hybrid_program": hybrid_launches,
+            "launches_per_verify_commit": per_call,
+            "launches_per_verify_commit_light": per_call_light,
+            "launches_per_hybrid_verify_commit": hybrid,
             "verifier_stats": stats,
             "ok": True,
         }
@@ -523,29 +648,9 @@ def phase_main_path(torch, seed: int) -> dict:
     return {
         "vals": vals,
         "commit": commit,
-        "tile": main_launches,
-        "hybrid": hybrid_launches,
+        "tile": per_call,
+        "hybrid": hybrid,
     }
-
-
-def _digest_inputs(torch, dev, pks, msgs, sigs, sizes):
-    """The (64 + M, bucket) rows X1 hashes for one dispatched batch: one
-    launch per sign-bytes length group, as Ed25519Verifier does."""
-    from tendermint_tpu_torch.ops import ed25519_kernel as K
-
-    groups: dict = {}
-    for i, m in enumerate(msgs):
-        groups.setdefault(len(m), []).append(i)
-    out = []
-    for mlen, idxs in sorted(groups.items()):
-        g = len(idxs)
-        arr = K._join_cols(
-            [sigs[i][:32] + pks[i] + msgs[i] for i in idxs],
-            64 + mlen,
-            K.bucket_for(g, sizes) - g,
-        )
-        out.append(torch.from_numpy(arr).to(dev))
-    return out
 
 
 def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
@@ -554,7 +659,6 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
     dispatch): its time and its plain version's on the same inputs, the
     largest difference between them, and the least time the card could
     take for the same work."""
-    from tendermint_tpu_torch.config import DEFAULT_BUCKET_SIZES
     from tendermint_tpu_torch.crypto.gpu_verifier import (
         GpuEd25519BatchVerifier,
     )
@@ -564,7 +668,6 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
     from tendermint_tpu_torch.ops import sha512_kernel as S
 
     pks, msgs, sigs = commit_triples(main["vals"], main["commit"])
-    sizes = sorted(DEFAULT_BUCKET_SIZES)
     step = GpuEd25519BatchVerifier.STREAM_CHUNK
     chunks = [
         (pks[i : i + step], msgs[i : i + step], sigs[i : i + step])
@@ -586,41 +689,56 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
             "shape": shape,
             "max_abs_err": err,
             "ms": cuda_ms(torch, fn, 10),
+            "device_ms": device_ms(torch, fn, 10, KERNEL_NAMES[name]),
             "plain_ms": cuda_ms(torch, plain, 1),
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
         }
 
-    # X1
-    pre = [
-        p for c in chunks for p in _digest_inputs(torch, dev, *c, sizes)
+    # X1 on the commit's windows as the main path launches it: one
+    # ragged launch per window, R and A from the uploaded rows
+    wins = [verifier.upload(*c) for c in chunks]
+    x1 = lambda: [  # noqa: E731
+        S.sha512_ragged(w.sig_b, w.pk_b, w.msg, w.offsets, w.max_len)
+        for w in wins
     ]
-    x1 = lambda: [S.sha512_fixed(p) for p in pre]  # noqa: E731
-    x1_plain = lambda: [S.sha512_fixed_plain(p) for p in pre]  # noqa: E731
+    x1_plain = lambda: [  # noqa: E731
+        S.sha512_ragged_plain(w.sig_b, w.pk_b, w.msg, w.offsets) for w in wins
+    ]
+    got = x1()
     err = max(
         int((a.int() - b.int()).abs().max().item())
-        for a, b in zip(x1(), x1_plain())
+        for a, b in zip(got, x1_plain())
     )
+    for (c_pks, c_msgs, c_sigs), g in zip(chunks, got):
+        ref = b"".join(
+            hashlib.sha512(s[:32] + p + m).digest()
+            for p, m, s in zip(c_pks, c_msgs, c_sigs)
+        )
+        if g[:, : len(c_pks)].t().cpu().numpy().tobytes() != ref:
+            raise AssertionError("X1 differs from hashlib on the commit")
+    # what the check needs: each signature's R, A, message, offset and
+    # digest once, and its message's compressions
     rows.append(
         row(
-            "sha512_rows",
+            "sha512_ram",
             "tendermint_tpu_torch/ops/csrc/sha512.cu",
             "tendermint_tpu/ops/sha512_kernel.py:190",
-            main["tile"]["sha512_rows"],
-            [list(p.shape) for p in pre],
+            main["tile"]["sha512_ram"],
+            [w.sig_b.shape[1] for w in wins],
             err,
             x1,
             x1_plain,
-            sum(p.shape[0] * p.shape[1] + 64 * p.shape[1] for p in pre),
+            sum(64 + len(m) + 4 + 64 for m in msgs),
             sum(
-                p.shape[1]
-                * ((p.shape[0] + 17 + 127) // 128)
-                * INSTR_PER_SHA512_BLOCK
-                for p in pre
+                (64 + len(m) + 17 + 127) // 128 * INSTR_PER_SHA512_BLOCK
+                for m in msgs
             ),
         )
     )
+    rows[-1]["device_ms_per_window"] = rows[-1]["device_ms"] / len(wins)
+    rows[-1]["bound_ms_per_window"] = rows[-1]["bound_ms"] / len(wins)
 
     # K2
     packed = [verifier.pack(*c) for c in chunks]
@@ -679,9 +797,10 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
             lanes * field_instr(SQ_K1, MUL_K1),
         )
     )
-    # one launch at each width that matters: 512 is the light commit's
-    # bucket, 2048 the streaming window, 12288 the widest bucket (the
-    # 10k commit's signatures, zero lanes after)
+    # one launch at each width that matters: 128 is the light commit's
+    # bucket (it adds 101 signatures, then 2/3 of the power is reached),
+    # 512 a mid-size batch, 2048 the streaming window, 12288 the widest
+    # bucket (the 10k commit's signatures, zero lanes after)
     def packed_at(w):
         return verifier.pack(pks[:w], msgs[:w], sigs[:w])[:3]
 
@@ -710,15 +829,17 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
     from tendermint_tpu_torch.ops import build
 
     ptxas = build.build_report()["ptxas"]
+    # (source, entry kernel) of each row
     stems = {
-        "sha512_rows": "sha512",
-        "ed25519_verify_tile": "ed25519_verify",
-        "ed25519_dual_mult": "ed25519_dual_mult",
+        "sha512_ram": ("sha512", "sha512_ram_kernel"),
+        "ed25519_verify_tile": ("ed25519_verify", ""),
+        "ed25519_dual_mult": ("ed25519_dual_mult", ""),
     }
     for r in rows:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{r['name']} differs from its plain version")
-        r.update(ptxas_resources(ptxas[stems[r["name"]]]))
+        stem, entry = stems[r["name"]]
+        r.update(ptxas_resources(ptxas[stem], entry))
         widths = by_width.get(r["name"], {})
         for w, (fn, nbytes, instr, got_w) in widths.items():
             if got_w != w:
@@ -830,13 +951,24 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     card, power = (s.strip() for s in smi.split(",", 1))
-    phase_report(torch, args.out)
+    sass = phase_report(torch, args.out)
     phase_sha512(torch, dev, args.seed)
+    phase_x1_ragged(torch, dev, args.seed)
+    floor = phase_x1_latency()
     phase_dual_mult(torch, dev, args.seed)
     phase_verify_tile(torch, dev, args.seed)
     phase_ragged_width(torch, dev, args.seed)
     main_run = phase_main_path(torch, args.seed)
     kernels = phase_kernels(torch, dev, main_run, card, power)
+    x1 = next(r for r in kernels["kernels"] if r["name"] == "sha512_ram")
+    if x1["spill_store_bytes"] or x1["spill_load_bytes"]:
+        raise AssertionError("X1 spills registers")
+    x1["sass_per_compression"] = {
+        "now": sass["probe_sha512_compress"],
+        "before": sass["probe_sha512_compress_before"],
+    }
+    x1["latency_floor_ms_per_window"] = floor["row_ns"] / 1e6
+    x1["latency_floor_cycles"] = floor["row_cycles"]
     if args.profile:
         phase_profile(torch, main_run, 5, args.out)
     torch.cuda.synchronize()

@@ -11,7 +11,8 @@ integers instead (`tensor.data_ptr()`,
 
 Libraries go to `build/torch_kernels/` at the repository root (listed in
 .gitignore), named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Importing
+source is rebuilt and an unchanged one is loaded as it is; the nvcc and
+ptxas output of each build is kept beside its library. Importing
 this module builds nothing. A failed build raises: nothing falls back.
 
     python -m tendermint_tpu_torch.ops.build   # build now, print ptxas -v
@@ -34,8 +35,11 @@ __all__ = [
     "CSRC",
     "NVCC_FLAGS",
     "build_report",
+    "check_launch",
     "kernels",
     "nvcc_path",
+    "ptr",
+    "stream_of",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -63,6 +67,7 @@ _SIGNATURES = {
     },
     "sha512": {
         "tm_sha512_rows": ([_V, _V, _I, _I, _I, _V], _I),
+        "tm_sha512_ram": ([_V, _V, _V, _V, _V, _I, _I, _I, _V], _I),
     },
 }
 # every library also exports tm_error_string(code) -> cudaGetErrorString
@@ -115,8 +120,9 @@ def _build_all() -> Dict[str, ctypes.CDLL]:
     logs = {}
     failed = []
     for stem, (lib, job) in jobs.items():
+        log = lib.with_suffix(".ptxas.txt")  # kept beside the library
         if job is None:
-            logs[stem] = "(cached)"
+            logs[stem] = log.read_text() if log.exists() else "(cached)"
             continue
         proc, tmp = job
         out, _ = proc.communicate()
@@ -124,6 +130,7 @@ def _build_all() -> Dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             failed.append(f"{stem}.cu (exit {proc.returncode}):\n{out}")
             continue
+        log.write_text(out)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -158,6 +165,25 @@ def build_report() -> dict:
     """Build seconds, library paths and nvcc/ptxas output of the build
     this process ran (empty before the first kernels() call)."""
     return dict(_REPORT)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's data pointer as a kernel argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on `device`, as a kernel argument."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_launch(rc: int, lib, name: str) -> None:
+    """Raise when a launch function returned a CUDA error."""
+    if rc != 0:
+        msg = lib.tm_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")
 
 
 if __name__ == "__main__":

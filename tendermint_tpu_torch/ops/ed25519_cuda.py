@@ -32,12 +32,11 @@ launch error, and counts the launch in LAUNCHES.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import ed25519_kernel as K
 from . import field25519 as F
+from .build import check_launch, kernels, ptr, stream_of
 
 __all__ = ["LAUNCHES", "dual_mult", "reset_launches", "verify_tile"]
 
@@ -61,20 +60,6 @@ def _check(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(rc: int, lib, name: str) -> None:
-    if rc != 0:
-        msg = lib.tm_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg}")
-
-
 def verify_tile(pk_b, sig_b, dig_b) -> torch.Tensor:
     """pk_b (32, N), sig_b (64, N) byte rows (uint8, or int32 like
     verify_pallas), dig_b (64, N) SHA-512(R||A||M) rows of the same
@@ -87,21 +72,19 @@ def verify_tile(pk_b, sig_b, dig_b) -> torch.Tensor:
     _check("pk_b", pk_b, (32, n), (torch.uint8, torch.int32), pk_b.device)
     _check("sig_b", sig_b, (64, n), (pk_b.dtype,), pk_b.device)
     _check("dig_b", dig_b, (64, n), (pk_b.dtype,), pk_b.device)
-    from .build import kernels
-
     out = torch.empty(n, dtype=torch.bool, device=pk_b.device)
     lib = kernels()["ed25519_verify"]
     rc = lib.tm_ed25519_verify_tile(
-        _ptr(pk_b),
-        _ptr(sig_b),
-        _ptr(dig_b),
-        _ptr(out),
+        ptr(pk_b),
+        ptr(sig_b),
+        ptr(dig_b),
+        ptr(out),
         n,
         pk_b.element_size(),
         pk_b.device.index,
-        _stream(pk_b.device),
+        stream_of(pk_b.device),
     )
-    _raise_on(rc, lib, "ed25519_verify_tile")
+    check_launch(rc, lib, "ed25519_verify_tile")
     LAUNCHES["ed25519_verify_tile"] += 1
     return out
 
@@ -119,19 +102,17 @@ def dual_mult(A, dS, dk) -> torch.Tensor:
     _check("A", A, (4, F.NLIMBS, n), (torch.int32,), A.device)
     _check("dS", dS, (64, n), (torch.int32,), A.device)
     _check("dk", dk, (64, n), (torch.int32,), A.device)
-    from .build import kernels
-
     out = torch.empty((3, F.NLIMBS, n), dtype=torch.int32, device=A.device)
     lib = kernels()["ed25519_dual_mult"]
     rc = lib.tm_ed25519_dual_mult(
-        _ptr(A),
-        _ptr(dS),
-        _ptr(dk),
-        _ptr(out),
+        ptr(A),
+        ptr(dS),
+        ptr(dk),
+        ptr(out),
         n,
         A.device.index,
-        _stream(A.device),
+        stream_of(A.device),
     )
-    _raise_on(rc, lib, "ed25519_dual_mult")
+    check_launch(rc, lib, "ed25519_dual_mult")
     LAUNCHES["ed25519_dual_mult"] += 1
     return out

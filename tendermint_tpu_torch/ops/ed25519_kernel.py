@@ -22,7 +22,7 @@ einsum were forced by the TPU and are gone: tables are read by index.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,10 +31,11 @@ from ..config import DEFAULT_BUCKET_SIZES
 from ..crypto import ed25519_math as em
 from . import edwards as E
 from . import field25519 as F
-from .sha512_kernel import sha512_fixed
+from .sha512_kernel import sha512_ragged
 
 __all__ = [
     "Ed25519Verifier",
+    "Window",
     "bucket_for",
     "dual_mult_sb_minus_ka",
     "verify_hybrid",
@@ -273,17 +274,22 @@ def verify_hybrid(pk_b, sig_b, dig_b) -> torch.Tensor:
     return _verify_tile(pk_b, sig_b, dig_b, dual_fn=dual_mult)
 
 
-# -- host packing (byte joins only) --
+# -- host packing --
 
 
-def _join_cols(items: Sequence[bytes], width: int, pad: int) -> np.ndarray:
-    """Join n equal-length byte strings into a (width, n+pad) uint8
-    array, batch-minor, zero-padded on the right."""
-    arr = np.frombuffer(b"".join(items), dtype=np.uint8).reshape(-1, width)
-    out = arr.T
-    if pad:
-        out = np.pad(out, ((0, 0), (0, pad)))
-    return np.ascontiguousarray(out)
+def _round16(k: int) -> int:
+    return -(-k // 16) * 16
+
+
+class Window(NamedTuple):
+    """One batch on the device (Ed25519Verifier.upload)."""
+
+    pk_b: torch.Tensor  # (32, B) uint8
+    sig_b: torch.Tensor  # (64, B) uint8
+    msg: torch.Tensor  # flat uint8, 16-byte aligned, length a multiple of 16
+    offsets: torch.Tensor  # (B + 1,) int32 into msg
+    max_len: int  # the longest message
+    size_ok: np.ndarray  # (n,) bool, host
 
 
 class Ed25519Verifier:
@@ -339,7 +345,18 @@ class Ed25519Verifier:
         """The device inputs of one non-empty batch: (pk_b (32, B),
         sig_b (64, B), dig_b (64, B)) uint8 rows padded with zero lanes
         to the bucket B, and the host (n,) size_ok mask. Malformed sizes
-        become zero rows, masked after the fact."""
+        become zero rows, masked after the fact. dig_b is one launch of
+        kernel X1 over upload()'s buffers."""
+        w = self.upload(pubkeys, msgs, sigs)
+        dig_b = sha512_ragged(w.sig_b, w.pk_b, w.msg, w.offsets, w.max_len)
+        return w.pk_b, w.sig_b, dig_b, w.size_ok
+
+    def upload(self, pubkeys, msgs, sigs) -> "Window":
+        """One non-empty batch on the device, in one host-to-device copy:
+        pk and sig byte rows padded with zero lanes to the bucket B (lanes
+        of malformed size as zero rows), the messages as one flat buffer
+        with B + 1 int32 offsets (padding lanes of length 0), as
+        sha512_ragged takes them."""
         n = len(pubkeys)
         size_ok = np.array(
             [
@@ -356,44 +373,31 @@ class Ed25519Verifier:
                 sig if ok else b"\x00" * 64 for sig, ok in zip(sigs, size_ok)
             ]
         bucket = bucket_for(n, self.bucket_sizes)
-        pad = bucket - n
-        pk_b = self._to_dev(_join_cols(pubkeys, 32, pad))
-        sig_b = self._to_dev(_join_cols(sigs, 64, pad))
-        dig_b = self._digest_rows(pubkeys, msgs, sigs, bucket)
-        return pk_b, sig_b, dig_b, size_ok
-
-    def _digest_rows(self, pubkeys, msgs, sigs, bucket) -> torch.Tensor:
-        """(64, bucket) rows of SHA512(R || A || M) on the device, one
-        X1 launch per message-length group (a Commit's sign-bytes split
-        into groups when vote timestamps differ in varint length)."""
-        n = len(pubkeys)
-        groups: dict = {}
-        for i, m in enumerate(msgs):
-            groups.setdefault(len(m), []).append(i)
-        if len(groups) == 1:
-            ((mlen, _),) = groups.items()
-            pre = _join_cols(
-                [
-                    sig[:32] + pk + msg
-                    for pk, msg, sig in zip(pubkeys, msgs, sigs)
-                ],
-                64 + mlen,
-                bucket - n,
-            )
-            return sha512_fixed(self._to_dev(pre))
-        dig = torch.zeros((64, bucket), dtype=torch.uint8, device=self.device)
-        for mlen, idxs in groups.items():
-            g = len(idxs)
-            gb = bucket_for(g, self.bucket_sizes)
-            pre = _join_cols(
-                [sigs[i][:32] + pubkeys[i] + msgs[i] for i in idxs],
-                64 + mlen,
-                gb - g,
-            )
-            out = sha512_fixed(self._to_dev(pre))
-            cols = torch.tensor(idxs, dtype=torch.long, device=self.device)
-            dig.index_copy_(1, cols, out[:, :g])
-        return dig
+        lens = np.fromiter(map(len, msgs), dtype=np.int64, count=n)
+        offsets = np.zeros(bucket + 1, dtype=np.int32)
+        np.cumsum(lens, out=offsets[1 : n + 1])
+        offsets[n + 1 :] = offsets[n]
+        total = int(offsets[n])
+        # [pk rows | sig rows | offsets | messages], each part 16-byte
+        # aligned and the messages padded to 16 bytes (the kernel's loads)
+        at_off = 96 * bucket
+        at_msg = _round16(at_off + 4 * (bucket + 1))
+        buf = np.zeros(at_msg + _round16(total), dtype=np.uint8)
+        for rows, items, k in ((0, pubkeys, 32), (32, sigs, 64)):
+            cols = np.frombuffer(b"".join(items), np.uint8).reshape(n, k)
+            view = buf[rows * bucket : (rows + k) * bucket]
+            view.reshape(k, bucket)[:, :n] = cols.T
+        buf[at_off : at_off + 4 * (bucket + 1)] = offsets.view(np.uint8)
+        buf[at_msg : at_msg + total] = np.frombuffer(b"".join(msgs), np.uint8)
+        dev = self._to_dev(buf)
+        return Window(
+            pk_b=dev[: 32 * bucket].view(32, bucket),
+            sig_b=dev[32 * bucket : at_off].view(64, bucket),
+            msg=dev[at_msg:],
+            offsets=dev[at_off : at_off + 4 * (bucket + 1)].view(torch.int32),
+            max_len=int(lens.max()),
+            size_ok=size_ok,
+        )
 
     def gather(self, handle) -> np.ndarray:
         """Wait for a dispatch() handle and return the bitmap."""

@@ -1,38 +1,54 @@
-"""Batched SHA-512 over fixed-length byte rows: kernel X1 and its plain
-version.
+"""Batched SHA-512: kernel X1 and its plain versions.
 
-Counterpart: tendermint_tpu/ops/sha512_kernel.py:190 `sha512_fixed`, the
-XLA program behind ed25519's k = SHA512(R || A || M). Same contract:
-(64 + M, N) uint8 rows, batch axis minor -> (64, N) uint8 digests.
+Two functions, one device body (csrc/sha512.cuh):
 
-- `sha512_fixed_plain`: plain PyTorch ops on int64 words (torch's `>>`
-  on int64 is arithmetic, so logical shifts are masked; additions wrap).
-  One torch op per step: ~80 rounds x ~40 ops per 128-byte block, the
-  yardstick the kernel is held against, never a speed path.
-- `sha512_fixed`: the wrapper. A CPU tensor takes the plain version; a
-  CUDA tensor launches kernel X1 (csrc/sha512.cu) or raises.
+- `sha512_ragged(sig_b, pk_b, msg, offsets, max_len)`: SHA-512(R || A ||
+  M) of every lane of a verifier window, R and A from the (64, B) sig and
+  (32, B) pk byte rows, M from one flat message buffer with B + 1 int32
+  offsets -> (64, B) digests in lane order, one launch whatever the
+  lengths. Counterpart: what tendermint_tpu/ops/ed25519_kernel.py:660
+  `_digest_rows` computes, which groups the lanes by message length, runs
+  one `sha512_fixed` program per group and scatters the digests back.
+- `sha512_fixed(data)`: tendermint_tpu/ops/sha512_kernel.py:190's
+  contract, (L, N) uint8 rows, batch axis minor -> (64, N) digests.
+
+Their plain versions are plain PyTorch on int64 words (torch's `>>` on
+int64 is arithmetic, so logical shifts are masked; additions wrap): one
+torch op per step, ~80 rounds x ~40 ops per 128-byte block, the
+yardstick the kernel is held against, never a speed path.
+`sha512_ragged_plain` groups the lanes by length through
+`sha512_fixed_plain`, as the JAX package does. Each wrapper takes the
+plain version only for a CPU tensor; a CUDA tensor launches X1 on the
+current stream or raises.
 
 X1 replaces an XLA program, not a Pallas kernel: as torch ops it would be
-thousands of tiny launches per batch. What bounds it on an H100 is
-integer operations (80 rounds of ~60 64-bit ops per 128 bytes); the
-kernel keeps state and schedule in registers, one thread per row, and
-lays out the padding in-kernel so one build serves every length.
+thousands of tiny launches per batch. What bounds it on an H100, and
+what its design does about it, is in csrc/sha512.cu.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "sha512_fixed", "sha512_fixed_plain"]
+from .build import check_launch, kernels, ptr, stream_of
 
-# launches of kernel X1, by this module's wrapper only
-LAUNCHES = {"sha512_rows": 0}
+__all__ = [
+    "LAUNCHES",
+    "reset_launches",
+    "sha512_fixed",
+    "sha512_fixed_plain",
+    "sha512_ragged",
+    "sha512_ragged_plain",
+]
+
+# launches of kernel X1's two entry points, by this module's wrappers only
+LAUNCHES = {"sha512_ram": 0, "sha512_rows": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["sha512_rows"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
 
 _K64 = [
     0x428A2F98D728AE22, 0x7137449123EF65CD, 0xB5C0FBCFEC4D3B2F,
@@ -148,24 +164,83 @@ def sha512_fixed(data: torch.Tensor) -> torch.Tensor:
         )
     if not data.is_contiguous():
         raise ValueError("sha512_fixed: input must be contiguous")
-    from .build import kernels
-
     length, n = data.shape
     out = torch.empty((64, n), dtype=torch.uint8, device=data.device)
     lib = kernels()["sha512"]
-    stream = torch.cuda.current_stream(data.device).cuda_stream
     rc = lib.tm_sha512_rows(
-        ctypes.c_void_p(data.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        length,
-        n,
-        data.device.index,
-        ctypes.c_void_p(stream),
+        ptr(data), ptr(out), length, n, data.device.index,
+        stream_of(data.device),
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"sha512_rows launch failed: "
-            f"{lib.tm_error_string(rc).decode()}"
-        )
+    check_launch(rc, lib, "sha512_rows")
     LAUNCHES["sha512_rows"] += 1
+    return out
+
+
+def sha512_ragged_plain(sig_b, pk_b, msg, offsets) -> torch.Tensor:
+    """SHA-512(R || A || M) of every lane as plain torch ops, the lanes
+    grouped by message length through sha512_fixed_plain and the digests
+    put back in lane order. Arguments as sha512_ragged's."""
+    n = sig_b.shape[1]
+    dev = sig_b.device
+    off = offsets.to(device=dev, dtype=torch.int64)
+    lens = off[1:] - off[:-1]
+    out = torch.empty((64, n), dtype=torch.uint8, device=dev)
+    for length in sorted(set(lens.tolist())):
+        idx = torch.nonzero(lens == length).flatten()
+        at = off[:-1][idx][None, :] + torch.arange(length, device=dev)[:, None]
+        rows = torch.cat([sig_b[:32, idx], pk_b[:, idx], msg[at]], dim=0)
+        out[:, idx] = sha512_fixed_plain(rows)
+    return out
+
+
+def sha512_ragged(sig_b, pk_b, msg, offsets, max_len: int) -> torch.Tensor:
+    """(64, B) uint8 SHA-512(R || A || M) of every lane, in lane order.
+
+    sig_b (64, B) and pk_b (32, B) uint8 byte rows, batch axis minor (R is
+    sig rows 0..31, A all of pk); msg a flat uint8 buffer, lane i's message
+    msg[offsets[i]:offsets[i + 1]]; offsets (B + 1,) int32; max_len at least
+    the longest message (it sizes the kernel's shared memory). On CUDA msg
+    must start 16-byte aligned and be a multiple of 16 bytes long (the
+    kernel reads it in 16-byte loads): pad it. A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel X1 on the current stream or
+    raises."""
+    if sig_b.device.type == "cpu":
+        return sha512_ragged_plain(sig_b, pk_b, msg, offsets)
+    if sig_b.device.type != "cuda":
+        raise ValueError(f"sha512_ragged: unsupported device {sig_b.device}")
+    n = sig_b.shape[-1]
+    for name, t, shape, dtype in (
+        ("sig_b", sig_b, (64, n), torch.uint8),
+        ("pk_b", pk_b, (32, n), torch.uint8),
+        ("offsets", offsets, (n + 1,), torch.int32),
+        ("msg", msg, (msg.numel(),), torch.uint8),
+    ):
+        if t.device != sig_b.device or t.dtype != dtype:
+            raise ValueError(
+                f"sha512_ragged: {name} must be {dtype} on {sig_b.device}"
+            )
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"sha512_ragged: {name} must be contiguous {shape}"
+            )
+    if msg.data_ptr() % 16 or msg.numel() % 16:
+        raise ValueError(
+            "sha512_ragged: msg must start 16-byte aligned and be a "
+            "multiple of 16 bytes long"
+        )
+    out = torch.empty((64, n), dtype=torch.uint8, device=sig_b.device)
+    lib = kernels()["sha512"]
+    rc = lib.tm_sha512_ram(
+        ptr(sig_b),
+        ptr(pk_b),
+        ptr(msg),
+        ptr(offsets),
+        ptr(out),
+        n,
+        max_len,
+        sig_b.device.index,
+        stream_of(sig_b.device),
+    )
+    check_launch(rc, lib, "sha512_ram")
+    LAUNCHES["sha512_ram"] += 1
     return out

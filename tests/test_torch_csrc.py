@@ -21,15 +21,18 @@ import numpy as np
 import pytest
 import torch
 
+from tendermint_tpu.ops import ed25519_kernel as JK
 from tendermint_tpu_torch.crypto import zip215_corpus
 from tendermint_tpu_torch.ops import ed25519_kernel as K
 from tendermint_tpu_torch.ops import edwards as E
 from tendermint_tpu_torch.ops import field25519 as F
+from tendermint_tpu_torch.ops import sha512_kernel as S
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "tendermint_tpu_torch" / "ops" / "csrc"
 
 HARNESS = r"""
 #include <stdint.h>
+#include <string.h>
 #include <ucontext.h>
 #define __device__
 #define __constant__
@@ -137,6 +140,29 @@ long host_dual_mult(const int32_t *a, const int32_t *ds, const int32_t *dk,
 void host_sha512(const uint8_t *data, uint8_t *out, int len, int n) {
   for (int i = 0; i < n; i++) sha512_row(data, out, len, n, i);
 }
+// X1's ragged launch, a block of SHA512_ROWS_PER_BLOCK rows at a time:
+// every thread of the block stages its share of the block's span, then
+// each row hashes R || A || M. The stage is filled with 0xA5 first, so a
+// row reading bytes nobody staged gets them wrong. Returns -1 when a
+// block's span does not fit the stage max_len sizes.
+int host_sha512_ram(const uint8_t *sig, const uint8_t *pk, const uint8_t *msg,
+                    const int32_t *off, uint8_t *out, int n, int max_len) {
+  static sha_v16 stage[(SHA512_STAGE_BYTES(512) + 15) / 16];
+  if (SHA512_STAGE_BYTES(max_len) > (int)sizeof stage) return -1;
+  for (int r0 = 0; r0 < n; r0 += SHA512_ROWS_PER_BLOCK) {
+    const int r1 = r0 + SHA512_ROWS_PER_BLOCK < n ? r0 + SHA512_ROWS_PER_BLOCK : n;
+    memset(stage, 0xA5, sizeof stage);
+    int a0 = 0;
+    for (int t = 0; t < SHA512_ROWS_PER_BLOCK; t++)
+      a0 = sha512_stage(msg, off[r0], off[r1], stage, t, SHA512_ROWS_PER_BLOCK,
+                        SHA512_STAGE_CAP(max_len));
+    if (a0 < 0) return -1;
+    for (int i = r0; i < r1; i++)
+      sha512_ram_row(sig, pk, n, i, (const uint8_t *)stage, off[i] - a0,
+                     off[i + 1] - off[i], out);
+  }
+  return 0;
+}
 // (m, 10) radix-2^25.5 limbs
 void host_fe_mul(const uint32_t *f, const uint32_t *h, uint32_t *out, int m) {
   for (int i = 0; i < m; i++)
@@ -178,6 +204,11 @@ def corpus():
     return zip215_corpus.corpus(16, seed=1)
 
 
+def _join_cols(items, width, pad):
+    """(width, n + pad) batch-minor byte rows, C-contiguous."""
+    return np.ascontiguousarray(JK._join_cols(items, width, pad))
+
+
 def _ptr(a: np.ndarray):
     assert a.flags.c_contiguous
     return ctypes.c_void_p(a.ctypes.data)
@@ -195,9 +226,9 @@ def _verify_rows(triples, pad):
         (p, m, s) if ok else (bytes(32), m, bytes(64))
         for (p, m, s), ok in zip(triples, size_ok)
     ]
-    pk = K._join_cols([p for p, _m, _s in tr], 32, pad)
-    sig = K._join_cols([s for _p, _m, s in tr], 64, pad)
-    dig = K._join_cols(
+    pk = _join_cols([p for p, _m, _s in tr], 32, pad)
+    sig = _join_cols([s for _p, _m, s in tr], 64, pad)
+    dig = _join_cols(
         [hashlib.sha512(s[:32] + p + m).digest() for p, m, s in tr], 64, pad
     )
     return pk, sig, dig, size_ok
@@ -254,12 +285,75 @@ def test_sha512_body_matches_hashlib(lib, m):
         assert out[:, i].tobytes() == hashlib.sha512(data[:, i].tobytes()).digest()
 
 
+def _aligned(nbytes: int) -> np.ndarray:
+    """A zeroed uint8 buffer whose first byte is 16-byte aligned, its
+    length rounded up to 16 (what X1's 16-byte loads need)."""
+    size = -(-nbytes // 16) * 16
+    raw = np.zeros(size + 16, dtype=np.uint8)
+    shift = -raw.ctypes.data % 16
+    return raw[shift : shift + size]
+
+
+# 64 + M either side of the one/two/three-block edges (110-112, 174-176,
+# 238-240... as M = 46-48, 111-112, 175-176), the commit's sign-bytes
+# (116-118), empty and one-byte messages
+RAGGED_LENS = [0, 1, 46, 47, 48, 111, 112, 116, 117, 118, 175, 176, 239, 240]
+
+
+@pytest.mark.parametrize("lead", [0, 5])
+def test_sha512_ram_body_matches_hashlib(lib, lead):
+    """X1's ragged body, blocks of 32 rows staged as the kernel stages
+    them: R and A from batch-minor sig/pk rows, the messages of one
+    batch in all of RAGGED_LENS (shuffled, 3 rows each: the blocks'
+    spans start at unaligned offsets), the first message `lead` bytes
+    into the buffer, and 7 zero padding lanes of length 0 on zero rows
+    (n = 49, so the last block is partly empty)."""
+    rng = np.random.default_rng(40 + lead)
+    lens = list(rng.permutation(RAGGED_LENS * 3))
+    n = len(lens) + 7
+    sig = np.zeros((64, n), dtype=np.uint8)
+    pk = np.zeros((32, n), dtype=np.uint8)
+    sig[:, : len(lens)] = rng.integers(0, 256, (64, len(lens)))
+    pk[:, : len(lens)] = rng.integers(0, 256, (32, len(lens)))
+    off = np.full(n + 1, lead, dtype=np.int32)
+    off[1 : len(lens) + 1] += np.cumsum(lens)
+    off[len(lens) + 1 :] = off[len(lens)]
+    msg = _aligned(int(off[-1]))
+    msg[lead : off[-1]] = rng.integers(0, 256, off[-1] - lead)
+    out = np.zeros((64, n), dtype=np.uint8)
+    rc = lib.host_sha512_ram(
+        _ptr(sig), _ptr(pk), _ptr(msg), _ptr(off), _ptr(out), ctypes.c_int(n),
+        ctypes.c_int(max(lens)),
+    )
+    assert rc == 0
+    for i in range(n):
+        m = msg[off[i] : off[i + 1]].tobytes()
+        want = hashlib.sha512(sig[:32, i].tobytes() + pk[:, i].tobytes() + m)
+        assert out[:, i].tobytes() == want.digest(), (i, len(m))
+    plain = S.sha512_ragged(*(torch.from_numpy(a) for a in (sig, pk, msg, off)), max(lens))
+    assert np.array_equal(out, plain.numpy())
+
+
+def test_sha512_stage_refuses_a_span_longer_than_max_len(lib):
+    """A block whose messages exceed the max_len its stage was sized by
+    is refused (the kernel traps), not read past its shared memory."""
+    n, long = 4, 300
+    off = np.array([0, 10, 10 + long, 20 + long, 30 + long], dtype=np.int32)
+    msg = _aligned(int(off[-1]))
+    sig = np.zeros((64, n), dtype=np.uint8)
+    pk = np.zeros((32, n), dtype=np.uint8)
+    out = np.zeros((64, n), dtype=np.uint8)
+    args = [_ptr(a) for a in (sig, pk, msg, off, out)] + [ctypes.c_int(n)]
+    assert lib.host_sha512_ram(*args, ctypes.c_int(long)) == 0
+    assert lib.host_sha512_ram(*args, ctypes.c_int(8)) == -1
+
+
 def test_dual_mult_body_matches_plain_with_canonical_limbs(lib, corpus):
     """The JAX contract at K1's interface: loose 13-bit limbs in (as the
     plain decompression leaves them), canonical 13-bit limbs out; 11
     signatures, so five lanes of the block run past n."""
     triples = corpus[-11:]
-    pk = torch.from_numpy(K._join_cols([p for p, _m, _s in triples], 32, 0)).int()
+    pk = torch.from_numpy(_join_cols([p for p, _m, _s in triples], 32, 0)).int()
     topclear = K._col([0xFF] * 31 + [0x7F], "cpu")
     A, _ok = E.decompress(K._fe_from_bytes_dev(pk & topclear), pk[31] >> 7)
     A = A.contiguous()
@@ -325,6 +419,30 @@ def test_fe_sq_equals_fe_mul(lib):
         assert _value(got_sq) % P25519 == vb * vb % P25519
         assert _value(got_fg) % P25519 == va * vb % P25519
         assert (got_sq < carried).all() and (got_fg < carried).all()
+
+
+def test_x1_latency_stamps_find_their_anchors():
+    """ops/x1_latency.py stamps a copy of sha512.cuh before a row's
+    first compression and after each; each anchor must be there, once."""
+    from tendermint_tpu_torch.ops import x1_latency
+
+    out = x1_latency.stamped((CSRC / "sha512.cuh").read_text())
+    assert out.count("PSTAMP(0);") == 1 and out.count("PSTAMP(1 + b);") == 1
+
+
+def test_x1_variants_replace_only_the_compression():
+    """ops/x1_variants.py swaps sha512_compress of a copy of sha512.cuh
+    for each variant: the copy keeps one compression and the rest of the
+    header as it is."""
+    from tendermint_tpu_torch.ops import x1_variants
+
+    header = (CSRC / "sha512.cuh").read_text()
+    tail = header[header.index("// The big-endian word of bytes") :]
+    head = header[: header.index("// One compression")]
+    for compress in x1_variants.VARIANTS.values():
+        out = x1_variants.variant_header(header, compress)
+        assert out.count("void sha512_compress(") == 1
+        assert out.startswith(head) and out.endswith(tail)
 
 
 def test_k2_phase_stamps_find_their_anchors():

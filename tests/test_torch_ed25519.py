@@ -47,9 +47,9 @@ def _rows(triples, pad=0):
     sigs = [s for _p, _m, s in triples]
     digs = [hashlib.sha512(s[:32] + p + m).digest() for p, m, s in triples]
     return (
-        K._join_cols(pks, 32, pad),
-        K._join_cols(sigs, 64, pad),
-        K._join_cols(digs, 64, pad),
+        JK._join_cols(pks, 32, pad),
+        JK._join_cols(sigs, 64, pad),
+        JK._join_cols(digs, 64, pad),
     )
 
 
@@ -208,3 +208,25 @@ def test_verifier_pack_pads_to_the_bucket_with_zero_lanes(corpus):
 def test_verifier_refuses_an_unknown_program():
     with pytest.raises(ValueError, match="program"):
         K.Ed25519Verifier(device="cpu", program="full")
+
+
+def test_verifier_pack_digests_every_lane_in_one_ragged_pass(corpus):
+    """pack's dig_b is SHA-512(R || A || M) of every lane in add order,
+    whatever the message lengths: the corpus's lanes (several lengths, a
+    malformed size hashed as zero rows with its message, as the JAX
+    verifier does), then zero padding lanes hashed as 64 zero bytes."""
+    triples, _want = corpus
+    pks, msgs, sigs = (list(x) for x in zip(*triples[:20]))
+    msgs[4] = b""
+    msgs[7] = bytes(range(200))
+    sigs[2] = sigs[2][:63]
+    assert len({len(m) for m in msgs}) >= 3
+    v = K.Ed25519Verifier(bucket_sizes=[BUCKET, 32], device="cpu")
+    _pk_b, _sig_b, dig_b, size_ok = v.pack(pks, msgs, sigs)
+    assert dig_b.shape == (64, 32) and not size_ok[2]
+    for i, (p, m, s) in enumerate(zip(pks, msgs, sigs)):
+        if not size_ok[i]:
+            p, s = bytes(32), bytes(64)
+        assert dig_b[:, i].numpy().tobytes() == hashlib.sha512(s[:32] + p + m).digest()
+    pad = hashlib.sha512(bytes(64)).digest()
+    assert all(dig_b[:, i].numpy().tobytes() == pad for i in range(20, 32))
