@@ -5,34 +5,41 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 every kernel against its plain PyTorch version, then drives the main
-path through the entry points a user calls: crypto.gpu_verifier.install()
+paths through the entry points a user calls: crypto.gpu_verifier.install()
 and types.validation.verify_commit on a 10,000-validator ed25519 Commit
-(the north-star size), verify_commit_light on a 150-validator Commit, and
-a 10,000-validator Commit with one bad signature that must be rejected at
-that index. Keys, messages and timestamps come from --seed.
+(the north-star size), verify_commit_light on a 150-validator Commit,
+and a 10,000-validator Commit with one bad signature that must be
+rejected at that index; then the same on mixed Commits, 5,000 ed25519
+and 5,000 sr25519 validators (75 + 75 for the light one), and the mixed
+10k Commit once through the hybrid program. Keys, key types, messages,
+timestamps and signing witnesses come from --seed.
 
-Before the main path, every kernel is held against its plain version at
-the widest bucket, K2 also on the ZIP-215 corpus at buckets 128 and
-12288 and at a width that no block of signatures divides, X1 also on
-rows of mixed lengths 0-300 at widths 2045 and 12288 (and hashlib).
+Before the main paths, every kernel is held against its plain version:
+K1 and X1 at the widest bucket, K2 also on the ZIP-215 corpus at buckets
+128 and 12288 and at a width that no block of signatures divides, X1
+also on rows of mixed lengths 0-300 at widths 2045 and 12288 (and
+hashlib), X3 on the sr25519 corpus at buckets 128 and 2048 and at width
+2045 (and the host oracle).
 
 Phases print one JSON line each. The line before the last two is the
 card as nvidia-smi names it, with its power limit; the line before the
 last is {"kernels": [...]} (launches in one call of the main path, the
 kernel's and its plain version's times (CUDA events around the calls,
 host gaps included, and the profiler's time of the kernel alone), and
-the card's least time for the same work; for K2 and K1 also one launch's time and bound at each
-width in K2_WIDTHS / K1_WIDTHS; for X1 its time per window, SASS
-instructions per compression and the latency floor of one row; for
-every kernel its registers, stack frame and spill bytes from ptxas -v);
-the last line is {"ok": true, "device": {...}}. Any failed phase raises
-and the script exits non-zero without that line. It exits non-zero at
-once when CUDA is not available or when the package is not beside it.
+the card's least time for the same work; for K2, K1 and X3 also one
+launch's time and bound at each width in K2_WIDTHS / K1_WIDTHS /
+X3_WIDTHS; for X1 its time per window, SASS instructions per compression
+and the latency floor of one row; for every kernel its registers, stack
+frame and spill bytes from ptxas -v); the last line is {"ok": true,
+"device": {...}}. Any failed phase raises and the script exits non-zero
+without that line. It exits non-zero at once when CUDA is not available
+or when the package is not beside it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -66,6 +73,13 @@ INT32_INSTR_PER_S = 67e12 / 4
 #   cofactor: 3 doublings without T on each side; compare: 4 multiplies.
 SQ_K2, MUL_K2 = 255 + 255 + 16 + 64 * 16 + 24, 19 + 18 + 48 + 64 * 28 + 22
 SQ_K1, MUL_K1 = 16 + 64 * 16, 48 + 64 * 28  # the table and the windows
+# X3, per signature: two ristretto decodes of 257 squarings (pow_p58's
+# 251, v^2, v3^2, r^2 in sqrt_ratio_m1, s^2, u1^2, u2^2) and 24
+# multiplies (pow_p58's 11, v3, v7, r, v r^2, r sqrt(-1), and d u1^2,
+# v u2^2, den_x, den_y (2), x, y, t; with u = 1, u v3, u v7 and
+# -u sqrt(-1) cost nothing, though the kernel multiplies them), K1's
+# table and windows, no cofactor, and 4 multiplies for the equality.
+SQ_X3, MUL_X3 = 2 * 257 + SQ_K1, 2 * 24 + MUL_K1 + 4
 PRODUCTS_PER_SQ, PRODUCTS_PER_MUL, INSTR_PER_PRODUCT = 15, 25, 4
 
 
@@ -85,6 +99,7 @@ KERNEL_NAMES = {
     "sha512_ram": "sha512_ram_kernel",
     "ed25519_verify_tile": "verify_tile_kernel",
     "ed25519_dual_mult": "dual_mult_kernel",
+    "sr25519_verify": "sr25519_verify_kernel",
 }
 
 # the widest bucket (config.DEFAULT_BUCKET_SIZES), the width the kernels
@@ -93,6 +108,9 @@ WIDE = 12288
 # the widths each ed25519 kernel is timed at, one launch each
 K2_WIDTHS = (128, 512, 2048, WIDE)
 K1_WIDTHS = (2048, WIDE)
+# X3's (and the buckets of its corpus check): the light commit's bucket
+# and the streaming window
+X3_WIDTHS = (128, 2048)
 
 CHAIN_ID = "chip-smoke-chain"
 HEIGHT = 1234
@@ -209,38 +227,69 @@ def bound_ms(nbytes: float, instr: float):
 
 def reset_launches() -> None:
     from tendermint_tpu_torch.ops import ed25519_cuda, sha512_kernel
+    from tendermint_tpu_torch.ops import sr25519_cuda
 
     ed25519_cuda.reset_launches()
     sha512_kernel.reset_launches()
+    sr25519_cuda.reset_launches()
 
 
 def launches() -> dict:
     from tendermint_tpu_torch.ops import ed25519_cuda, sha512_kernel
+    from tendermint_tpu_torch.ops import sr25519_cuda
 
-    return {**ed25519_cuda.LAUNCHES, **sha512_kernel.LAUNCHES}
+    return {
+        **ed25519_cuda.LAUNCHES,
+        **sha512_kernel.LAUNCHES,
+        **sr25519_cuda.LAUNCHES,
+    }
 
 
 # -- commits built with the port's own types --
 
 
-def build_commit(n: int, seed: int):
-    """(ValidatorSet, BlockID, Commit) of n equal-power ed25519
-    validators that all signed, keys and timestamps from the seed. Vote
+# ed25519 keys by seed: keygen is pure Python, and the mixed commits
+# reuse the ed25519-only commit's keys
+_ED_KEYS: dict = {}
+
+
+def build_commit(n: int, seed: int, n_sr: int = 0, timings=None):
+    """(ValidatorSet, BlockID, Commit) of n equal-power validators that
+    all signed, keys and timestamps from the seed; n_sr of them sr25519,
+    which ones fixed by index from the seed, the rest ed25519. Vote
     timestamps spread over one second, as a real commit's do, so the
-    sign-bytes come in several varint lengths."""
+    sign-bytes come in several varint lengths. The sr25519 votes are
+    signed together: every R first, then the challenges through
+    challenge_batch. `timings`, a dict, receives the seconds of keygen
+    and of the signing of each key type."""
     from tendermint_tpu_torch.crypto.ed25519 import PrivKeyEd25519
+    from tendermint_tpu_torch.crypto.sr25519 import PrivKeySr25519, sign_batch
     from tendermint_tpu_torch.types.block_id import BlockID, PartSetHeader
     from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE
     from tendermint_tpu_torch.types.commit import Commit, CommitSig
     from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
     from tendermint_tpu_torch.types.vote import Vote
 
-    privs = [
-        PrivKeyEd25519.from_seed(
-            hashlib.sha256(b"chip-smoke-%d-%d" % (seed, i)).digest()
-        )
-        for i in range(n)
-    ]
+    clock = [time.perf_counter()]
+    seconds = {} if timings is None else timings
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
+    is_sr = np.zeros(n, dtype=bool)
+    is_sr[np.random.default_rng([seed, 3]).permutation(n)[:n_sr]] = True
+    privs = []
+    for i in range(n):
+        key_seed = hashlib.sha256(b"chip-smoke-%d-%d" % (seed, i)).digest()
+        if is_sr[i]:
+            privs.append(PrivKeySr25519(key_seed))
+            continue
+        if key_seed not in _ED_KEYS:
+            _ED_KEYS[key_seed] = PrivKeyEd25519.from_seed(key_seed)
+        privs.append(_ED_KEYS[key_seed])
+    lap("keygen_s")
     by_addr = {p.pub_key().address(): p for p in privs}
     vals = ValidatorSet(
         [Validator(pub_key=p.pub_key(), voting_power=10) for p in privs]
@@ -251,7 +300,7 @@ def build_commit(n: int, seed: int):
     )
     rng = np.random.default_rng(seed)
     base_ns = 1_760_000_000 * 1_000_000_000
-    sigs = []
+    votes = []
     for i, val in enumerate(vals.validators):
         ts = base_ns + int(rng.integers(0, 1_000_000_000))
         vote = Vote(
@@ -263,9 +312,33 @@ def build_commit(n: int, seed: int):
             validator_address=val.address,
             validator_index=i,
         )
-        sig = by_addr[val.address].sign(vote.sign_bytes(CHAIN_ID))
-        sigs.append(CommitSig.for_block(sig, val.address, ts))
-    commit = Commit(height=HEIGHT, round=0, block_id=block_id, signatures=sigs)
+        votes.append((by_addr[val.address], vote.sign_bytes(CHAIN_ID), ts))
+    sigs = [None] * n
+    sr_idx = []
+    for i, (priv, sb, _ts) in enumerate(votes):
+        if priv.type() == "sr25519":
+            sr_idx.append(i)
+        else:
+            sigs[i] = priv.sign(sb)
+    lap("ed25519_sign_s")
+    witness = np.random.default_rng([seed, 25519])
+    sr_sigs = sign_batch(
+        [votes[i][0] for i in sr_idx],
+        [votes[i][1] for i in sr_idx],
+        rng=witness.bytes,
+    )
+    for i, sig in zip(sr_idx, sr_sigs):
+        sigs[i] = sig
+    lap("sr25519_sign_s")
+    commit = Commit(
+        height=HEIGHT,
+        round=0,
+        block_id=block_id,
+        signatures=[
+            CommitSig.for_block(sig, val.address, ts)
+            for sig, val, (_p, _sb, ts) in zip(sigs, vals.validators, votes)
+        ],
+    )
     return vals, block_id, commit
 
 
@@ -522,25 +595,123 @@ def phase_ragged_width(torch, dev, seed: int) -> None:
     )
 
 
-def count_one_call(fn, windows: int, kernels) -> dict:
-    """Launch counts of one call of fn, zeroed just before it and read
-    just after: each of `kernels` must have launched exactly once per
-    window the call dispatched, and `windows` windows must have gone."""
-    from tendermint_tpu_torch.crypto import gpu_verifier
+def phase_sr25519_tile(torch, dev, seed: int) -> None:
+    """X3 against its plain version and the host oracle, bit for bit, on
+    the sr25519 corpus at buckets 128 and 2048 and at the width RAGGED
+    that no block divides (PAD zero lanes at its end): the kernel on
+    uint8 and on int32 rows, the plain version on every lane, the tile
+    and hybrid programs' bitmaps against the oracle's."""
+    from tendermint_tpu_torch.crypto import sr25519_corpus
+    from tendermint_tpu_torch.ops import sr25519_cuda as X
+    from tendermint_tpu_torch.ops import sr25519_kernel as SK
 
-    batches = gpu_verifier.stats()["batches"]
-    reset_launches()
-    fn()
-    counts = launches()
-    dispatched = gpu_verifier.stats()["batches"] - batches
-    if dispatched != windows:
-        raise AssertionError(f"{dispatched} windows dispatched, not {windows}")
-    for name in kernels:
-        if counts[name] != windows:
+    triples = sr25519_corpus.corpus(seed + 3)
+    want = np.array(sr25519_corpus.expected(triples))
+    out = {}
+    for sizes, count in [([w], w - w // 16) for w in X3_WIDTHS] + [
+        ([RAGGED], RAGGED - PAD)
+    ]:
+        reps = -(-count // len(triples))
+        tr = (triples * reps)[:count]
+        exp = np.tile(want, reps)[:count]
+        pks, msgs, sigs = (list(x) for x in zip(*tr))
+        verifier = SK.Sr25519Verifier(bucket_sizes=sizes, device=dev)
+        w = verifier.upload(pks, msgs, sigs)
+        width = w.pk_b.shape[1]
+        if width != sizes[0]:
+            raise AssertionError(f"packed width {width} != {sizes[0]}")
+        rows = (w.pk_b, w.sig_b, w.k_b)
+        kern = X.verify_sr(*rows).cpu().numpy()
+        as_int32 = X.verify_sr(*(r.int() for r in rows)).cpu().numpy()
+        plain = SK._verify_tile_sr(*rows).cpu().numpy()
+        hybrid = SK.Sr25519Verifier(
+            bucket_sizes=sizes, device=dev, program="hybrid"
+        ).verify(pks, msgs, sigs)
+        checks = {
+            "kernel_eq_plain_all_lanes": np.array_equal(kern, plain),
+            "int32_rows_eq_uint8": np.array_equal(kern, as_int32),
+            "kernel_eq_oracle": np.array_equal(kern[:count] & w.size_ok, exp),
+            "tile_eq_oracle": np.array_equal(
+                verifier.verify(pks, msgs, sigs), exp
+            ),
+            "hybrid_eq_oracle": np.array_equal(hybrid, exp),
+            "padding_lanes_false": not kern[count:].any(),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"X3 corpus check at {width}: {checks}")
+        out[str(width)] = {
+            "n": count,
+            "valid": int(exp.sum()),
+            "malformed": int((~w.size_ok).sum()),
+        }
+    emit(
+        {
+            "phase": "sr25519_tile",
+            "corpus": len(triples),
+            "widths": out,
+            "ok": True,
+        }
+    )
+
+
+def count_one_call(fn, expect: dict) -> dict:
+    """Launch counts of one call of fn, zeroed just before it and read
+    just after, in all and per key type. For the call each verifier
+    class's dispatch() is wrapped to read the counters before and after
+    it (the wrapper only reads them), so a launch is charged to the key
+    type whose window made it. expect: {key type: (windows the call must
+    dispatch, {kernel: launches that key type's dispatches must make})};
+    every other kernel must not launch, and no launch may fall outside a
+    dispatch."""
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.ops.ed25519_kernel import Ed25519Verifier
+    from tendermint_tpu_torch.ops.sr25519_kernel import Sr25519Verifier
+
+    by_type: dict = {}
+
+    def charged(dispatch, key_type):
+        def wrapper(self, *args):
+            before = launches()
+            handle = dispatch(self, *args)
+            mine = by_type.setdefault(key_type, dict.fromkeys(before, 0))
+            for name, n in launches().items():
+                mine[name] += n - before[name]
+            return handle
+
+        return wrapper
+
+    classes = {Ed25519Verifier: "ed25519", Sr25519Verifier: "sr25519"}
+    originals = {cls: cls.__dict__["dispatch"] for cls in classes}
+    before = gpu_verifier.stats()
+    for cls, key_type in classes.items():
+        cls.dispatch = charged(originals[cls], key_type)
+    try:
+        reset_launches()
+        fn()
+        counts = launches()
+    finally:
+        for cls, dispatch in originals.items():
+            cls.dispatch = dispatch
+    after = gpu_verifier.stats()
+    for key_type, (want, _kernels) in expect.items():
+        got = after[f"batches_{key_type}"] - before[f"batches_{key_type}"]
+        if got != want:
+            raise AssertionError(f"{got} {key_type} windows, not {want}")
+    for key_type in set(by_type) | set(expect):
+        want = expect.get(key_type, (0, {}))[1]
+        for name, got in by_type.get(key_type, {}).items():
+            if got != want.get(name, 0):
+                raise AssertionError(
+                    f"{key_type} windows launched {name} {got} times, "
+                    f"not {want.get(name, 0)}"
+                )
+    for name, got in counts.items():
+        charged_sum = sum(t.get(name, 0) for t in by_type.values())
+        if got != charged_sum:
             raise AssertionError(
-                f"{name} launched {counts[name]} times for {windows} windows"
+                f"{name}: {got - charged_sum} launches outside a dispatch"
             )
-    return counts
+    return {**counts, "by_key_type": by_type}
 
 
 def phase_x1_latency() -> dict:
@@ -593,11 +764,11 @@ def phase_main_path(torch, seed: int) -> dict:
     gpu_verifier.install()
     try:
         # one call each, counted: X1 and K2 once per dispatched window
-        tile_kernels = ("sha512_ram", "ed25519_verify_tile")
-        per_call = count_one_call(full, windows, tile_kernels)
-        per_call_light = count_one_call(
-            light, -(-LIGHT_VALIDATORS // step), tile_kernels
-        )
+        def tile(w):
+            return {"sha512_ram": w, "ed25519_verify_tile": w}
+
+        per_call = count_one_call(full, {"ed25519": (windows, tile(windows))})
+        per_call_light = count_one_call(light, {"ed25519": (1, tile(1))})
         p50, p95 = time_commit(full, REPS)
         l50, l95 = time_commit(light, REPS)
         bad_idx = N_VALIDATORS * 7 // 9
@@ -621,7 +792,15 @@ def phase_main_path(torch, seed: int) -> dict:
     # the hybrid program: plain preparation and compare around kernel K1
     gpu_verifier.install(program="hybrid")
     try:
-        hybrid = count_one_call(full, windows, ("sha512_ram", "ed25519_dual_mult"))
+        hybrid = count_one_call(
+            full,
+            {
+                "ed25519": (
+                    windows,
+                    {"sha512_ram": windows, "ed25519_dual_mult": windows},
+                )
+            },
+        )
     finally:
         gpu_verifier.uninstall()
 
@@ -653,12 +832,136 @@ def phase_main_path(torch, seed: int) -> dict:
     }
 
 
-def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
+def phase_sr25519_main_path(torch, seed: int) -> dict:
+    """The same entry points on mixed commits (BASELINE.md config 5's
+    shape): 5,000 ed25519 and 5,000 sr25519 validators, each key type
+    one batch verifier streaming its own windows, and 75 + 75 for the
+    light commit; launch counts zeroed just before each path and read
+    just after."""
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.crypto.gpu_verifier import (
+        GpuSr25519BatchVerifier,
+    )
+    from tendermint_tpu_torch.types.validation import (
+        InvalidCommitError,
+        verify_commit,
+        verify_commit_light,
+    )
+
+    n_sr = N_VALIDATORS // 2
+    t0 = time.perf_counter()
+    timings = {}
+    vals, bid, commit = build_commit(N_VALIDATORS, seed, n_sr, timings)
+    vals150, bid150, commit150 = build_commit(
+        LIGHT_VALIDATORS, seed + 1, LIGHT_VALIDATORS // 2
+    )
+    build_s = time.perf_counter() - t0
+    kinds = [v.pub_key.type() for v in vals.validators]
+    if kinds.count("sr25519") != n_sr:
+        raise AssertionError(f"{kinds.count('sr25519')} sr25519 validators")
+    step = GpuSr25519BatchVerifier.STREAM_CHUNK
+    w_sr = -(-n_sr // step)
+    w_ed = -(-(N_VALIDATORS - n_sr) // step)
+
+    # the light commit through the host oracles first: the reference
+    # outcome the device path must reproduce
+    verify_commit_light(CHAIN_ID, vals150, bid150, HEIGHT, commit150)
+
+    def full():
+        verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)
+
+    def light():
+        verify_commit_light(CHAIN_ID, vals150, bid150, HEIGHT, commit150)
+
+    def tile(ed, sr):
+        return {
+            "ed25519": (ed, {"sha512_ram": ed, "ed25519_verify_tile": ed}),
+            "sr25519": (sr, {"sr25519_verify": sr}),
+        }
+
+    gpu_verifier.install()
+    try:
+        per_call = count_one_call(full, tile(w_ed, w_sr))
+        per_call_light = count_one_call(light, tile(1, 1))
+        p50, p95 = time_commit(full, REPS)
+        l50, l95 = time_commit(light, REPS)
+        # one bad sr25519 signature: the reference error at its index
+        bad_idx = next(
+            i
+            for i in range(N_VALIDATORS * 5 // 9, N_VALIDATORS)
+            if kinds[i] == "sr25519"
+        )
+        good_sig = commit.signatures[bad_idx].signature
+        bad_sig = good_sig[:9] + bytes([good_sig[9] ^ 0x20]) + good_sig[10:]
+        commit.signatures[bad_idx].signature = bad_sig
+        want = f"wrong signature (#{bad_idx}): {bad_sig.hex()}"
+        try:
+            full()
+        except InvalidCommitError as e:
+            if str(e) != want:
+                raise AssertionError(f"not the reference error: {e}")
+        else:
+            raise AssertionError("the corrupted mixed commit verified")
+        finally:
+            commit.signatures[bad_idx].signature = good_sig
+        stats = gpu_verifier.stats()
+    finally:
+        gpu_verifier.uninstall()
+
+    # the hybrid program: plain decode and compare around kernel K1 for
+    # both key types
+    gpu_verifier.install(program="hybrid")
+    try:
+        hybrid = count_one_call(
+            full,
+            {
+                "ed25519": (
+                    w_ed,
+                    {"sha512_ram": w_ed, "ed25519_dual_mult": w_ed},
+                ),
+                "sr25519": (w_sr, {"ed25519_dual_mult": w_sr}),
+            },
+        )
+    finally:
+        gpu_verifier.uninstall()
+
+    emit(
+        {
+            "phase": "sr25519_main_path",
+            "validators": {"ed25519": N_VALIDATORS - n_sr, "sr25519": n_sr},
+            "commit_build_s": build_s,
+            "commit_build_10k_s": timings,
+            "verify_commit_ms": {"p50": p50, "p95": p95, "reps": REPS},
+            "verify_commit_light_150_ms": {
+                "p50": l50,
+                "p95": l95,
+                "reps": REPS,
+            },
+            "rejected_bad_sr25519_index": bad_idx,
+            "launches_per_verify_commit": per_call,
+            "launches_per_verify_commit_light": per_call_light,
+            "launches_per_hybrid_verify_commit": hybrid,
+            "verifier_stats": stats,
+            "ok": True,
+        }
+    )
+    return {
+        "vals": vals,
+        "commit": commit,
+        "tile": per_call,
+        "hybrid": hybrid,
+    }
+
+
+def phase_kernels(
+    torch, dev, main: dict, mixed: dict, card: str, power: str
+) -> dict:
     """Each kernel on the inputs the main path gives it for one commit
     (the batch verifier streams it in STREAM_CHUNK windows, each one
-    dispatch): its time and its plain version's on the same inputs, the
-    largest difference between them, and the least time the card could
-    take for the same work."""
+    dispatch; X3 on the mixed commit's sr25519 windows): its time and
+    its plain version's on the same inputs, the largest difference
+    between them, and the least time the card could take for the same
+    work."""
     from tendermint_tpu_torch.crypto.gpu_verifier import (
         GpuEd25519BatchVerifier,
     )
@@ -797,12 +1100,70 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
             lanes * field_instr(SQ_K1, MUL_K1),
         )
     )
+    rows[-1]["launches_mixed_hybrid"] = mixed["hybrid"]["ed25519_dual_mult"]
+    rows[-1]["launches_sr25519_hybrid"] = mixed["hybrid"]["by_key_type"][
+        "sr25519"
+    ]["ed25519_dual_mult"]
+
+    # X3 on the mixed commit's sr25519 windows as the main path uploads
+    # them (pk, sig and the host's challenges in one copy)
+    from tendermint_tpu_torch.ops import sr25519_cuda as X
+    from tendermint_tpu_torch.ops import sr25519_kernel as SK
+
+    sr = [
+        t
+        for t, v in zip(
+            zip(*commit_triples(mixed["vals"], mixed["commit"])),
+            mixed["vals"].validators,
+        )
+        if v.pub_key.type() == "sr25519"
+    ]
+    sr_verifier = SK.Sr25519Verifier(device=dev)
+    sr_wins = [
+        sr_verifier.upload(*(list(x) for x in zip(*sr[i : i + step])))
+        for i in range(0, len(sr), step)
+    ]
+    x3 = lambda: [  # noqa: E731
+        X.verify_sr(w.pk_b, w.sig_b, w.k_b) for w in sr_wins
+    ]
+    x3_plain = lambda: [  # noqa: E731
+        SK._verify_tile_sr(w.pk_b, w.sig_b, w.k_b) for w in sr_wins
+    ]
+    got, plain = x3(), x3_plain()
+    lane = 0
+    for w, g in zip(sr_wins, got):
+        if not bool(g[: len(w.size_ok)].all()):
+            raise AssertionError("X3 rejected a valid signature of the commit")
+        lane += len(w.size_ok)
+    err = max(
+        int((a.int() - b.int()).abs().max().item()) for a, b in zip(got, plain)
+    )
+    # what the check needs: each signature's pk, sig and challenge read
+    # and its bit written once, and its field operations (no padding lanes)
+    rows.append(
+        row(
+            "sr25519_verify",
+            "tendermint_tpu_torch/ops/csrc/sr25519_verify.cu",
+            "tendermint_tpu/ops/sr25519_kernel.py:150",
+            mixed["tile"]["sr25519_verify"],
+            [w.pk_b.shape[1] for w in sr_wins],
+            err,
+            x3,
+            x3_plain,
+            lane * (32 + 64 + 32 + 1),
+            lane * field_instr(SQ_X3, MUL_X3),
+        )
+    )
+
     # one launch at each width that matters: 128 is the light commit's
     # bucket (it adds 101 signatures, then 2/3 of the power is reached),
     # 512 a mid-size batch, 2048 the streaming window, 12288 the widest
     # bucket (the 10k commit's signatures, zero lanes after)
     def packed_at(w):
         return verifier.pack(pks[:w], msgs[:w], sigs[:w])[:3]
+
+    def sr_at(w):
+        return sr_verifier.upload(*(list(x) for x in zip(*sr[:w])))
 
     k2_w = {w: packed_at(w) for w in K2_WIDTHS}
     k1_w = {w: k1_inputs(*k2_w[w]) for w in K1_WIDTHS}
@@ -825,6 +1186,15 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
             )
             for w, a in k1_w.items()
         },
+        "sr25519_verify": {
+            w: (
+                lambda u=u: X.verify_sr(u.pk_b, u.sig_b, u.k_b),
+                w * (32 + 64 + 32 + 1),
+                w * field_instr(SQ_X3, MUL_X3),
+                u.pk_b.shape[1],
+            )
+            for w, u in ((w, sr_at(w)) for w in X3_WIDTHS)
+        },
     }
     from tendermint_tpu_torch.ops import build
 
@@ -834,6 +1204,7 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
         "sha512_ram": ("sha512", "sha512_ram_kernel"),
         "ed25519_verify_tile": ("ed25519_verify", ""),
         "ed25519_dual_mult": ("ed25519_dual_mult", ""),
+        "sr25519_verify": ("sr25519_verify", ""),
     }
     for r in rows:
         if r["max_abs_err"] != 0:
@@ -853,14 +1224,48 @@ def phase_kernels(torch, dev, main: dict, card: str, power: str) -> dict:
     return {"kernels": rows}
 
 
-def phase_profile(torch, main: dict, reps: int, out_dir: str) -> None:
+@contextlib.contextmanager
+def timed(owner, attr: str, into: list):
+    """For the block, owner.attr is wrapped to append each call's host
+    milliseconds to `into`; the call itself is unchanged."""
+    own = attr in vars(owner)
+    orig = getattr(owner, attr)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            into.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(owner, attr, wrapper)
+    try:
+        yield
+    finally:
+        if own:
+            setattr(owner, attr, orig)
+        else:
+            delattr(owner, attr)
+
+
+def phase_profile(torch, main: dict, reps: int, out_dir: str, name: str):
     """Where one verify_commit's time goes (run with --profile): host
-    clocks around its stages, and torch.profiler's device time by kernel
-    over `reps` calls, with the chrome trace in out_dir."""
+    clocks around the stages of the real call, and torch.profiler's
+    device time by kernel over `reps` calls, with the chrome trace in
+    out_dir. The stages are timed by wrapping the functions
+    verify_commit calls: sign_bytes (Commit.sign_bytes_batch), drain
+    (validation._drain_pending: each key type's add loop, full windows
+    dispatched from add(), and its verify()), verify (the batch
+    verifiers' verify(): the last windows and the gathers); add is drain
+    less verify, scan the rest (the per-vote predicates and tally).
+    "merlin_in_add_and_verify" is the time inside challenge_batch, the
+    host part of the sr25519 windows that computes their challenges.
+    The signatures per key type are what the verifiers counted."""
     from torch.profiler import ProfilerActivity, profile
 
     from tendermint_tpu_torch.crypto import gpu_verifier
-    from tendermint_tpu_torch.crypto.batch import create_batch_verifier
+    from tendermint_tpu_torch.crypto import sr25519 as sr_mod
+    from tendermint_tpu_torch.types import validation
     from tendermint_tpu_torch.types.validation import verify_commit
 
     vals, commit = main["vals"], main["commit"]
@@ -868,21 +1273,27 @@ def phase_profile(torch, main: dict, reps: int, out_dir: str) -> None:
     gpu_verifier.install()
     try:
         verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)  # warm
-        stages = {"sign_bytes": [], "add": [], "verify": [], "total": []}
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            sbs = commit.sign_bytes_batch(CHAIN_ID)
-            t1 = time.perf_counter()
-            bv = create_batch_verifier(vals.validators[0].pub_key, len(sbs))
-            for v, sb, cs in zip(vals.validators, sbs, commit.signatures):
-                bv.add(v.pub_key, sb, cs.signature)
-            t2 = time.perf_counter()
-            ok, _bits = bv.verify()
-            t3 = time.perf_counter()
-            if not ok:
-                raise AssertionError("the valid commit failed in the profile")
-            for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
-                stages[k].append(v * 1e3)
+        stages = {"sign_bytes": [], "drain": [], "verify": [], "merlin": []}
+        per_rep = {k: [] for k in ("sign_bytes", "drain", "verify", "total")}
+        per_rep["merlin"] = []
+        before = gpu_verifier.stats()
+        with contextlib.ExitStack() as hooks:
+            for owner, attr, into in (
+                (type(commit), "sign_bytes_batch", "sign_bytes"),
+                (validation, "_drain_pending", "drain"),
+                (gpu_verifier._GpuBatchVerifier, "verify", "verify"),
+                (sr_mod, "challenge_batch", "merlin"),
+            ):
+                hooks.enter_context(timed(owner, attr, stages[into]))
+            for _ in range(reps):
+                for v in stages.values():
+                    v.clear()
+                t0 = time.perf_counter()
+                verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)
+                per_rep["total"].append((time.perf_counter() - t0) * 1e3)
+                for k, v in stages.items():
+                    per_rep[k].append(sum(v))
+        after = gpu_verifier.stats()
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -890,29 +1301,48 @@ def phase_profile(torch, main: dict, reps: int, out_dir: str) -> None:
                 verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)
             wall = (time.perf_counter() - t0) * 1e3 / reps
         os.makedirs(out_dir, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(out_dir, "verify_commit_trace.json")
-        )
+        prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
     finally:
         gpu_verifier.uninstall()
+    signatures = {
+        k[len("sigs_") :]: (after[k] - before[k]) // reps
+        for k in after
+        if k.startswith("sigs_") and after[k] != before[k]
+    }
+    if sum(signatures.values()) != len(commit.signatures):
+        raise AssertionError(f"the profiled calls verified {signatures}")
     kernels = {}  # device-side events only (kernels, copies), each once
     for evt in prof.key_averages():
         on_device = "cuda" in str(evt.device_type).lower()
         if on_device and evt.self_device_time_total > 0:
             kernels[evt.key] = evt.self_device_time_total / 1e3 / reps
     busy = sum(kernels.values())
-    host_total = float(np.median(stages["total"]))
+    med = {k: float(np.median(v)) for k, v in per_rep.items()}
+    adds = np.subtract(per_rep["drain"], per_rep["verify"])
+    scans = np.subtract(
+        per_rep["total"], np.add(per_rep["sign_bytes"], per_rep["drain"])
+    )
+    stage_ms = {
+        "sign_bytes": med["sign_bytes"],
+        "scan": float(np.median(scans)),
+        "add": float(np.median(adds)),
+        "verify": med["verify"],
+        "total": med["total"],
+    }
+    if signatures.get("sr25519"):
+        stage_ms["merlin_in_add_and_verify"] = med["merlin"]
     emit(
         {
-            "phase": "profile",
-            "stage_ms_p50": {
-                k: float(np.median(v)) for k, v in stages.items()
-            },
+            "phase": name,
+            "signatures": signatures,
+            "stage_ms_p50": stage_ms,
             "profiled_wall_ms_per_commit": wall,
             "device_ms_per_commit": kernels,
             "device_busy_ms_per_commit": busy if kernels else None,
             # against the unprofiled wall (the profiler slows the host)
-            "device_idle_share": (1 - busy / host_total) if kernels else None,
+            "device_idle_share": (
+                (1 - busy / med["total"]) if kernels else None
+            ),
         }
     )
 
@@ -958,8 +1388,10 @@ def main() -> int:
     phase_dual_mult(torch, dev, args.seed)
     phase_verify_tile(torch, dev, args.seed)
     phase_ragged_width(torch, dev, args.seed)
+    phase_sr25519_tile(torch, dev, args.seed)
     main_run = phase_main_path(torch, args.seed)
-    kernels = phase_kernels(torch, dev, main_run, card, power)
+    mixed_run = phase_sr25519_main_path(torch, args.seed)
+    kernels = phase_kernels(torch, dev, main_run, mixed_run, card, power)
     x1 = next(r for r in kernels["kernels"] if r["name"] == "sha512_ram")
     if x1["spill_store_bytes"] or x1["spill_load_bytes"]:
         raise AssertionError("X1 spills registers")
@@ -970,7 +1402,8 @@ def main() -> int:
     x1["latency_floor_ms_per_window"] = floor["row_ns"] / 1e6
     x1["latency_floor_cycles"] = floor["row_cycles"]
     if args.profile:
-        phase_profile(torch, main_run, 5, args.out)
+        phase_profile(torch, main_run, 5, args.out, "profile")
+        phase_profile(torch, mixed_run, 5, args.out, "sr25519_profile")
     torch.cuda.synchronize()
     print(smi, flush=True)
     emit(kernels)

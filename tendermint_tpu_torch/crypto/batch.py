@@ -1,10 +1,11 @@
 """Batch-verifier dispatch: the offload decision point.
 
-Counterpart: tendermint_tpu/crypto/batch.py:43-170. A device factory
-registered here (crypto/gpu_verifier.install) serves a key type's
-batches once the caller's size hint is large enough; until then, and
-for key types without one, the registered CPU factory does, as in the
-reference, where pure Go is the default.
+Counterpart: tendermint_tpu/crypto/batch.py:43-170 and its defaults
+:220-230 (ed25519 and sr25519; secp256k1 has no device path and is not
+ported). A device factory registered here (crypto/gpu_verifier.install)
+serves a key type's batches once the caller's size hint is large enough;
+until then, and for key types without one, the registered CPU factory
+does, as in the reference, where pure Go is the default.
 """
 
 from __future__ import annotations
@@ -69,9 +70,11 @@ def create_batch_verifier(pk: PubKey, size_hint: int = 0) -> BatchVerifier:
 
 
 def _register_defaults() -> None:
-    from .ed25519 import KEY_TYPE, Ed25519BatchVerifier
+    from .ed25519 import KEY_TYPE as ED, Ed25519BatchVerifier
+    from .sr25519 import KEY_TYPE as SR, Sr25519BatchVerifier
 
-    register_cpu_factory(KEY_TYPE, Ed25519BatchVerifier)
+    register_cpu_factory(ED, Ed25519BatchVerifier)
+    register_cpu_factory(SR, Sr25519BatchVerifier)
 
 
 _register_defaults()

@@ -1,11 +1,18 @@
-"""Device-backed BatchVerifier: the GPU side of the plugin boundary.
+"""Device-backed BatchVerifiers: the GPU side of the plugin boundary.
 
 Counterpart: tendermint_tpu/crypto/tpu_verifier.py:387-720
-(`_TpuBatchVerifier` add/verify, `install`, `uninstall`, `stats`).
-install() registers a factory with crypto.batch so that
-create_batch_verifier returns a GpuEd25519BatchVerifier for ed25519
-batches of at least `min_batch` signatures; the verifier runs
-ops/ed25519_kernel.Ed25519Verifier on the installed device.
+(`_TpuBatchVerifier` add/verify and its ed25519 and sr25519 subclasses,
+`stats`), :791-801 (`_factory_sr`) and :894-950 (`install`,
+`uninstall`). install() registers a factory per key type with
+crypto.batch, so that create_batch_verifier returns a
+GpuEd25519BatchVerifier for ed25519 batches of at least `min_batch`
+signatures and a GpuSr25519BatchVerifier for every sr25519 batch; they
+run ops/ed25519_kernel.Ed25519Verifier and ops/sr25519_kernel.
+Sr25519Verifier on the installed device.
+
+sr25519's minimum batch is 1, as the JAX package's is on an
+accelerator: the port's CPU sr25519 verifier is pure Python at several
+ms per signature, so even one signature is cheaper on the card.
 
 Contract kept: verify() returns (all_ok, bitmap) in add order; malformed
 sizes are reported False per index; full STREAM_CHUNK windows are
@@ -13,8 +20,9 @@ dispatched from add() as they fill, so host assembly overlaps device
 work; stats() returns integer counters.
 
 Left out on purpose: the circuit breaker, the gather watchdog, the
-fault plane and the CPU re-verify. Here a device error raises out of
-verify(); nothing re-runs the batch elsewhere.
+fault plane, the CPU re-verify and the sr25519 single-verify route.
+Here a device error raises out of verify(); nothing re-runs the batch
+elsewhere.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from .keys import BatchVerifier, PubKey
 __all__ = [
     "DEFAULT_MIN_BATCH",
     "GpuEd25519BatchVerifier",
+    "GpuSr25519BatchVerifier",
     "install",
     "installed",
     "stats",
@@ -34,16 +43,24 @@ __all__ = [
 ]
 
 DEFAULT_MIN_BATCH = 2
+KEY_TYPES = ("ed25519", "sr25519")
 
-_STATS = {"batches": 0, "sigs": 0}
-_VERIFIER = None  # the installed ops.ed25519_kernel.Ed25519Verifier
+# windows dispatched and signatures verified, in all and per key type
+_STATS = {
+    f"{count}{suffix}": 0
+    for count in ("batches", "sigs")
+    for suffix in ("", *(f"_{kt}" for kt in KEY_TYPES))
+}
+# the installed ops verifiers by key type (Ed25519Verifier, Sr25519Verifier)
+_VERIFIERS: dict = {}
 _MIN_BATCH = DEFAULT_MIN_BATCH
 
 
-class GpuEd25519BatchVerifier(BatchVerifier):
-    """Queues triples on the host, verifies them on the device."""
+class _GpuBatchVerifier(BatchVerifier):
+    """Queues triples on the host, verifies them on the device in
+    STREAM_CHUNK windows, each one dispatch of the ops verifier."""
 
-    KEY_TYPE = "ed25519"
+    KEY_TYPE = ""  # subclasses set
     STREAM_CHUNK = 2048  # == a DEFAULT_BUCKET_SIZES entry
 
     def __init__(self, verifier) -> None:
@@ -59,6 +76,7 @@ class GpuEd25519BatchVerifier(BatchVerifier):
             self._verifier.dispatch(self._pks, self._msgs, self._sigs)
         )
         _STATS["batches"] += 1
+        _STATS[f"batches_{self.KEY_TYPE}"] += 1
         self._pks, self._msgs, self._sigs = [], [], []
 
     def add(self, pub_key: PubKey, message: bytes, signature: bytes) -> None:
@@ -91,46 +109,75 @@ class GpuEd25519BatchVerifier(BatchVerifier):
             self._pks, self._msgs, self._sigs = [], [], []
             n, self._n = self._n, 0
         _STATS["sigs"] += n
+        _STATS[f"sigs_{self.KEY_TYPE}"] += n
         return all(bits), bits
 
     def __len__(self) -> int:
         return self._n
 
 
+class GpuEd25519BatchVerifier(_GpuBatchVerifier):
+    """ed25519 on the device: kernels X1 and K2 (or K1, hybrid)."""
+
+    KEY_TYPE = "ed25519"
+
+
+class GpuSr25519BatchVerifier(_GpuBatchVerifier):
+    """sr25519 on the device: merlin challenges on the host, then kernel
+    X3 (or K1, hybrid)."""
+
+    KEY_TYPE = "sr25519"
+
+
 def _factory(size_hint: int) -> Optional[BatchVerifier]:
     if 0 < size_hint < _MIN_BATCH:
         return None  # a tiny batch stays on the CPU default
-    return GpuEd25519BatchVerifier(_VERIFIER)
+    return GpuEd25519BatchVerifier(_VERIFIERS["ed25519"])
+
+
+def _factory_sr(size_hint: int) -> Optional[BatchVerifier]:
+    # minimum batch 1: the CPU default is pure Python (module docstring)
+    return GpuSr25519BatchVerifier(_VERIFIERS["sr25519"])
 
 
 def install(
     device="cuda", min_batch: int = DEFAULT_MIN_BATCH, program: str = "tile"
 ) -> None:
-    """Register the device factory for ed25519 on `device` (CUDA by
-    default; raises when there is none). `program` is "tile" (kernel K2)
-    or "hybrid" (kernel K1 inside plain torch)."""
-    global _VERIFIER, _MIN_BATCH
+    """Register the device factories for ed25519 and sr25519 on `device`
+    (CUDA by default; raises when there is none). `program` is "tile"
+    (kernels K2 and X3) or "hybrid" (kernel K1 inside plain torch, for
+    both key types). `min_batch` gates ed25519 only."""
+    global _MIN_BATCH
     from ..ops.ed25519_kernel import Ed25519Verifier
+    from ..ops.sr25519_kernel import Sr25519Verifier
 
-    _VERIFIER = Ed25519Verifier(device=device, program=program)
+    verifiers = {
+        "ed25519": Ed25519Verifier(device=device, program=program),
+        "sr25519": Sr25519Verifier(device=device, program=program),
+    }
+    _VERIFIERS.clear()
+    _VERIFIERS.update(verifiers)
     _MIN_BATCH = min_batch
     register_device_factory("ed25519", _factory)
+    register_device_factory("sr25519", _factory_sr)
 
 
 def uninstall() -> None:
-    """Remove the device factory: batches go back to the CPU default."""
-    global _VERIFIER, _MIN_BATCH
-    unregister_device_factory("ed25519")
-    _VERIFIER = None
+    """Remove the device factories: batches go back to the CPU default."""
+    global _MIN_BATCH
+    for key_type in KEY_TYPES:
+        unregister_device_factory(key_type)
+    _VERIFIERS.clear()
     _MIN_BATCH = DEFAULT_MIN_BATCH
 
 
 def installed() -> Optional[int]:
-    """The installed min_batch, or None when not installed."""
-    return _MIN_BATCH if _VERIFIER is not None else None
+    """The installed ed25519 min_batch, or None when not installed."""
+    return _MIN_BATCH if _VERIFIERS else None
 
 
 def stats() -> dict:
-    """Integer counters: device batches dispatched and signatures
-    verified since the process started."""
+    """Integer counters since the process started: device windows
+    dispatched ("batches") and signatures verified ("sigs"), in all and
+    per key type ("batches_sr25519", "sigs_ed25519", ...)."""
     return dict(_STATS)

@@ -7,7 +7,7 @@ JAX package writes:
   Commit.to_proto() (types/commit.py:438) -> the port's Commit;
 - validator_set_from_proto: the wire bytes of
   ValidatorSet.to_proto() (types/validator.py:516) -> the port's
-  ValidatorSet;
+  ValidatorSet, ed25519 and sr25519 keys alike;
 - points_from_numpy: a (k, 20, N) int32 limb stack from the JAX field
   and point functions (as numpy) -> a tensor for kernel K1 and the
   point-level functions here.
@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .crypto import batch  # noqa: F401  (registers the key types)
 from .ops import field25519 as F
 from .types.commit import Commit
 from .types.validator import ValidatorSet

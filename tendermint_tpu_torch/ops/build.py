@@ -65,6 +65,9 @@ _SIGNATURES = {
     "ed25519_dual_mult": {
         "tm_ed25519_dual_mult": ([_V, _V, _V, _V, _I, _I, _V], _I),
     },
+    "sr25519_verify": {
+        "tm_sr25519_verify": ([_V, _V, _V, _V, _I, _I, _I, _V], _I),
+    },
     "sha512": {
         "tm_sha512_rows": ([_V, _V, _I, _I, _I, _V], _I),
         "tm_sha512_ram": ([_V, _V, _V, _V, _V, _I, _I, _I, _V], _I),

@@ -34,6 +34,7 @@ from . import field25519 as F
 from .sha512_kernel import sha512_ragged
 
 __all__ = [
+    "BucketedVerifier",
     "Ed25519Verifier",
     "Window",
     "bucket_for",
@@ -292,14 +293,27 @@ class Window(NamedTuple):
     size_ok: np.ndarray  # (n,) bool, host
 
 
-class Ed25519Verifier:
-    """Bucketed batch verifier on one device.
+def size_mask(pubkeys, sigs):
+    """(size_ok (n,) bool, pubkeys, sigs) with every triple of a
+    malformed size given all-zero rows, so that a batch of any content
+    packs; its lanes are masked by size_ok after the fact."""
+    size_ok = np.array(
+        [len(pk) == 32 and len(sig) == 64 for pk, sig in zip(pubkeys, sigs)],
+        dtype=bool,
+    )
+    if not size_ok.all():
+        pubkeys = [pk if ok else bytes(32) for pk, ok in zip(pubkeys, size_ok)]
+        sigs = [sig if ok else bytes(64) for sig, ok in zip(sigs, size_ok)]
+    return size_ok, pubkeys, sigs
 
-    `device` defaults to CUDA and raises when there is none; the tests
-    pass device="cpu", which runs the plain versions. `program` picks
-    kernel K2 for the whole check ("tile") or plain torch around kernel
-    K1 ("hybrid"). dispatch() only enqueues device work; gather() waits
-    for it and returns the bitmap."""
+
+class BucketedVerifier:
+    """What the ed25519 and sr25519 batch verifiers share: the device
+    (CUDA by default, raising when there is none; the tests pass
+    device="cpu", which runs the plain versions), the program ("tile"
+    for the whole-check kernel, "hybrid" for kernel K1 inside plain
+    torch), the bucket sizes, verify() and gather(). Subclasses give
+    dispatch(), which only enqueues device work."""
 
     def __init__(
         self,
@@ -310,7 +324,7 @@ class Ed25519Verifier:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                "Ed25519Verifier: CUDA is not available "
+                f"{type(self).__name__}: CUDA is not available "
                 "(pass device='cpu' for the plain version)"
             )
         if program not in PROGRAMS:
@@ -318,20 +332,46 @@ class Ed25519Verifier:
         self.program = program
         self.bucket_sizes = sorted(bucket_sizes or DEFAULT_BUCKET_SIZES)
 
-    def _run(self, pk, sig, dig) -> torch.Tensor:
-        if self.program == "hybrid":
-            return verify_hybrid(pk, sig, dig)
-        from .ed25519_cuda import verify_tile
+    def dispatch(self, pubkeys, msgs, sigs):
+        """Enqueue one batch; returns the handle for gather()."""
+        raise NotImplementedError
 
-        return verify_tile(pk, sig, dig)
+    @staticmethod
+    def _pack_rows(buf: np.ndarray, bucket: int, parts) -> None:
+        """Write each (first row, items, width) part into the flat host
+        buffer as `width` byte rows of `bucket` lanes from row `first row`
+        on, batch axis minor: item i in lane i, the lanes past the items
+        left as they are (zero)."""
+        for rows, items, k in parts:
+            n = len(items)
+            cols = np.frombuffer(b"".join(items), np.uint8).reshape(n, k)
+            view = buf[rows * bucket : (rows + k) * bucket]
+            view.reshape(k, bucket)[:, :n] = cols.T
 
     def verify(self, pubkeys, msgs, sigs) -> np.ndarray:
         """Bool bitmap, one entry per triple; malformed sizes are
         reported invalid rather than raising."""
         return self.gather(self.dispatch(pubkeys, msgs, sigs))
 
-    def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+    def gather(self, handle) -> np.ndarray:
+        """Wait for a dispatch() handle and return the bitmap."""
+        ok, n, size_ok = handle
+        if ok is None:
+            return size_ok
+        return ok.cpu().numpy()[:n] & size_ok
+
+
+class Ed25519Verifier(BucketedVerifier):
+    """Bucketed ed25519 batch verifier on one device: kernel X1 for the
+    digests, then K2 for the whole check ("tile") or plain torch around
+    kernel K1 ("hybrid")."""
+
+    def _run(self, pk, sig, dig) -> torch.Tensor:
+        if self.program == "hybrid":
+            return verify_hybrid(pk, sig, dig)
+        from .ed25519_cuda import verify_tile
+
+        return verify_tile(pk, sig, dig)
 
     def dispatch(self, pubkeys, msgs, sigs):
         """Enqueue one batch; returns the handle for gather()."""
@@ -358,20 +398,7 @@ class Ed25519Verifier:
         with B + 1 int32 offsets (padding lanes of length 0), as
         sha512_ragged takes them."""
         n = len(pubkeys)
-        size_ok = np.array(
-            [
-                len(pk) == 32 and len(sig) == 64
-                for pk, sig in zip(pubkeys, sigs)
-            ],
-            dtype=bool,
-        )
-        if not size_ok.all():
-            pubkeys = [
-                pk if ok else b"\x00" * 32 for pk, ok in zip(pubkeys, size_ok)
-            ]
-            sigs = [
-                sig if ok else b"\x00" * 64 for sig, ok in zip(sigs, size_ok)
-            ]
+        size_ok, pubkeys, sigs = size_mask(pubkeys, sigs)
         bucket = bucket_for(n, self.bucket_sizes)
         lens = np.fromiter(map(len, msgs), dtype=np.int64, count=n)
         offsets = np.zeros(bucket + 1, dtype=np.int32)
@@ -383,13 +410,10 @@ class Ed25519Verifier:
         at_off = 96 * bucket
         at_msg = _round16(at_off + 4 * (bucket + 1))
         buf = np.zeros(at_msg + _round16(total), dtype=np.uint8)
-        for rows, items, k in ((0, pubkeys, 32), (32, sigs, 64)):
-            cols = np.frombuffer(b"".join(items), np.uint8).reshape(n, k)
-            view = buf[rows * bucket : (rows + k) * bucket]
-            view.reshape(k, bucket)[:, :n] = cols.T
+        self._pack_rows(buf, bucket, ((0, pubkeys, 32), (32, sigs, 64)))
         buf[at_off : at_off + 4 * (bucket + 1)] = offsets.view(np.uint8)
         buf[at_msg : at_msg + total] = np.frombuffer(b"".join(msgs), np.uint8)
-        dev = self._to_dev(buf)
+        dev = torch.from_numpy(buf).to(self.device)
         return Window(
             pk_b=dev[: 32 * bucket].view(32, bucket),
             sig_b=dev[32 * bucket : at_off].view(64, bucket),
@@ -398,10 +422,3 @@ class Ed25519Verifier:
             max_len=int(lens.max()),
             size_ok=size_ok,
         )
-
-    def gather(self, handle) -> np.ndarray:
-        """Wait for a dispatch() handle and return the bitmap."""
-        ok, n, size_ok = handle
-        if ok is None:
-            return size_ok
-        return ok.cpu().numpy()[:n] & size_ok

@@ -113,3 +113,30 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
             meta.int(),
             meta.int(),
         )
+
+
+def test_sr25519_verifier_without_cuda_raises():
+    """The sr25519 verifier and the factories install() registers for
+    both key types need the card unless device="cpu" is asked for."""
+    from tendermint_tpu_torch.crypto import batch, gpu_verifier
+    from tendermint_tpu_torch.ops.sr25519_kernel import Sr25519Verifier
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Sr25519Verifier()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gpu_verifier.install(program="hybrid")
+    assert not batch.device_factory_installed("sr25519")
+    Sr25519Verifier(device="cpu")
+
+
+def test_sr25519_wrapper_takes_the_plain_version_only_on_cpu():
+    from tendermint_tpu_torch.ops import sr25519_cuda
+
+    meta = torch.empty((64, 4), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sr25519_cuda.verify_sr(meta[:32], meta, meta[:32])
+    zeros = torch.zeros((64, 2), dtype=torch.uint8)
+    assert sr25519_cuda.verify_sr(zeros[:32], zeros, zeros[:32]).tolist() == [False] * 2
+    assert sr25519_cuda.LAUNCHES == {"sr25519_verify": 0}

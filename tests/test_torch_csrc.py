@@ -1,11 +1,11 @@
 """The CUDA kernels' device code, built with the host C++ compiler.
 
-ops/csrc/ed25519_device.cuh and sha512.cuh hold the per-item bodies of
-kernels K1, K2 and X1 and include no CUDA header, so with the CUDA
-qualifiers defined away a host compiler builds them into a small shared
-library. That library runs each body over a batch, one column at a time,
-and is held against the host ZIP-215 oracle, hashlib and the plain
-PyTorch versions. It checks the kernels' arithmetic, limbs, constants
+ops/csrc/ed25519_device.cuh, sr25519_device.cuh and sha512.cuh hold the
+per-item bodies of kernels K1, K2, X3 and X1 and include no CUDA header,
+so with the CUDA qualifiers defined away a host compiler builds them
+into a small shared library. That library runs each body over a batch,
+one column at a time, and is held against the host ZIP-215 and sr25519
+oracles, hashlib and the plain PyTorch versions. It checks the kernels' arithmetic, limbs, constants
 and byte layout here; that they compile for sm_90a and launch is shown
 on the card (chip_smoke.py). Tolerance: zero (exact bitmaps, digests and
 projective points).
@@ -22,11 +22,13 @@ import pytest
 import torch
 
 from tendermint_tpu.ops import ed25519_kernel as JK
-from tendermint_tpu_torch.crypto import zip215_corpus
+from tendermint_tpu_torch.crypto import ristretto as rst
+from tendermint_tpu_torch.crypto import sr25519_corpus, zip215_corpus
 from tendermint_tpu_torch.ops import ed25519_kernel as K
 from tendermint_tpu_torch.ops import edwards as E
 from tendermint_tpu_torch.ops import field25519 as F
 from tendermint_tpu_torch.ops import sha512_kernel as S
+from tendermint_tpu_torch.ops import sr25519_kernel as SK
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "tendermint_tpu_torch" / "ops" / "csrc"
 
@@ -67,6 +69,7 @@ static inline void lane_sync() { lane_shfl(0, 0); }
 
 #include "ed25519_device.cuh"
 #include "sha512.cuh"
+#include "sr25519_device.cuh"
 
 static void (*g_body)(void);
 static void lane_entry(void) { g_body(); }
@@ -92,7 +95,7 @@ static long run4(void (*body)(void)) {
 }
 
 static struct {
-  const uint8_t *pk, *sig, *dig;
+  const uint8_t *pk, *sig, *dig, *k;
   const int32_t *a, *ds, *dk;
   bool *out;
   int32_t *out32;
@@ -102,6 +105,10 @@ static struct {
 
 static void verify_body(void) {
   ed25519_verify_lane(g.pk, g.sig, g.dig, g.out, g.n, g.es, g.i, g.tab, 4,
+                      &GE_BASE_TABLE[0][0][0]);
+}
+static void sr_verify_body(void) {
+  sr25519_verify_lane(g.pk, g.sig, g.k, g.out, g.n, g.es, g.i, g.tab, 4,
                       &GE_BASE_TABLE[0][0][0]);
 }
 static void dual_mult_body(void) {
@@ -131,6 +138,28 @@ long host_verify(const uint8_t *pk, const uint8_t *sig, const uint8_t *dig,
                  bool *out, int n, int es) {
   g.pk = pk; g.sig = sig; g.dig = dig; g.out = out; g.n = n; g.es = es;
   return run_blocks(verify_body, n);
+}
+// X3's body, the same way: (32, n) pk, (64, n) sig and (32, n) k rows
+long host_sr_verify(const uint8_t *pk, const uint8_t *sig, const uint8_t *k,
+                    bool *out, int n, int es) {
+  g.pk = pk; g.sig = sig; g.k = k; g.out = out; g.n = n; g.es = es;
+  return run_blocks(sr_verify_body, n);
+}
+// X3's ristretto decode on one lane, column by column of (32, n) uint8
+// rows: ok, and the canonical x and y as 32 little-endian bytes each
+void host_sr_decode(const uint8_t *enc, int n, bool *ok, uint8_t *xy) {
+  for (int i = 0; i < n; i++) {
+    uint64_t w[4];
+    load_words<4>(w, enc, 0, n, i, 1, true);
+    ge_p3 p;
+    ok[i] = ristretto_decode(p, w);
+    fe_canonical(p.X);
+    fe_canonical(p.Y);
+    fe_to_words(w, p.X);
+    memcpy(xy + 64 * i, w, 32);
+    fe_to_words(w, p.Y);
+    memcpy(xy + 64 * i + 32, w, 32);
+  }
 }
 long host_dual_mult(const int32_t *a, const int32_t *ds, const int32_t *dk,
                     int32_t *out, int n) {
@@ -196,6 +225,7 @@ def lib(tmp_path_factory):
     dll = ctypes.CDLL(str(so))
     dll.host_verify.restype = ctypes.c_long
     dll.host_dual_mult.restype = ctypes.c_long
+    dll.host_sr_verify.restype = ctypes.c_long
     return dll
 
 
@@ -453,3 +483,107 @@ def test_k2_phase_stamps_find_their_anchors():
     header = (CSRC / "ed25519_device.cuh").read_text()
     out = k2_phases.stamped(header)
     assert [out.count(f"PSTAMP({k});") for k in range(6)] == [1] * 6
+
+
+# -- kernel X3 --
+
+
+@pytest.fixture(scope="module")
+def sr_corpus():
+    triples = sr25519_corpus.corpus(seed=1)
+    return triples, sr25519_corpus.expected(triples)
+
+
+def _sr_rows(triples, pad):
+    """(pk, sig, k) byte rows of the triples as the verifier uploads
+    them (challenges from the host, malformed sizes as zero rows), with
+    pad all-zero lanes, and the size mask."""
+    pks, msgs, sigs = (list(x) for x in zip(*triples))
+    v = SK.Sr25519Verifier(bucket_sizes=[len(triples) + pad], device="cpu")
+    w = v.upload(pks, msgs, sigs)
+    rows = [np.ascontiguousarray(t.numpy()) for t in (w.pk_b, w.sig_b, w.k_b)]
+    return rows, w.size_ok
+
+
+def _host_sr_verify(lib, pk, sig, k):
+    """The four-lane X3 body over every block a launch would run, as
+    _host_verify runs K2's."""
+    n = pk.shape[1]
+    padded = -(-n // SIGS_PER_BLOCK) * SIGS_PER_BLOCK
+    out = np.full(padded, SENTINEL, dtype=np.uint8)
+    rounds = lib.host_sr_verify(
+        _ptr(pk), _ptr(sig), _ptr(k), _ptr(out), ctypes.c_int(n),
+        ctypes.c_int(pk.itemsize),
+    )
+    assert rounds > 0, "the four lanes fell out of lock-step"
+    assert (out[n:] == SENTINEL).all()
+    assert np.isin(out[:n], (0, 1)).all()
+    return out[:n].astype(bool)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_sr25519_body_matches_oracle_and_plain(lib, sr_corpus, dtype):
+    """The corpus (every class of sr25519_corpus) and 5 all-zero padding
+    lanes, 33 signatures, so the last block runs lanes past n; uint8
+    rows and the JAX contract's int32 rows give the same bitmap, that of
+    the host oracle and of the plain version on every lane."""
+    triples, want = sr_corpus
+    (pk, sig, k), size_ok = _sr_rows(triples, 5)
+    assert pk.shape[1] % SIGS_PER_BLOCK
+    out = _host_sr_verify(lib, *(a.astype(dtype) for a in (pk, sig, k)))
+    assert (out[: len(triples)] & size_ok).tolist() == want
+    assert any(want) and not all(want)
+    if dtype is np.uint8:
+        plain = SK._verify_tile_sr(*(torch.from_numpy(a) for a in (pk, sig, k)))
+        assert np.array_equal(out, plain.numpy())
+
+
+def _sqrt_ratio_branch(enc: bytes) -> str:
+    """Which case of SQRT_RATIO_M1(1, v u2^2) decoding enc takes: v r^2
+    is 1 (correct), -1 (flipped), -sqrt(-1) (flipped_i) or neither."""
+    P, D = rst.P, rst.D
+    s = int.from_bytes(enc, "little") & ((1 << 255) - 1)
+    ss = s * s % P
+    u1, u2 = (1 - ss) % P, (1 + ss) % P
+    w = (-(D * u1 * u1) - u2 * u2) * u2 * u2 % P
+    r = pow(w, 3, P) * pow(pow(w, 7, P), (P - 5) // 8, P) % P
+    check = w * r * r % P
+    cases = {1: "correct", P - 1: "flipped", (P - rst._SQRT_M1) % P: "flipped_i"}
+    return cases.get(check, "neither")
+
+
+def test_sr25519_decode_matches_oracle_on_every_branch(lib):
+    """X3's ristretto decode, one lane at a time, on every reason RFC
+    9496 rejects an encoding, small multiples of B (the identity
+    included) and seeded even values below p that take each case of
+    sqrt_ratio_m1: ok equals the oracle's, x and y equal the oracle's
+    point where it decodes, and equal the plain version's canonical
+    limbs everywhere (where it does not, too: the flips still decide
+    the limbs)."""
+    encs = list(sr25519_corpus.undecodable_encodings().values())
+    encs += [rst.encode(rst.mul_base(k)) for k in range(8)]
+    rng = np.random.default_rng(11)
+    for _ in range(40):
+        v = int.from_bytes(rng.bytes(32), "little") % rst.P
+        encs.append((v & ~1).to_bytes(32, "little"))
+    assert {_sqrt_ratio_branch(e) for e in encs} == {
+        "correct", "flipped", "flipped_i", "neither"
+    }
+    n = len(encs)
+    rows = _join_cols(encs, 32, 0)
+    ok = np.zeros(n, dtype=np.bool_)
+    xy = np.zeros((n, 64), dtype=np.uint8)
+    lib.host_sr_decode(_ptr(rows), ctypes.c_int(n), _ptr(ok), _ptr(xy))
+    pt, plain_ok = SK.ristretto_decode(torch.from_numpy(rows.astype(np.int32)))
+    assert ok.tolist() == plain_ok.tolist()
+    for i, e in enumerate(encs):
+        x = int.from_bytes(xy[i, :32].tobytes(), "little")
+        y = int.from_bytes(xy[i, 32:].tobytes(), "little")
+        assert (x, y) == (
+            F.from_limbs(F.canonical(pt[0, :, i : i + 1])[:, 0]),
+            F.from_limbs(F.canonical(pt[1, :, i : i + 1])[:, 0]),
+        ), e.hex()
+        d = rst.decode(e)
+        assert bool(ok[i]) == (d is not None), e.hex()
+        if d is not None:
+            assert (x, y) == (d[0], d[1])
