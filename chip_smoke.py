@@ -11,15 +11,24 @@ and types.validation.verify_commit on a 10,000-validator ed25519 Commit
 and a 10,000-validator Commit with one bad signature that must be
 rejected at that index; then the same on mixed Commits, 5,000 ed25519
 and 5,000 sr25519 validators (75 + 75 for the light one), and the mixed
-10k Commit once through the hybrid program. Keys, key types, messages,
-timestamps and signing witnesses come from --seed.
+10k Commit once through the hybrid program; then BASELINE.md config 5
+whole (phase config5): with crypto.gpu_verifier and ops.merkle_kernel
+installed, the merkle roots of the mixed 10k validator set, of its
+Commit and of a block of 10,000 transactions (100-300 bytes), its
+verify_commit, and the 10,000 transactions' inclusion proofs in one
+crypto.merkle.verify_proofs_batch. Keys, key types, messages,
+timestamps, signing witnesses and transactions come from --seed.
 
 Before the main paths, every kernel is held against its plain version:
 K1 and X1 at the widest bucket, K2 also on the ZIP-215 corpus at buckets
 128 and 12288 and at a width that no block of signatures divides, X1
 also on rows of mixed lengths 0-300 at widths 2045 and 12288 (and
 hashlib), X3 on the sr25519 corpus at buckets 128 and 2048 and at width
-2045 (and the host oracle).
+2045 (and the host oracle); X4 (SHA-256 rows) on rows of 0-200 bytes at
+widths 2045 and 16384 (and hashlib) and on tree roots of 1-16,385
+leaves (against the host reduction), X5 (merkle proofs) on all proofs
+of a 10,000-leaf tree, on a batch of mixed depths and on corrupted
+proofs (and the host compute_root_hash).
 
 Phases print one JSON line each. The line before the last two is the
 card as nvidia-smi names it, with its power limit; the line before the
@@ -29,7 +38,8 @@ host gaps included, and the profiler's time of the kernel alone), and
 the card's least time for the same work; for K2, K1 and X3 also one
 launch's time and bound at each width in K2_WIDTHS / K1_WIDTHS /
 X3_WIDTHS; for X1 its time per window, SASS instructions per compression
-and the latency floor of one row; for every kernel its registers, stack
+and the latency floor of one row; for X4 its time per launch, a root
+being one launch a tree level; for every kernel its registers, stack
 frame and spill bytes from ptxas -v); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises and the script exits non-zero
 without that line. It exits non-zero at once when CUDA is not available
@@ -93,13 +103,23 @@ def field_instr(squarings: int, multiplies: int) -> int:
 # one SHA-512 compression: 80 rounds x ~30 32-bit instructions plus 64
 # schedule steps x ~20 (64-bit rotates, adds and three-input logic ops)
 INSTR_PER_SHA512_BLOCK = 80 * 30 + 64 * 20
+# one SHA-256 compression, every op on 32-bit words: 64 rounds of 14 (Sigma1
+# and Sigma0 three funnel shifts and one three-input xor each, Ch and Maj
+# one three-input logic op each, t1 two three-input adds, e and a one
+# each), 48 schedule steps of 10 (sigma0 and sigma1 two funnel shifts, a
+# shift and a three-input xor each, two three-input adds), and the 8 adds
+# into the state. An inner hash is two compressions.
+INSTR_PER_SHA256_BLOCK = 64 * 14 + 48 * 10 + 8
 
 # each wrapper's kernel as the profiler names it
 KERNEL_NAMES = {
     "sha512_ram": "sha512_ram_kernel",
+    "sha512_rows": "sha512_rows_kernel",
     "ed25519_verify_tile": "verify_tile_kernel",
     "ed25519_dual_mult": "dual_mult_kernel",
     "sr25519_verify": "sr25519_verify_kernel",
+    "sha256_rows": "sha256_rows_kernel",
+    "merkle_proofs": "merkle_proofs_kernel",
 }
 
 # the widest bucket (config.DEFAULT_BUCKET_SIZES), the width the kernels
@@ -119,6 +139,20 @@ N_VALIDATORS = 10_000
 # the light-client commit (BASELINE.md config 3)
 LIGHT_VALIDATORS = 150
 REPS = 20
+# X4 against its plain version and hashlib: message lengths either side of
+# the one/two-block edge behind a prefix byte (55/56), a 32-byte tx hash
+# (33 with the leaf prefix), the inner node's 64 (65), three and four
+# blocks; at a width no block of threads divides and at a 16k-leaf level
+X4_LENGTHS = (0, 1, 31, 32, 33, 55, 56, 63, 64, 65, 119, 200)
+X4_WIDTHS = (2045, 16384)
+# tree sizes: 1 (no launch), small odd trees, both sides of 512 (the
+# install gate) and of 2^14, and 10,000 (config 5)
+TREE_SIZES = (1, 2, 3, 5, 13, 511, 512, 513, 10_000, 16_385)
+# config 5's block of transactions and their lengths in bytes
+N_TXS = 10_000
+TX_LENGTHS = (100, 300)
+# repetitions of a host-only merkle reference (hashlib), for scale
+HOST_REPS = 5
 
 
 def emit(obj) -> None:
@@ -163,27 +197,43 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, kernel: str) -> float:
-    """Device milliseconds of the kernels whose name holds `kernel`, per
-    call of fn, from torch.profiler over `reps` calls after one warm-up:
-    the kernels' own time, without the host's gaps between launches that
-    CUDA events around the calls include."""
+# profiler sessions device_ms takes at most: torch.profiler on an H100
+# host has dropped kernel records at random (seen: 48 of 50 K2 records in
+# one session, 4 and 0 of X5's 10 in two others, while every launch's
+# cudaLaunchKernel was recorded)
+PROFILER_SESSIONS = 3
+
+
+def device_ms(torch, fn, reps: int, kernel: str, launches: int):
+    """(device ms per call of fn, records seen per session) of the
+    kernels whose name holds `kernel`, from torch.profiler over `reps`
+    calls after one warm-up: the kernels' own time, without the host's
+    gaps between launches that CUDA events around the calls include. fn
+    launches the kernel `launches` times a call. The first session that
+    holds every record gives the time; when none of PROFILER_SESSIONS
+    does, the fullest one's mean time per record, times reps * launches.
+    Raises when no session saw the kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    want = reps * launches
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(
-        e.self_device_time_total
-        for e in prof.key_averages()
-        if kernel in e.key
-    )
-    if total <= 0:
+    seen, best = [], (0, 0.0)
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages() if kernel in e.key]
+        n = sum(e.count for e in mine)
+        seen.append(n)
+        best = max(best, (n, sum(e.self_device_time_total for e in mine)))
+        if n == want:
+            break
+    n, total_us = best
+    if n == 0:
         raise AssertionError(f"the profiler saw no {kernel} on the card")
-    return total / 1e3 / reps
+    return total_us / n * want / 1e3 / reps, seen
 
 
 def ptxas_resources(log: str, entry: str = "") -> dict:
@@ -225,24 +275,30 @@ def bound_ms(nbytes: float, instr: float):
     return t_ops * 1e3, "operations"
 
 
-def reset_launches() -> None:
-    from tendermint_tpu_torch.ops import ed25519_cuda, sha512_kernel
+def _counted_modules():
+    from tendermint_tpu_torch.ops import ed25519_cuda, merkle_kernel
+    from tendermint_tpu_torch.ops import sha256_kernel, sha512_kernel
     from tendermint_tpu_torch.ops import sr25519_cuda
 
-    ed25519_cuda.reset_launches()
-    sha512_kernel.reset_launches()
-    sr25519_cuda.reset_launches()
+    return (
+        ed25519_cuda,
+        sha512_kernel,
+        sr25519_cuda,
+        sha256_kernel,
+        merkle_kernel,
+    )
+
+
+def reset_launches() -> None:
+    for mod in _counted_modules():
+        mod.reset_launches()
 
 
 def launches() -> dict:
-    from tendermint_tpu_torch.ops import ed25519_cuda, sha512_kernel
-    from tendermint_tpu_torch.ops import sr25519_cuda
-
-    return {
-        **ed25519_cuda.LAUNCHES,
-        **sha512_kernel.LAUNCHES,
-        **sr25519_cuda.LAUNCHES,
-    }
+    out = {}
+    for mod in _counted_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 # -- commits built with the port's own types --
@@ -379,7 +435,8 @@ def phase_report(torch, out_dir: str) -> dict:
         for stem, log in rep["ptxas"].items():
             f.write(f"== {stem}\n{log}\n")
     # one field multiply and squaring per radix considered, one SHA-512
-    # compression as X1 has it and as it had it
+    # compression as X1 has it and as it had it, one SHA-256 compression
+    # and inner hash as X4 and X5 have them
     sass = sass_count.count()
     emit(
         {
@@ -953,15 +1010,337 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
     }
 
 
+def count_merkle_call(fn, expect: dict):
+    """fn's result and the launches of one call of it, zeroed just before
+    and read just after: each kernel in expect launched exactly that many
+    times, every other kernel none, and no signature window dispatched."""
+    from tendermint_tpu_torch.crypto import gpu_verifier
+
+    before = gpu_verifier.stats()
+    reset_launches()
+    out = fn()
+    counts = launches()
+    if gpu_verifier.stats() != before:
+        raise AssertionError("a merkle call dispatched a signature window")
+    for name, got in counts.items():
+        if got != expect.get(name, 0):
+            raise AssertionError(
+                f"{name} launched {got} times, not {expect.get(name, 0)}"
+            )
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def tree_levels(n: int) -> int:
+    """X4 launches of an n-leaf root: one a level, none for one leaf."""
+    return (n - 1).bit_length()
+
+
+def phase_merkle_kernels(torch, dev, seed: int) -> None:
+    """X4 against its plain version and hashlib (X4_LENGTHS at X4_WIDTHS,
+    with no prefix and behind 0x00 and 0x01), tree roots at TREE_SIZES
+    against the host reduction (the 16,385-leaf tree's levels, odd at
+    every level, against the plain version too); X5 against its plain
+    version and the host compute_root_hash on all proofs of a
+    10,000-leaf tree, on proofs of 3- and 64-leaf trees in one batch, and
+    on corrupted proofs, each False at its own index."""
+    import copy
+
+    from tendermint_tpu_torch.crypto import merkle
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.ops import sha256_kernel as S
+
+    rng = np.random.default_rng([seed, 256])
+    for width in X4_WIDTHS:
+        for length in X4_LENGTHS:
+            host = rng.integers(0, 256, (width, length), dtype=np.uint8)
+            rows = torch.from_numpy(host).to(dev)
+            for prefix in (None, 0, 1):
+                got = S.sha256_rows(rows, prefix)
+                if not torch.equal(got, S.sha256_rows_plain(rows, prefix)):
+                    raise AssertionError(f"X4 != plain: L={length} {prefix}")
+                head = b"" if prefix is None else bytes([prefix])
+                ref = b"".join(
+                    hashlib.sha256(head + r.tobytes()).digest() for r in host
+                )
+                if got.cpu().numpy().tobytes() != ref:
+                    raise AssertionError(f"X4 != hashlib: L={length} {prefix}")
+    trees, by_size = {}, {}
+    for n in TREE_SIZES:
+        leaf_hashes = by_size[n] = [rng.bytes(32) for _ in range(n)]
+        got, counts = count_merkle_call(
+            lambda lh=leaf_hashes: MK.tree_root(lh, dev),
+            {"sha256_rows": tree_levels(n)},
+        )
+        if got != merkle._reduce(leaf_hashes):
+            raise AssertionError(f"tree root differs from the host's, n={n}")
+        trees[str(n)] = counts.get("sha256_rows", 0)
+    widest = b"".join(by_size[max(TREE_SIZES)])
+    level = torch.frombuffer(bytearray(widest), dtype=torch.uint8)
+    level = level.view(-1, 32).to(dev)
+    while level.shape[0] > 1:
+        nxt = S.sha256_level(level)
+        if not torch.equal(nxt, S.sha256_level_plain(level)):
+            raise AssertionError(f"X4 level of {level.shape[0]} != plain")
+        level = nxt
+
+    def check_x5(proofs, root, want_ok, name):
+        batch = MK.pack_proofs(proofs, root)
+        views = batch.to(dev)
+        (roots, ok), counts = count_merkle_call(
+            lambda: MK.merkle_proofs(*views), {"merkle_proofs": 1}
+        )
+        p_roots, p_ok = MK.verify_program_plain(*views)
+        if not (torch.equal(roots, p_roots) and torch.equal(ok, p_ok)):
+            raise AssertionError(f"X5 differs from its plain version: {name}")
+        ok = ok.cpu().numpy()
+        if ok.tolist() != list(want_ok):
+            bad = np.flatnonzero(ok != np.asarray(want_ok)).tolist()
+            raise AssertionError(f"X5 bitmap wrong at {bad[:8]}: {name}")
+        host = roots.cpu().numpy()
+        for i, p in enumerate(proofs):
+            if batch.ok[i] and host[i].tobytes() != p.compute_root_hash():
+                raise AssertionError(f"X5 root {i} != compute_root_hash: {name}")
+        bitmap = MK.verify_proofs(proofs, root, dev)
+        if bitmap.tolist() != list(want_ok):
+            raise AssertionError(f"verify_proofs differs: {name}")
+        return int(batch.n_aunts)
+
+    items = [rng.bytes(int(rng.integers(1, 80))) for _ in range(N_TXS)]
+    root, proofs = merkle.proofs_from_byte_slices(items)
+    aunts = check_x5(proofs, root, [True] * N_TXS, "10k tree")
+    root_a, pa = merkle.proofs_from_byte_slices([b"a%d" % i for i in range(3)])
+    root_b, pb = merkle.proofs_from_byte_slices([b"b%d" % i for i in range(64)])
+    check_x5(pa + pb, root_b, [False] * 3 + [True] * 64, "3 and 64 leaves")
+    check_x5(pa + pb, root_a, [True] * 3 + [False] * 64, "3 and 64 leaves")
+    bad = {}
+    faults = (
+        ("aunt_zeroed", lambda p: p.aunts.__setitem__(3, bytes(32))),
+        ("leaf_zeroed", lambda p: setattr(p, "leaf_hash", bytes(32))),
+        ("index_moved", lambda p: setattr(p, "index", p.index + 1)),
+        ("aunt_dropped", lambda p: p.aunts.pop()),
+        ("total_zero", lambda p: setattr(p, "total", 0)),
+    )
+    corrupted = list(proofs)
+    for j, (name, fault) in enumerate(faults):
+        i = N_TXS * (j + 1) // 7
+        corrupted[i] = copy.deepcopy(proofs[i])
+        fault(corrupted[i])
+        bad[name] = i
+    want = [i not in bad.values() for i in range(N_TXS)]
+    check_x5(corrupted, root, want, "corrupted")
+    emit(
+        {
+            "phase": "merkle_kernels",
+            "x4": {
+                "lengths": list(X4_LENGTHS),
+                "widths": list(X4_WIDTHS),
+                "prefixes": [None, 0, 1],
+                "tree_launches": trees,
+            },
+            "x5": {"proofs": N_TXS, "aunts": aunts, "corrupted_at": bad},
+            "ok": True,
+        }
+    )
+
+
+def block_txs(seed: int):
+    """N_TXS transactions, lengths in TX_LENGTHS and bytes from the seed."""
+    rng = np.random.default_rng([seed, 5])
+    lens = rng.integers(TX_LENGTHS[0], TX_LENGTHS[1] + 1, N_TXS)
+    blob = rng.bytes(int(lens.sum()))
+    ends = np.cumsum(lens).tolist()
+    return [blob[e - n : e] for e, n in zip(ends, lens.tolist())]
+
+
+def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
+    """BASELINE.md config 5 through the entry points a user calls, with
+    gpu_verifier and merkle_kernel installed: the roots of the mixed
+    10,000-validator set, of its Commit and of a 10,000-transaction
+    block, verify_commit, and all 10,000 inclusion proofs of the block's
+    transactions in one verify_proofs_batch. Roots against the host
+    oracle's; the bitmap all True, and False at exactly one index with
+    one aunt corrupted; launches counted per call (X4 once a level of a
+    root above the gate and never below it, X5 once a batch, no other
+    kernel); no call above its gate reaches the host reduction. Host
+    times of each call (p50/p95 over REPS), of the proof batch's packing
+    alone, and of hashlib's root and batch on this host for scale."""
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.crypto.gpu_verifier import (
+        GpuSr25519BatchVerifier,
+    )
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.types.tx import tx_hash, txs_hash, txs_proofs
+    from tendermint_tpu_torch.types.validation import verify_commit
+    from tendermint_tpu_torch.types.validator import ValidatorSet
+
+    vals, commit = mixed["vals"], mixed["commit"]
+    bid = commit.block_id
+    small = ValidatorSet(vals.validators[:LIGHT_VALIDATORS])
+    txs = block_txs(seed)
+    leaves = [tx_hash(t) for t in txs]
+    # the host oracle, hooks not installed
+    if merkle._device_root_hook is not None:
+        raise AssertionError("a merkle hook is installed before config5")
+    want = {
+        "validator_set": vals.hash(),
+        "commit": commit.hash(),
+        "data": txs_hash(txs),
+        "small_set": small.hash(),
+    }
+    data_hash = want["data"]
+    t0 = time.perf_counter()
+    proofs = txs_proofs(txs)
+    txs_proofs_host_ms = (time.perf_counter() - t0) * 1e3
+    tx_leaf_hashes = [merkle.leaf_hash(x) for x in leaves]
+    host_root = time_commit(lambda: merkle._reduce(tx_leaf_hashes), HOST_REPS)
+    host_batch = time_commit(
+        lambda: merkle.verify_proofs_batch(proofs, data_hash, leaves),
+        HOST_REPS,
+    )
+
+    n_sr = sum(v.pub_key.type() == "sr25519" for v in vals.validators)
+    step = GpuSr25519BatchVerifier.STREAM_CHUNK
+    w_sr, w_ed = -(-n_sr // step), -(-(len(vals.validators) - n_sr) // step)
+    levels = tree_levels(N_TXS)
+    n_vals, n_sigs = len(vals.validators), len(commit.signatures)
+    # the host paths the hooks replace, counted while they are installed
+    host_calls = {"reduce": 0, "compute_root_hash": 0}
+
+    def counting(fn, key):
+        def wrapper(*args, **kwargs):
+            host_calls[key] += 1
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    calls = {
+        "validator_set_hash": (vals.hash, {"sha256_rows": tree_levels(n_vals)}),
+        "commit_hash": (commit.hash, {"sha256_rows": tree_levels(n_sigs)}),
+        "txs_hash": (lambda: txs_hash(txs), {"sha256_rows": levels}),
+        "verify_proofs_batch": (
+            lambda: merkle.verify_proofs_batch(proofs, data_hash, leaves),
+            {"merkle_proofs": 1},
+        ),
+    }
+    gpu_verifier.install()
+    MK.install(dev)
+    reduce, compute = merkle._reduce, merkle.Proof.compute_root_hash
+    merkle._reduce = counting(reduce, "reduce")
+    merkle.Proof.compute_root_hash = counting(compute, "compute_root_hash")
+    try:
+        per_call, got = {}, {}
+        for name, (fn, expect) in calls.items():
+            got[name], per_call[name] = count_merkle_call(fn, expect)
+        if host_calls != {"reduce": 0, "compute_root_hash": 0}:
+            raise AssertionError(f"a device call ran the host path: {host_calls}")
+        got_small, per_call["small_set_hash"] = count_merkle_call(
+            small.hash, {}
+        )
+        # the host reduction recurses through the wrapped name
+        small_reduces = host_calls["reduce"]
+        if not small_reduces:
+            raise AssertionError("the small set's root did not stay on the host")
+        per_call["txs_proofs"] = count_merkle_call(
+            lambda: txs_proofs(txs), {"sha256_rows": levels}
+        )[1]
+        per_call["verify_commit"] = count_one_call(
+            lambda: verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit),
+            {
+                "ed25519": (w_ed, {"sha512_ram": w_ed, "ed25519_verify_tile": w_ed}),
+                "sr25519": (w_sr, {"sr25519_verify": w_sr}),
+            },
+        )
+        roots = {
+            "validator_set": got["validator_set_hash"],
+            "commit": got["commit_hash"],
+            "data": got["txs_hash"],
+            "small_set": got_small,
+        }
+        if roots != want:
+            raise AssertionError(f"roots differ from the host's: {roots}")
+        if not got["verify_proofs_batch"].all():
+            raise AssertionError("a valid tx proof was rejected")
+        bad_idx = N_TXS * 5 // 11
+        bad_proofs = list(proofs)
+        bad_proofs[bad_idx] = merkle.Proof(
+            total=proofs[bad_idx].total,
+            index=proofs[bad_idx].index,
+            leaf_hash=proofs[bad_idx].leaf_hash,
+            aunts=list(proofs[bad_idx].aunts),
+        )
+        aunt = bad_proofs[bad_idx].aunts[5]
+        bad_proofs[bad_idx].aunts[5] = aunt[:7] + bytes([aunt[7] ^ 1]) + aunt[8:]
+        bitmap = merkle.verify_proofs_batch(bad_proofs, data_hash, leaves)
+        if np.flatnonzero(~bitmap).tolist() != [bad_idx]:
+            raise AssertionError("the corrupted aunt was not caught alone")
+        timings = {}
+        for name, (fn, _expect) in calls.items():
+            timings[name] = time_commit(fn, REPS)
+        timings["verify_commit"] = time_commit(
+            lambda: verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit), REPS
+        )
+        timings["pack_proofs"] = time_commit(
+            lambda: MK.pack_proofs(proofs, data_hash), REPS
+        )
+        batch = MK.pack_proofs(proofs, data_hash)
+
+        def upload():
+            batch.to(dev)
+            torch.cuda.synchronize()
+
+        timings["pack_upload"] = time_commit(upload, REPS)
+        if host_calls != {"reduce": small_reduces, "compute_root_hash": 0}:
+            raise AssertionError(f"a device call ran the host path: {host_calls}")
+        mk_stats = MK.stats()
+    finally:
+        merkle._reduce, merkle.Proof.compute_root_hash = reduce, compute
+        MK.uninstall()
+        gpu_verifier.uninstall()
+
+    def pct(t):
+        return {"p50": t[0], "p95": t[1]}
+
+    emit(
+        {
+            "phase": "config5",
+            "validators": {
+                "ed25519": len(vals.validators) - n_sr,
+                "sr25519": n_sr,
+            },
+            "txs": N_TXS,
+            "tx_bytes": sum(map(len, txs)),
+            "proofs": len(proofs),
+            "proof_aunts": sum(len(p.aunts) for p in proofs),
+            "roots_equal_host": True,
+            "rejected_bad_proof_index": bad_idx,
+            "launches_per_call": per_call,
+            "ms": {k: {**pct(v), "reps": REPS} for k, v in timings.items()},
+            "host_hashlib_ms": {
+                "root": {**pct(host_root), "reps": HOST_REPS},
+                "verify_proofs_batch": {**pct(host_batch), "reps": HOST_REPS},
+                "txs_proofs_once": txs_proofs_host_ms,
+            },
+            "merkle_stats": mk_stats,
+            "ok": True,
+        }
+    )
+    return {
+        "leaf_hashes": tx_leaf_hashes,
+        "proofs": proofs,
+        "data_hash": data_hash,
+        "launches": per_call,
+    }
+
+
 def phase_kernels(
-    torch, dev, main: dict, mixed: dict, card: str, power: str
+    torch, dev, main: dict, mixed: dict, config5: dict, card: str, power: str
 ) -> dict:
     """Each kernel on the inputs the main path gives it for one commit
     (the batch verifier streams it in STREAM_CHUNK windows, each one
-    dispatch; X3 on the mixed commit's sr25519 windows): its time and
-    its plain version's on the same inputs, the largest difference
-    between them, and the least time the card could take for the same
-    work."""
+    dispatch; X3 on the mixed commit's sr25519 windows; X4 on the 10,000
+    transactions' root, X5 on their 10,000 proofs): its time and its
+    plain version's on the same inputs, the largest difference between
+    them, and the least time the card could take for the same work."""
     from tendermint_tpu_torch.crypto.gpu_verifier import (
         GpuEd25519BatchVerifier,
     )
@@ -983,6 +1362,7 @@ def phase_kernels(
         name, source, replaces, launches, shape, err, fn, plain, nbytes, instr
     ):
         b_ms, b_by = bound_ms(nbytes, instr)
+        d_ms, records = device_ms(torch, fn, 10, KERNEL_NAMES[name], launches)
         return {
             "name": name,
             "route": "cuda",
@@ -992,7 +1372,9 @@ def phase_kernels(
             "shape": shape,
             "max_abs_err": err,
             "ms": cuda_ms(torch, fn, 10),
-            "device_ms": device_ms(torch, fn, 10, KERNEL_NAMES[name]),
+            "device_ms": d_ms,
+            # kernel records the profiler kept per session, of 10 * launches
+            "device_records": records,
             "plain_ms": cuda_ms(torch, plain, 1),
             "bound_ms": b_ms,
             "bound_by": b_by,
@@ -1196,6 +1578,85 @@ def phase_kernels(
             for w, u in ((w, sr_at(w)) for w in X3_WIDTHS)
         },
     }
+    # X4 on the block's leaf hashes as tree_root launches it, one level
+    # at a time on the card, and X5 on the block's proofs as
+    # verify_proofs uploads them
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.ops import sha256_kernel as S256
+
+    n = len(config5["leaf_hashes"])
+    leaves = torch.frombuffer(
+        bytearray(b"".join(config5["leaf_hashes"])), dtype=torch.uint8
+    )
+    leaves = leaves.view(n, 32).to(dev)
+
+    def root_of(level_fn):
+        def run():
+            level = leaves
+            while level.shape[0] > 1:
+                level = level_fn(level)
+            return level
+
+        return run
+
+    x4, x4_plain = root_of(S256.sha256_level), root_of(S256.sha256_level_plain)
+    got = x4()
+    if got.cpu().numpy().tobytes() != config5["data_hash"]:
+        raise AssertionError("X4's root differs from the block's data hash")
+    err = int((got.int() - x4_plain().int()).abs().max().item())
+    x4_launches = config5["launches"]["txs_hash"]["sha256_rows"]
+    rows.append(
+        row(
+            "sha256_rows",
+            "tendermint_tpu_torch/ops/csrc/sha256.cu",
+            "tendermint_tpu/ops/sha256_kernel.py:125",
+            x4_launches,
+            [n],
+            err,
+            x4,
+            x4_plain,
+            32 * n + 32,
+            (n - 1) * 2 * INSTR_PER_SHA256_BLOCK,
+        )
+    )
+    rows[-1]["replaces_also"] = [
+        "tendermint_tpu/ops/sha256_kernel.py:173",
+        "tendermint_tpu/ops/sha256_kernel.py:182",
+    ]
+    batch = MK.pack_proofs(config5["proofs"], config5["data_hash"])
+    views = batch.to(dev)
+    x5 = lambda: MK.merkle_proofs(*views)  # noqa: E731
+    x5_plain = lambda: MK.verify_program_plain(*views)  # noqa: E731
+    (r_k, ok_k), (r_p, ok_p) = x5(), x5_plain()
+    if not bool(ok_k.all()):
+        raise AssertionError("X5 rejected a valid proof of the block")
+    err = max(
+        int((r_k.int() - r_p.int()).abs().max().item()),
+        int((ok_k.int() - ok_p.int()).abs().max().item()),
+    )
+    k, a = batch.k, batch.n_aunts
+    rows.append(
+        row(
+            "merkle_proofs",
+            "tendermint_tpu_torch/ops/csrc/merkle_proofs.cu",
+            "tendermint_tpu/ops/merkle_kernel.py:125",
+            config5["launches"]["verify_proofs_batch"]["merkle_proofs"],
+            [k, a],
+            err,
+            x5,
+            x5_plain,
+            # leaves, aunts, offsets, side words, root and host checks
+            # read once; roots and bitmap written once
+            32 * k + 32 * a + 4 * (k + 1) + 8 * k + 32 + k + 32 * k + k,
+            a * 2 * INSTR_PER_SHA256_BLOCK,
+        )
+    )
+    for r in rows[-2:]:
+        r["library"] = "none: no PyTorch call computes SHA-256"
+    x4_row = rows[-2]
+    x4_row["device_ms_per_launch"] = x4_row["device_ms"] / x4_launches
+    x4_row["ms_per_launch"] = x4_row["ms"] / x4_launches
+
     from tendermint_tpu_torch.ops import build
 
     ptxas = build.build_report()["ptxas"]
@@ -1205,6 +1666,8 @@ def phase_kernels(
         "ed25519_verify_tile": ("ed25519_verify", ""),
         "ed25519_dual_mult": ("ed25519_dual_mult", ""),
         "sr25519_verify": ("sr25519_verify", ""),
+        "sha256_rows": ("sha256", "sha256_rows_kernel"),
+        "merkle_proofs": ("merkle_proofs", "merkle_proofs_kernel"),
     }
     for r in rows:
         if r["max_abs_err"] != 0:
@@ -1295,11 +1758,13 @@ def phase_profile(torch, main: dict, reps: int, out_dir: str, name: str):
                     per_rep[k].append(sum(v))
         after = gpu_verifier.stats()
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        reset_launches()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
                 verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)
             wall = (time.perf_counter() - t0) * 1e3 / reps
+        launched = launches()
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
     finally:
@@ -1311,6 +1776,15 @@ def phase_profile(torch, main: dict, reps: int, out_dir: str, name: str):
     }
     if sum(signatures.values()) != len(commit.signatures):
         raise AssertionError(f"the profiled calls verified {signatures}")
+    # the kernel records the profiler kept against the launches counted
+    # (it drops some at random, see device_ms): device_ms_per_commit sums
+    # the records kept
+    events = prof.key_averages()
+    records = {
+        name: [sum(e.count for e in events if KERNEL_NAMES[name] in e.key), n]
+        for name, n in launched.items()
+        if n
+    }
     kernels = {}  # device-side events only (kernels, copies), each once
     for evt in prof.key_averages():
         on_device = "cuda" in str(evt.device_type).lower()
@@ -1339,6 +1813,7 @@ def phase_profile(torch, main: dict, reps: int, out_dir: str, name: str):
             "profiled_wall_ms_per_commit": wall,
             "device_ms_per_commit": kernels,
             "device_busy_ms_per_commit": busy if kernels else None,
+            "kernel_records_seen_launched": records,
             # against the unprofiled wall (the profiler slows the host)
             "device_idle_share": (
                 (1 - busy / med["total"]) if kernels else None
@@ -1389,9 +1864,13 @@ def main() -> int:
     phase_verify_tile(torch, dev, args.seed)
     phase_ragged_width(torch, dev, args.seed)
     phase_sr25519_tile(torch, dev, args.seed)
+    phase_merkle_kernels(torch, dev, args.seed)
     main_run = phase_main_path(torch, args.seed)
     mixed_run = phase_sr25519_main_path(torch, args.seed)
-    kernels = phase_kernels(torch, dev, main_run, mixed_run, card, power)
+    config5 = phase_config5(torch, dev, args.seed, mixed_run)
+    kernels = phase_kernels(
+        torch, dev, main_run, mixed_run, config5, card, power
+    )
     x1 = next(r for r in kernels["kernels"] if r["name"] == "sha512_ram")
     if x1["spill_store_bytes"] or x1["spill_load_bytes"]:
         raise AssertionError("X1 spills registers")
@@ -1401,6 +1880,10 @@ def main() -> int:
     }
     x1["latency_floor_ms_per_window"] = floor["row_ns"] / 1e6
     x1["latency_floor_cycles"] = floor["row_cycles"]
+    for name in ("sha256_rows", "merkle_proofs"):
+        r = next(r for r in kernels["kernels"] if r["name"] == name)
+        r["sass_per_compression"] = sass["probe_sha256_compress"]
+        r["sass_per_inner_hash"] = sass["probe_sha256_inner"]
     if args.profile:
         phase_profile(torch, main_run, 5, args.out, "profile")
         phase_profile(torch, mixed_run, 5, args.out, "sr25519_profile")

@@ -219,8 +219,9 @@ class FieldReader:
     versa) gets a ValueError from the accessor, not an int leaking
     into code that calls `.decode()`/`len()` on it and dies with an
     AttributeError three frames later: malformed wire input fails as a
-    parse error, never as a type confusion. `get` stays raw for callers
-    that handle both shapes (nested submessage bytes)."""
+    parse error, never as a type confusion. `get` and `get_all` stay raw
+    for callers that handle both shapes (nested submessage bytes,
+    repeated fields)."""
 
     def __init__(self, data: bytes) -> None:
         self._fields: dict[int, list] = {}
@@ -230,6 +231,10 @@ class FieldReader:
     def get(self, field: int, default=None):
         vals = self._fields.get(field)
         return vals[-1] if vals else default
+
+    def get_all(self, field: int) -> list:
+        """Every value of a repeated field, raw, in wire order."""
+        return self._fields.get(field, [])
 
     def uint(self, field: int, default: int = 0) -> int:
         vals = self._fields.get(field)

@@ -10,7 +10,13 @@ JAX package writes:
   ValidatorSet, ed25519 and sr25519 keys alike;
 - points_from_numpy: a (k, 20, N) int32 limb stack from the JAX field
   and point functions (as numpy) -> a tensor for kernel K1 and the
-  point-level functions here.
+  point-level functions here;
+- rows_from_cols / cols_from_rows: the JAX package's (L, N) uint8 byte
+  columns (ops/sha256_kernel.py) <-> the port's (N, L) rows
+  (ops/sha256_kernel.py here);
+- proofs_from_proto / proofs_to_proto: merkle Proofs through their wire
+  bytes (tendermint_tpu/crypto/merkle.py:149-170 Proof.to_proto_bytes /
+  from_proto_bytes on the JAX side).
 """
 
 from __future__ import annotations
@@ -19,13 +25,18 @@ import numpy as np
 import torch
 
 from .crypto import batch  # noqa: F401  (registers the key types)
+from .crypto.merkle import Proof
 from .ops import field25519 as F
 from .types.commit import Commit
 from .types.validator import ValidatorSet
 
 __all__ = [
+    "cols_from_rows",
     "commit_from_proto",
     "points_from_numpy",
+    "proofs_from_proto",
+    "proofs_to_proto",
+    "rows_from_cols",
     "validator_set_from_proto",
 ]
 
@@ -44,3 +55,24 @@ def points_from_numpy(arr, device="cuda") -> torch.Tensor:
     if a.ndim < 2 or a.shape[-2] != F.NLIMBS:
         raise ValueError(f"want (..., {F.NLIMBS}, N) limbs, got {a.shape}")
     return torch.from_numpy(a).to(device)
+
+
+def rows_from_cols(cols, device="cuda") -> torch.Tensor:
+    """(L, N) uint8 byte columns -> contiguous (N, L) uint8 rows on device."""
+    a = np.ascontiguousarray(np.asarray(cols, dtype=np.uint8).T)
+    return torch.from_numpy(a).to(device)
+
+
+def cols_from_rows(rows: torch.Tensor) -> np.ndarray:
+    """(N, L) rows -> (L, N) uint8 numpy columns."""
+    return np.ascontiguousarray(rows.cpu().numpy().T)
+
+
+def proofs_from_proto(blobs) -> list:
+    """Proof wire bytes -> the port's merkle Proofs."""
+    return [Proof.from_proto_bytes(bytes(b)) for b in blobs]
+
+
+def proofs_to_proto(proofs) -> list:
+    """The port's merkle Proofs -> their wire bytes."""
+    return [p.to_proto_bytes() for p in proofs]

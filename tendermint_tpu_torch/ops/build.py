@@ -72,6 +72,12 @@ _SIGNATURES = {
         "tm_sha512_rows": ([_V, _V, _I, _I, _I, _V], _I),
         "tm_sha512_ram": ([_V, _V, _V, _V, _V, _I, _I, _I, _V], _I),
     },
+    "sha256": {
+        "tm_sha256_rows": ([_V, _V, _I, _I, _I, _I, _I, _V], _I),
+    },
+    "merkle_proofs": {
+        "tm_merkle_proofs": ([_V] * 8 + [_I, _I, _V], _I),
+    },
 }
 # every library also exports tm_error_string(code) -> cudaGetErrorString
 

@@ -1,6 +1,7 @@
 """SASS instruction counts of one field multiply and one squaring, in the
-two limb radixes considered for kernels K1 and K2, and of one SHA-512
-compression of kernel X1, as it is and as it was.
+two limb radixes considered for kernels K1 and K2, of one SHA-512
+compression of kernel X1, as it is and as it was, and of one SHA-256
+compression and one inner hash of kernels X4 and X5.
 
 probe/fe_radix.cu holds one kernel per operation and radix: the
 kernels' own radix 2^25.5 (ed25519_device.cuh's fe_mul and fe_sq: ten
@@ -14,7 +15,9 @@ operation's shape. probe/sha512_compress.cu holds one kernel with X1's
 compression (csrc/sha512.cuh) and one with the compression X1 had
 before, each with its 24 loads and 8 stores; for those the 64-bit
 integer work is counted by opcode too (SHF funnel shifts, IADD3 adds,
-LOP3 logic). Needs nvcc, not a card.
+LOP3 logic). probe/sha256_compress.cu holds one kernel with X4's and
+X5's compression (csrc/sha256.cuh) and one with their inner hash of two
+digests held as words, counted the same way. Needs nvcc, not a card.
 
     python -m tendermint_tpu_torch.ops.sass_count
 """
@@ -33,7 +36,7 @@ __all__ = ["PROBES", "count", "count_sass"]
 
 PROBES = tuple(
     Path(__file__).resolve().parent / "probe" / name
-    for name in ("fe_radix.cu", "sha512_compress.cu")
+    for name in ("fe_radix.cu", "sha512_compress.cu", "sha256_compress.cu")
 )
 _OPS = ("IMAD", "SHF", "IADD3", "LOP3")
 _INSTR = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")

@@ -140,3 +140,31 @@ def test_sr25519_wrapper_takes_the_plain_version_only_on_cpu():
     zeros = torch.zeros((64, 2), dtype=torch.uint8)
     assert sr25519_cuda.verify_sr(zeros[:32], zeros, zeros[:32]).tolist() == [False] * 2
     assert sr25519_cuda.LAUNCHES == {"sr25519_verify": 0}
+
+
+def test_merkle_wrappers_take_the_plain_version_only_on_cpu():
+    """X4's and X5's wrappers refuse a tensor that is neither on the CPU
+    nor on CUDA, and run the plain version, counting no launch, on the
+    CPU."""
+    from tendermint_tpu_torch.ops import merkle_kernel, sha256_kernel
+
+    meta = torch.empty((4, 32), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sha256_kernel.sha256_rows(meta, 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sha256_kernel.sha256_level(meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        merkle_kernel.merkle_proofs(
+            meta,
+            meta,
+            torch.empty(5, dtype=torch.int32, device="meta"),
+            torch.empty(4, dtype=torch.int64, device="meta"),
+            meta[0],
+            meta[:, 0],
+        )
+    sha256_kernel.reset_launches()
+    merkle_kernel.reset_launches()
+    level = torch.zeros((3, 32), dtype=torch.uint8)
+    assert tuple(sha256_kernel.sha256_level(level).shape) == (2, 32)
+    assert sha256_kernel.LAUNCHES == {"sha256_rows": 0}
+    assert merkle_kernel.LAUNCHES == {"merkle_proofs": 0}

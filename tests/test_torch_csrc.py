@@ -1,7 +1,8 @@
 """The CUDA kernels' device code, built with the host C++ compiler.
 
-ops/csrc/ed25519_device.cuh, sr25519_device.cuh and sha512.cuh hold the
-per-item bodies of kernels K1, K2, X3 and X1 and include no CUDA header,
+ops/csrc/ed25519_device.cuh, sr25519_device.cuh, sha512.cuh and
+sha256.cuh hold the per-item bodies of kernels K1, K2, X3, X1, X4 and X5
+and include no CUDA header,
 so with the CUDA qualifiers defined away a host compiler builds them
 into a small shared library. That library runs each body over a batch,
 one column at a time, and is held against the host ZIP-215 and sr25519
@@ -22,11 +23,14 @@ import pytest
 import torch
 
 from tendermint_tpu.ops import ed25519_kernel as JK
+from tendermint_tpu_torch.crypto import merkle
 from tendermint_tpu_torch.crypto import ristretto as rst
 from tendermint_tpu_torch.crypto import sr25519_corpus, zip215_corpus
 from tendermint_tpu_torch.ops import ed25519_kernel as K
 from tendermint_tpu_torch.ops import edwards as E
 from tendermint_tpu_torch.ops import field25519 as F
+from tendermint_tpu_torch.ops import merkle_kernel as MK
+from tendermint_tpu_torch.ops import sha256_kernel as S256
 from tendermint_tpu_torch.ops import sha512_kernel as S
 from tendermint_tpu_torch.ops import sr25519_kernel as SK
 
@@ -68,6 +72,7 @@ static uint32_t lane_shfl(uint32_t v, int src) {
 static inline void lane_sync() { lane_shfl(0, 0); }
 
 #include "ed25519_device.cuh"
+#include "sha256.cuh"
 #include "sha512.cuh"
 #include "sr25519_device.cuh"
 
@@ -191,6 +196,20 @@ int host_sha512_ram(const uint8_t *sig, const uint8_t *pk, const uint8_t *msg,
                      off[i + 1] - off[i], out);
   }
   return 0;
+}
+// X4: every thread of a launch of n rows, carry_tail's extra one too
+void host_sha256_rows(const uint8_t *data, uint8_t *out, int len, int n,
+                      int prefix, int carry_tail) {
+  for (int i = 0; i <= n; i++)
+    sha256_rows_item(data, out, len, n, prefix, carry_tail, i);
+}
+// X5: every proof of a batch
+void host_merkle_proofs(const uint8_t *leaf, const uint8_t *aunts,
+                        const int32_t *off, const uint64_t *sides,
+                        const uint8_t *want, const uint8_t *ok_in,
+                        uint8_t *roots, uint8_t *ok, int k) {
+  for (int i = 0; i < k; i++)
+    merkle_proof_item(leaf, aunts, off, sides, want, ok_in, roots, ok, i);
 }
 // (m, 10) radix-2^25.5 limbs
 void host_fe_mul(const uint32_t *f, const uint32_t *h, uint32_t *out, int m) {
@@ -587,3 +606,134 @@ def test_sr25519_decode_matches_oracle_on_every_branch(lib):
         assert bool(ok[i]) == (d is not None), e.hex()
         if d is not None:
             assert (x, y) == (d[0], d[1])
+
+
+# -- X4 and X5: SHA-256 rows, tree levels and merkle proof walks --
+
+SHA256_LENS = [0, 1, 31, 32, 33, 55, 56, 63, 64, 65, 119, 200]
+
+
+def _sha256_host(lib, data, length, n, prefix, carry=False):
+    out = np.full((n + 1, 32), 0xEE, dtype=np.uint8)
+    lib.host_sha256_rows(
+        _ptr(data), _ptr(out), ctypes.c_int(length), ctypes.c_int(n),
+        ctypes.c_int(-1 if prefix is None else prefix), ctypes.c_int(int(carry)),
+    )
+    return out
+
+
+@pytest.mark.parametrize("length", SHA256_LENS)
+@pytest.mark.parametrize("prefix", [None, 0, 1])
+def test_sha256_body_matches_hashlib_across_padding(lib, length, prefix):
+    """X4's row body across the one/two/three/four-block edges (55/56,
+    119/120 with the prefix byte counted), with and without a prefix; the
+    65-byte inner-node message (64 bytes behind 0x01) takes the word path,
+    every other row the byte path. Row n (no carry_tail) writes nothing."""
+    n = 5
+    rng = np.random.default_rng(1000 + length)
+    rows = rng.integers(0, 256, (n, length), dtype=np.uint8)
+    out = _sha256_host(lib, np.ascontiguousarray(rows), length, n, prefix)
+    head = b"" if prefix is None else bytes([prefix])
+    for i in range(n):
+        want = hashlib.sha256(head + rows[i].tobytes()).digest()
+        assert out[i].tobytes() == want, i
+    assert (out[n] == 0xEE).all()
+    plain = S256.sha256_rows(torch.from_numpy(rows), prefix)
+    assert np.array_equal(out[:n], plain.numpy())
+
+
+def test_sha256_inner_rows_at_an_odd_address_take_the_byte_path(lib):
+    """64-byte rows behind 0x01 that start one byte past an aligned
+    address are read a byte at a time, with the word path's digests."""
+    n = 6
+    rng = np.random.default_rng(64)
+    raw = _aligned(64 * n + 16)
+    raw[1 : 1 + 64 * n] = rng.integers(0, 256, 64 * n)
+    out = np.full((n + 1, 32), 0xEE, dtype=np.uint8)
+    lib.host_sha256_rows(
+        ctypes.c_void_p(raw.ctypes.data + 1), _ptr(out), ctypes.c_int(64),
+        ctypes.c_int(n), ctypes.c_int(1), ctypes.c_int(0),
+    )
+    aligned = _sha256_host(lib, np.ascontiguousarray(raw[1 : 1 + 64 * n]), 64, n, 1)
+    assert np.array_equal(out[:n], aligned[:n])
+    for i in range(n):
+        m = b"\x01" + raw[1 + 64 * i : 65 + 64 * i].tobytes()
+        assert out[i].tobytes() == hashlib.sha256(m).digest()
+
+
+@pytest.mark.parametrize("m", [2, 3, 7, 8, 13, 64, 257])
+def test_sha256_level_body_carries_the_odd_tail(lib, m):
+    """One tree level as X4 runs it: m digests as m // 2 rows of 64 bytes
+    behind 0x01, and with m odd the extra thread copies the trailing
+    digest; against hashlib and the plain level."""
+    rng = np.random.default_rng(m)
+    level = rng.integers(0, 256, (m, 32), dtype=np.uint8)
+    out = _sha256_host(lib, level, 64, m // 2, 1, carry=bool(m % 2))
+    got = out[: (m + 1) // 2]
+    for i in range(m // 2):
+        pair = level[2 * i].tobytes() + level[2 * i + 1].tobytes()
+        assert got[i].tobytes() == merkle.inner_hash(pair[:32], pair[32:])
+    if m % 2:
+        assert got[-1].tobytes() == level[-1].tobytes()
+    else:
+        assert (out[m // 2] == 0xEE).all()
+    plain = S256.sha256_level(torch.from_numpy(level))
+    assert np.array_equal(got, plain.numpy())
+
+
+def _walk_host(lib, batch):
+    """X5's body over every proof of a packed batch: (roots, ok)."""
+    k = batch.k
+    base = batch.buf.ctypes.data
+    roots = np.full((k, 32), 0xEE, dtype=np.uint8)
+    ok = np.full(k, 7, dtype=np.uint8)
+    parts = [ctypes.c_void_p(base + batch.at[p])
+             for p in ("leaf", "aunts", "off", "sides", "want", "ok_in")]
+    lib.host_merkle_proofs(*parts, _ptr(roots), _ptr(ok), ctypes.c_int(k))
+    assert np.isin(ok, (0, 1)).all()
+    return roots, ok.astype(bool)
+
+
+def _proofs_with_faults():
+    """(root, proofs, bad): 37 proofs of one tree and 3 + 64 of two
+    others, with an aunt zeroed, a leaf hash zeroed, an index moved, an
+    aunt dropped, total = 0, an aunt of 31 bytes, a leaf hash of 33 bytes
+    and an index past total; `bad` the indices that must be False."""
+    root, proofs = merkle.proofs_from_byte_slices([b"item-%d" % i for i in range(37)])
+    _r3, p3 = merkle.proofs_from_byte_slices([b"a%d" % i for i in range(3)])
+    _r64, p64 = merkle.proofs_from_byte_slices([b"b%d" % i for i in range(64)])
+    proofs[5].aunts[0] = bytes(32)
+    proofs[11].leaf_hash = bytes(32)
+    proofs[20].index = 21
+    proofs[3].aunts = proofs[3].aunts[:-1]
+    proofs[7].total = 0
+    proofs[9].aunts[2] = proofs[9].aunts[2][:31]
+    proofs[13].leaf_hash += b"\x00"
+    proofs[15].index = 37
+    bad = [3, 5, 7, 9, 11, 13, 15, 20] + list(range(37, 37 + 67))
+    return root, proofs + p3 + p64, bad
+
+
+def test_merkle_proof_body_matches_compute_hash_from_aunts(lib):
+    """X5's walk on valid and malformed proofs of mixed depths (0 to 6,
+    the 3-leaf tree's proofs against another root): the bitmap is the
+    host's, every structurally sound proof's root is
+    _compute_hash_from_aunts', every malformed one's is 32 zero bytes,
+    and the plain version agrees on both."""
+    root, proofs, bad = _proofs_with_faults()
+    batch = MK.pack_proofs(proofs, root)
+    roots, ok = _walk_host(lib, batch)
+    want_ok = np.ones(len(proofs), dtype=bool)
+    want_ok[bad] = False
+    assert np.array_equal(ok, want_ok), np.nonzero(ok != want_ok)
+    for i, p in enumerate(proofs):
+        h = merkle._compute_hash_from_aunts(p.index, p.total, p.leaf_hash, p.aunts)
+        sound = h is not None and len(p.leaf_hash) == 32 and all(
+            len(a) == 32 for a in p.aunts
+        )
+        assert roots[i].tobytes() == (h if sound else bytes(32)), i
+    plain_roots, plain_ok = MK.verify_program_plain(
+        *batch.to("cpu")
+    )
+    assert np.array_equal(roots, plain_roots.numpy())
+    assert np.array_equal(ok, plain_ok.numpy())
