@@ -23,12 +23,13 @@ Before the main paths, every kernel is held against its plain version:
 K1 and X1 at the widest bucket, K2 also on the ZIP-215 corpus at buckets
 128 and 12288 and at a width that no block of signatures divides, X1
 also on rows of mixed lengths 0-300 at widths 2045 and 12288 (and
-hashlib), X3 on the sr25519 corpus at buckets 128 and 2048 and at width
-2045 (and the host oracle); X4 (SHA-256 rows) on rows of 0-200 bytes at
-widths 2045 and 16384 (and hashlib) and on tree roots of 1-16,385
-leaves (against the host reduction), X5 (merkle proofs) on all proofs
-of a 10,000-leaf tree, on a batch of mixed depths and on corrupted
-proofs (and the host compute_root_hash).
+hashlib), X3 on the sr25519 corpus at buckets 128 and 2048, at width
+2045 and at width 2049 with 18 zero columns (a whole block of them; and
+the host oracle); X4 (SHA-256 rows) on rows of 0-200 bytes at widths
+2045 and 16384 (and hashlib), its tree form on roots of 1-16,385 leaves
+(against the host reduction and the level-by-level form), X5 (merkle
+proofs) on all proofs of a 10,000-leaf tree, on a batch of mixed depths
+and on corrupted proofs (and the host compute_root_hash).
 
 Phases print one JSON line each. The line before the last two is the
 card as nvidia-smi names it, with its power limit; the line before the
@@ -37,9 +38,10 @@ kernel's and its plain version's times (CUDA events around the calls,
 host gaps included, and the profiler's time of the kernel alone), and
 the card's least time for the same work; for K2, K1 and X3 also one
 launch's time and bound at each width in K2_WIDTHS / K1_WIDTHS /
-X3_WIDTHS; for X1 its time per window, SASS instructions per compression
-and the latency floor of one row; for X4 its time per launch, a root
-being one launch a tree level; for every kernel its registers, stack
+X3_WIDTHS; for X1 its time per window, SASS instructions per
+compression and the latency floor of one row; for X4 a root's tree launch
+beside the level-by-level form's launches and the latency floor of one
+thread's chain of inner hashes; for every kernel its registers, stack
 frame and spill bytes from ptxas -v); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises and the script exits non-zero
 without that line. It exits non-zero at once when CUDA is not available
@@ -119,6 +121,7 @@ KERNEL_NAMES = {
     "ed25519_dual_mult": "dual_mult_kernel",
     "sr25519_verify": "sr25519_verify_kernel",
     "sha256_rows": "sha256_rows_kernel",
+    "sha256_tree": "sha256_tree_kernel",
     "merkle_proofs": "merkle_proofs_kernel",
 }
 
@@ -131,6 +134,9 @@ K1_WIDTHS = (2048, WIDE)
 # X3's (and the buckets of its corpus check): the light commit's bucket
 # and the streaming window
 X3_WIDTHS = (128, 2048)
+# an X3 width past a whole block (2049: the last block holds one
+# signature), with its last 18 columns zero, a whole block of them
+X3_PADDED, X3_ZEROS = 2049, 18
 
 CHAIN_ID = "chip-smoke-chain"
 HEIGHT = 1234
@@ -145,9 +151,11 @@ REPS = 20
 # blocks; at a width no block of threads divides and at a 16k-leaf level
 X4_LENGTHS = (0, 1, 31, 32, 33, 55, 56, 63, 64, 65, 119, 200)
 X4_WIDTHS = (2045, 16384)
-# tree sizes: 1 (no launch), small odd trees, both sides of 512 (the
-# install gate) and of 2^14, and 10,000 (config 5)
-TREE_SIZES = (1, 2, 3, 5, 13, 511, 512, 513, 10_000, 16_385)
+# tree sizes: 1 (no launch), small odd trees, both sides of the tree
+# kernel's 128-leaf blocks, of 512 (the install gate), of 1024 and of
+# 2^14, and 10,000 (config 5)
+TREE_SIZES = (1, 2, 3, 5, 13, 127, 128, 129, 511, 512, 513, 1023, 1024,
+              1025, 10_000, 16_383, 16_384, 16_385)
 # config 5's block of transactions and their lengths in bytes
 N_TXS = 10_000
 TX_LENGTHS = (100, 300)
@@ -654,10 +662,12 @@ def phase_ragged_width(torch, dev, seed: int) -> None:
 
 def phase_sr25519_tile(torch, dev, seed: int) -> None:
     """X3 against its plain version and the host oracle, bit for bit, on
-    the sr25519 corpus at buckets 128 and 2048 and at the width RAGGED
-    that no block divides (PAD zero lanes at its end): the kernel on
-    uint8 and on int32 rows, the plain version on every lane, the tile
-    and hybrid programs' bitmaps against the oracle's."""
+    the sr25519 corpus at buckets 128 and 2048, at the width RAGGED that
+    no block divides (PAD zero lanes at its end) and at X3_PADDED (its
+    last X3_ZEROS columns zero: every lane of a whole block, and of the
+    last block's one signature, runs on padding): the kernel on uint8 and
+    on int32 rows, the plain version on every lane, the tile and hybrid
+    programs' bitmaps against the oracle's."""
     from tendermint_tpu_torch.crypto import sr25519_corpus
     from tendermint_tpu_torch.ops import sr25519_cuda as X
     from tendermint_tpu_torch.ops import sr25519_kernel as SK
@@ -666,7 +676,8 @@ def phase_sr25519_tile(torch, dev, seed: int) -> None:
     want = np.array(sr25519_corpus.expected(triples))
     out = {}
     for sizes, count in [([w], w - w // 16) for w in X3_WIDTHS] + [
-        ([RAGGED], RAGGED - PAD)
+        ([RAGGED], RAGGED - PAD),
+        ([X3_PADDED], X3_PADDED - X3_ZEROS),
     ]:
         reps = -(-count // len(triples))
         tr = (triples * reps)[:count]
@@ -782,6 +793,17 @@ def phase_x1_latency() -> dict:
 
     floor = x1_latency.measure(GpuEd25519BatchVerifier.STREAM_CHUNK)
     emit({"phase": "x1_latency_floor", **floor})
+    return floor
+
+
+def phase_x4_latency() -> dict:
+    """The latency floor of a 10,000-leaf root: SM cycles and nanoseconds
+    of one thread's chain of its tree_levels(N_TXS) dependent inner
+    hashes, alone on the card, the least of x4_latency's reads."""
+    from tendermint_tpu_torch.ops import x4_latency
+
+    floor = x4_latency.measure(tree_levels(N_TXS))
+    emit({"phase": "x4_latency_floor", **floor})
     return floor
 
 
@@ -1031,15 +1053,32 @@ def count_merkle_call(fn, expect: dict):
 
 
 def tree_levels(n: int) -> int:
-    """X4 launches of an n-leaf root: one a level, none for one leaf."""
+    """Levels of an n-leaf root: X4's level-by-level launches."""
     return (n - 1).bit_length()
+
+
+def tree_launches(n: int) -> dict:
+    """X4's launches of an n-leaf tree_root: one tree launch, none for one
+    leaf."""
+    return {"sha256_tree": 1} if n > 1 else {}
+
+
+def level_loop(S, leaves):
+    """The root of (n, 32) leaf hashes on the card, one launch of X4's
+    level form a level: what the tree form is held against and timed
+    beside."""
+    level = leaves
+    while level.shape[0] > 1:
+        level = S.sha256_level(level)
+    return level
 
 
 def phase_merkle_kernels(torch, dev, seed: int) -> None:
     """X4 against its plain version and hashlib (X4_LENGTHS at X4_WIDTHS,
-    with no prefix and behind 0x00 and 0x01), tree roots at TREE_SIZES
-    against the host reduction (the 16,385-leaf tree's levels, odd at
-    every level, against the plain version too); X5 against its plain
+    with no prefix and behind 0x00 and 0x01), tree_root at TREE_SIZES (one
+    tree launch, no row launch) against the host reduction and the level
+    form's root (the 16,385-leaf tree's levels, odd at every level,
+    against the plain version too); X5 against its plain
     version and the host compute_root_hash on all proofs of a
     10,000-leaf tree, on proofs of 3- and 64-leaf trees in one batch, and
     on corrupted proofs, each False at its own index."""
@@ -1068,12 +1107,16 @@ def phase_merkle_kernels(torch, dev, seed: int) -> None:
     for n in TREE_SIZES:
         leaf_hashes = by_size[n] = [rng.bytes(32) for _ in range(n)]
         got, counts = count_merkle_call(
-            lambda lh=leaf_hashes: MK.tree_root(lh, dev),
-            {"sha256_rows": tree_levels(n)},
+            lambda lh=leaf_hashes: MK.tree_root(lh, dev), tree_launches(n)
         )
         if got != merkle._reduce(leaf_hashes):
             raise AssertionError(f"tree root differs from the host's, n={n}")
-        trees[str(n)] = counts.get("sha256_rows", 0)
+        flat = bytearray(b"".join(leaf_hashes))
+        leaves = torch.frombuffer(flat, dtype=torch.uint8).view(n, 32)
+        by_levels = level_loop(S, leaves.to(dev))
+        if by_levels.cpu().numpy().tobytes() != got:
+            raise AssertionError(f"tree root differs from the level form's, n={n}")
+        trees[str(n)] = counts.get("sha256_tree", 0)
     widest = b"".join(by_size[max(TREE_SIZES)])
     level = torch.frombuffer(bytearray(widest), dtype=torch.uint8)
     level = level.view(-1, 32).to(dev)
@@ -1135,6 +1178,7 @@ def phase_merkle_kernels(torch, dev, seed: int) -> None:
                 "lengths": list(X4_LENGTHS),
                 "widths": list(X4_WIDTHS),
                 "prefixes": [None, 0, 1],
+                "tree_sizes": list(TREE_SIZES),
                 "tree_launches": trees,
             },
             "x5": {"proofs": N_TXS, "aunts": aunts, "corrupted_at": bad},
@@ -1159,8 +1203,8 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
     block, verify_commit, and all 10,000 inclusion proofs of the block's
     transactions in one verify_proofs_batch. Roots against the host
     oracle's; the bitmap all True, and False at exactly one index with
-    one aunt corrupted; launches counted per call (X4 once a level of a
-    root above the gate and never below it, X5 once a batch, no other
+    one aunt corrupted; launches counted per call (X4's tree kernel once
+    a root above the gate and never below it, X5 once a batch, no other
     kernel); no call above its gate reaches the host reduction. Host
     times of each call (p50/p95 over REPS), of the proof batch's packing
     alone, and of hashlib's root and batch on this host for scale."""
@@ -1201,7 +1245,6 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
     n_sr = sum(v.pub_key.type() == "sr25519" for v in vals.validators)
     step = GpuSr25519BatchVerifier.STREAM_CHUNK
     w_sr, w_ed = -(-n_sr // step), -(-(len(vals.validators) - n_sr) // step)
-    levels = tree_levels(N_TXS)
     n_vals, n_sigs = len(vals.validators), len(commit.signatures)
     # the host paths the hooks replace, counted while they are installed
     host_calls = {"reduce": 0, "compute_root_hash": 0}
@@ -1214,9 +1257,9 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
         return wrapper
 
     calls = {
-        "validator_set_hash": (vals.hash, {"sha256_rows": tree_levels(n_vals)}),
-        "commit_hash": (commit.hash, {"sha256_rows": tree_levels(n_sigs)}),
-        "txs_hash": (lambda: txs_hash(txs), {"sha256_rows": levels}),
+        "validator_set_hash": (vals.hash, tree_launches(n_vals)),
+        "commit_hash": (commit.hash, tree_launches(n_sigs)),
+        "txs_hash": (lambda: txs_hash(txs), tree_launches(N_TXS)),
         "verify_proofs_batch": (
             lambda: merkle.verify_proofs_batch(proofs, data_hash, leaves),
             {"merkle_proofs": 1},
@@ -1241,7 +1284,7 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
         if not small_reduces:
             raise AssertionError("the small set's root did not stay on the host")
         per_call["txs_proofs"] = count_merkle_call(
-            lambda: txs_proofs(txs), {"sha256_rows": levels}
+            lambda: txs_proofs(txs), tree_launches(N_TXS)
         )[1]
         per_call["verify_commit"] = count_one_call(
             lambda: verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit),
@@ -1333,7 +1376,13 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
 
 
 def phase_kernels(
-    torch, dev, main: dict, mixed: dict, config5: dict, card: str, power: str
+    torch,
+    dev,
+    main: dict,
+    mixed: dict,
+    config5: dict,
+    card: str,
+    power: str,
 ) -> dict:
     """Each kernel on the inputs the main path gives it for one commit
     (the batch verifier streams it in STREAM_CHUNK windows, each one
@@ -1578,8 +1627,8 @@ def phase_kernels(
             for w, u in ((w, sr_at(w)) for w in X3_WIDTHS)
         },
     }
-    # X4 on the block's leaf hashes as tree_root launches it, one level
-    # at a time on the card, and X5 on the block's proofs as
+    # X4 on the block's leaf hashes as tree_root uploads them and launches
+    # its tree kernel, once a root; and X5 on the block's proofs as
     # verify_proofs uploads them
     from tendermint_tpu_torch.ops import merkle_kernel as MK
     from tendermint_tpu_torch.ops import sha256_kernel as S256
@@ -1589,28 +1638,18 @@ def phase_kernels(
         bytearray(b"".join(config5["leaf_hashes"])), dtype=torch.uint8
     )
     leaves = leaves.view(n, 32).to(dev)
-
-    def root_of(level_fn):
-        def run():
-            level = leaves
-            while level.shape[0] > 1:
-                level = level_fn(level)
-            return level
-
-        return run
-
-    x4, x4_plain = root_of(S256.sha256_level), root_of(S256.sha256_level_plain)
+    x4 = lambda: S256.sha256_tree(leaves)  # noqa: E731
+    x4_plain = lambda: S256.sha256_tree_plain(leaves)  # noqa: E731
     got = x4()
     if got.cpu().numpy().tobytes() != config5["data_hash"]:
         raise AssertionError("X4's root differs from the block's data hash")
     err = int((got.int() - x4_plain().int()).abs().max().item())
-    x4_launches = config5["launches"]["txs_hash"]["sha256_rows"]
     rows.append(
         row(
-            "sha256_rows",
+            "sha256_tree",
             "tendermint_tpu_torch/ops/csrc/sha256.cu",
-            "tendermint_tpu/ops/sha256_kernel.py:125",
-            x4_launches,
+            "tendermint_tpu/ops/sha256_kernel.py:173",
+            config5["launches"]["txs_hash"]["sha256_tree"],
             [n],
             err,
             x4,
@@ -1620,9 +1659,27 @@ def phase_kernels(
         )
     )
     rows[-1]["replaces_also"] = [
-        "tendermint_tpu/ops/sha256_kernel.py:173",
+        "tendermint_tpu/ops/sha256_kernel.py:125",
         "tendermint_tpu/ops/sha256_kernel.py:182",
+        "tendermint_tpu/ops/merkle_kernel.py:49",
     ]
+    # the level form on the same leaves: one launch of X4's row kernel a
+    # level, as tree_root ran before the tree kernel
+    by_levels = lambda: level_loop(S256, leaves)  # noqa: E731
+    reset_launches()
+    if not torch.equal(by_levels()[0], got):
+        raise AssertionError("X4's tree and level forms differ")
+    level_launches = launches()["sha256_rows"]
+    lv_ms, lv_records = device_ms(
+        torch, by_levels, 10, KERNEL_NAMES["sha256_rows"], level_launches
+    )
+    rows[-1]["level_form"] = {
+        "kernel": KERNEL_NAMES["sha256_rows"],
+        "launches_per_root": level_launches,
+        "ms": cuda_ms(torch, by_levels, 10),
+        "device_ms": lv_ms,
+        "device_records": lv_records,
+    }
     batch = MK.pack_proofs(config5["proofs"], config5["data_hash"])
     views = batch.to(dev)
     x5 = lambda: MK.merkle_proofs(*views)  # noqa: E731
@@ -1653,9 +1710,6 @@ def phase_kernels(
     )
     for r in rows[-2:]:
         r["library"] = "none: no PyTorch call computes SHA-256"
-    x4_row = rows[-2]
-    x4_row["device_ms_per_launch"] = x4_row["device_ms"] / x4_launches
-    x4_row["ms_per_launch"] = x4_row["ms"] / x4_launches
 
     from tendermint_tpu_torch.ops import build
 
@@ -1666,7 +1720,7 @@ def phase_kernels(
         "ed25519_verify_tile": ("ed25519_verify", ""),
         "ed25519_dual_mult": ("ed25519_dual_mult", ""),
         "sr25519_verify": ("sr25519_verify", ""),
-        "sha256_rows": ("sha256", "sha256_rows_kernel"),
+        "sha256_tree": ("sha256", "sha256_tree_kernel"),
         "merkle_proofs": ("merkle_proofs", "merkle_proofs_kernel"),
     }
     for r in rows:
@@ -1684,6 +1738,15 @@ def phase_kernels(
             )[0]
         r["card"] = card
         r["power_limit"] = power
+    x4_row = next(r for r in rows if r["name"] == "sha256_tree")
+    x4_row["level_form"].update(
+        ptxas_resources(ptxas["sha256"], KERNEL_NAMES["sha256_rows"])
+    )
+    x3_row = next(r for r in rows if r["name"] == "sr25519_verify")
+    x3_row["earlier_design"] = (
+        "four lanes a signature: its times are in PERF.md, and "
+        "python -m tendermint_tpu_torch.ops.x3_variants re-times it"
+    )
     return {"kernels": rows}
 
 
@@ -1852,14 +1915,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, here)
     os.chdir(here)
-    dev = torch.device("cuda")
-
     smi = nvidia_smi_line()
+    dev = torch.device("cuda")
     card, power = (s.strip() for s in smi.split(",", 1))
     sass = phase_report(torch, args.out)
     phase_sha512(torch, dev, args.seed)
     phase_x1_ragged(torch, dev, args.seed)
     floor = phase_x1_latency()
+    x4_floor = phase_x4_latency()
     phase_dual_mult(torch, dev, args.seed)
     phase_verify_tile(torch, dev, args.seed)
     phase_ragged_width(torch, dev, args.seed)
@@ -1868,9 +1931,7 @@ def main() -> int:
     main_run = phase_main_path(torch, args.seed)
     mixed_run = phase_sr25519_main_path(torch, args.seed)
     config5 = phase_config5(torch, dev, args.seed, mixed_run)
-    kernels = phase_kernels(
-        torch, dev, main_run, mixed_run, config5, card, power
-    )
+    kernels = phase_kernels(torch, dev, main_run, mixed_run, config5, card, power)
     x1 = next(r for r in kernels["kernels"] if r["name"] == "sha512_ram")
     if x1["spill_store_bytes"] or x1["spill_load_bytes"]:
         raise AssertionError("X1 spills registers")
@@ -1880,10 +1941,13 @@ def main() -> int:
     }
     x1["latency_floor_ms_per_window"] = floor["row_ns"] / 1e6
     x1["latency_floor_cycles"] = floor["row_cycles"]
-    for name in ("sha256_rows", "merkle_proofs"):
+    for name in ("sha256_tree", "merkle_proofs"):
         r = next(r for r in kernels["kernels"] if r["name"] == name)
         r["sass_per_compression"] = sass["probe_sha256_compress"]
         r["sass_per_inner_hash"] = sass["probe_sha256_inner"]
+    x4 = next(r for r in kernels["kernels"] if r["name"] == "sha256_tree")
+    x4["latency_floor_ms_per_root"] = x4_floor["ns"] / 1e6
+    x4["latency_floor_cycles"] = x4_floor["cycles"]
     if args.profile:
         phase_profile(torch, main_run, 5, args.out, "profile")
         phase_profile(torch, mixed_run, 5, args.out, "sr25519_profile")

@@ -74,6 +74,8 @@ _SIGNATURES = {
     },
     "sha256": {
         "tm_sha256_rows": ([_V, _V, _I, _I, _I, _I, _I, _V], _I),
+        "tm_sha256_tree": ([_V, _V, _I, _I, _V], _I),
+        "tm_sha256_tree_work": ([_I], _I),
     },
     "merkle_proofs": {
         "tm_merkle_proofs": ([_V] * 8 + [_I, _I, _V], _I),

@@ -46,10 +46,12 @@ __device__ __constant__ uint32_t H256[8] = {
 // (hi:lo) >> n, the low 32 bits: one SHF
 #define SHA256_FSHR(hi, lo, n) __funnelshift_r((lo), (hi), (n))
 #define SHA256_BSWAP(x) __byte_perm((x), 0u, 0x0123)
+#define SHA256_TREE_SYNC() __syncthreads()
 #else
 #define SHA256_FSHR(hi, lo, n) \
   ((uint32_t)(((((uint64_t)(hi)) << 32) | (uint32_t)(lo)) >> (n)))
 #define SHA256_BSWAP(x) __builtin_bswap32((uint32_t)(x))
+#define SHA256_TREE_SYNC() ((void)0)
 #endif
 #define SHA256_ROTR(x, n) SHA256_FSHR((x), (x), (n))
 
@@ -190,6 +192,51 @@ __device__ __forceinline__ void sha256_rows_item(const uint8_t *data,
     sha256_row_state(row, len, prefix >= 0, (uint32_t)prefix & 0xff, h);
   }
   sha256_store_digest(h, out + (size_t)32 * i);
+}
+
+// -- a tree root in one launch (X4's tree kernel, sha256.cu) --
+
+// leaves a block of the tree kernel reduces: its aligned subtree
+#define SHA256_TREE_LEAVES 128
+
+// Node t of the level above the m digests at src, to dst[32 t ..]: the
+// inner hash of src's nodes 2t and 2t + 1, or, for t = (m - 1) / 2 with m
+// odd, the odd node carried up unchanged (RFC 6962 level order).
+__device__ __forceinline__ void sha256_tree_node(const uint8_t *src,
+                                                 uint8_t *dst, int m, int t) {
+  uint32_t h[8];
+  if (2 * t + 1 < m) {
+    uint32_t l[8], r[8];
+    sha256_load_digest(src + (size_t)64 * t, l);
+    sha256_load_digest(src + (size_t)64 * t + 32, r);
+    sha256_inner_words(l, r, h);
+  } else if (2 * t + 1 == m) {
+    sha256_load_digest(src + (size_t)64 * t, h);
+  } else {
+    return;
+  }
+  sha256_store_digest(h, dst + (size_t)32 * t);
+}
+
+// The root of the m >= 1 digests at src, level by level: thread tid of nt
+// takes nodes tid, tid + nt, ... of each level, levels alternate between
+// a and b (room for (m + 1) / 2 digests each), and the threads meet at
+// SHA256_TREE_SYNC() between levels (one thread, nt = 1, needs none).
+// Returns where the root is: src itself when m = 1. Every thread of the
+// block must call it with the same m.
+__device__ __forceinline__ const uint8_t *sha256_tree_reduce(
+    const uint8_t *src, uint8_t *a, uint8_t *b, int m, int tid, int nt) {
+  const uint8_t *cur = src;
+  uint8_t *next = a;
+  while (m > 1) {
+    const int up = (m + 1) >> 1;
+    for (int t = tid; t < up; t += nt) sha256_tree_node(cur, next, m, t);
+    SHA256_TREE_SYNC();
+    cur = next;
+    next = next == a ? b : a;
+    m = up;
+  }
+  return cur;
 }
 
 // Proof k of X5: from its leaf hash (leaf[32 k ..]) up through its aunts

@@ -4,13 +4,13 @@ Counterpart: tendermint_tpu/ops/merkle_kernel.py. Two offloads
 (reference shapes: crypto/merkle/tree.go:68 HashFromByteSlices,
 proof.go:52 Proof.Verify):
 
-- tree_root(leaf_hashes): the n - 1 inner hashes of an RFC 6962 tree,
-  level by level: adjacent pairs hashed, an odd trailing node carried up
+- tree_root(leaf_hashes): the n - 1 inner hashes of an RFC 6962 tree in
+  level order: adjacent pairs hashed, an odd trailing node carried up
   unchanged, which reproduces the reference's split at the largest power
-  of two. One upload, one launch of X4 a level with no host
-  synchronisation between levels, one 32-byte download. Levels are not
-  padded to powers of two: the JAX `_bucket` (:52) only bounded XLA's
-  compiled shapes.
+  of two. One upload, one launch of X4's tree kernel (csrc/sha256.cu
+  says why its aligned subtrees give the same root), one 32-byte
+  download. Levels are not padded to powers of two: the JAX `_bucket`
+  (:52) only bounded XLA's compiled shapes.
 - verify_proofs(proofs, root_hash): K inclusion proofs in one launch of
   X5. The host packs them (pack_proofs) into one flat buffer: leaf
   hashes, the root, the structural checks, one word of side bits a
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .build import check_launch, kernels, ptr, stream_of
-from .sha256_kernel import INNER_PREFIX, sha256_level, sha256_rows_plain
+from .sha256_kernel import INNER_PREFIX, sha256_rows_plain, sha256_tree
 
 __all__ = [
     "LAUNCHES",
@@ -56,7 +56,7 @@ __all__ = [
 ]
 
 # launches of kernel X5, by this module's wrapper only (X4's are counted
-# in sha256_kernel.LAUNCHES)
+# in sha256_kernel.LAUNCHES, the tree form's as "sha256_tree")
 LAUNCHES = {"merkle_proofs": 0}
 
 # proof-step flags of the recursive form (the JAX package's)
@@ -80,9 +80,9 @@ def _device(device) -> torch.device:
 
 
 def tree_root(leaf_hashes: Sequence[bytes], device="cuda") -> bytes:
-    """Root from already-hashed leaves (32 bytes each): pairwise level
-    reduction, one launch of kernel X4 a level on `device` (the plain
-    version on the CPU). No launch for one leaf."""
+    """Root from already-hashed leaves (32 bytes each): one launch of
+    X4's tree kernel on `device` (the plain version on the CPU). No launch
+    for one leaf."""
     n = len(leaf_hashes)
     if n == 0:
         raise ValueError("tree_root requires at least one leaf hash")
@@ -92,11 +92,9 @@ def tree_root(leaf_hashes: Sequence[bytes], device="cuda") -> bytes:
         raise ValueError("tree_root: every leaf hash must be 32 bytes")
     if n == 1:
         return flat
-    level = torch.frombuffer(bytearray(flat), dtype=torch.uint8)
-    level = level.view(n, 32).to(dev)
-    while level.shape[0] > 1:
-        level = sha256_level(level)
-    return level.cpu().numpy().tobytes()
+    leaves = torch.frombuffer(bytearray(flat), dtype=torch.uint8)
+    root = sha256_tree(leaves.view(n, 32).to(dev))
+    return root.cpu().numpy().tobytes()
 
 
 def _sides_for(index: int, total: int) -> List[int]:

@@ -11,6 +11,9 @@ the JAX package takes (L, N) columns (interop.py converts).
   -> (ceil(m / 2), 32): the adjacent pairs' inner hashes, and an odd
   trailing digest carried up unchanged. On the card the level is viewed as
   floor(m / 2) rows of 64 bytes, with no copy.
+- `sha256_tree(leaves)`: the whole root of n leaf hashes, (n, 32) ->
+  (32,): on the card one launch of X4's tree kernel, the levels of
+  `sha256_level` in shared memory.
 - `sha256_fixed`, `leaf_hash_batch`, `inner_hash_batch`: the JAX package's
   three functions on rows.
 
@@ -41,10 +44,13 @@ __all__ = [
     "sha256_level_plain",
     "sha256_rows",
     "sha256_rows_plain",
+    "sha256_tree",
+    "sha256_tree_plain",
 ]
 
-# launches of kernel X4, by this module's wrappers only
-LAUNCHES = {"sha256_rows": 0}
+# launches of kernel X4, by this module's wrappers only: the row form and
+# the tree form
+LAUNCHES = {"sha256_rows": 0, "sha256_tree": 0}
 
 LEAF_PREFIX = 0x00
 INNER_PREFIX = 0x01
@@ -142,6 +148,15 @@ def sha256_level_plain(level: torch.Tensor) -> torch.Tensor:
     return torch.cat([pairs, level[m - m % 2 :]], dim=0)
 
 
+def sha256_tree_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """The root of (n, 32) leaf hashes, n >= 1, level by level as plain
+    torch ops -> (32,)."""
+    level = leaves
+    while level.shape[0] > 1:
+        level = sha256_level_plain(level)
+    return level[0]
+
+
 def _launch(data, out, length: int, n: int, prefix, carry: bool) -> None:
     lib = kernels()["sha256"]
     rc = lib.tm_sha256_rows(
@@ -193,6 +208,31 @@ def sha256_level(level: torch.Tensor) -> torch.Tensor:
     out = torch.empty(((m + 1) // 2, 32), dtype=torch.uint8, device=level.device)
     _launch(level, out, 64, m // 2, INNER_PREFIX, bool(m % 2))
     return out
+
+
+def sha256_tree(leaves: torch.Tensor) -> torch.Tensor:
+    """The RFC 6962 root of n >= 1 leaf hashes: leaves (n, 32) uint8 ->
+    (32,) uint8. A CPU tensor runs the plain version; a CUDA tensor is one
+    launch of X4's tree kernel (behind a memset of its counter) or
+    raises."""
+    if leaves.device.type == "cpu":
+        return sha256_tree_plain(leaves)
+    _check("sha256_tree", leaves, 2)
+    n = leaves.shape[0]
+    if n < 1 or leaves.shape[1] != 32:
+        raise ValueError(
+            f"sha256_tree: want (n, 32) with n >= 1, got {tuple(leaves.shape)}"
+        )
+    lib = kernels()["sha256"]
+    work = torch.empty(
+        lib.tm_sha256_tree_work(n), dtype=torch.uint8, device=leaves.device
+    )
+    rc = lib.tm_sha256_tree(
+        ptr(leaves), ptr(work), n, leaves.device.index, stream_of(leaves.device)
+    )
+    check_launch(rc, lib, "sha256_tree")
+    LAUNCHES["sha256_tree"] += 1
+    return work[-32:]
 
 
 def sha256_fixed(rows: torch.Tensor) -> torch.Tensor:

@@ -6,12 +6,13 @@ schnorrkel check, ristretto decode of A and R, s < L and the marker bit,
 [s]B - [k]A and ristretto equality, byte rows in, (N,) bool bitmap out.
 Its plain version is ops/sr25519_kernel._verify_tile_sr.
 
-The kernel runs four threads per signature on the device body K1 and K2
-share (csrc/ed25519_device.cuh): the two decodes side by side on two
-lane pairs, then the 64-window dual multiplication with no cofactor
-(ristretto255 has prime order), then the equality as one product a lane.
-What bounds it on an H100, and what the design does about it, is in
-csrc/sr25519_verify.cu.
+The kernel runs eight threads per signature on K1's and K2's field and
+group formulas (csrc/ed25519_device.cuh): the two decodes side by side
+on two lane pairs, then four lanes walk [k](-A) over 64 windows while the
+other four sum [s]B from a fixed-base comb (csrc/sr25519_comb.cuh), one
+addition joining them (no cofactor: ristretto255 has prime order), then
+the equality as one product a lane. What bounds it on an H100, and what
+the design does about it, is in csrc/sr25519_verify.cu.
 
 The wrapper takes the plain version only for a CPU tensor. For a CUDA
 tensor it checks device, dtype, shape and contiguity, allocates the

@@ -154,6 +154,8 @@ def test_merkle_wrappers_take_the_plain_version_only_on_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         sha256_kernel.sha256_level(meta)
     with pytest.raises(ValueError, match="unsupported device"):
+        sha256_kernel.sha256_tree(meta)
+    with pytest.raises(ValueError, match="unsupported device"):
         merkle_kernel.merkle_proofs(
             meta,
             meta,
@@ -166,5 +168,6 @@ def test_merkle_wrappers_take_the_plain_version_only_on_cpu():
     merkle_kernel.reset_launches()
     level = torch.zeros((3, 32), dtype=torch.uint8)
     assert tuple(sha256_kernel.sha256_level(level).shape) == (2, 32)
-    assert sha256_kernel.LAUNCHES == {"sha256_rows": 0}
+    assert tuple(sha256_kernel.sha256_tree(level).shape) == (32,)
+    assert sha256_kernel.LAUNCHES == {"sha256_rows": 0, "sha256_tree": 0}
     assert merkle_kernel.LAUNCHES == {"merkle_proofs": 0}

@@ -38,38 +38,49 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "tendermint_tpu_torch" / "o
 
 HARNESS = r"""
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 #include <ucontext.h>
 #define __device__
 #define __constant__
 #define __forceinline__ inline
 
-// The four lanes of a signature as four contexts on one host thread, run
-// round-robin: lane_shfl deposits this lane's value and yields to the
-// next lane, so a lane reads its source's deposit only after all four
-// lanes have reached the same exchange (lock-step, round by round). Two
-// slot sets alternate, so the first lane through the next exchange cannot
-// overwrite a value the others have yet to read.
+// The lanes of a signature (four for K1 and K2, X3_LANES for X3) as
+// contexts on one host thread, run round-robin: every exchange deposits
+// this lane's value and yields to the next lane, so a lane reads its
+// source's deposit only after all lanes have reached the same exchange
+// (lock-step, round by round). Two slot sets alternate, so the first lane
+// through the next exchange cannot overwrite a value the others have yet
+// to read. lane_shfl reads within the lane's four-lane segment (width 4),
+// x3_shfl any lane of the signature (width X3_LANES), as on the card.
 #define ED25519_HOST_LANES
-static int g_lane;
-static uint32_t g_slot[2][4];
-static int g_parity[4];
-static long g_rounds[4];
-static ucontext_t g_ctx[4], g_main;
-static char g_stack[4][1 << 18];
+#define HOST_MAX_LANES 16
+static int g_lane, g_nlanes = 4;
+static uint32_t g_slot[2][HOST_MAX_LANES];
+static int g_parity[HOST_MAX_LANES];
+static long g_rounds[HOST_MAX_LANES];
+static ucontext_t g_ctx[HOST_MAX_LANES], g_main;
+static char g_stack[HOST_MAX_LANES][1 << 18];
 
-static inline int lane_id() { return g_lane; }
-static uint32_t lane_shfl(uint32_t v, int src) {
-  const int l = g_lane, p = g_parity[l];
+static uint32_t exchange(uint32_t v, int src) {
+  const int l = g_lane, p = g_parity[l], next = (l + 1) % g_nlanes;
   g_slot[p][l] = v;
   g_parity[l] = p ^ 1;
   g_rounds[l]++;
-  g_lane = (l + 1) & 3;
-  swapcontext(&g_ctx[l], &g_ctx[(l + 1) & 3]);
+  g_lane = next;
+  swapcontext(&g_ctx[l], &g_ctx[next]);
   g_lane = l;
-  return g_slot[p][src & 3];
+  return g_slot[p][src];
 }
-static inline void lane_sync() { lane_shfl(0, 0); }
+static inline int lane_id() { return g_lane & 3; }
+static uint32_t lane_shfl(uint32_t v, int src) {
+  return exchange(v, (g_lane & ~3) | (src & 3));
+}
+static inline void lane_sync() { exchange(0, 0); }
+static inline int x3_lane() { return g_lane; }
+static uint32_t x3_shfl(uint32_t v, int src) {
+  return exchange(v, src & (g_nlanes - 1));
+}
 
 #include "ed25519_device.cuh"
 #include "sha256.cuh"
@@ -79,22 +90,23 @@ static inline void lane_sync() { lane_shfl(0, 0); }
 static void (*g_body)(void);
 static void lane_entry(void) { g_body(); }
 
-// runs body on the four lanes; the exchanges they made, or -1 when the
-// lanes made different numbers of them (they would not be in lock-step)
-static long run4(void (*body)(void)) {
+// runs body on n lanes; the exchanges they made, or -1 when the lanes
+// made different numbers of them (they would not be in lock-step)
+static long run_lanes(void (*body)(void), int n) {
   g_body = body;
-  for (int l = 0; l < 4; l++) {
+  g_nlanes = n;
+  for (int l = 0; l < n; l++) {
     getcontext(&g_ctx[l]);
     g_ctx[l].uc_stack.ss_sp = g_stack[l];
     g_ctx[l].uc_stack.ss_size = sizeof g_stack[l];
-    g_ctx[l].uc_link = l < 3 ? &g_ctx[l + 1] : &g_main;
+    g_ctx[l].uc_link = l < n - 1 ? &g_ctx[l + 1] : &g_main;
     makecontext(&g_ctx[l], lane_entry, 0);
     g_parity[l] = 0;
     g_rounds[l] = 0;
   }
   g_lane = 0;
   swapcontext(&g_main, &g_ctx[0]);
-  for (int l = 1; l < 4; l++)
+  for (int l = 1; l < n; l++)
     if (g_rounds[l] != g_rounds[0]) return -1;
   return g_rounds[0];
 }
@@ -104,6 +116,7 @@ static struct {
   const int32_t *a, *ds, *dk;
   bool *out;
   int32_t *out32;
+  uint8_t *xy;
   int n, es, i;
   uint32_t tab[9 * 10 * 4];
 } g;
@@ -113,8 +126,23 @@ static void verify_body(void) {
                       &GE_BASE_TABLE[0][0][0]);
 }
 static void sr_verify_body(void) {
-  sr25519_verify_lane(g.pk, g.sig, g.k, g.out, g.n, g.es, g.i, g.tab, 4,
-                      &GE_BASE_TABLE[0][0][0]);
+  sr25519_verify_lane(g.pk, g.sig, g.k, g.out, g.n, g.es, g.i, g.tab, 4);
+}
+// every lane decodes column i of g.pk; lane 0 writes ok and the canonical
+// x and y
+static void sr_decode_body(void) {
+  uint64_t w[4];
+  load_words<4>(w, g.pk, 0, g.n, g.i, 1, true);
+  ge_p3 p;
+  const bool ok = ristretto_decode(p, w);
+  fe_canonical(p.X);
+  fe_canonical(p.Y);
+  if (x3_lane() != 0) return;
+  g.out[g.i] = ok;
+  fe_to_words(w, p.X);
+  memcpy(g.xy + 64 * g.i, w, 32);
+  fe_to_words(w, p.Y);
+  memcpy(g.xy + 64 * g.i + 32, w, 32);
 }
 static void dual_mult_body(void) {
   ed25519_dual_mult_lane(g.a, g.ds, g.dk, g.out32, g.n, g.i, g.tab, 4,
@@ -122,15 +150,15 @@ static void dual_mult_body(void) {
 }
 
 // every signature of the blocks a launch of n would run, as the kernels
-// run them: the lanes of i >= n on zeros, writing nothing. Returns the
-// exchanges of one signature, or -1.
-static long run_blocks(void (*body)(void), int n) {
+// run them, on `lanes` lanes each: the lanes of i >= n on zeros, writing
+// nothing. Returns the exchanges of one signature, or -1.
+static long run_blocks(void (*body)(void), int n, int lanes) {
   const int padded = (n + ED25519_SIGS_PER_BLOCK - 1) /
                      ED25519_SIGS_PER_BLOCK * ED25519_SIGS_PER_BLOCK;
   long rounds = 0;
   for (int i = 0; i < padded; i++) {
     g.i = i;
-    const long r = run4(body);
+    const long r = run_lanes(body, lanes);
     if (r < 0 || (i > 0 && r != rounds)) return -1;
     rounds = r;
   }
@@ -142,34 +170,29 @@ extern "C" {
 long host_verify(const uint8_t *pk, const uint8_t *sig, const uint8_t *dig,
                  bool *out, int n, int es) {
   g.pk = pk; g.sig = sig; g.dig = dig; g.out = out; g.n = n; g.es = es;
-  return run_blocks(verify_body, n);
+  return run_blocks(verify_body, n, 4);
 }
 // X3's body, the same way: (32, n) pk, (64, n) sig and (32, n) k rows
 long host_sr_verify(const uint8_t *pk, const uint8_t *sig, const uint8_t *k,
                     bool *out, int n, int es) {
   g.pk = pk; g.sig = sig; g.k = k; g.out = out; g.n = n; g.es = es;
-  return run_blocks(sr_verify_body, n);
+  return run_blocks(sr_verify_body, n, X3_LANES);
 }
-// X3's ristretto decode on one lane, column by column of (32, n) uint8
-// rows: ok, and the canonical x and y as 32 little-endian bytes each
-void host_sr_decode(const uint8_t *enc, int n, bool *ok, uint8_t *xy) {
+// X3's ristretto decode, column by column of (32, n) uint8 rows, on
+// X3_LANES lanes in lock-step: ok, and the canonical x and y as 32
+// little-endian bytes each. Returns -1 when the lanes fell out of step.
+long host_sr_decode(const uint8_t *enc, int n, bool *ok, uint8_t *xy) {
+  g.pk = enc; g.n = n; g.out = ok; g.xy = xy;
   for (int i = 0; i < n; i++) {
-    uint64_t w[4];
-    load_words<4>(w, enc, 0, n, i, 1, true);
-    ge_p3 p;
-    ok[i] = ristretto_decode(p, w);
-    fe_canonical(p.X);
-    fe_canonical(p.Y);
-    fe_to_words(w, p.X);
-    memcpy(xy + 64 * i, w, 32);
-    fe_to_words(w, p.Y);
-    memcpy(xy + 64 * i + 32, w, 32);
+    g.i = i;
+    if (run_lanes(sr_decode_body, X3_LANES) < 0) return -1;
   }
+  return 0;
 }
 long host_dual_mult(const int32_t *a, const int32_t *ds, const int32_t *dk,
                     int32_t *out, int n) {
   g.a = a; g.ds = ds; g.dk = dk; g.out32 = out; g.n = n;
-  return run_blocks(dual_mult_body, n);
+  return run_blocks(dual_mult_body, n, 4);
 }
 void host_sha512(const uint8_t *data, uint8_t *out, int len, int n) {
   for (int i = 0; i < n; i++) sha512_row(data, out, len, n, i);
@@ -202,6 +225,24 @@ void host_sha256_rows(const uint8_t *data, uint8_t *out, int len, int n,
                       int prefix, int carry_tail) {
   for (int i = 0; i <= n; i++)
     sha256_rows_item(data, out, len, n, prefix, carry_tail, i);
+}
+// X4's tree kernel on one thread (nt = 1), phase by phase as its blocks
+// run them: each block's aligned subtree, then the blocks' roots
+int host_sha256_tree(const uint8_t *leaves, uint8_t *root, int n) {
+  alignas(16) static uint8_t a[SHA256_TREE_LEAVES * 16], b[SHA256_TREE_LEAVES * 16];
+  const int nb = (n + SHA256_TREE_LEAVES - 1) / SHA256_TREE_LEAVES;
+  const int up = (nb + 1) / 2;
+  uint8_t *work = (uint8_t *)aligned_alloc(16, 32 * (nb + 2 * up) + 16);
+  if (work == NULL) return -1;
+  for (int blk = 0; blk < nb; blk++) {
+    const int first = blk * SHA256_TREE_LEAVES;
+    const int m = n - first < SHA256_TREE_LEAVES ? n - first : SHA256_TREE_LEAVES;
+    memcpy(work + 32 * blk,
+           sha256_tree_reduce(leaves + 32 * (size_t)first, a, b, m, 0, 1), 32);
+  }
+  memcpy(root, sha256_tree_reduce(work, work + 32 * nb, work + 32 * (nb + up), nb, 0, 1), 32);
+  free(work);
+  return 0;
 }
 // X5: every proof of a batch
 void host_merkle_proofs(const uint8_t *leaf, const uint8_t *aunts,
@@ -245,6 +286,8 @@ def lib(tmp_path_factory):
     dll.host_verify.restype = ctypes.c_long
     dll.host_dual_mult.restype = ctypes.c_long
     dll.host_sr_verify.restype = ctypes.c_long
+    dll.host_sr_decode.restype = ctypes.c_long
+    dll.host_sha256_tree.restype = ctypes.c_int
     return dll
 
 
@@ -470,6 +513,53 @@ def test_fe_sq_equals_fe_mul(lib):
         assert (got_sq < carried).all() and (got_fg < carried).all()
 
 
+def test_x3_comb_table_is_the_generators():
+    """csrc/sr25519_comb.cuh is what ops/x3_comb.py generates, and its
+    entries are [j 16^w]B of the host oracle, cached with Z = 1."""
+    from tendermint_tpu_torch.crypto import ed25519_math as em
+    from tendermint_tpu_torch.ops import x3_comb
+
+    assert (CSRC / "sr25519_comb.cuh").read_text() == x3_comb.header_text()
+    rows = x3_comb.entries()
+    for w, j in [(0, 0), (0, 1), (5, 8), (63, 7)]:
+        X, Y, Z, _T = em.scalar_mult(j * 16**w, em.B_POINT)
+        zi = pow(Z, em.P - 2, em.P)
+        x, y = X * zi % em.P, Y * zi % em.P
+        assert rows[w][j] == ((y - x) % em.P, (y + x) % em.P, 2 * em.D * x * y % em.P)
+
+
+def test_x3_variants_find_their_anchors():
+    """ops/x3_variants.py builds X3's other designs from copies of the
+    kernel's sources by text replacement: every anchor is in them once,
+    the kernel's own design is the sources unchanged, each design has its
+    lane count, the designs without the comb walk with K1's ge4_dual_mult
+    over B's table in shared memory, the split designs replace fe_mul
+    alone, and a missing anchor raises."""
+    from tendermint_tpu_torch.ops import x3_variants as XV
+
+    src = {f: (CSRC / f).read_text() for f in XV.SOURCES}
+    assert XV.variant_sources(XV.SHIPPED, src) == src
+    assert XV.SHIPPED in XV.CANDIDATES and "four" not in XV.CANDIDATES
+    mul = src["ed25519_device.cuh"]
+    head = mul[: mul.index("// h = f g: f_i g_j")]
+    tail = mul[mul.index("// 2^dbl f^2") :]
+    for name, (lanes, comb, pair) in XV.VARIANTS.items():
+        out = XV.variant_sources(name, src)
+        assert f"#define X3_LANES {lanes}\n" in out["sr25519_device.cuh"]
+        walk = "ge4_dual_mult(acc, av, esd, ekd, tab, stride, btab);"
+        assert (walk in out["sr25519_device.cuh"]) == (not comb)
+        assert ("__shared__ uint32_t btab[" in out["sr25519_verify.cu"]) == (not comb)
+        ed = out["ed25519_device.cuh"]
+        assert ed.count("void fe_mul(") == 1
+        assert ("__shfl_xor_sync" in ed) == pair
+        assert ed.startswith(head) and ed.endswith(tail)
+    broken = dict(src)
+    broken["sr25519_device.cuh"] = src["sr25519_device.cuh"].replace(
+        "x3_dual_mult(acc, av", "x3_dual_mult(acc,  av")
+    with pytest.raises(RuntimeError, match="x3_dual_mult"):
+        XV.variant_sources("four", broken)
+
+
 def test_x1_latency_stamps_find_their_anchors():
     """ops/x1_latency.py stamps a copy of sha512.cuh before a row's
     first compression and after each; each anchor must be there, once."""
@@ -525,8 +615,8 @@ def _sr_rows(triples, pad):
 
 
 def _host_sr_verify(lib, pk, sig, k):
-    """The four-lane X3 body over every block a launch would run, as
-    _host_verify runs K2's."""
+    """The X3 body over every block a launch would run, X3_LANES lanes a
+    signature in lock-step, as _host_verify runs K2's four."""
     n = pk.shape[1]
     padded = -(-n // SIGS_PER_BLOCK) * SIGS_PER_BLOCK
     out = np.full(padded, SENTINEL, dtype=np.uint8)
@@ -534,7 +624,7 @@ def _host_sr_verify(lib, pk, sig, k):
         _ptr(pk), _ptr(sig), _ptr(k), _ptr(out), ctypes.c_int(n),
         ctypes.c_int(pk.itemsize),
     )
-    assert rounds > 0, "the four lanes fell out of lock-step"
+    assert rounds > 0, "the lanes fell out of lock-step"
     assert (out[n:] == SENTINEL).all()
     assert np.isin(out[:n], (0, 1)).all()
     return out[:n].astype(bool)
@@ -592,7 +682,7 @@ def test_sr25519_decode_matches_oracle_on_every_branch(lib):
     rows = _join_cols(encs, 32, 0)
     ok = np.zeros(n, dtype=np.bool_)
     xy = np.zeros((n, 64), dtype=np.uint8)
-    lib.host_sr_decode(_ptr(rows), ctypes.c_int(n), _ptr(ok), _ptr(xy))
+    assert lib.host_sr_decode(_ptr(rows), ctypes.c_int(n), _ptr(ok), _ptr(xy)) == 0
     pt, plain_ok = SK.ristretto_decode(torch.from_numpy(rows.astype(np.int32)))
     assert ok.tolist() == plain_ok.tolist()
     for i, e in enumerate(encs):
@@ -737,3 +827,35 @@ def test_merkle_proof_body_matches_compute_hash_from_aunts(lib):
     )
     assert np.array_equal(roots, plain_roots.numpy())
     assert np.array_equal(ok, plain_ok.numpy())
+
+
+def _rfc6962_root(hashes):
+    """RFC 6962 MTH over leaf hashes, by hashlib: split at the largest
+    power of two below the count."""
+    if len(hashes) == 1:
+        return hashes[0]
+    k = 1 << ((len(hashes) - 1).bit_length() - 1)
+    left, right = _rfc6962_root(hashes[:k]), _rfc6962_root(hashes[k:])
+    return hashlib.sha256(b"\x01" + left + right).digest()
+
+
+TREE_LEAF_COUNTS = [1, 2, 3, 127, 128, 129, 255, 256, 257, 511, 512, 513,
+                    1023, 1024, 1025, 10_000, 16_385]
+
+
+@pytest.mark.parametrize("n", TREE_LEAF_COUNTS)
+def test_sha256_tree_body_matches_rfc6962(lib, n):
+    """X4's tree kernel as its blocks run it (aligned subtrees of
+    SHA256_TREE_LEAVES leaves, a partial last block, then the blocks'
+    roots) gives hashlib's RFC 6962 root for every count, 2^k - 1, 2^k and
+    2^k + 1 about the block size and above, 10,000 and 16,385 (odd at every
+    level); the plain version agrees up to 513 leaves."""
+    rng = np.random.default_rng(n)
+    leaves = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    root = np.zeros(32, dtype=np.uint8)
+    assert lib.host_sha256_tree(_ptr(leaves), _ptr(root), ctypes.c_int(n)) == 0
+    want = _rfc6962_root([r.tobytes() for r in leaves])
+    assert root.tobytes() == want
+    if n <= 513:
+        plain = S256.sha256_tree_plain(torch.from_numpy(leaves))
+        assert plain.numpy().tobytes() == want
