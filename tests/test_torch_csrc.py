@@ -15,6 +15,7 @@ projective points).
 import ctypes
 import hashlib
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -859,3 +860,226 @@ def test_sha256_tree_body_matches_rfc6962(lib, n):
     if n <= 513:
         plain = S256.sha256_tree_plain(torch.from_numpy(leaves))
         assert plain.numpy().tobytes() == want
+
+
+# -- X5's candidate designs (ops/x5_variants.py) --
+
+X5_HARNESS = r"""
+#include <stdint.h>
+#include <string.h>
+#include <ucontext.h>
+#define __device__
+#define __constant__
+#define __forceinline__ inline
+static int x5_host_warp_max(int v);
+static void x5_host_bar(void);
+#include "sha256.cuh"
+
+// A block of the split design (two warps of 32) as 64 contexts on one
+// host thread, run round-robin: X5_BAR() yields to the next context, so
+// every context reaches a barrier before any passes it, as
+// __syncthreads() holds them on the card. A context that would hand over
+// to one already finished (the contexts met different numbers of
+// barriers) stops the block.
+#define X5_CTX 64
+static int g_c, g_err;
+static int g_done[X5_CTX], g_dep[X5_CTX];
+static long g_bars[X5_CTX];
+static ucontext_t g_ctx[X5_CTX], g_main;
+static char g_stack[X5_CTX][1 << 16];
+
+static void x5_host_bar(void) {
+  const int c = g_c, next = (c + 1) % X5_CTX;
+  g_bars[c]++;
+  if (g_done[next]) {
+    g_err = 1;
+    swapcontext(&g_ctx[c], &g_main);
+  }
+  g_c = next;
+  swapcontext(&g_ctx[c], &g_ctx[next]);
+  g_c = c;
+}
+static int x5_host_warp_max(int v) {
+  g_dep[g_c] = v;
+  x5_host_bar();
+  const int w = g_c & ~31;
+  int m = 0;
+  for (int i = 0; i < 32; i++) m = g_dep[w + i] > m ? g_dep[w + i] : m;
+  return m;
+}
+
+static struct {
+  const uint8_t *leaf, *aunts, *want, *ok_in;
+  const int32_t *off;
+  const uint64_t *sides;
+  uint8_t *roots, *ok;
+  int n, blk;
+} g;
+
+#if X5_SPLIT
+static uint32_t sh_h[8][32], sh_w[X5_SH_ROWS][32];
+static void entry(void) {
+  const int c = g_c;
+  x5_split_item(g.leaf, g.aunts, g.off, g.sides, g.want, g.ok_in, g.roots,
+                g.ok, g.n, 32 * g.blk + (c & 31), c & 31, c >> 5, sh_h, sh_w);
+  g_done[c] = 1;
+}
+#endif
+
+extern "C" long host_x5(const uint8_t *leaf, const uint8_t *aunts,
+                        const int32_t *off, const uint64_t *sides,
+                        const uint8_t *want, const uint8_t *ok_in,
+                        uint8_t *roots, uint8_t *ok, int n) {
+#if X5_SPLIT
+  g.leaf = leaf; g.aunts = aunts; g.off = off; g.sides = sides;
+  g.want = want; g.ok_in = ok_in; g.roots = roots; g.ok = ok; g.n = n;
+  long bars = 0;
+  for (g.blk = 0; 32 * g.blk < n; g.blk++) {
+    for (int c = 0; c < X5_CTX; c++) {
+      getcontext(&g_ctx[c]);
+      g_ctx[c].uc_stack.ss_sp = g_stack[c];
+      g_ctx[c].uc_stack.ss_size = sizeof g_stack[c];
+      g_ctx[c].uc_link = c < X5_CTX - 1 ? &g_ctx[c + 1] : &g_main;
+      makecontext(&g_ctx[c], entry, 0);
+      g_done[c] = 0;
+      g_bars[c] = 0;
+    }
+    g_c = 0;
+    g_err = 0;
+    swapcontext(&g_main, &g_ctx[0]);
+    for (int c = 0; c < X5_CTX; c++)
+      if (g_err || !g_done[c] || g_bars[c] != g_bars[0]) return -1;
+    bars += g_bars[0];
+  }
+  return bars;
+#else
+  for (int i = 0; i < n; i++)
+    x5_item(leaf, aunts, off, sides, want, ok_in, roots, ok, i);
+  return 0;
+#endif
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def x5_libs(tmp_path_factory):
+    """Each X5 candidate's device body built by the host compiler: name
+    -> library exporting host_x5."""
+    from tendermint_tpu_torch.ops import x5_variants as XV
+
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the device headers with")
+    src = {f: (CSRC / f).read_text() for f in XV.SOURCES}
+    procs = {}
+    for name in XV.VARIANTS:
+        if name == XV.SHIPPED:
+            continue
+        d = tmp_path_factory.mktemp(f"x5_{name}")
+        for fname, text in XV.variant_sources(name, src).items():
+            (d / fname).write_text(text)
+        (d / "harness.cpp").write_text(X5_HARNESS)
+        so = d / "libx5.so"
+        procs[name] = (so, subprocess.Popen(
+            [cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(d),
+             "-o", str(so), str(d / "harness.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate(timeout=300)[0]
+        assert proc.returncode == 0, f"{name}:\n{log}"
+        libs[name] = ctypes.CDLL(str(so))
+        libs[name].host_x5.restype = ctypes.c_long
+    return libs
+
+
+def test_x5_pad_table_is_the_second_block_schedule():
+    """Row b of the fixed designs' table is K[t] + W[t] (t >= 16) of the
+    second block of 0x01 || L || R whose R ends in b: the table's
+    entries rebuilt here by the FIPS 180-4 recurrence with numpy."""
+    from tendermint_tpu_torch.ops import x5_variants as XV
+
+    table = np.array(XV.pad_table(), dtype=np.uint64)
+    assert table.shape == (256, 48)
+    k = np.array(XV.K256, dtype=np.uint64)
+    m = np.uint64(0xFFFFFFFF)
+
+    def rotr(x, n):
+        return ((x >> np.uint64(n)) | (x << np.uint64(32 - n))) & m
+
+    w = np.zeros((256, 64), dtype=np.uint64)
+    w[:, 0] = (np.arange(256, dtype=np.uint64) << np.uint64(24)) | np.uint64(0x800000)
+    w[:, 15] = 520
+    for t in range(16, 64):
+        s0 = rotr(w[:, t - 15], 7) ^ rotr(w[:, t - 15], 18) ^ (w[:, t - 15] >> np.uint64(3))
+        s1 = rotr(w[:, t - 2], 17) ^ rotr(w[:, t - 2], 19) ^ (w[:, t - 2] >> np.uint64(10))
+        w[:, t] = (w[:, t - 16] + s0 + w[:, t - 7] + s1) & m
+    assert np.array_equal(table, (w[:, 16:] + k[16:]) & m)
+    assert len(re.findall(r"0x[0-9A-F]{8}u", XV.pad_header_text())) == 256 * 48
+
+
+def test_x5_variants_find_their_anchors():
+    """ops/x5_variants.py builds X5's candidates from copies of the
+    kernel's sources by text replacement: the shipped design is the
+    sources unchanged, every other keeps the shipped header as its head,
+    the split designs launch blocks of two warps for 32 proofs, the
+    fixed ones include the table, and a missing anchor raises."""
+    from tendermint_tpu_torch.ops import x5_variants as XV
+
+    src = {f: (CSRC / f).read_text() for f in XV.SOURCES}
+    assert XV.variant_sources(XV.SHIPPED, src) == src
+    for name, (fixed, split, prefetch) in XV.VARIANTS.items():
+        if name == XV.SHIPPED:
+            continue
+        out = XV.variant_sources(name, src)
+        assert out["sha256.cuh"].startswith(src["sha256.cuh"])
+        assert f"#define X5_FIXED {int(fixed)}" in out["sha256.cuh"]
+        assert f"#define X5_PREFETCH {int(prefetch)}" in out["sha256.cuh"]
+        cu = out["merkle_proofs.cu"]
+        assert ("x5_split_item(" in cu) == split
+        assert ("x5_item(" in cu) == (not split)
+        assert ("constexpr int kThreads = 64;" in cu) == split
+        assert ("sha256_pad.cuh" in out) == fixed
+    broken = dict(src)
+    broken["merkle_proofs.cu"] = src["merkle_proofs.cu"].replace(
+        "merkle_proof_item(leaf", "merkle_proof_item( leaf")
+    with pytest.raises(RuntimeError, match="merkle_proof_item"):
+        XV.variant_sources("fixed", broken)
+
+
+def _x5_batches():
+    """Packed batches: the faulted mix of _proofs_with_faults, and all
+    proofs of trees of 1, 33 and 100 leaves (one block partly filled,
+    depths 0-7 in one block)."""
+    root, proofs, _bad = _proofs_with_faults()
+    out = [MK.pack_proofs(proofs, root)]
+    for n in (1, 33, 100):
+        r, ps = merkle.proofs_from_byte_slices([b"x5-%d-%d" % (n, i) for i in range(n)])
+        out.append(MK.pack_proofs(ps, r))
+    return out
+
+
+@pytest.mark.parametrize(
+    "name", ["fixed", "split", "fixed_split", "prefetch", "fixed_prefetch"]
+)
+def test_x5_candidate_body_matches_the_shipped_walk(lib, x5_libs, name):
+    """Each candidate's device body, built by the host compiler (the
+    split designs as 64 contexts a block meeting at every barrier), gives
+    the shipped body's roots and bitmap, which are hashlib's
+    (_compute_hash_from_aunts) for every sound proof."""
+    from tendermint_tpu_torch.ops import x5_variants as XV
+
+    assert name in XV.VARIANTS
+    for batch in _x5_batches():
+        k = batch.k
+        base = batch.buf.ctypes.data
+        roots = np.full((k, 32), 0xEE, dtype=np.uint8)
+        ok = np.full(k, 7, dtype=np.uint8)
+        parts = [ctypes.c_void_p(base + batch.at[p])
+                 for p in ("leaf", "aunts", "off", "sides", "want", "ok_in")]
+        rc = x5_libs[name].host_x5(*parts, _ptr(roots), _ptr(ok), ctypes.c_int(k))
+        assert rc >= 0, "the two warps met different numbers of barriers"
+        want_roots, want_ok = _walk_host(lib, batch)
+        assert np.array_equal(roots, want_roots)
+        assert np.array_equal(ok.astype(bool), want_ok)
