@@ -19,9 +19,19 @@
 // What bounds it on an H100. 10,000 proofs of depth 14 are 140,000 inner
 // hashes, 280,000 compressions, ~3.9e8 integer instructions: ~23 us of
 // the card's int32 issue rate; the 4.5 MB of aunts take ~1.3 us of HBM.
-// With one thread a proof, 10,000 threads are 79 blocks of 128, which
-// fill 79 of the 132 SMs with four warps each: the launch takes about one
-// thread's 28 dependent compressions, not the card's issue rate.
+// With one thread a proof, 10,000 threads are 79 blocks of 128, one warp
+// on each of 316 of the card's 528 schedulers: the launch lasts one warp's
+// stream of 28 dependent compressions a proof, every integer instruction
+// of it issued by that warp alone (16 INT32 lanes a scheduler: one warp
+// instruction every two cycles). So the design cuts that stream: the
+// second block of an inner hash is fixed but for R's last byte, and its
+// schedule plus round constants, K[t] + W[t] for t >= 16, come from a
+// table of the 256 schedules (sha256_pad.cuh) in twelve 16-byte loads
+// issued before the first block (48 schedule steps, ~480 instructions,
+// fewer an inner hash); and the next aunt is loaded a step ahead. Chosen
+// by ops/x5_variants.py over a producer/consumer split (a second warp
+// expanding the schedules into shared memory), which lost at 10,000
+// proofs: 626 warps for 528 schedulers put two on some.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +58,8 @@ extern "C" {
 
 // leaf (k, 32) uint8; aunts (off[k], 32) uint8; off (k + 1) int32; sides
 // (k,) uint64; want (32,) uint8; ok_in (k,) uint8; roots (k, 32) uint8
-// and ok (k,) uint8 out; every pointer 8-byte aligned, on card `device`.
+// and ok (k,) uint8 out; aunts 16-byte aligned, every other pointer
+// 8-byte aligned, on card `device`.
 // Returns cudaGetLastError().
 int tm_merkle_proofs(const void *leaf, const void *aunts, const void *off,
                      const void *sides, const void *want, const void *ok_in,

@@ -1,7 +1,8 @@
 // SHA-256 device functions for kernels X4 (sha256.cu) and X5
 // (merkle_proofs.cu): the compression, the hash of one row of bytes behind
 // an optional one-byte prefix, the RFC 6962 inner hash of two digests held
-// as words, and the walk of one merkle inclusion proof.
+// as words (X5's with its second block's schedule read from the table
+// sha256_pad.cuh), and the walk of one merkle inclusion proof.
 //
 // Words are 32 bits, so every operation is one instruction of the integer
 // pipe: a rotate is one funnel shift (SHF), Ch and Maj and the three-way
@@ -22,6 +23,8 @@
 
 #pragma once
 #include <stdint.h>
+
+#include "sha256_pad.cuh"
 
 __device__ __constant__ uint32_t K256[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu,
@@ -47,11 +50,16 @@ __device__ __constant__ uint32_t H256[8] = {
 #define SHA256_FSHR(hi, lo, n) __funnelshift_r((lo), (hi), (n))
 #define SHA256_BSWAP(x) __byte_perm((x), 0u, 0x0123)
 #define SHA256_TREE_SYNC() __syncthreads()
+// 16 bytes at a 16-byte aligned address, through the read-only cache
+typedef uint4 sha256_u4;
+#define SHA256_LD4(p) __ldg((const uint4 *)(p))
 #else
 #define SHA256_FSHR(hi, lo, n) \
   ((uint32_t)(((((uint64_t)(hi)) << 32) | (uint32_t)(lo)) >> (n)))
 #define SHA256_BSWAP(x) __builtin_bswap32((uint32_t)(x))
 #define SHA256_TREE_SYNC() ((void)0)
+struct sha256_u4 { uint32_t x, y, z, w; };
+#define SHA256_LD4(p) (*(const sha256_u4 *)(p))
 #endif
 #define SHA256_ROTR(x, n) SHA256_FSHR((x), (x), (n))
 
@@ -239,11 +247,96 @@ __device__ __forceinline__ const uint8_t *sha256_tree_reduce(
   return cur;
 }
 
+// -- X5: the inner hash with its second block from a table, the walk --
+
+// Row b of sha256_pad.cuh, K[t] + W[t] for t = 16..63 of the second block
+// whose R ends in byte b, in twelve 16-byte loads.
+__device__ __forceinline__ void sha256_pad_row(uint32_t b, uint32_t *kw) {
+  const sha256_u4 *row = (const sha256_u4 *)(SHA256_PAD_KW + 48 * b);
+#pragma unroll
+  for (int j = 0; j < 12; j++) {
+    const sha256_u4 v = SHA256_LD4(row + j);
+    kw[4 * j] = v.x;
+    kw[4 * j + 1] = v.y;
+    kw[4 * j + 2] = v.z;
+    kw[4 * j + 3] = v.w;
+  }
+}
+
+// The second compression of 0x01 || L || R into h: W[0] = b << 24 |
+// 0x800000 for R's last byte b, W[1..14] = 0 and W[15] = 520 folded into
+// the round constants, K[t] + W[t] for t >= 16 from the table row kw. No
+// schedule is expanded: 48 steps of ~10 integer instructions saved.
+__device__ __forceinline__ void sha256_compress_pad(uint32_t *h, uint32_t b,
+                                                    const uint32_t *kw) {
+  uint32_t a = h[0], bb = h[1], c = h[2], d = h[3], e = h[4], f = h[5],
+           g = h[6], hh = h[7];
+#pragma unroll
+  for (int t = 0; t < 64; t++) {
+    const uint32_t k = t == 0    ? K256[0] + ((b << 24) | 0x00800000u)
+                       : t == 15 ? K256[15] + 65u * 8u
+                       : t < 16  ? K256[t]
+                                 : kw[t - 16];
+    const uint32_t S1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);
+    const uint32_t t1 = hh + S1 + (g ^ (e & (f ^ g))) + k;
+    const uint32_t S0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);
+    const uint32_t t2 = S0 + ((a & bb) | (c & (a | bb)));
+    hh = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = bb;
+    bb = a;
+    a = t1 + t2;
+  }
+  h[0] += a; h[1] += bb; h[2] += c; h[3] += d;
+  h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
+}
+
+// sha256_inner_words with the second block from the table: the row's
+// loads are issued before the first compression, which hides them; the
+// first block starts from the IV as literals, so its first round folds.
+__device__ __forceinline__ void sha256_inner_pad(const uint32_t *l,
+                                                 const uint32_t *r,
+                                                 uint32_t *out) {
+  uint32_t h[8] = {0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au,
+                   0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u};
+  uint32_t w[16], kw[48];
+  const uint32_t b = r[7] & 0xffu;
+  sha256_pad_row(b, kw);
+  w[0] = SHA256_FSHR(0x01u, l[0], 8);
+#pragma unroll
+  for (int j = 1; j < 8; j++) w[j] = SHA256_FSHR(l[j - 1], l[j], 8);
+  w[8] = SHA256_FSHR(l[7], r[0], 8);
+#pragma unroll
+  for (int j = 9; j < 16; j++) w[j] = SHA256_FSHR(r[j - 9], r[j - 8], 8);
+  sha256_compress(h, w);
+  sha256_compress_pad(h, b, kw);
+#pragma unroll
+  for (int j = 0; j < 8; j++) out[j] = h[j];
+}
+
+// Two 16-byte halves of a digest as eight big-endian words.
+__device__ __forceinline__ void sha256_words4(sha256_u4 lo, sha256_u4 hi,
+                                              uint32_t *w) {
+  w[0] = SHA256_BSWAP(lo.x);
+  w[1] = SHA256_BSWAP(lo.y);
+  w[2] = SHA256_BSWAP(lo.z);
+  w[3] = SHA256_BSWAP(lo.w);
+  w[4] = SHA256_BSWAP(hi.x);
+  w[5] = SHA256_BSWAP(hi.y);
+  w[6] = SHA256_BSWAP(hi.z);
+  w[7] = SHA256_BSWAP(hi.w);
+}
+
 // Proof k of X5: from its leaf hash (leaf[32 k ..]) up through its aunts
 // aunts[32 (off[k] + d) ..] for d < off[k + 1] - off[k], bottom-up; bit d
 // of sides[k] set when aunt d is the left child (the node so far on the
-// right). Each step is one inner hash whose halves are picked by a select
-// on that bit: one code path for both sides. A proof's walk ends at its
+// right). Each step is one sha256_inner_pad whose halves are picked by a
+// select on that bit: one code path for both sides. The next aunt is
+// loaded a step ahead (two 16-byte loads; aunts 16-byte aligned), so the
+// walk does not wait on memory at each step. A proof's walk ends at its
 // own depth, which is what the JAX program's no-op steps pad for. Writes
 // the computed root to roots[32 k ..] and to ok[k] whether the proof
 // passed its host checks (ok_in[k]) and its root equals want.
@@ -255,16 +348,25 @@ __device__ __forceinline__ void merkle_proof_item(
   sha256_load_digest(leaf + (size_t)32 * k, h);
   const int d0 = off[k], depth = off[k + 1] - d0;
   const uint64_t s = sides[k];
+  sha256_u4 n0 = {0, 0, 0, 0}, n1 = {0, 0, 0, 0};
+  if (depth > 0) {
+    n0 = SHA256_LD4(aunts + (size_t)32 * d0);
+    n1 = SHA256_LD4(aunts + (size_t)32 * d0 + 16);
+  }
 #pragma unroll 1
   for (int d = 0; d < depth; d++) {
-    sha256_load_digest(aunts + (size_t)32 * (d0 + d), a);
+    sha256_words4(n0, n1, a);
+    if (d + 1 < depth) {
+      n0 = SHA256_LD4(aunts + (size_t)32 * (d0 + d + 1));
+      n1 = SHA256_LD4(aunts + (size_t)32 * (d0 + d + 1) + 16);
+    }
     const bool left = (s >> d) & 1;
 #pragma unroll
     for (int j = 0; j < 8; j++) {
       l[j] = left ? a[j] : h[j];
       r[j] = left ? h[j] : a[j];
     }
-    sha256_inner_words(l, r, h);
+    sha256_inner_pad(l, r, h);
   }
   sha256_store_digest(h, roots + (size_t)32 * k);
   uint32_t w[8], diff = 0;

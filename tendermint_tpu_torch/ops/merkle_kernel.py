@@ -300,8 +300,11 @@ def merkle_proofs(leaf, aunts, off, sides, want, ok_in):
             raise ValueError(f"merkle_proofs: {name} must be {dtype} on {dev}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"merkle_proofs: {name} must be contiguous {shape}")
-        if t.numel() and t.data_ptr() % 8:
-            raise ValueError(f"merkle_proofs: {name} must be 8-byte aligned")
+        align = 16 if name == "aunts" else 8  # X5 reads aunts 16 bytes a load
+        if t.numel() and t.data_ptr() % align:
+            raise ValueError(
+                f"merkle_proofs: {name} must be {align}-byte aligned"
+            )
     roots = torch.empty((k, 32), dtype=torch.uint8, device=dev)
     ok = torch.empty((k,), dtype=torch.bool, device=dev)
     lib = kernels()["merkle_proofs"]

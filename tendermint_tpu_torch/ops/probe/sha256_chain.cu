@@ -3,8 +3,10 @@
 // csrc/sha256.cuh, its aunts a_d already in shared memory, and records
 // clock64 and %globaltimer before the first and after the last, so it
 // reads the chain a tree root cannot go below (14 hashes for 10,000
-// leaves) with nothing else on the card. Built and run by
-// ops/x4_latency.py; it is no part of the kernels' libraries.
+// leaves) with nothing else on the card. Built with -DCHAIN_PAD, each hash
+// is X5's sha256_inner_pad (the second block from the table) instead, the
+// chain of a proof of that depth. Built and run by ops/x4_latency.py; it
+// is no part of the kernels' libraries.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,7 +40,11 @@ extern "C" __global__ void probe_sha256_chain(const uint32_t *in,
       a[j] = next[j];
       next[j] = aunts[(8 * (d + 1) + j) % (8 * CHAIN_MAX_DEPTH)];
     }
+#ifdef CHAIN_PAD
+    sha256_inner_pad(h, a, h);
+#else
     sha256_inner_words(h, a, h);
+#endif
   }
   // the end stamps wait for the last hash
   asm volatile("" ::"r"(h[0]), "r"(h[1]), "r"(h[2]), "r"(h[3]), "r"(h[4]),

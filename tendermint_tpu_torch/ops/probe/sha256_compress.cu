@@ -36,3 +36,19 @@ extern "C" __global__ void probe_sha256_inner(const uint32_t *in,
 #pragma unroll
   for (int j = 0; j < 8; j++) out[8 * i + j] = h[j];
 }
+
+// X5's inner hash: the second block's schedule from the table
+// (sha256_pad.cuh), its 12 loads besides the 16 of the digests
+extern "C" __global__ void probe_sha256_inner_pad(const uint32_t *in,
+                                                  uint32_t *out) {
+  const int i = threadIdx.x;
+  uint32_t l[8], r[8], h[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    l[j] = in[16 * i + j];
+    r[j] = in[16 * i + 8 + j];
+  }
+  sha256_inner_pad(l, r, h);
+#pragma unroll
+  for (int j = 0; j < 8; j++) out[8 * i + j] = h[j];
+}

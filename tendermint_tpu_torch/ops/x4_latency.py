@@ -31,26 +31,29 @@ __all__ = ["PROBE", "measure"]
 PROBE = Path(__file__).resolve().parent / "probe" / "sha256_chain.cu"
 
 
-def _build() -> ctypes.CDLL:
+def _build(pad: bool) -> ctypes.CDLL:
     dst = BUILD_DIR / "x4_latency"
     dst.mkdir(parents=True, exist_ok=True)
-    lib = dst / "libx4_latency.so"
+    lib = dst / f"libx4_latency{'_pad' if pad else ''}.so"
+    flags = ["-DCHAIN_PAD"] if pad else []
     subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(PROBE)],
+        [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(lib), str(PROBE)],
         check=True,
         capture_output=True,
     )
     return ctypes.CDLL(str(lib))
 
 
-def measure(depth: int = 14, reads: int = 9, seed: int = 0) -> dict:
+def measure(
+    depth: int = 14, reads: int = 9, seed: int = 0, pad: bool = False
+) -> dict:
     """{"depth", "cycles", "ns", "cycles_per_hash", "ns_per_hash"} of one
     thread's chain of `depth` dependent inner hashes, the least of
     `reads` launches, and every launch's ("cycles_read", "ns_read")."""
     import numpy as np
     import torch
 
-    lib = _build()
+    lib = _build(pad)
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     raw = rng.bytes(32 * (depth + 1))
@@ -96,5 +99,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--depth", type=int, default=14)
     ap.add_argument("--reads", type=int, default=9)
+    ap.add_argument("--pad", action="store_true")
     a = ap.parse_args()
-    print(json.dumps(measure(a.depth, a.reads)))
+    print(json.dumps(measure(a.depth, a.reads, pad=a.pad)))

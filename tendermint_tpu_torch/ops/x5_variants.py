@@ -7,27 +7,24 @@ launch lasts one warp's stream of 28 dependent compressions a proof of
 depth 14, every integer instruction of it issued by that warp alone. A
 round cannot be split between threads; what a design can do is issue
 fewer instructions a warp, or spread a proof's instructions over more
-schedulers. Each design is a copy of csrc/ whose text this module
-replaces, as x3_variants does:
+schedulers. The kernel ships one design, `shipped` (the second block of
+each inner hash from the table csrc/sha256_pad.cuh, the next aunt loaded
+a step ahead). Each other design is a copy of csrc/ whose text this
+module replaces, as x3_variants does:
 
-- `shipped`: the kernel as it is;
-- `fixed` (candidate 1): the second block of every inner hash is fixed
-  but for one byte (W[0] = R's last byte, 0x80; W[1..14] = 0; W[15] =
-  520), so K[t] + W[t] for t >= 16 is read from a table of the 256
-  schedules (csrc/sha256_pad.cuh, 48 KB, generated here) in twelve
-  16-byte loads issued before the first block, instead of 48 schedule
-  steps; the first block starts from the IV as literals, so its first
-  round folds;
+- `word`: PR 5's walk, sha256_inner_words and the aunt's eight 4-byte
+  loads at the top of each step: X5 as it was first built, the
+  reference;
+- `fixed` (candidate 1): the second block's K[t] + W[t], t >= 16, from
+  the table (the block is fixed but for R's last byte), no prefetch;
+- `prefetch`: the next aunt loaded a step ahead, no table;
 - `split` (candidate 2): a block of two warps for 32 proofs; warp 1
   (producer) expands W[16..63] of each compression into shared memory
   while warp 0 (consumer) runs the rounds, handing over at
   `__syncthreads()` twice a block (W[16..39], then W[40..63]) after the
   consumer's rounds 0-15;
 - `fixed_split` (candidate 3): both; the producer expands the first
-  block alone;
-- `prefetch`, `fixed_prefetch`: the next aunt loaded a step ahead, as
-  two 16-byte loads, so the walk does not wait for global memory at each
-  step (a lever beside the two the design note names).
+  block alone.
 
 For each design it reports ptxas registers and spills and the CUDA-event
 time of one launch (mean of `reps` launches, each design timed twice, in
@@ -59,8 +56,6 @@ __all__ = [
     "build_variant",
     "load_variant",
     "measure",
-    "pad_header_text",
-    "pad_table",
     "variant_sources",
 ]
 
@@ -69,94 +64,28 @@ SOURCES = ("sha256.cuh", "merkle_proofs.cu")
 # name -> (second block from the table, producer/consumer warps, the
 # next aunt loaded a step ahead)
 VARIANTS = {
-    "shipped": (False, False, False),
+    "shipped": (True, False, True),
+    "word": (False, False, False),
     "fixed": (True, False, False),
+    "prefetch": (False, False, True),
     "split": (False, True, False),
     "fixed_split": (True, True, False),
-    "prefetch": (False, False, True),
-    "fixed_prefetch": (True, False, True),
 }
 SHIPPED = "shipped"
 BATCHES = (10_000, 150)  # leaves of the tree whose proofs make a batch
 TIE = 0.02
 GAIN = 0.05  # the least gain over `shipped` that makes a design ship
 
-K256 = (
-    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
-    0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
-    0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174, 0xE49B69C1, 0xEFBE4786,
-    0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
-    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147,
-    0x06CA6351, 0x14292967, 0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
-    0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85, 0xA2BFE8A1, 0xA81A664B,
-    0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
-    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
-    0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
-    0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
-)
-_M32 = 0xFFFFFFFF
-
-
-def _rotr(x: int, n: int) -> int:
-    return ((x >> n) | (x << (32 - n))) & _M32
-
-
-def pad_table() -> list:
-    """[b][t - 16] = K[t] + W[t] mod 2^32, t = 16..63, for the second
-    block of 0x01 || L || R whose R ends in byte b."""
-    rows = []
-    for b in range(256):
-        w = [(b << 24) | 0x00800000] + [0] * 14 + [65 * 8]
-        for t in range(16, 64):
-            s0 = _rotr(w[t - 15], 7) ^ _rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
-            s1 = _rotr(w[t - 2], 17) ^ _rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
-            w.append((w[t - 16] + s0 + w[t - 7] + s1) & _M32)
-        rows.append([(K256[t] + w[t]) & _M32 for t in range(16, 64)])
-    return rows
-
-
-def pad_header_text() -> str:
-    """csrc/sha256_pad.cuh as the `fixed` designs include it."""
-    lines = [
-        "// K[t] + W[t], t = 16..63, of the second block of an RFC 6962",
-        "// inner hash 0x01 || L || R whose R ends in byte b (row b):",
-        "// W[0] = b << 24 | 0x800000, W[1..14] = 0, W[15] = 520.",
-        "// Generated by ops/x5_variants.py (pad_table); do not edit.",
-        "#pragma once",
-        "#include <stdint.h>",
-        "#ifndef __CUDACC__",
-        "#ifndef __align__",
-        "#define __align__(n) __attribute__((aligned(n)))",
-        "#endif",
-        "#endif",
-        "__device__ __align__(16) uint32_t X5_PAD_KW[256 * 48] = {",
-    ]
-    for row in pad_table():
-        for i in range(0, 48, 6):
-            lines.append(
-                "    " + ", ".join(f"0x{v:08X}u" for v in row[i:i + 6]) + ","
-            )
-    lines.append("};")
-    return "\n".join(lines) + "\n"
-
-
 # appended to sha256.cuh: the candidates' device functions, under the
 # design's macros (X5_FIXED, X5_SPLIT, X5_PREFETCH)
 _BODY = r"""
 // ---- kernel X5's candidate designs (ops/x5_variants.py) ----
 #ifdef __CUDACC__
-typedef uint4 x5_u4;
-#define X5_LD4(p) __ldg((const uint4 *)(p))
 #define X5_WARP_MAX(v) __reduce_max_sync(0xffffffffu, (v))
 #define X5_BAR() __syncthreads()
 #else
-struct x5_u4 { uint32_t x, y, z, w; };
-#define X5_LD4(p) (*(const x5_u4 *)(p))
 #define X5_WARP_MAX(v) x5_host_warp_max(v)
 #define X5_BAR() x5_host_bar()
-#endif
-#if X5_FIXED
-#include "sha256_pad.cuh"
 #endif
 
 __device__ __forceinline__ void x5_round(uint32_t &a, uint32_t &b,
@@ -195,56 +124,10 @@ __device__ __forceinline__ void x5_block1(const uint32_t *l, const uint32_t *r,
                     0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u}
 
 #if X5_FIXED
-// row b of the table: K[t] + W[t], t = 16..63, in 12 16-byte loads
-__device__ __forceinline__ void x5_pad_row(uint32_t b, uint32_t *kw) {
-  const x5_u4 *row = (const x5_u4 *)(X5_PAD_KW + 48 * b);
-#pragma unroll
-  for (int j = 0; j < 12; j++) {
-    const x5_u4 v = X5_LD4(row + j);
-    kw[4 * j] = v.x; kw[4 * j + 1] = v.y; kw[4 * j + 2] = v.z; kw[4 * j + 3] = v.w;
-  }
-}
-
-// the second block's compression from the table row kw of R's last byte b
-__device__ __forceinline__ void x5_compress_pad(uint32_t *h, uint32_t b,
-                                                const uint32_t *kw) {
-  uint32_t a = h[0], bb = h[1], c = h[2], d = h[3], e = h[4], f = h[5],
-           g = h[6], hh = h[7];
-  x5_round(a, bb, c, d, e, f, g, hh, K256[0] + ((b << 24) | 0x00800000u));
-#pragma unroll
-  for (int t = 1; t < 15; t++) x5_round(a, bb, c, d, e, f, g, hh, K256[t]);
-  x5_round(a, bb, c, d, e, f, g, hh, K256[15] + 65u * 8u);
-#pragma unroll
-  for (int t = 16; t < 64; t++) x5_round(a, bb, c, d, e, f, g, hh, kw[t - 16]);
-  h[0] += a; h[1] += bb; h[2] += c; h[3] += d;
-  h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
-}
-
-// sha256_inner_words with the second block from the table
-__device__ __forceinline__ void x5_inner_fixed(const uint32_t *l,
-                                               const uint32_t *r,
-                                               uint32_t *out) {
-  uint32_t h[8] = X5_IV_INIT, w[16], kw[48];
-  const uint32_t b = r[7] & 0xffu;
-  x5_pad_row(b, kw);
-  x5_block1(l, r, w);
-  sha256_compress(h, w);
-  x5_compress_pad(h, b, kw);
-#pragma unroll
-  for (int j = 0; j < 8; j++) out[j] = h[j];
-}
-#define X5_INNER x5_inner_fixed
+#define X5_INNER sha256_inner_pad
 #else
 #define X5_INNER sha256_inner_words
 #endif
-
-// two 16-byte halves of a digest as eight big-endian words
-__device__ __forceinline__ void x5_words(x5_u4 lo, x5_u4 hi, uint32_t *w) {
-  w[0] = SHA256_BSWAP(lo.x); w[1] = SHA256_BSWAP(lo.y);
-  w[2] = SHA256_BSWAP(lo.z); w[3] = SHA256_BSWAP(lo.w);
-  w[4] = SHA256_BSWAP(hi.x); w[5] = SHA256_BSWAP(hi.y);
-  w[6] = SHA256_BSWAP(hi.z); w[7] = SHA256_BSWAP(hi.w);
-}
 
 // merkle_proof_item with the design's inner hash and aunt loads
 __device__ __forceinline__ void x5_item(
@@ -256,19 +139,19 @@ __device__ __forceinline__ void x5_item(
   const int d0 = off[k], depth = off[k + 1] - d0;
   const uint64_t s = sides[k];
 #if X5_PREFETCH
-  x5_u4 n0 = {0, 0, 0, 0}, n1 = {0, 0, 0, 0};
+  sha256_u4 n0 = {0, 0, 0, 0}, n1 = {0, 0, 0, 0};
   if (depth > 0) {
-    n0 = X5_LD4(aunts + (size_t)32 * d0);
-    n1 = X5_LD4(aunts + (size_t)32 * d0 + 16);
+    n0 = SHA256_LD4(aunts + (size_t)32 * d0);
+    n1 = SHA256_LD4(aunts + (size_t)32 * d0 + 16);
   }
 #endif
 #pragma unroll 1
   for (int d = 0; d < depth; d++) {
 #if X5_PREFETCH
-    x5_words(n0, n1, a);
+    sha256_words4(n0, n1, a);
     if (d + 1 < depth) {
-      n0 = X5_LD4(aunts + (size_t)32 * (d0 + d + 1));
-      n1 = X5_LD4(aunts + (size_t)32 * (d0 + d + 1) + 16);
+      n0 = SHA256_LD4(aunts + (size_t)32 * (d0 + d + 1));
+      n1 = SHA256_LD4(aunts + (size_t)32 * (d0 + d + 1) + 16);
     }
 #else
     sha256_load_digest(aunts + (size_t)32 * (d0 + d), a);
@@ -356,7 +239,7 @@ __device__ __forceinline__ void x5_split_item(
     } else {
 #if X5_FIXED
       uint32_t kw[48];
-      x5_pad_row(b, kw);
+      sha256_pad_row(b, kw);
 #endif
       uint32_t st[8] = X5_IV_INIT;
       uint32_t A = st[0], B = st[1], C = st[2], D = st[3], E = st[4],
@@ -372,7 +255,7 @@ __device__ __forceinline__ void x5_split_item(
       st[0] += A; st[1] += B; st[2] += C; st[3] += D;
       st[4] += E; st[5] += F; st[6] += G; st[7] += H;
 #if X5_FIXED
-      x5_compress_pad(st, b, kw);
+      sha256_compress_pad(st, b, kw);
 #else
       A = st[0]; B = st[1]; C = st[2]; D = st[3];
       E = st[4]; F = st[5]; G = st[6]; H = st[7];
@@ -423,9 +306,8 @@ def _replace(text: str, old: str, new: str, where: str) -> str:
 
 
 def variant_sources(name: str, sources: dict) -> dict:
-    """SOURCES' texts for design `name` from the kernel's own, and with
-    the table csrc/sha256_pad.cuh's; raises when an anchor is not in
-    them once."""
+    """SOURCES' texts for design `name` from the kernel's own; raises
+    when an anchor is not in them once."""
     if name == SHIPPED:
         return dict(sources)
     fixed, split, prefetch = VARIANTS[name]
@@ -448,8 +330,6 @@ def variant_sources(name: str, sources: dict) -> dict:
         cu = _replace(cu, _ITEM_CALL, _ITEM_CALL.replace(
             "merkle_proof_item(", "x5_item("), "merkle_proofs.cu")
     out["merkle_proofs.cu"] = cu
-    if fixed:
-        out["sha256_pad.cuh"] = pad_header_text()
     return out
 
 

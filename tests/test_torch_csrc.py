@@ -982,7 +982,7 @@ def x5_libs(tmp_path_factory):
         so = d / "libx5.so"
         procs[name] = (so, subprocess.Popen(
             [cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(d),
-             "-o", str(so), str(d / "harness.cpp")],
+             "-I", str(CSRC), "-o", str(so), str(d / "harness.cpp")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     libs = {}
@@ -995,14 +995,15 @@ def x5_libs(tmp_path_factory):
 
 
 def test_x5_pad_table_is_the_second_block_schedule():
-    """Row b of the fixed designs' table is K[t] + W[t] (t >= 16) of the
-    second block of 0x01 || L || R whose R ends in b: the table's
-    entries rebuilt here by the FIPS 180-4 recurrence with numpy."""
-    from tendermint_tpu_torch.ops import x5_variants as XV
+    """csrc/sha256_pad.cuh is what ops/sha256_pad.py generates, and row b
+    is K[t] + W[t] (t >= 16) of the second block of 0x01 || L || R whose
+    R ends in b: rebuilt here by the FIPS 180-4 recurrence with numpy."""
+    from tendermint_tpu_torch.ops import sha256_pad
 
-    table = np.array(XV.pad_table(), dtype=np.uint64)
+    assert (CSRC / "sha256_pad.cuh").read_text() == sha256_pad.header_text()
+    table = np.array(sha256_pad.table(), dtype=np.uint64)
     assert table.shape == (256, 48)
-    k = np.array(XV.K256, dtype=np.uint64)
+    k = np.array(sha256_pad.K256, dtype=np.uint64)
     m = np.uint64(0xFFFFFFFF)
 
     def rotr(x, n):
@@ -1016,15 +1017,16 @@ def test_x5_pad_table_is_the_second_block_schedule():
         s1 = rotr(w[:, t - 2], 17) ^ rotr(w[:, t - 2], 19) ^ (w[:, t - 2] >> np.uint64(10))
         w[:, t] = (w[:, t - 16] + s0 + w[:, t - 7] + s1) & m
     assert np.array_equal(table, (w[:, 16:] + k[16:]) & m)
-    assert len(re.findall(r"0x[0-9A-F]{8}u", XV.pad_header_text())) == 256 * 48
+    text = sha256_pad.header_text()
+    assert len(re.findall(r"0x[0-9A-F]{8}u", text)) == 256 * 48
 
 
 def test_x5_variants_find_their_anchors():
     """ops/x5_variants.py builds X5's candidates from copies of the
     kernel's sources by text replacement: the shipped design is the
     sources unchanged, every other keeps the shipped header as its head,
-    the split designs launch blocks of two warps for 32 proofs, the
-    fixed ones include the table, and a missing anchor raises."""
+    the split designs launch blocks of two warps for 32 proofs, and a
+    missing anchor raises."""
     from tendermint_tpu_torch.ops import x5_variants as XV
 
     src = {f: (CSRC / f).read_text() for f in XV.SOURCES}
@@ -1040,12 +1042,11 @@ def test_x5_variants_find_their_anchors():
         assert ("x5_split_item(" in cu) == split
         assert ("x5_item(" in cu) == (not split)
         assert ("constexpr int kThreads = 64;" in cu) == split
-        assert ("sha256_pad.cuh" in out) == fixed
     broken = dict(src)
     broken["merkle_proofs.cu"] = src["merkle_proofs.cu"].replace(
         "merkle_proof_item(leaf", "merkle_proof_item( leaf")
     with pytest.raises(RuntimeError, match="merkle_proof_item"):
-        XV.variant_sources("fixed", broken)
+        XV.variant_sources("word", broken)
 
 
 def _x5_batches():
@@ -1060,11 +1061,9 @@ def _x5_batches():
     return out
 
 
-@pytest.mark.parametrize(
-    "name", ["fixed", "split", "fixed_split", "prefetch", "fixed_prefetch"]
-)
+@pytest.mark.parametrize("name", ["word", "fixed", "prefetch", "split", "fixed_split"])
 def test_x5_candidate_body_matches_the_shipped_walk(lib, x5_libs, name):
-    """Each candidate's device body, built by the host compiler (the
+    """Each other design's device body, built by the host compiler (the
     split designs as 64 contexts a block meeting at every barrier), gives
     the shipped body's roots and bitmap, which are hashlib's
     (_compute_hash_from_aunts) for every sound proof."""
