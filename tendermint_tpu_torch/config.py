@@ -1,8 +1,41 @@
-"""Device-batch bucket sizes.
+"""The device plane's configuration.
 
-Counterpart: tendermint_tpu/config.py:47 (DEFAULT_BUCKET_SIZES). 12288
-exists for the 10k-validator commit: padding 10k signatures to 16384
-would waste 39% of the device work, 12288 cuts that to 18%.
+Counterpart: tendermint_tpu/config.py:47 (DEFAULT_BUCKET_SIZES) and
+:254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
+10k signatures to 16384 would waste 39% of the device work, 12288 cuts
+that to 18%.
 """
 
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+__all__ = ["DEFAULT_BUCKET_SIZES", "DEFAULT_MIN_BATCH", "GPUConfig"]
+
 DEFAULT_BUCKET_SIZES = (8, 32, 128, 512, 2048, 8192, 12288, 16384)
+
+# Below this many signatures one device window loses to the native CPU
+# batch on an H100 (chip_smoke.py phase `min_batch`, PERF.md §6); the
+# JAX package's TPU figure is 8.
+DEFAULT_MIN_BATCH = 8
+
+
+@dataclass
+class GPUConfig:
+    """What node/device.py installs the device plane from.
+
+    - enable: install crypto/gpu_verifier and ops/merkle_kernel at all;
+    - min_batch_size: the smallest signature batch sent to the card, for
+      both key types (smaller ones stay on the native CPU plane);
+    - bucket_sizes: the padded window widths of the signature kernels;
+    - devices: 1 is one card; 0 is every visible card; more than one
+      card (X6, ROADMAP item 10) is refused.
+
+    TPUConfig's donate_buffers is left out: it is XLA's input buffer
+    donation, and the port's kernels write into outputs their wrappers
+    allocate, so there is nothing to donate."""
+
+    enable: bool = True
+    min_batch_size: int = DEFAULT_MIN_BATCH
+    bucket_sizes: list = field(default_factory=lambda: list(DEFAULT_BUCKET_SIZES))
+    devices: int = 1

@@ -15,6 +15,7 @@ from typing import Callable, Optional
 from .keys import BatchVerifier, PubKey
 
 __all__ = [
+    "cpu_factory",
     "create_batch_verifier",
     "device_factory_installed",
     "register_cpu_factory",
@@ -47,6 +48,14 @@ def unregister_device_factory(key_type: str) -> None:
 
 def device_factory_installed(key_type: str) -> bool:
     return key_type in _DEVICE_FACTORIES
+
+
+def cpu_factory(key_type: str) -> Optional[Callable[[], BatchVerifier]]:
+    """The registered CPU factory for a key type, or None: where
+    crypto/gpu_verifier.py re-verifies a faulted device batch, with the
+    same (all_ok, bitmap) contract (counterpart:
+    tendermint_tpu/crypto/batch.py:63)."""
+    return _CPU_FACTORIES.get(key_type)
 
 
 def supports_batch_verifier(pk: Optional[PubKey]) -> bool:

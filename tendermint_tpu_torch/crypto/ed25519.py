@@ -2,15 +2,26 @@
 
 Counterpart: tendermint_tpu/crypto/ed25519.py (PubKeyEd25519,
 PrivKeyEd25519, and the CPU batch verifier registered as the default).
-Only the pure-Python RFC 8032 path is kept (:143-155): keygen and
-signing on ed25519_math's comb tables, verification by the host ZIP-215
-oracle. No OpenSSL and no native library: the same bits on the wire,
-slower.
+Keygen and signing keep the pure-Python RFC 8032 path (:143-155) on
+ed25519_math's comb tables; no OpenSSL. Verification is the JAX
+package's native plane (:173-340) over the port's copy of its C
+(tendermint_tpu_torch/native): a single verify is the batch equation at
+n = 1 with weight 1, [8](sB - kA - R) == identity, exactly the
+cofactored ZIP-215 check (`_native_verify_one_zip215`); a batch of n >= 2
+is first tested whole by the random-linear-combination equation
+(`_native_batch_all_valid`) and, when that fails, checked a signature at
+a time, so the answer is always the per-index bitmap. An encoding the C
+cannot decode (rc -1) is answered by the pure-Python ZIP-215 oracle
+(ed25519_math.zip215_verify), as in the JAX package (:215-220): a route
+the data chooses, not a caught failure. The oracle also stays the
+tests' reference. A native library that fails to build raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import os
 from typing import List, Optional, Tuple
 
 from . import ed25519_math
@@ -59,6 +70,9 @@ class PubKeyEd25519(PubKey):
     def verify_signature(self, msg: bytes, sig: bytes) -> bool:
         if len(sig) != SIGNATURE_SIZE:
             return False
+        native = _native_verify_one_zip215(self._bytes, msg, sig)
+        if native is not None:
+            return native
         return ed25519_math.zip215_verify(self._bytes, msg, sig)
 
 
@@ -111,10 +125,77 @@ class PrivKeyEd25519(PrivKey):
         return KEY_TYPE
 
 
+# the native equation wins from n = 2 on (the JAX package's measured
+# crossover, and the reference's batchVerifyThreshold)
+_NATIVE_BATCH_MIN = 2
+
+
+def _lib():
+    from .. import native
+
+    return native.ed25519_batch_lib()
+
+
+def _native_verify_one_zip215(
+    pk_bytes: bytes, msg: bytes, sig: bytes
+) -> Optional[bool]:
+    """One ZIP-215 verify in C: the batch equation at n = 1 with weight
+    1. None when the C cannot decode A or R (the oracle answers those)."""
+    s = int.from_bytes(sig[32:], "little")
+    if s >= ed25519_math.L:
+        return False
+    r = sig[:32]
+    k = ed25519_math.sha512_mod_l(r, pk_bytes, msg)
+    rc = _lib().tm_ed25519_batch_verify(
+        pk_bytes,
+        r,
+        s.to_bytes(32, "little"),
+        k.to_bytes(32, "little"),
+        (1).to_bytes(32, "little"),
+        1,
+    )
+    if rc == 1:
+        return True
+    if rc == 0:
+        return False
+    return None
+
+
+def _call_verify_full(fn, items) -> bool:
+    """Whether one tm_*_verify_full call accepts every (pk, msg, sig):
+    keys and signatures concatenated, the messages as one blob with n + 1
+    offsets, 128-bit random weights from os.urandom. Shared by the
+    ed25519 and sr25519 batch verifiers."""
+    n = len(items)
+    offs = (ctypes.c_uint64 * (n + 1))()
+    pos = 0
+    for i, (_pk, msg, _sig) in enumerate(items):
+        offs[i] = pos
+        pos += len(msg)
+    offs[n] = pos
+    rc = fn(
+        b"".join(pk.bytes() for pk, _m, _s in items),
+        b"".join(sig for _pk, _m, sig in items),
+        b"".join(msg for _pk, msg, _s in items),
+        offs,
+        os.urandom(16 * n),
+        n,
+    )
+    return rc == 1
+
+
+def _native_batch_all_valid(items) -> bool:
+    """The cofactored random-linear-combination equation over the whole
+    batch in one C call (challenges included): True when every signature
+    is valid; False when at least one is not, or one is undecodable."""
+    return _call_verify_full(_lib().tm_ed25519_verify_full, items)
+
+
 class Ed25519BatchVerifier(BatchVerifier):
-    """The CPU default: one host-oracle verify per signature, the exact
-    bitmap in add order. The device verifier (crypto/gpu_verifier.py)
-    takes batches once installed."""
+    """The CPU default: for n >= 2 the batch equation in C, and when it
+    fails (or for one signature) a verify a signature, so the answer is
+    the exact bitmap in add order. The device verifier
+    (crypto/gpu_verifier.py) takes batches once installed."""
 
     def __init__(self) -> None:
         self._items: List[Tuple[PubKeyEd25519, bytes, bytes]] = []
@@ -127,9 +208,13 @@ class Ed25519BatchVerifier(BatchVerifier):
         self._items.append((pub_key, bytes(message), bytes(signature)))
 
     def verify(self) -> Tuple[bool, List[bool]]:
+        """One-shot: a second call without new add()s returns
+        (False, [])."""
         if not self._items:
             return False, []
         items, self._items = self._items, []
+        if len(items) >= _NATIVE_BATCH_MIN and _native_batch_all_valid(items):
+            return True, [True] * len(items)
         bitmap = [pk.verify_signature(msg, sig) for pk, msg, sig in items]
         return all(bitmap), bitmap
 

@@ -1,18 +1,25 @@
 """sr25519: schnorrkel Schnorr signatures over ristretto255.
 
-Counterpart: tendermint_tpu/crypto/sr25519.py (`_signing_transcript`,
-`_challenge`, `challenge_batch` :69-127, `PubKeySr25519.verify_signature`
-:254-277 without its native branch, `_parse_signature` :280-297,
-`PrivKeySr25519` keygen :300-311 and sign :325-347,
-`Sr25519BatchVerifier`). MiniSecretKey expansion in Ed25519 mode, a
-merlin transcript with an empty signing context, R || s signatures with
-the schnorrkel v1 marker bit (bit 511).
+Counterpart: tendermint_tpu/crypto/sr25519.py (`_basemul_encode` :54-66,
+`_signing_transcript`, `_challenge`, `challenge_batch` :69-127,
+`_native_verify_one` :130-166, `PubKeySr25519.verify_signature` :198-252
+and `verify_signature_cpu` :254-277, `_parse_signature` :280-292,
+`PrivKeySr25519` :295-353, `Sr25519BatchVerifier` over the native
+equation :356-424). MiniSecretKey expansion in Ed25519 mode, a merlin
+transcript with an empty signing context, R || s signatures with the
+schnorrkel v1 marker bit (bit 511).
 
-Everything here is pure Python on the host oracle (crypto/ristretto.py),
-a few ms per signature: it is the CPU default behind crypto.batch and
-the reference the device verifier (ops/sr25519_kernel.py) is held
-against. The JAX package's single-verify device route and its native
-batch equation are not ported.
+The CPU plane is the JAX package's native C (tendermint_tpu_torch/
+native): keygen's and signing's [k]B and a single signature's challenge,
+a single verify as the whole-batch entry at n = 1, and a batch of n >= 2
+tested whole by the random-linear-combination equation, then checked a
+signature at a time when that fails: the answer is always the per-index
+bitmap. The pure-Python check on the host oracle (crypto/ristretto.py),
+`verify_signature_oracle`, answers what the C cannot decode and is the
+tests' reference. A single verify goes to the device when
+crypto/gpu_verifier's sr25519-single route admits it
+(`single_sr_verifier`), else to the CPU plane; the CPU batch verifier
+and the device's fault checks use the host-only `verify_signature_cpu`.
 
 The signing witness mixes in external randomness, as schnorrkel's does;
 `sign` and `sign_batch` take the random source as an argument
@@ -21,6 +28,7 @@ The signing witness mixes in external randomness, as schnorrkel's does;
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -154,8 +162,35 @@ class PubKeySr25519(PubKey):
         return KEY_TYPE
 
     def verify_signature(self, msg: bytes, sig: bytes) -> bool:
-        """The host oracle: accept iff encode([s]B - [k]A) == R's bytes
-        (ristretto encoding is canonical)."""
+        """Through the device's single-verify route when it admits one
+        signature (crypto/gpu_verifier.single_sr_verifier), else the CPU
+        plane. The device's outcome is reported to that route's breaker;
+        a device fault inside the batch verifier is contained there and
+        answered by the CPU factory."""
+        from . import gpu_verifier
+
+        bv = gpu_verifier.single_sr_verifier()
+        if bv is None:
+            return self.verify_signature_cpu(msg, sig)
+        if len(sig) != SIGNATURE_SIZE:
+            return False
+        bv.add(self, msg, sig)
+        _ok, bits = bv.verify()
+        gpu_verifier.report_single(not bv.faulted)
+        return bool(bits and bits[0])
+
+    def verify_signature_cpu(self, msg: bytes, sig: bytes) -> bool:
+        """The host-only verify: the C entry at n = 1, the pure-Python
+        oracle for what it cannot decode. Never touches the device, so
+        the device's fault checks can use it to disprove a device verdict."""
+        native = _native_verify_one(self._bytes, msg, sig)
+        if native is not None:
+            return native
+        return self.verify_signature_oracle(msg, sig)
+
+    def verify_signature_oracle(self, msg: bytes, sig: bytes) -> bool:
+        """The pure-Python check: accept iff encode([s]B - [k]A) == R's
+        bytes (ristretto encoding is canonical)."""
         parsed = _parse_signature(sig)
         if parsed is None:
             return False
@@ -168,6 +203,32 @@ class PubKeySr25519(PubKey):
         k = _challenge(_signing_transcript(msg), self._bytes, r_bytes)
         rp = rst.add(rst.mul_base(s), rst.scalar_mult((L - k) % L, A))
         return rst.encode(rp) == r_bytes
+
+
+def _native_verify_one(pk_bytes: bytes, msg: bytes, sig: bytes) -> Optional[bool]:
+    """One schnorrkel verify in C (the whole-batch entry at n = 1):
+    parsing, the merlin challenge and [8](sB - kA - R) == identity. None
+    when the C cannot decode A or R (the oracle answers those)."""
+    from .. import native
+
+    if len(sig) != SIGNATURE_SIZE:
+        return False
+    offs = (ctypes.c_uint64 * 2)(0, len(msg))
+    rc = native.ed25519_batch_lib().tm_sr25519_verify_full(
+        pk_bytes, sig, msg, offs, os.urandom(16), 1
+    )
+    if rc == 1:
+        return True
+    if rc == 0:
+        return False
+    return None
+
+
+def _basemul_encode(k: int) -> bytes:
+    """encode([k]B) in C (keygen's and signing's fixed-base multiply)."""
+    from .. import native
+
+    return native.ristretto_basemul(k.to_bytes(32, "little"))
 
 
 def _scalar_divide_by_cofactor(b: bytes) -> int:
@@ -193,7 +254,7 @@ class PrivKeySr25519(PrivKey):
         key[31] |= 64
         self._key = _scalar_divide_by_cofactor(bytes(key)) % L
         self._nonce = h[32:]
-        self._pub = rst.encode(rst.mul_base_ct(self._key))
+        self._pub = _basemul_encode(self._key)
 
     @classmethod
     def from_seed(cls, seed: bytes) -> "PrivKeySr25519":
@@ -211,7 +272,7 @@ class PrivKeySr25519(PrivKey):
             b"sr25519-witness" + self._nonce + msg + fresh
         ).digest()
         r = int.from_bytes(r_seed, "little") % L
-        return r, rst.encode(rst.mul_base_ct(r))
+        return r, _basemul_encode(r)
 
     def _finish(self, r: int, r_bytes: bytes, k: int) -> bytes:
         s_bytes = bytearray(((k * self._key + r) % L).to_bytes(32, "little"))
@@ -219,9 +280,11 @@ class PrivKeySr25519(PrivKey):
         return r_bytes + bytes(s_bytes)
 
     def sign(self, msg: bytes, rng: Optional[Rng] = None) -> bytes:
+        from .. import native
+
         r, r_bytes = self._witness(msg, rng)
-        k = _challenge(_signing_transcript(msg), self._pub, r_bytes)
-        return self._finish(r, r_bytes, k)
+        k = native.sr25519_challenge(self._pub, r_bytes, msg)
+        return self._finish(r, r_bytes, int.from_bytes(k, "little"))
 
     def pub_key(self) -> PubKey:
         return PubKeySr25519(self._pub)
@@ -245,10 +308,30 @@ def sign_batch(
     return [p._finish(r, rb, k) for p, (r, rb), k in zip(privs, wits, ks)]
 
 
+# the native equation wins from n = 2 on (the JAX package's choice)
+_NATIVE_BATCH_MIN = 2
+
+
+def _native_batch_all_valid(items) -> bool:
+    """schnorrkel's batch verification in one C call: parsing, merlin
+    challenges, the random-linear-combination products and the
+    cofactored equation over ristretto decoding. True when every
+    signature is valid; False when one is not, is malformed or is
+    undecodable."""
+    from .. import native
+    from .ed25519 import _call_verify_full
+
+    return _call_verify_full(
+        native.ed25519_batch_lib().tm_sr25519_verify_full, items
+    )
+
+
 class Sr25519BatchVerifier(BatchVerifier):
-    """The CPU default behind crypto.batch: one host-oracle verify per
-    signature, the exact bitmap in add order. The device verifier
-    (crypto/gpu_verifier.py) takes sr25519 batches once installed."""
+    """The CPU default behind crypto.batch: for n >= 2 the batch equation
+    in C, and when it fails (or for one signature) the host-only verify a
+    signature, so the answer is the exact bitmap in add order. The device
+    verifier (crypto/gpu_verifier.py) takes sr25519 batches once
+    installed."""
 
     def __init__(self) -> None:
         self._items: List[Tuple[PubKeySr25519, bytes, bytes]] = []
@@ -264,7 +347,9 @@ class Sr25519BatchVerifier(BatchVerifier):
         if not self._items:
             return False, []
         items, self._items = self._items, []
-        bitmap = [pk.verify_signature(msg, sig) for pk, msg, sig in items]
+        if len(items) >= _NATIVE_BATCH_MIN and _native_batch_all_valid(items):
+            return True, [True] * len(items)
+        bitmap = [pk.verify_signature_cpu(msg, sig) for pk, msg, sig in items]
         return all(bitmap), bitmap
 
     def __len__(self) -> int:

@@ -9,7 +9,7 @@ wrong R, a tampered message, another key, public keys and R that RFC
 each of its checks alone: not canonical, negative, not square, t
 negative, y = 0), all-zero public key and signature, the identity with
 s = 0 (valid), and malformed sizes. The expected bitmap is the host oracle's,
-PubKeySr25519.verify_signature, with malformed sizes False.
+PubKeySr25519.verify_signature_oracle, with malformed sizes False.
 """
 
 from __future__ import annotations
@@ -149,6 +149,6 @@ def expected(triples: List[Triple]) -> List[bool]:
     return [
         len(p) == 32
         and len(s) == 64
-        and PubKeySr25519(p).verify_signature(m, s)
+        and PubKeySr25519(p).verify_signature_oracle(m, s)
         for p, m, s in triples
     ]

@@ -1,0 +1,131 @@
+"""The port's native CPU plane: the C batch equation, built at first use.
+
+Counterpart: tendermint_tpu/native/__init__.py:41-98 (`load`, `_build`)
+and :139-256 (`ed25519_batch_lib`, `ristretto_basemul`,
+`sr25519_challenge`). ed25519_batch.c and keccakf_core.h beside this
+module are copies of the JAX package's, byte for byte but for a first
+comment naming the original: the cofactored random-linear-combination
+batch equation for ed25519 (ZIP-215) and sr25519 (schnorrkel over
+ristretto255), with SHA-512 and merlin challenges computed in C, and
+the fixed-base ristretto multiply of sr25519 keygen and signing.
+
+The library is compiled by the host C compiler ($CC, else `cc`; -O3
+-funroll-loops -shared -fPIC) into `build/native/` at the repository
+root, named by a digest of the source, the headers and the command, so
+an edited source is rebuilt and concurrent processes (test workers)
+converge on one file: each compiles to a temporary name and renames it
+into place. Importing this module builds nothing. A build that fails
+raises: there is no switch that turns the native plane off and no
+Python fallback behind it. keccakf.c and signbytes.c are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+__all__ = [
+    "BUILD_DIR",
+    "ed25519_batch_lib",
+    "ristretto_basemul",
+    "sr25519_challenge",
+]
+
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SRC_DIR.parents[1] / "build" / "native"
+FLAGS = ["-O3", "-funroll-loops", "-shared", "-fPIC"]
+
+_lock = threading.Lock()
+_LIB = None
+
+_P = ctypes.c_char_p
+_U64 = ctypes.c_uint64
+
+
+def _build(name: str) -> Path:
+    """Compile <name>.c into BUILD_DIR unless its digest's library is
+    there; the library's path. Raises on a compiler failure."""
+    src = SRC_DIR / f"{name}.c"
+    cmd = [os.environ.get("CC", "cc"), *FLAGS]
+    h = hashlib.sha256()
+    for part in [src, *sorted(SRC_DIR.glob("*.h"))]:
+        h.update(part.name.encode())
+        h.update(part.read_bytes())
+    h.update(" ".join(cmd).encode())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [*cmd, "-o", tmp, str(src)],
+            capture_output=True,
+            text=True,
+            timeout=300,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"native: {' '.join(cmd)} failed on {src.name} "
+                f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def ed25519_batch_lib() -> ctypes.CDLL:
+    """The batch-equation library with the argtypes of what the CPU
+    verifiers call, built on first use:
+
+    - tm_ed25519_batch_verify(pk, r, zb, a, z, n) -> 1 / 0 / -1 (the
+      equation over precomputed scalars; n = 1 is one ZIP-215 verify);
+    - tm_ed25519_verify_full(pks, sigs, msgs, offsets, rand16, n) and
+      tm_sr25519_verify_full(...) -> 1 all valid / 0 invalid somewhere /
+      -1 undecodable or out of memory;
+    - tm_sr25519_challenge(pk, r, msg, mlen, out32);
+    - tm_ristretto_basemul(scalar32, out32) -> 0.
+    """
+    global _LIB
+    with _lock:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(_build("ed25519_batch")))
+            lib.tm_ed25519_batch_verify.argtypes = [_P] * 5 + [_U64]
+            lib.tm_ed25519_batch_verify.restype = ctypes.c_int
+            full = [_P, _P, _P, ctypes.POINTER(_U64), _P, _U64]
+            for fn in (lib.tm_ed25519_verify_full, lib.tm_sr25519_verify_full):
+                fn.argtypes = full
+                fn.restype = ctypes.c_int
+            lib.tm_sr25519_challenge.argtypes = [_P, _P, _P, _U64, _P]
+            lib.tm_sr25519_challenge.restype = None
+            lib.tm_ristretto_basemul.argtypes = [_P, _P]
+            lib.tm_ristretto_basemul.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def ristretto_basemul(scalar_le32: bytes) -> bytes:
+    """encode(scalar B), scalar 32 little-endian bytes below L."""
+    if len(scalar_le32) != 32:
+        raise ValueError(f"scalar must be 32 bytes, got {len(scalar_le32)}")
+    out = ctypes.create_string_buffer(32)
+    ed25519_batch_lib().tm_ristretto_basemul(scalar_le32, out)
+    return out.raw
+
+
+def sr25519_challenge(pub: bytes, r: bytes, msg: bytes) -> bytes:
+    """The merlin signing-context challenge k of (pub, R, msg), 32
+    little-endian bytes, reduced mod L."""
+    if len(pub) != 32 or len(r) != 32:
+        raise ValueError("pub and R must be 32 bytes each")
+    out = ctypes.create_string_buffer(32)
+    ed25519_batch_lib().tm_sr25519_challenge(pub, r, msg, len(msg), out)
+    return out.raw

@@ -63,7 +63,48 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "tendermint_tpu_torch.ops.ed25519_kernel" in added
+    for m in (
+        "tendermint_tpu_torch.native",
+        "tendermint_tpu_torch.node.device",
+        "tendermint_tpu_torch.crypto.faults",
+        "tendermint_tpu_torch.crypto.breaker",
+    ):
+        assert m in added
     assert [m for m in added if _forbidden(m)] == []
+
+
+def test_importing_the_device_plane_builds_and_starts_nothing():
+    """Importing native/, node/, faults and breaker compiles no library
+    and starts no thread: the native plane builds at first use."""
+    code = (
+        "import json, threading\n"
+        "from tendermint_tpu_torch import native\n"
+        "from tendermint_tpu_torch.node import device\n"
+        "from tendermint_tpu_torch.crypto import breaker, faults, gpu_verifier\n"
+        "print(json.dumps([native._LIB is None, threading.active_count(),\n"
+        "                  faults.armed(), gpu_verifier.installed()]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [True, 1, False, None]
+
+
+def test_device_plane_without_cuda_raises():
+    """install_device_plane targets the card: without one it raises and
+    installs neither the verifiers nor the merkle hooks."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import merkle
+    from tendermint_tpu_torch.node.device import install_device_plane
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        install_device_plane(GPUConfig())
+    assert merkle._device_root_hook is None and merkle._device_proofs_hook is None
 
 
 @pytest.mark.parametrize(
