@@ -112,6 +112,9 @@ INSTR_PER_SHA512_BLOCK = 80 * 30 + 64 * 20
 # shift and a three-input xor each, two three-input adds), and the 8 adds
 # into the state. An inner hash is two compressions.
 INSTR_PER_SHA256_BLOCK = 64 * 14 + 48 * 10 + 8
+# the 48 schedule steps of an inner hash's second block, which X5 reads
+# from its table (csrc/sha256_pad.cuh) instead
+INSTR_SHA256_PAD_SCHEDULE = 48 * 10
 
 # each wrapper's kernel as the profiler names it
 KERNEL_NAMES = {
@@ -722,6 +725,16 @@ def phase_sr25519_tile(torch, dev, seed: int) -> None:
     )
 
 
+def assert_no_fault(before: dict, after: dict, where: str) -> None:
+    """A main path contains no device fault and sends nothing to the
+    CPU: a fault the plane contained there would hide in its numbers."""
+    for key in ("faults", "rerouted_sigs"):
+        if after[key] != before[key]:
+            raise AssertionError(
+                f"{where}: {key} rose by {after[key] - before[key]}"
+            )
+
+
 def count_one_call(fn, expect: dict) -> dict:
     """Launch counts of one call of fn, zeroed just before it and read
     just after, in all and per key type. For the call each verifier
@@ -761,6 +774,7 @@ def count_one_call(fn, expect: dict) -> dict:
         for cls, dispatch in originals.items():
             cls.dispatch = dispatch
     after = gpu_verifier.stats()
+    assert_no_fault(before, after, "one counted call")
     for key_type, (want, _kernels) in expect.items():
         got = after[f"batches_{key_type}"] - before[f"batches_{key_type}"]
         if got != want:
@@ -807,9 +821,25 @@ def phase_x4_latency() -> dict:
     return floor
 
 
+def phase_x5_latency() -> dict:
+    """The latency floor of X5 on the block's proofs: one thread's chain
+    of tree_levels(N_TXS) dependent sha256_inner_pad hashes (the deepest
+    proof's walk), alone on the card, the least of x4_latency's reads."""
+    from tendermint_tpu_torch.ops import x4_latency
+
+    floor = x4_latency.measure(tree_levels(N_TXS), pad=True)
+    emit({"phase": "x5_latency_floor", **floor})
+    return floor
+
+
 def phase_main_path(torch, seed: int) -> dict:
     """The entry points a user calls, on the card, with launch counts
     zeroed just before each path and read just after."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.node.device import (
+        install_device_plane,
+        uninstall_device_plane,
+    )
     from tendermint_tpu_torch.crypto import gpu_verifier
     from tendermint_tpu_torch.crypto.gpu_verifier import (
         GpuEd25519BatchVerifier,
@@ -840,7 +870,8 @@ def phase_main_path(torch, seed: int) -> dict:
     def light():
         verify_commit_light(CHAIN_ID, vals150, bid150, HEIGHT, commit150)
 
-    gpu_verifier.install()
+    start = gpu_verifier.stats()
+    install_device_plane(GPUConfig())
     try:
         # one call each, counted: X1 and K2 once per dispatched window
         def tile(w):
@@ -865,8 +896,9 @@ def phase_main_path(torch, seed: int) -> dict:
         finally:
             commit.signatures[bad_idx].signature = good_sig
         stats = gpu_verifier.stats()
+        assert_no_fault(start, stats, "main_path")
     finally:
-        gpu_verifier.uninstall()
+        uninstall_device_plane()
 
     # the hybrid program: plain preparation and compare around kernel K1
     gpu_verifier.install(program="hybrid")
@@ -917,6 +949,11 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
     one batch verifier streaming its own windows, and 75 + 75 for the
     light commit; launch counts zeroed just before each path and read
     just after."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.node.device import (
+        install_device_plane,
+        uninstall_device_plane,
+    )
     from tendermint_tpu_torch.crypto import gpu_verifier
     from tendermint_tpu_torch.crypto.gpu_verifier import (
         GpuSr25519BatchVerifier,
@@ -958,7 +995,8 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
             "sr25519": (sr, {"sr25519_verify": sr}),
         }
 
-    gpu_verifier.install()
+    start = gpu_verifier.stats()
+    install_device_plane(GPUConfig())
     try:
         per_call = count_one_call(full, tile(w_ed, w_sr))
         per_call_light = count_one_call(light, tile(1, 1))
@@ -984,8 +1022,9 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
         finally:
             commit.signatures[bad_idx].signature = good_sig
         stats = gpu_verifier.stats()
+        assert_no_fault(start, stats, "sr25519_main_path")
     finally:
-        gpu_verifier.uninstall()
+        uninstall_device_plane()
 
     # the hybrid program: plain decode and compare around kernel K1 for
     # both key types
@@ -1029,6 +1068,7 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
         "commit": commit,
         "tile": per_call,
         "hybrid": hybrid,
+        "p50": p50,
     }
 
 
@@ -1198,7 +1238,9 @@ def block_txs(seed: int):
 
 def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
     """BASELINE.md config 5 through the entry points a user calls, with
-    gpu_verifier and merkle_kernel installed: the roots of the mixed
+    the device plane installed from its config (node/device.py
+    install_device_plane(GPUConfig()): gpu_verifier and merkle_kernel):
+    the roots of the mixed
     10,000-validator set, of its Commit and of a 10,000-transaction
     block, verify_commit, and all 10,000 inclusion proofs of the block's
     transactions in one verify_proofs_batch. Roots against the host
@@ -1208,6 +1250,11 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
     kernel); no call above its gate reaches the host reduction. Host
     times of each call (p50/p95 over REPS), of the proof batch's packing
     alone, and of hashlib's root and batch on this host for scale."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.node.device import (
+        install_device_plane,
+        uninstall_device_plane,
+    )
     from tendermint_tpu_torch.crypto import gpu_verifier, merkle
     from tendermint_tpu_torch.crypto.gpu_verifier import (
         GpuSr25519BatchVerifier,
@@ -1265,8 +1312,8 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
             {"merkle_proofs": 1},
         ),
     }
-    gpu_verifier.install()
-    MK.install(dev)
+    start = gpu_verifier.stats()
+    install_device_plane(GPUConfig())
     reduce, compute = merkle._reduce, merkle.Proof.compute_root_hash
     merkle._reduce = counting(reduce, "reduce")
     merkle.Proof.compute_root_hash = counting(compute, "compute_root_hash")
@@ -1335,10 +1382,10 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
         if host_calls != {"reduce": small_reduces, "compute_root_hash": 0}:
             raise AssertionError(f"a device call ran the host path: {host_calls}")
         mk_stats = MK.stats()
+        assert_no_fault(start, gpu_verifier.stats(), "config5")
     finally:
         merkle._reduce, merkle.Proof.compute_root_hash = reduce, compute
-        MK.uninstall()
-        gpu_verifier.uninstall()
+        uninstall_device_plane()
 
     def pct(t):
         return {"p50": t[0], "p95": t[1]}
@@ -1375,6 +1422,234 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
     }
 
 
+# the batch sizes the min-batch crossover is measured at, and its reps
+MIN_BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
+MIN_BATCH_REPS = 15
+# fault containment: one main-path window a key type, the deadline the
+# hang meets, the hang itself, the rules' seed; the all-CPU mixed commit
+FAULT_WINDOW = 2048
+FAULT_DEADLINE_S = 2.0
+FAULT_HANG_S = 4.0
+FAULT_SEED = 11
+FALLBACK_REPS = 3
+
+
+def key_triples(vals, commit, key_type: str, n: int):
+    """The first n (PubKey, sign-bytes, signature) of a key type in a
+    commit, index order."""
+    msgs = commit.sign_bytes_batch(CHAIN_ID)
+    out = [
+        (v.pub_key, msgs[i], commit.signatures[i].signature)
+        for i, v in enumerate(vals.validators)
+        if v.pub_key.type() == key_type
+    ]
+    if len(out) < n:
+        raise AssertionError(f"{len(out)} {key_type} signatures, not {n}")
+    return out[:n]
+
+
+def phase_min_batch(torch, main: dict, mixed: dict) -> dict:
+    """Where one device window starts to beat the native CPU batch: for
+    each key type and n in MIN_BATCH_SIZES, host ms (median of
+    MIN_BATCH_REPS after a warm-up) of n valid signatures of the main
+    paths' commits through the device batch verifier (install's gate at
+    1, so every n is one window: upload, kernels, gather) and through
+    the CPU default (the C batch equation). The crossover is the least n
+    from which the device is faster at every larger n measured."""
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.crypto.batch import create_batch_verifier, cpu_factory
+
+    sources = {"ed25519": main, "sr25519": mixed}
+    out = {}
+    gpu_verifier.install(min_batch=1)
+    try:
+        for kt, src in sources.items():
+            triples = key_triples(src["vals"], src["commit"], kt, max(MIN_BATCH_SIZES))
+
+            def run(make, items):
+                bv = make()
+                for t in items:
+                    bv.add(*t)
+                ok, bits = bv.verify()
+                if not ok or len(bits) != len(items):
+                    raise AssertionError(f"min_batch: a valid {kt} batch failed")
+
+            rows = {}
+            for n in MIN_BATCH_SIZES:
+                items = triples[:n]
+
+                def device(items=items):
+                    bv = create_batch_verifier(items[0][0], len(items))
+                    if not isinstance(bv, gpu_verifier._GpuBatchVerifier):
+                        raise AssertionError("min_batch: the gate kept a batch off")
+                    return bv
+
+                ms = {}
+                for path, make in (("device", device), ("cpu", cpu_factory(kt))):
+                    run(make, items)  # warm-up
+                    times = []
+                    for _ in range(MIN_BATCH_REPS):
+                        t0 = time.perf_counter()
+                        run(make, items)
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    ms[path] = float(np.median(times))
+                rows[str(n)] = ms
+            wins = [rows[str(n)]["device"] < rows[str(n)]["cpu"] for n in MIN_BATCH_SIZES]
+            crossover = next(
+                (n for i, n in enumerate(MIN_BATCH_SIZES) if all(wins[i:])), None
+            )
+            out[kt] = {"ms": rows, "crossover": crossover}
+        stats = gpu_verifier.stats()
+    finally:
+        gpu_verifier.uninstall()
+    emit(
+        {
+            "phase": "min_batch",
+            "sizes": list(MIN_BATCH_SIZES),
+            "reps": MIN_BATCH_REPS,
+            **out,
+            "default_min_batch": gpu_verifier.DEFAULT_MIN_BATCH,
+            "verifier_stats": stats,
+            "ok": True,
+        }
+    )
+    return out
+
+
+def phase_fault_containment(torch, main: dict, mixed: dict) -> dict:
+    """Device faults injected through crypto/faults.py into one
+    FAULT_WINDOW window of each key type (one bad signature in it), one
+    at a time: a dispatch that raises, a gather that hangs FAULT_HANG_S
+    past a FAULT_DEADLINE_S deadline, a bitmap one lane short, a flipped
+    lane. For each: the bitmap equals the clean device bitmap, the batch
+    is `faulted`, faults rose by one and the key type's breaker opened;
+    the next batch went to the CPU (no device window, its signatures
+    counted as rerouted) with the same bitmap; probe_now() closed the
+    breaker with one device verify (one launch of each kernel of the
+    key type). Then the mixed 10k commit verified with both breakers
+    held open, all on the native CPU plane (the counterpart of the JAX
+    package's bench.py:454 bench_commit_fallback), beside its device p50."""
+    import random
+
+    from tendermint_tpu_torch.crypto import faults, gpu_verifier
+    from tendermint_tpu_torch.crypto.batch import create_batch_verifier
+    from tendermint_tpu_torch.crypto import breaker
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    n = FAULT_WINDOW
+    flip = random.Random(FAULT_SEED).randrange(n)  # the lane bitflip hits
+    bad = (flip + n // 2) % n
+    kernels_of = {
+        "ed25519": {"sha512_ram": 1, "ed25519_verify_tile": 1},
+        "sr25519": {"sr25519_verify": 1},
+    }
+    modes = (
+        ("dispatch_raise", "gpu.dispatch", "raise"),
+        ("gather_hang", "gpu.gather", "hang"),
+        ("misshape", "gpu.gather", "misshape"),
+        ("bitflip", "gpu.gather", "bitflip"),
+    )
+    results = {}
+    gpu_verifier.install(gather_deadline_s=FAULT_DEADLINE_S)
+    try:
+        for kt, src in (("ed25519", main), ("sr25519", mixed)):
+            items = list(key_triples(src["vals"], src["commit"], kt, n))
+            pk, msg, sig = items[bad]
+            items[bad] = (pk, msg, sig[:9] + bytes([sig[9] ^ 0x20]) + sig[10:])
+            want = [i != bad for i in range(n)]
+
+            def verify_batch():
+                bv = create_batch_verifier(items[0][0], n)
+                for t in items:
+                    bv.add(*t)
+                return bv, bv.verify()
+
+            bv, (ok, clean) = verify_batch()
+            if not isinstance(bv, gpu_verifier._GpuBatchVerifier) or bv.faulted:
+                raise AssertionError(f"the clean {kt} window did not run on the card")
+            if ok or clean != want:
+                raise AssertionError(f"the clean {kt} bitmap is wrong")
+            for name, point, mode in modes:
+                s0 = gpu_verifier.stats()
+                t0 = time.perf_counter()
+                with faults.inject(
+                    point, mode, times=1, seed=FAULT_SEED, hang_s=FAULT_HANG_S, key=kt
+                ) as rule:
+                    bv, (_ok, bits) = verify_batch()
+                contained_ms = (time.perf_counter() - t0) * 1e3
+                s1 = gpu_verifier.stats()
+                checks = {
+                    "fired": rule.fired == 1,
+                    "device_verifier": isinstance(bv, gpu_verifier._GpuBatchVerifier),
+                    "bitmap_unchanged": bits == clean,
+                    "faulted": bv.faulted,
+                    "faults_plus_one": s1["faults"] - s0["faults"] == 1,
+                    "breaker_open": s1[f"breaker_{kt}"] == breaker.STATE_CODE[breaker.OPEN],
+                }
+                nxt, (_ok, bits2) = verify_batch()
+                s2 = gpu_verifier.stats()
+                checks["next_batch_on_cpu"] = (
+                    not isinstance(nxt, gpu_verifier._GpuBatchVerifier)
+                    and bits2 == clean
+                    and s2[f"batches_{kt}"] == s1[f"batches_{kt}"]
+                    and s2["rerouted_sigs"] - s1["rerouted_sigs"] == n
+                )
+                reset_launches()
+                closed = gpu_verifier.probe_now(kt)
+                probe_launches = {k: v for k, v in launches().items() if v}
+                checks["probe_closed"] = (
+                    closed
+                    and gpu_verifier.stats()[f"breaker_{kt}"] == 0
+                    and probe_launches == kernels_of[kt]
+                )
+                failed = [k for k, v in checks.items() if not v]
+                if failed:
+                    raise AssertionError(f"fault {name} on {kt}: {failed}")
+                results[f"{kt}.{name}"] = {
+                    "contained_ms": contained_ms,
+                    "rerouted_sigs": s2["rerouted_sigs"] - s0["rerouted_sigs"],
+                    "probe_launches": probe_launches,
+                }
+        # the mixed 10k commit with both breakers held open: all CPU
+        vals, commit = mixed["vals"], mixed["commit"]
+        for kt in gpu_verifier.KEY_TYPES:
+            breaker.breaker_for(kt).open_now()
+        s0 = gpu_verifier.stats()
+        cpu50, cpu95 = time_commit(
+            lambda: verify_commit(CHAIN_ID, vals, commit.block_id, HEIGHT, commit),
+            FALLBACK_REPS,
+        )
+        s1 = gpu_verifier.stats()
+        if s1["batches"] != s0["batches"] or s1["faults"] != s0["faults"]:
+            raise AssertionError("an open breaker let a window through")
+        rerouted = s1["rerouted_sigs"] - s0["rerouted_sigs"]
+        if rerouted != (FALLBACK_REPS + 1) * len(commit.signatures):
+            raise AssertionError(f"{rerouted} signatures rerouted")
+    finally:
+        faults.reset()
+        gpu_verifier.uninstall()
+    fallback = {
+        "cpu_p50_ms": cpu50,
+        "cpu_p95_ms": cpu95,
+        "reps": FALLBACK_REPS,
+        "device_p50_ms": mixed["p50"],
+        "device_batches_during": 0,
+    }
+    emit(
+        {
+            "phase": "fault_containment",
+            "window": n,
+            "bad_index": bad,
+            "deadline_s": FAULT_DEADLINE_S,
+            "hang_s": FAULT_HANG_S,
+            "cases": results,
+            "mixed_10k_commit_on_cpu": fallback,
+            "ok": True,
+        }
+    )
+    return {"cases": results, "fallback": fallback}
+
+
 def phase_kernels(
     torch,
     dev,
@@ -1383,6 +1658,7 @@ def phase_kernels(
     config5: dict,
     card: str,
     power: str,
+    x5_old_build,
 ) -> dict:
     """Each kernel on the inputs the main path gives it for one commit
     (the batch verifier streams it in STREAM_CHUNK windows, each one
@@ -1705,11 +1981,34 @@ def phase_kernels(
             # leaves, aunts, offsets, side words, root and host checks
             # read once; roots and bitmap written once
             32 * k + 32 * a + 4 * (k + 1) + 8 * k + 32 + k + 32 * k + k,
-            a * 2 * INSTR_PER_SHA256_BLOCK,
+            a * (2 * INSTR_PER_SHA256_BLOCK - INSTR_SHA256_PAD_SCHEDULE),
         )
     )
+    rows[-1]["bytes_moved"] = 32 * k + 32 * a + 4 * (k + 1) + 8 * k + 32 + k + 32 * k + k
     for r in rows[-2:]:
         r["library"] = "none: no PyTorch call computes SHA-256"
+    # X5's earlier design (PR 5's walk, ops/x5_variants.py "word") on the
+    # same batch, its events and device times beside the shipped one's
+    from tendermint_tpu_torch.ops import x5_variants
+
+    old_fn, old_ptxas = x5_variants.load_variant("word", *x5_old_build)
+    old_launch, old_roots, old_ok = x5_variants.make_launcher(old_fn, views, "word")
+    old_launch()
+    if not (torch.equal(old_roots, r_k) and torch.equal(old_ok, ok_k)):
+        raise AssertionError("X5's earlier design differs from the shipped one")
+    old_ms, old_records = device_ms(torch, old_launch, 10, KERNEL_NAMES["merkle_proofs"], 1)
+    rows[-1]["earlier_design"] = {
+        "design": "word: sha256_inner_words, the aunt loaded at each step",
+        "ms": cuda_ms(torch, old_launch, 10),
+        "device_ms": old_ms,
+        "device_records": old_records,
+        **old_ptxas,
+    }
+    # the bound counts what the shipped design needs: the second block's
+    # 48 schedule steps come from the table
+    rows[-1]["bound_ms_without_table"] = bound_ms(
+        rows[-1]["bytes_moved"], a * 2 * INSTR_PER_SHA256_BLOCK
+    )[0]
 
     from tendermint_tpu_torch.ops import build
 
@@ -1919,10 +2218,24 @@ def main() -> int:
     dev = torch.device("cuda")
     card, power = (s.strip() for s in smi.split(",", 1))
     sass = phase_report(torch, args.out)
+    # X5's earlier design, built beside the rest for its row's times
+    from tendermint_tpu_torch.ops import x5_variants
+
+    x5_old_build = x5_variants.build_variant("word")
+    try:
+        return _run(torch, args, smi, dev, card, power, sass, x5_old_build)
+    finally:
+        if x5_old_build[1].poll() is None:
+            x5_old_build[1].kill()
+            x5_old_build[1].wait()
+
+
+def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     phase_sha512(torch, dev, args.seed)
     phase_x1_ragged(torch, dev, args.seed)
     floor = phase_x1_latency()
     x4_floor = phase_x4_latency()
+    x5_floor = phase_x5_latency()
     phase_dual_mult(torch, dev, args.seed)
     phase_verify_tile(torch, dev, args.seed)
     phase_ragged_width(torch, dev, args.seed)
@@ -1931,7 +2244,11 @@ def main() -> int:
     main_run = phase_main_path(torch, args.seed)
     mixed_run = phase_sr25519_main_path(torch, args.seed)
     config5 = phase_config5(torch, dev, args.seed, mixed_run)
-    kernels = phase_kernels(torch, dev, main_run, mixed_run, config5, card, power)
+    phase_min_batch(torch, main_run, mixed_run)
+    phase_fault_containment(torch, main_run, mixed_run)
+    kernels = phase_kernels(
+        torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
+    )
     x1 = next(r for r in kernels["kernels"] if r["name"] == "sha512_ram")
     if x1["spill_store_bytes"] or x1["spill_load_bytes"]:
         raise AssertionError("X1 spills registers")
@@ -1948,6 +2265,11 @@ def main() -> int:
     x4 = next(r for r in kernels["kernels"] if r["name"] == "sha256_tree")
     x4["latency_floor_ms_per_root"] = x4_floor["ns"] / 1e6
     x4["latency_floor_cycles"] = x4_floor["cycles"]
+    x5 = next(r for r in kernels["kernels"] if r["name"] == "merkle_proofs")
+    x5["sass_per_inner_hash"] = sass["probe_sha256_inner_pad"]
+    x5["earlier_design"]["sass_per_inner_hash"] = sass["probe_sha256_inner"]
+    x5["latency_floor_ms_per_batch"] = x5_floor["ns"] / 1e6
+    x5["latency_floor_cycles"] = x5_floor["cycles"]
     if args.profile:
         phase_profile(torch, main_run, 5, args.out, "profile")
         phase_profile(torch, mixed_run, 5, args.out, "sr25519_profile")

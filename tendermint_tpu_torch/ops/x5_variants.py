@@ -55,6 +55,7 @@ __all__ = [
     "VARIANTS",
     "build_variant",
     "load_variant",
+    "make_launcher",
     "measure",
     "variant_sources",
 ]
@@ -379,6 +380,26 @@ def _ptxas(log: str) -> dict:
             "spill_load_bytes": int(m.group(3))}
 
 
+def make_launcher(fn, views, name: str):
+    """(launch, roots, ok): launch() runs a design's tm_merkle_proofs
+    on the packed batch `views` (ProofBatch.to on a card) into roots and
+    ok, on the current stream; it raises when the launch fails."""
+    import torch
+
+    dev = views[0].device
+    k = views[0].shape[0]
+    roots = torch.empty((k, 32), dtype=torch.uint8, device=dev)
+    ok = torch.empty(k, dtype=torch.bool, device=dev)
+    args = [ctypes.c_void_p(t.data_ptr()) for t in (*views, roots, ok)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        if fn(*args, k, dev.index or 0, stream) != 0:
+            raise RuntimeError(f"x5_variants: {name} launch failed")
+
+    return launch, roots, ok
+
+
 def batch_of(n_leaves: int, seed: int, corrupt: bool = False):
     """(proofs, root) of a tree of n_leaves random items from `seed`;
     with `corrupt`, one aunt of proof n // 3 flipped."""
@@ -423,19 +444,9 @@ def measure(reps: int = 200, seed: int = 0) -> dict:
         out[name] = {"design": {"fixed": fixed, "split": split,
                                 "prefetch": prefetch},
                      "ptxas": resources, "ms": {str(n): [] for n in BATCHES}}
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
     def launcher(name, views):
-        k = views[0].shape[0]
-        roots = torch.empty((k, 32), dtype=torch.uint8, device=dev)
-        ok = torch.empty(k, dtype=torch.bool, device=dev)
-        args = [ctypes.c_void_p(t.data_ptr()) for t in (*views, roots, ok)]
-
-        def launch():
-            if fns[name](*args, k, dev.index or 0, stream) != 0:
-                raise RuntimeError(f"x5_variants: {name} launch failed")
-
-        return launch, roots, ok
+        return make_launcher(fns[name], views, name)
 
     for name in VARIANTS:  # every design against the plain version
         for (n, corrupt), (views, want_roots, want_ok) in inputs.items():
