@@ -5,8 +5,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 every kernel against its plain PyTorch version, then drives the main
-paths through the entry points a user calls: crypto.gpu_verifier.install()
-and types.validation.verify_commit on a 10,000-validator ed25519 Commit
+paths through the entry points a user calls: the node's device seam,
+node.device.install_device_plane(config.GPUConfig()), which installs
+crypto.gpu_verifier and ops.merkle_kernel, and
+types.validation.verify_commit on a 10,000-validator ed25519 Commit
 (the north-star size), verify_commit_light on a 150-validator Commit,
 and a 10,000-validator Commit with one bad signature that must be
 rejected at that index; then the same on mixed Commits, 5,000 ed25519
@@ -16,8 +18,17 @@ whole (phase config5): with crypto.gpu_verifier and ops.merkle_kernel
 installed, the merkle roots of the mixed 10k validator set, of its
 Commit and of a block of 10,000 transactions (100-300 bytes), its
 verify_commit, and the 10,000 transactions' inclusion proofs in one
-crypto.merkle.verify_proofs_batch. Keys, key types, messages,
-timestamps, signing witnesses and transactions come from --seed.
+crypto.merkle.verify_proofs_batch. Each of these phases fails when the
+device plane contained a fault or sent a signature to the CPU. Then
+phase min_batch times one device window against the native CPU batch at
+1-128 signatures of each key type (the crossovers the default gates come
+from), and phase fault_containment injects a launch error, a gather hang
+past a 2 s deadline, a short bitmap and a flipped lane into one
+2048-signature window of each key type and checks each is contained
+(the same bitmap, the batch marked, the breaker open, the next batch on
+the CPU, the probe closing the breaker), then times the mixed 10k Commit
+on the CPU plane alone. Keys, key types, messages, timestamps, signing
+witnesses and transactions come from --seed.
 
 Before the main paths, every kernel is held against its plain version:
 K1 and X1 at the widest bucket, K2 also on the ZIP-215 corpus at buckets
@@ -870,15 +881,19 @@ def phase_main_path(torch, seed: int) -> dict:
     def light():
         verify_commit_light(CHAIN_ID, vals150, bid150, HEIGHT, commit150)
 
+    # the light commit verifies the first > 2/3 of its equal-power
+    # validators: one window when that reaches the gate
+    cfg = GPUConfig()
+    light_w = int(2 * LIGHT_VALIDATORS // 3 + 1 >= cfg.min_batch_size)
     start = gpu_verifier.stats()
-    install_device_plane(GPUConfig())
+    install_device_plane(cfg)
     try:
         # one call each, counted: X1 and K2 once per dispatched window
         def tile(w):
             return {"sha512_ram": w, "ed25519_verify_tile": w}
 
         per_call = count_one_call(full, {"ed25519": (windows, tile(windows))})
-        per_call_light = count_one_call(light, {"ed25519": (1, tile(1))})
+        per_call_light = count_one_call(light, {"ed25519": (light_w, tile(light_w))})
         p50, p95 = time_commit(full, REPS)
         l50, l95 = time_commit(light, REPS)
         bad_idx = N_VALIDATORS * 7 // 9
@@ -995,11 +1010,18 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
             "sr25519": (sr, {"sr25519_verify": sr}),
         }
 
+    # the light commit verifies the first > 2/3 of its equal-power
+    # validators; a key type's share goes to the card as one window when
+    # it reaches that type's gate, else to the native CPU plane
+    cfg = GPUConfig()
+    gates = {"ed25519": cfg.min_batch_size, "sr25519": cfg.min_batch_size_sr25519}
+    first = [v.pub_key.type() for v in vals150.validators][: 2 * LIGHT_VALIDATORS // 3 + 1]
+    light_w = {kt: int(first.count(kt) >= g) for kt, g in gates.items()}
     start = gpu_verifier.stats()
-    install_device_plane(GPUConfig())
+    install_device_plane(cfg)
     try:
         per_call = count_one_call(full, tile(w_ed, w_sr))
-        per_call_light = count_one_call(light, tile(1, 1))
+        per_call_light = count_one_call(light, tile(light_w["ed25519"], light_w["sr25519"]))
         p50, p95 = time_commit(full, REPS)
         l50, l95 = time_commit(light, REPS)
         # one bad sr25519 signature: the reference error at its index
@@ -1058,6 +1080,8 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
             "rejected_bad_sr25519_index": bad_idx,
             "launches_per_verify_commit": per_call,
             "launches_per_verify_commit_light": per_call_light,
+            "light_signatures_by_key_type": {kt: first.count(kt) for kt in gates},
+            "light_windows_by_key_type": light_w,
             "launches_per_hybrid_verify_commit": hybrid,
             "verifier_stats": stats,
             "ok": True,
@@ -1461,7 +1485,7 @@ def phase_min_batch(torch, main: dict, mixed: dict) -> dict:
 
     sources = {"ed25519": main, "sr25519": mixed}
     out = {}
-    gpu_verifier.install(min_batch=1)
+    gpu_verifier.install(min_batch=1, min_batch_sr25519=1)
     try:
         for kt, src in sources.items():
             triples = key_triples(src["vals"], src["commit"], kt, max(MIN_BATCH_SIZES))
@@ -1508,7 +1532,10 @@ def phase_min_batch(torch, main: dict, mixed: dict) -> dict:
             "sizes": list(MIN_BATCH_SIZES),
             "reps": MIN_BATCH_REPS,
             **out,
-            "default_min_batch": gpu_verifier.DEFAULT_MIN_BATCH,
+            "default_min_batch": {
+                "ed25519": gpu_verifier.DEFAULT_MIN_BATCH,
+                "sr25519": gpu_verifier.DEFAULT_MIN_BATCH_SR25519,
+            },
             "verifier_stats": stats,
             "ok": True,
         }
@@ -1550,7 +1577,7 @@ def phase_fault_containment(torch, main: dict, mixed: dict) -> dict:
         ("bitflip", "gpu.gather", "bitflip"),
     )
     results = {}
-    gpu_verifier.install(gather_deadline_s=FAULT_DEADLINE_S)
+    gpu_verifier.install(gather_deadline_s=FAULT_DEADLINE_S)  # default gates
     try:
         for kt, src in (("ed25519", main), ("sr25519", mixed)):
             items = list(key_triples(src["vals"], src["commit"], kt, n))

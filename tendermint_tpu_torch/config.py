@@ -10,14 +10,22 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-__all__ = ["DEFAULT_BUCKET_SIZES", "DEFAULT_MIN_BATCH", "GPUConfig"]
+__all__ = [
+    "DEFAULT_BUCKET_SIZES",
+    "DEFAULT_MIN_BATCH",
+    "DEFAULT_MIN_BATCH_SR25519",
+    "GPUConfig",
+]
 
 DEFAULT_BUCKET_SIZES = (8, 32, 128, 512, 2048, 8192, 12288, 16384)
 
-# Below this many signatures one device window loses to the native CPU
-# batch on an H100 (chip_smoke.py phase `min_batch`, PERF.md §6); the
-# JAX package's TPU figure is 8.
-DEFAULT_MIN_BATCH = 8
+# Below these many signatures one device window loses to the native CPU
+# batch on an H100 (chip_smoke.py phase `min_batch`, PERF.md §6): an
+# ed25519 window from 32, an sr25519 window only from 128, since its
+# merlin challenges are computed on the host in numpy (~1.5-3 ms for a
+# small window). The JAX package's figure, for a TPU, is 8 for both.
+DEFAULT_MIN_BATCH = 32
+DEFAULT_MIN_BATCH_SR25519 = 128
 
 
 @dataclass
@@ -25,8 +33,10 @@ class GPUConfig:
     """What node/device.py installs the device plane from.
 
     - enable: install crypto/gpu_verifier and ops/merkle_kernel at all;
-    - min_batch_size: the smallest signature batch sent to the card, for
-      both key types (smaller ones stay on the native CPU plane);
+    - min_batch_size, min_batch_size_sr25519: the smallest ed25519 and
+      sr25519 batches sent to the card (smaller ones stay on the native
+      CPU plane); TPUConfig has one gate, but the two key types cross
+      over at different sizes on the card;
     - bucket_sizes: the padded window widths of the signature kernels;
     - devices: 1 is one card; 0 is every visible card; more than one
       card (X6, ROADMAP item 10) is refused.
@@ -37,5 +47,6 @@ class GPUConfig:
 
     enable: bool = True
     min_batch_size: int = DEFAULT_MIN_BATCH
+    min_batch_size_sr25519: int = DEFAULT_MIN_BATCH_SR25519
     bucket_sizes: list = field(default_factory=lambda: list(DEFAULT_BUCKET_SIZES))
     devices: int = 1

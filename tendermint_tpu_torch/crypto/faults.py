@@ -45,7 +45,6 @@ __all__ = [
     "inject",
     "mangle",
     "reset",
-    "rules",
 ]
 
 
@@ -156,12 +155,6 @@ def reset() -> None:
     with _LOCK:
         _RULES.clear()
         _refresh()
-
-
-def rules() -> List[Rule]:
-    """The armed rules, a snapshot."""
-    with _LOCK:
-        return list(_RULES)
 
 
 def fire(point: str, key: Optional[str] = None) -> None:

@@ -46,12 +46,13 @@ such a failure is contained, and nothing else is.
 - Seen by: `faulted` on the batch; stats() "faults", "rerouted_sigs" and
   "breaker_<route>" (0 closed, 1 open, 2 half-open); the log line.
 
-MIN-BATCH ROUTING. A batch of fewer than `min_batch` signatures (one
-gate for both key types) stays on the CPU factory: DEFAULT_MIN_BATCH is
-where one device window stops losing to the native CPU batch, measured
-on the card (PERF.md §6, chip_smoke.py phase `min_batch`). The sr25519
-single-verify route (PubKeySr25519.verify_signature) rides the device
-only where that gate admits one signature.
+MIN-BATCH ROUTING. A batch of fewer than `min_batch` ed25519 or
+`min_batch_sr25519` sr25519 signatures stays on the CPU factory: the
+defaults (32 and 128, config.py) are where one device window stops
+losing to the native CPU batch, measured on the card (PERF.md §6,
+chip_smoke.py phase `min_batch`). The sr25519 single-verify route
+(PubKeySr25519.verify_signature) rides the device only where its gate
+admits one signature.
 
 Ported here and not before: the breakers, the watchdog, the CPU
 re-verify, the single-verify route and the counters above. Still not
@@ -67,7 +68,7 @@ import logging
 import threading
 from typing import List, Optional, Tuple
 
-from ..config import DEFAULT_MIN_BATCH
+from ..config import DEFAULT_MIN_BATCH, DEFAULT_MIN_BATCH_SR25519
 from . import breaker as _breaker_mod
 from . import faults
 from .batch import cpu_factory, register_device_factory, unregister_device_factory
@@ -77,6 +78,7 @@ from .keys import BatchVerifier, PubKey
 __all__ = [
     "DEFAULT_GATHER_DEADLINE_S",
     "DEFAULT_MIN_BATCH",
+    "DEFAULT_MIN_BATCH_SR25519",
     "DeviceFault",
     "DeviceTimeout",
     "GpuEd25519BatchVerifier",
@@ -121,7 +123,8 @@ _STATS = {
 _WARM: set = set()  # (key type, bucket) dispatched since install()
 # the installed ops verifiers by key type (Ed25519Verifier, Sr25519Verifier)
 _VERIFIERS: dict = {}
-_MIN_BATCH = DEFAULT_MIN_BATCH
+# the installed gates by key type
+_MIN_BATCH = {"ed25519": DEFAULT_MIN_BATCH, "sr25519": DEFAULT_MIN_BATCH_SR25519}
 _GATHER_DEADLINE_S: Optional[float] = DEFAULT_GATHER_DEADLINE_S
 _PROBE_TRIPLES: dict = {}
 
@@ -441,7 +444,7 @@ _CLASSES = {"ed25519": GpuEd25519BatchVerifier, "sr25519": GpuSr25519BatchVerifi
 
 
 def _make(key_type: str, size_hint: int) -> Optional[BatchVerifier]:
-    if 0 < size_hint < _MIN_BATCH:
+    if 0 < size_hint < _MIN_BATCH[key_type]:
         return None  # a small batch stays on the native CPU plane
     if not _breaker(key_type).allow():
         _count(rerouted_sigs=max(size_hint, 0))
@@ -526,7 +529,7 @@ def _sr_single_probe() -> bool:
     """The single route's probe: where the min-batch gate keeps one
     signature on the CPU there is nothing to prove; else one device
     verify."""
-    if _MIN_BATCH > 1:
+    if _MIN_BATCH["sr25519"] > 1:
         return True
     return _device_probe("sr25519")
 
@@ -554,6 +557,7 @@ def probe_now(route: str) -> bool:
 def install(
     device="cuda",
     min_batch: int = DEFAULT_MIN_BATCH,
+    min_batch_sr25519: int = DEFAULT_MIN_BATCH_SR25519,
     program: str = "tile",
     bucket_sizes=None,
     gather_deadline_s: Optional[float] = DEFAULT_GATHER_DEADLINE_S,
@@ -562,10 +566,11 @@ def install(
     (CUDA by default; raises when there is none), after building and
     loading every kernel and the native CPU plane (raises when one fails
     to build). `program` is "tile" (kernels K2 and X3) or "hybrid"
-    (kernel K1 inside plain torch); `min_batch` gates both key types;
-    `gather_deadline_s` bounds every gather (None or 0: no watchdog).
+    (kernel K1 inside plain torch); `min_batch` and `min_batch_sr25519`
+    gate the two key types; `gather_deadline_s` bounds every gather
+    (None or 0: no watchdog).
     Each install is a new breaker generation."""
-    global _MIN_BATCH, _GATHER_DEADLINE_S
+    global _GATHER_DEADLINE_S
     import torch
 
     from .. import native
@@ -583,7 +588,7 @@ def install(
     native.ed25519_batch_lib()
     _VERIFIERS.clear()
     _VERIFIERS.update(verifiers)
-    _MIN_BATCH = min_batch
+    _MIN_BATCH.update(ed25519=min_batch, sr25519=min_batch_sr25519)
     _GATHER_DEADLINE_S = gather_deadline_s
     with _STATS_LOCK:
         _WARM.clear()
@@ -600,11 +605,11 @@ def install(
 def uninstall() -> None:
     """Remove the device factories: batches go back to the CPU default.
     The breakers are discarded; a probe in flight reports to an orphan."""
-    global _MIN_BATCH, _GATHER_DEADLINE_S
+    global _GATHER_DEADLINE_S
     for key_type in KEY_TYPES:
         unregister_device_factory(key_type)
     _VERIFIERS.clear()
-    _MIN_BATCH = DEFAULT_MIN_BATCH
+    _MIN_BATCH.update(ed25519=DEFAULT_MIN_BATCH, sr25519=DEFAULT_MIN_BATCH_SR25519)
     _GATHER_DEADLINE_S = DEFAULT_GATHER_DEADLINE_S
     with _STATS_LOCK:
         _WARM.clear()
@@ -613,8 +618,8 @@ def uninstall() -> None:
 
 
 def installed() -> Optional[int]:
-    """The installed min_batch, or None when not installed."""
-    return _MIN_BATCH if _VERIFIERS else None
+    """The installed ed25519 min_batch, or None when not installed."""
+    return _MIN_BATCH["ed25519"] if _VERIFIERS else None
 
 
 def stats() -> dict:

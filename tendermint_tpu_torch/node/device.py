@@ -59,6 +59,7 @@ def install_device_plane(cfg: GPUConfig, device="cuda") -> bool:
     gpu_verifier.install(
         device=device,
         min_batch=cfg.min_batch_size,
+        min_batch_sr25519=cfg.min_batch_size_sr25519,
         bucket_sizes=cfg.bucket_sizes,
     )
     merkle_kernel.install(device=device)

@@ -264,10 +264,10 @@ def test_verifier_refuses_an_unknown_program():
 
 @pytest.fixture
 def device_verifier():
-    # min_batch 1 sends even one signature to the device path, which the
-    # test below exercises (the default gate keeps small batches on the
+    # gates of 1 send even one signature to the device path, which the
+    # test below exercises (the default gates keep small batches on the
     # native CPU plane: tests/test_torch_faults.py)
-    gpu_verifier.install(device="cpu", min_batch=1)
+    gpu_verifier.install(device="cpu", min_batch=1, min_batch_sr25519=1)
     try:
         yield
     finally:
@@ -275,7 +275,7 @@ def device_verifier():
 
 
 def test_install_routes_sr25519_and_streams_in_add_order(device_verifier, monkeypatch):
-    """With min_batch 1 sr25519's device factory serves even one
+    """With a gate of 1 sr25519's device factory serves even one
     signature; STREAM_CHUNK
     windows dispatch from add(); the bitmap comes back in add order with
     the bad index False; stats() counts per key type, in integers."""
