@@ -44,6 +44,10 @@ __device__ __constant__ uint32_t K256[64] = {
 __device__ __constant__ uint32_t H256[8] = {
     0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au,
     0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u};
+// the same IV as literals, for an initialiser the compiler folds
+#define SHA256_IV                                        \
+  {0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au, \
+   0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u}
 
 #ifdef __CUDACC__
 // (hi:lo) >> n, the low 32 bits: one SHF
@@ -133,6 +137,20 @@ __device__ __forceinline__ void sha256_row_state(const uint8_t *row, int len,
   }
 }
 
+// The first block's sixteen words of 0x01 || L || R, L and R digests as
+// big-endian words: each word the last byte of one digest word and the
+// first three of the next.
+__device__ __forceinline__ void sha256_inner_block1(const uint32_t *l,
+                                                    const uint32_t *r,
+                                                    uint32_t *w) {
+  w[0] = SHA256_FSHR(0x01u, l[0], 8);
+#pragma unroll
+  for (int j = 1; j < 8; j++) w[j] = SHA256_FSHR(l[j - 1], l[j], 8);
+  w[8] = SHA256_FSHR(l[7], r[0], 8);
+#pragma unroll
+  for (int j = 9; j < 16; j++) w[j] = SHA256_FSHR(r[j - 9], r[j - 8], 8);
+}
+
 // The RFC 6962 inner hash sha256(0x01 || L || R) of two digests given as
 // big-endian words -> out, big-endian words (out may alias l or r).
 __device__ __forceinline__ void sha256_inner_words(const uint32_t *l,
@@ -141,12 +159,7 @@ __device__ __forceinline__ void sha256_inner_words(const uint32_t *l,
   uint32_t h[8], w[16];
 #pragma unroll
   for (int j = 0; j < 8; j++) h[j] = H256[j];
-  w[0] = SHA256_FSHR(0x01u, l[0], 8);
-#pragma unroll
-  for (int j = 1; j < 8; j++) w[j] = SHA256_FSHR(l[j - 1], l[j], 8);
-  w[8] = SHA256_FSHR(l[7], r[0], 8);
-#pragma unroll
-  for (int j = 9; j < 16; j++) w[j] = SHA256_FSHR(r[j - 9], r[j - 8], 8);
+  sha256_inner_block1(l, r, w);
   const uint32_t tail = r[7] << 24;  // R's last byte, before w is reused
   sha256_compress(h, w);
   w[0] = tail | 0x00800000u;
@@ -263,6 +276,26 @@ __device__ __forceinline__ void sha256_pad_row(uint32_t b, uint32_t *kw) {
   }
 }
 
+// One round on the working variables with kw = K[t] + W[t].
+__device__ __forceinline__ void sha256_round(uint32_t &a, uint32_t &b,
+                                             uint32_t &c, uint32_t &d,
+                                             uint32_t &e, uint32_t &f,
+                                             uint32_t &g, uint32_t &hh,
+                                             uint32_t kw) {
+  const uint32_t S1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);
+  const uint32_t t1 = hh + S1 + (g ^ (e & (f ^ g))) + kw;
+  const uint32_t S0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);
+  const uint32_t t2 = S0 + ((a & b) | (c & (a | b)));
+  hh = g;
+  g = f;
+  f = e;
+  e = d + t1;
+  d = c;
+  c = b;
+  b = a;
+  a = t1 + t2;
+}
+
 // The second compression of 0x01 || L || R into h: W[0] = b << 24 |
 // 0x800000 for R's last byte b, W[1..14] = 0 and W[15] = 520 folded into
 // the round constants, K[t] + W[t] for t >= 16 from the table row kw. No
@@ -277,18 +310,7 @@ __device__ __forceinline__ void sha256_compress_pad(uint32_t *h, uint32_t b,
                        : t == 15 ? K256[15] + 65u * 8u
                        : t < 16  ? K256[t]
                                  : kw[t - 16];
-    const uint32_t S1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);
-    const uint32_t t1 = hh + S1 + (g ^ (e & (f ^ g))) + k;
-    const uint32_t S0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);
-    const uint32_t t2 = S0 + ((a & bb) | (c & (a | bb)));
-    hh = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = bb;
-    bb = a;
-    a = t1 + t2;
+    sha256_round(a, bb, c, d, e, f, g, hh, k);
   }
   h[0] += a; h[1] += bb; h[2] += c; h[3] += d;
   h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
@@ -300,17 +322,10 @@ __device__ __forceinline__ void sha256_compress_pad(uint32_t *h, uint32_t b,
 __device__ __forceinline__ void sha256_inner_pad(const uint32_t *l,
                                                  const uint32_t *r,
                                                  uint32_t *out) {
-  uint32_t h[8] = {0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au,
-                   0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u};
-  uint32_t w[16], kw[48];
+  uint32_t h[8] = SHA256_IV, w[16], kw[48];
   const uint32_t b = r[7] & 0xffu;
   sha256_pad_row(b, kw);
-  w[0] = SHA256_FSHR(0x01u, l[0], 8);
-#pragma unroll
-  for (int j = 1; j < 8; j++) w[j] = SHA256_FSHR(l[j - 1], l[j], 8);
-  w[8] = SHA256_FSHR(l[7], r[0], 8);
-#pragma unroll
-  for (int j = 9; j < 16; j++) w[j] = SHA256_FSHR(r[j - 9], r[j - 8], 8);
+  sha256_inner_block1(l, r, w);
   sha256_compress(h, w);
   sha256_compress_pad(h, b, kw);
 #pragma unroll

@@ -89,18 +89,6 @@ _BODY = r"""
 #define X5_BAR() x5_host_bar()
 #endif
 
-__device__ __forceinline__ void x5_round(uint32_t &a, uint32_t &b,
-                                         uint32_t &c, uint32_t &d,
-                                         uint32_t &e, uint32_t &f,
-                                         uint32_t &g, uint32_t &hh,
-                                         uint32_t kw) {
-  const uint32_t S1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);
-  const uint32_t t1 = hh + S1 + (g ^ (e & (f ^ g))) + kw;
-  const uint32_t S0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);
-  const uint32_t t2 = S0 + ((a & b) | (c & (a | b)));
-  hh = g; g = f; f = e; e = d + t1; d = c; c = b; b = a; a = t1 + t2;
-}
-
 // W[t] of a schedule ring w (16 words, in place), t >= 16
 __device__ __forceinline__ uint32_t x5_expand(uint32_t *w, int t) {
   const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
@@ -109,20 +97,6 @@ __device__ __forceinline__ uint32_t x5_expand(uint32_t *w, int t) {
   w[t & 15] += s0 + w[(t - 7) & 15] + s1;
   return w[t & 15];
 }
-
-// the first block's words of 0x01 || L || R
-__device__ __forceinline__ void x5_block1(const uint32_t *l, const uint32_t *r,
-                                          uint32_t *w) {
-  w[0] = SHA256_FSHR(0x01u, l[0], 8);
-#pragma unroll
-  for (int j = 1; j < 8; j++) w[j] = SHA256_FSHR(l[j - 1], l[j], 8);
-  w[8] = SHA256_FSHR(l[7], r[0], 8);
-#pragma unroll
-  for (int j = 9; j < 16; j++) w[j] = SHA256_FSHR(r[j - 9], r[j - 8], 8);
-}
-
-#define X5_IV_INIT {0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au, \
-                    0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u}
 
 #if X5_FIXED
 #define X5_INNER sha256_inner_pad
@@ -218,7 +192,7 @@ __device__ __forceinline__ void x5_split_item(
       l[j] = left ? a[j] : node[j];
       r[j] = left ? node[j] : a[j];
     }
-    x5_block1(l, r, w);
+    sha256_inner_block1(l, r, w);
     const uint32_t b = r[7] & 0xffu;
     if (role == 1) {
 #pragma unroll
@@ -242,17 +216,17 @@ __device__ __forceinline__ void x5_split_item(
       uint32_t kw[48];
       sha256_pad_row(b, kw);
 #endif
-      uint32_t st[8] = X5_IV_INIT;
+      uint32_t st[8] = SHA256_IV;
       uint32_t A = st[0], B = st[1], C = st[2], D = st[3], E = st[4],
                F = st[5], G = st[6], H = st[7];
 #pragma unroll
-      for (int t = 0; t < 16; t++) x5_round(A, B, C, D, E, F, G, H, K256[t] + w[t]);
+      for (int t = 0; t < 16; t++) sha256_round(A, B, C, D, E, F, G, H, K256[t] + w[t]);
       X5_BAR();  // S2a
 #pragma unroll
-      for (int t = 16; t < 40; t++) x5_round(A, B, C, D, E, F, G, H, sh_w[t - 16][lane]);
+      for (int t = 16; t < 40; t++) sha256_round(A, B, C, D, E, F, G, H, sh_w[t - 16][lane]);
       X5_BAR();  // S2b
 #pragma unroll
-      for (int t = 40; t < 64; t++) x5_round(A, B, C, D, E, F, G, H, sh_w[t - 16][lane]);
+      for (int t = 40; t < 64; t++) sha256_round(A, B, C, D, E, F, G, H, sh_w[t - 16][lane]);
       st[0] += A; st[1] += B; st[2] += C; st[3] += D;
       st[4] += E; st[5] += F; st[6] += G; st[7] += H;
 #if X5_FIXED
@@ -260,13 +234,13 @@ __device__ __forceinline__ void x5_split_item(
 #else
       A = st[0]; B = st[1]; C = st[2]; D = st[3];
       E = st[4]; F = st[5]; G = st[6]; H = st[7];
-      x5_round(A, B, C, D, E, F, G, H, K256[0] + ((b << 24) | 0x00800000u));
+      sha256_round(A, B, C, D, E, F, G, H, K256[0] + ((b << 24) | 0x00800000u));
 #pragma unroll
-      for (int t = 1; t < 15; t++) x5_round(A, B, C, D, E, F, G, H, K256[t]);
-      x5_round(A, B, C, D, E, F, G, H, K256[15] + 65u * 8u);
+      for (int t = 1; t < 15; t++) sha256_round(A, B, C, D, E, F, G, H, K256[t]);
+      sha256_round(A, B, C, D, E, F, G, H, K256[15] + 65u * 8u);
       X5_BAR();  // S2c
 #pragma unroll
-      for (int t = 16; t < 64; t++) x5_round(A, B, C, D, E, F, G, H, sh_w[32 + t][lane]);
+      for (int t = 16; t < 64; t++) sha256_round(A, B, C, D, E, F, G, H, sh_w[32 + t][lane]);
       st[0] += A; st[1] += B; st[2] += C; st[3] += D;
       st[4] += E; st[5] += F; st[6] += G; st[7] += H;
 #endif
@@ -334,20 +308,15 @@ def variant_sources(name: str, sources: dict) -> dict:
     return out
 
 
-def write_variant(name: str, root) -> None:
-    """A copy of csrc/ under root/csrc with design `name`'s texts."""
+def build_variant(name: str):
+    """Start nvcc for design `name` in build/x5_variants/<name>/: (the
+    library's path, the nvcc process, whose output is the ptxas log)."""
+    root = BUILD_DIR / "x5_variants" / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(CSRC, root / "csrc")
     texts = variant_sources(name, {f: (CSRC / f).read_text() for f in SOURCES})
     for fname, text in texts.items():
         (root / "csrc" / fname).write_text(text)
-
-
-def build_variant(name: str):
-    """Start nvcc for design `name` in build/x5_variants/<name>/: (the
-    library's path, the nvcc process, whose output is the ptxas log)."""
-    root = BUILD_DIR / "x5_variants" / name
-    write_variant(name, root)
     lib = root / "libx5.so"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(lib),
            str(root / "csrc" / "merkle_proofs.cu")]
