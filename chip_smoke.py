@@ -21,13 +21,15 @@ verify_commit, and the 10,000 transactions' inclusion proofs in one
 crypto.merkle.verify_proofs_batch. Each of these phases fails when the
 device plane contained a fault or sent a signature to the CPU. Then
 phase min_batch times one device window against the native CPU batch at
-1-128 signatures of each key type (the crossovers the default gates come
+1-512 signatures of each key type (the crossovers the default gates come
 from), and phase fault_containment injects a launch error, a gather hang
 past a 2 s deadline, a short bitmap and a flipped lane into one
 2048-signature window of each key type and checks each is contained
 (the same bitmap, the batch marked, the breaker open, the next batch on
-the CPU, the probe closing the breaker), then times the mixed 10k Commit
-on the CPU plane alone. Keys, key types, messages, timestamps, signing
+the CPU, the probe closing the breaker), checks that a window dispatched
+on a side stream, its kernels held back by a sleep on that stream, is
+gathered after them and not contained as a fault, then times the mixed
+10k Commit on the CPU plane alone. Keys, key types, messages, timestamps, signing
 witnesses and transactions come from --seed.
 
 Before the main paths, every kernel is held against its plain version:
@@ -964,7 +966,7 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
     one batch verifier streaming its own windows, and 75 + 75 for the
     light commit; launch counts zeroed just before each path and read
     just after."""
-    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.config import DEFAULT_MIN_BATCH_SR25519, GPUConfig
     from tendermint_tpu_torch.node.device import (
         install_device_plane,
         uninstall_device_plane,
@@ -1014,7 +1016,7 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
     # validators; a key type's share goes to the card as one window when
     # it reaches that type's gate, else to the native CPU plane
     cfg = GPUConfig()
-    gates = {"ed25519": cfg.min_batch_size, "sr25519": cfg.min_batch_size_sr25519}
+    gates = {"ed25519": cfg.min_batch_size, "sr25519": DEFAULT_MIN_BATCH_SR25519}
     first = [v.pub_key.type() for v in vals150.validators][: 2 * LIGHT_VALIDATORS // 3 + 1]
     light_w = {kt: int(first.count(kt) >= g) for kt, g in gates.items()}
     start = gpu_verifier.stats()
@@ -1447,7 +1449,7 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
 
 
 # the batch sizes the min-batch crossover is measured at, and its reps
-MIN_BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
+MIN_BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 MIN_BATCH_REPS = 15
 # fault containment: one main-path window a key type, the deadline the
 # hang meets, the hang itself, the rules' seed; the all-CPU mixed commit
@@ -1456,6 +1458,10 @@ FAULT_DEADLINE_S = 2.0
 FAULT_HANG_S = 4.0
 FAULT_SEED = 11
 FALLBACK_REPS = 3
+# the side-stream gather: the sleep enqueued before the window's check
+# kernel (~25 ms at the H100's clock), far longer than a gather's path
+# from verify() to its copy
+SIDE_STREAM_SLEEP_CYCLES = 50_000_000
 
 
 def key_triples(vals, commit, key_type: str, n: int):
@@ -1553,14 +1559,19 @@ def phase_fault_containment(torch, main: dict, mixed: dict) -> dict:
     the next batch went to the CPU (no device window, its signatures
     counted as rerouted) with the same bitmap; probe_now() closed the
     breaker with one device verify (one launch of each kernel of the
-    key type). Then the mixed 10k commit verified with both breakers
-    held open, all on the native CPU plane (the counterpart of the JAX
-    package's bench.py:454 bench_commit_fallback), beside its device p50."""
+    key type). Before the faults, the same window verified inside a
+    side stream with a sleep kernel enqueued ahead of its check kernel
+    (K2 or X3): the gather, on a watchdog thread, must copy the bitmap
+    after them on that stream, so the clean bitmap and no fault. Then
+    the mixed 10k commit verified with both breakers held open, all on
+    the native CPU plane (the counterpart of the JAX package's
+    bench.py:454 bench_commit_fallback), beside its device p50."""
     import random
 
     from tendermint_tpu_torch.crypto import faults, gpu_verifier
     from tendermint_tpu_torch.crypto.batch import create_batch_verifier
     from tendermint_tpu_torch.crypto import breaker
+    from tendermint_tpu_torch.ops import ed25519_cuda, sr25519_cuda
     from tendermint_tpu_torch.types.validation import verify_commit
 
     n = FAULT_WINDOW
@@ -1596,6 +1607,31 @@ def phase_fault_containment(torch, main: dict, mixed: dict) -> dict:
                 raise AssertionError(f"the clean {kt} window did not run on the card")
             if ok or clean != want:
                 raise AssertionError(f"the clean {kt} bitmap is wrong")
+            mod, fn_name = (
+                (ed25519_cuda, "verify_tile") if kt == "ed25519" else (sr25519_cuda, "verify_sr")
+            )
+            check = getattr(mod, fn_name)
+
+            def held_back(*args, check=check):
+                torch.cuda._sleep(SIDE_STREAM_SLEEP_CYCLES)
+                return check(*args)
+
+            s0 = gpu_verifier.stats()
+            side = torch.cuda.Stream()
+            setattr(mod, fn_name, held_back)
+            try:
+                with torch.cuda.stream(side):
+                    bv, (_ok, bits) = verify_batch()
+            finally:
+                setattr(mod, fn_name, check)
+            s1 = gpu_verifier.stats()
+            if bits != clean or bv.faulted or s1["faults"] != s0["faults"]:
+                raise AssertionError(f"a {kt} window on a side stream was gathered early")
+            results[f"{kt}.side_stream"] = {
+                "bitmap_unchanged": True,
+                "faults": s1["faults"] - s0["faults"],
+                "sleep_cycles": SIDE_STREAM_SLEEP_CYCLES,
+            }
             for name, point, mode in modes:
                 s0 = gpu_verifier.stats()
                 t0 = time.perf_counter()

@@ -33,10 +33,9 @@ class GPUConfig:
     """What node/device.py installs the device plane from.
 
     - enable: install crypto/gpu_verifier and ops/merkle_kernel at all;
-    - min_batch_size, min_batch_size_sr25519: the smallest ed25519 and
-      sr25519 batches sent to the card (smaller ones stay on the native
-      CPU plane); TPUConfig has one gate, but the two key types cross
-      over at different sizes on the card;
+    - min_batch_size: the smallest ed25519 batch sent to the card
+      (smaller ones stay on the native CPU plane); sr25519's gate is the
+      measured DEFAULT_MIN_BATCH_SR25519, as TPUConfig has one gate;
     - bucket_sizes: the padded window widths of the signature kernels;
     - devices: 1 is one card; 0 is every visible card; more than one
       card (X6, ROADMAP item 10) is refused.
@@ -47,6 +46,5 @@ class GPUConfig:
 
     enable: bool = True
     min_batch_size: int = DEFAULT_MIN_BATCH
-    min_batch_size_sr25519: int = DEFAULT_MIN_BATCH_SR25519
     bucket_sizes: list = field(default_factory=lambda: list(DEFAULT_BUCKET_SIZES))
     devices: int = 1

@@ -36,15 +36,30 @@ such a failure is contained, and nothing else is.
   single-flight background probe verifies one self-signed signature on
   the device and closes it. A fault raised while add() streams a window
   is deferred to verify(); add() raises only on malformed input.
-- Not contained: a kernel that fails to build or load (install() builds
-  every kernel of its program and the native plane before it registers
-  a factory, and raises); install(device="cuda") where there is no
-  CUDA; a fault when no CPU factory is registered. The plain PyTorch
-  versions beside the kernels are never a catch branch: they run only
-  for tensors on the CPU (device="cpu", the tests' device), and a
-  re-verify goes to the native C plane.
+  Only DeviceFault (DeviceTimeout is one) is contained: the fault
+  plane's injections raise it, and so do the deadline, the mis-shape
+  and the disproven-lane checks.
+- Not contained: any other error of a dispatch or a gather, which
+  raises to the caller of add() or verify(): a launch that fails
+  (ops/build.check_launch's RuntimeError), a sticky CUDA error such as
+  an illegal address; the same error met by a breaker's background
+  probe, which is kept and raised by the route's next admission
+  (create_batch_verifier, single_sr_verifier), so a poisoned context
+  never serves traffic from the CPU in silence; a kernel that fails to
+  build or load (install() builds every kernel of its program and the
+  native plane before it registers a factory, and raises);
+  install(device="cuda") where there is no CUDA; a fault when no CPU
+  factory is registered. The plain PyTorch versions beside the kernels
+  are never a catch branch: they run only for tensors on the CPU
+  (device="cpu", the tests' device), and a re-verify goes to the native
+  C plane.
 - Seen by: `faulted` on the batch; stats() "faults", "rerouted_sigs" and
   "breaker_<route>" (0 closed, 1 open, 2 half-open); the log line.
+
+STREAMS. A window's kernels run on the stream current on the thread
+that dispatched it; its gather runs on a watchdog thread under that
+same stream, so the bitmap's copy to the host is ordered after them
+whatever stream the caller verifies on.
 
 MIN-BATCH ROUTING. A batch of fewer than `min_batch` ed25519 or
 `min_batch_sr25519` sr25519 signatures stays on the CPU factory: the
@@ -127,6 +142,9 @@ _VERIFIERS: dict = {}
 _MIN_BATCH = {"ed25519": DEFAULT_MIN_BATCH, "sr25519": DEFAULT_MIN_BATCH_SR25519}
 _GATHER_DEADLINE_S: Optional[float] = DEFAULT_GATHER_DEADLINE_S
 _PROBE_TRIPLES: dict = {}
+# by route: an error outside the fault policy that a background probe
+# met, raised by the route's next admission (module docstring)
+_PROBE_ERRORS: dict = {}
 
 
 def _count(**deltas) -> None:
@@ -225,15 +243,31 @@ def _deadline_call(fn, deadline_s: float):
     return result["val"]
 
 
-def _gather_guarded(v, handle, key_type: str) -> List[bool]:
-    """One gather under the containment stack: the fault plane's
-    control modes inside the deadline (so an injected hang surfaces as
-    DeviceTimeout), the deadline, and its data modes on the bitmap."""
+def _dispatch_stream(v):
+    """The stream v's kernels were just enqueued on (the calling
+    thread's current one), or None for the CPU."""
+    if v.device.type != "cuda":
+        return None
+    import torch
+
+    return torch.cuda.current_stream(v.device)
+
+
+def _gather_guarded(v, handle, key_type: str, stream) -> List[bool]:
+    """One gather, on `stream` (the dispatch's, _dispatch_stream), under
+    the containment stack: the fault plane's control modes inside the
+    deadline (so an injected hang surfaces as DeviceTimeout), the
+    deadline, and its data modes on the bitmap."""
 
     def call():
         if faults.armed():
             faults.fire("gpu.gather", key=key_type)
-        return v.gather(handle)
+        if stream is None:
+            return v.gather(handle)
+        import torch
+
+        with torch.cuda.stream(stream):
+            return v.gather(handle)
 
     dl = _GATHER_DEADLINE_S
     out = call() if not dl else _deadline_call(call, dl)
@@ -266,7 +300,7 @@ class _GpuBatchVerifier(BatchVerifier):
         self._pks: List[bytes] = []  # the window not yet dispatched
         self._msgs: List[bytes] = []
         self._sigs: List[bytes] = []
-        self._handles: List[tuple] = []  # (handle, n), add order
+        self._handles: List[tuple] = []  # (handle, n, stream), add order
         self._stream_fault: Optional[BaseException] = None
         self.faulted = False  # True once a device fault was contained
 
@@ -277,7 +311,7 @@ class _GpuBatchVerifier(BatchVerifier):
             faults.fire("gpu.dispatch", key=self.KEY_TYPE)
         n = len(self._pks)
         handle = v.dispatch(self._pks, self._msgs, self._sigs)
-        self._handles.append((handle, n))
+        self._handles.append((handle, n, _dispatch_stream(v)))
         self._pks, self._msgs, self._sigs = [], [], []
         self._account(v, n)
 
@@ -317,9 +351,9 @@ class _GpuBatchVerifier(BatchVerifier):
         ):
             try:
                 self._dispatch_pending()
-            except Exception as e:
-                # add() raises on malformed input only: the window stays
-                # queued and verify() re-verifies everything on the CPU
+            except DeviceFault as e:
+                # a contained fault is verify()'s to answer: the window
+                # stays queued and everything is re-verified on the CPU
                 self._stream_fault = e
 
     def verify(self) -> Tuple[bool, List[bool]]:
@@ -348,8 +382,10 @@ class _GpuBatchVerifier(BatchVerifier):
                 self._dispatch_pending()
             got: List[bool] = []
             try:
-                for handle, n in self._handles:
-                    lane = _gather_guarded(self._verifier, handle, self.KEY_TYPE)
+                for handle, n, stream in self._handles:
+                    lane = _gather_guarded(
+                        self._verifier, handle, self.KEY_TYPE, stream
+                    )
                     if len(lane) != n:
                         raise DeviceFault(
                             f"mis-shaped device result: {len(lane)} lanes "
@@ -364,7 +400,7 @@ class _GpuBatchVerifier(BatchVerifier):
             bits = got
         except _RoutedToCpu:
             pass
-        except Exception as e:
+        except DeviceFault as e:  # DeviceTimeout too; anything else raises
             fault = e
         finally:
             self._handles = []
@@ -443,9 +479,19 @@ class GpuSr25519BatchVerifier(_GpuBatchVerifier):
 _CLASSES = {"ed25519": GpuEd25519BatchVerifier, "sr25519": GpuSr25519BatchVerifier}
 
 
+def _raise_probe_error(route: str) -> None:
+    err = _PROBE_ERRORS.get(route)
+    if err is not None:
+        raise RuntimeError(
+            f"the {route} device probe failed outside the fault policy: "
+            f"{err!r}"
+        ) from err
+
+
 def _make(key_type: str, size_hint: int) -> Optional[BatchVerifier]:
     if 0 < size_hint < _MIN_BATCH[key_type]:
         return None  # a small batch stays on the native CPU plane
+    _raise_probe_error(key_type)
     if not _breaker(key_type).allow():
         _count(rerouted_sigs=max(size_hint, 0))
         return None  # an open breaker: the CPU, quietly
@@ -475,6 +521,7 @@ def single_sr_verifier() -> Optional[BatchVerifier]:
     one signature on the CPU."""
     if not _VERIFIERS:
         return None
+    _raise_probe_error(_SR_SINGLE)
     if not sr_single_breaker().allow():
         return None
     return _factory_sr(1)
@@ -521,8 +568,26 @@ def _device_probe(key_type: str) -> bool:
     pk, msg, sig = _probe_triple(key_type)
     if faults.armed():
         faults.fire("gpu.dispatch", key=key_type)
-    bits = _gather_guarded(v, v.dispatch([pk], [msg], [sig]), key_type)
+    handle = v.dispatch([pk], [msg], [sig])
+    bits = _gather_guarded(v, handle, key_type, _dispatch_stream(v))
     return len(bits) == 1 and bits[0]
+
+
+def _background_probe(route: str, fn):
+    """`fn` as a breaker's background probe: a DeviceFault is a failed
+    probe; any other error is kept for the route's next admission to
+    raise, and fails the probe (the breaker stays open meanwhile)."""
+
+    def probe() -> bool:
+        try:
+            return bool(fn())
+        except DeviceFault:
+            return False
+        except Exception as e:
+            _PROBE_ERRORS[route] = e
+            raise
+
+    return probe
 
 
 def _sr_single_probe() -> bool:
@@ -537,11 +602,12 @@ def _sr_single_probe() -> bool:
 def probe_now(route: str) -> bool:
     """Run `route`'s probe on this thread and report it to its breaker
     (an operator's or a test's immediate re-arm): True when the device
-    verified the probe signature and the breaker closed."""
+    verified the probe signature and the breaker closed. An error other
+    than a DeviceFault raises here."""
     fn = _sr_single_probe if route == _SR_SINGLE else lambda: _device_probe(route)
     try:
         ok = bool(fn())
-    except Exception:  # a failed probe is data
+    except DeviceFault:  # a failed probe is data
         ok = False
     b = _breaker(route)
     if ok:
@@ -592,11 +658,14 @@ def install(
     _GATHER_DEADLINE_S = gather_deadline_s
     with _STATS_LOCK:
         _WARM.clear()
+    _PROBE_ERRORS.clear()
     for key_type in KEY_TYPES:
         b = _breaker_mod.fresh(key_type)
-        b.set_probe(lambda kt=key_type: _device_probe(kt))
+        b.set_probe(
+            _background_probe(key_type, lambda kt=key_type: _device_probe(kt))
+        )
     single = _breaker_mod.fresh(_SR_SINGLE, start_open=True)
-    single.set_probe(_sr_single_probe)
+    single.set_probe(_background_probe(_SR_SINGLE, _sr_single_probe))
     single.probe_now()  # off this thread: warms or closes the route
     register_device_factory("ed25519", _factory)
     register_device_factory("sr25519", _factory_sr)
@@ -611,6 +680,7 @@ def uninstall() -> None:
     _VERIFIERS.clear()
     _MIN_BATCH.update(ed25519=DEFAULT_MIN_BATCH, sr25519=DEFAULT_MIN_BATCH_SR25519)
     _GATHER_DEADLINE_S = DEFAULT_GATHER_DEADLINE_S
+    _PROBE_ERRORS.clear()
     with _STATS_LOCK:
         _WARM.clear()
     for route in ROUTES:

@@ -1,20 +1,18 @@
 """Merlin transcripts over STROBE-128 (Keccak-f[1600]), on the host.
 
 Counterpart: tendermint_tpu/crypto/merlin.py (`_keccak_f_py` :77,
-`_Strobe128` :124, `Transcript` :227, `_StrobeBatch` :260,
-`TranscriptBatch` :359). The Fiat-Shamir transcript of schnorrkel/sr25519
-(merlin spec: merlin.cool, STROBE spec: strobe.sourceforge.io). The
-challenge of every signature is computed here, before its byte rows go
-to the card (ops/sr25519_kernel.py); message lengths vary per signature,
-and the STROBE control flow depends only on lengths.
+`_Strobe128` :124, `Transcript` :227). The Fiat-Shamir transcript of
+schnorrkel/sr25519 (merlin spec: merlin.cool, STROBE spec:
+strobe.sourceforge.io), in Python: the tests' reference for the native C
+transcript (native.sr25519_challenge) that computes every signature's
+challenge, signing's and the device path's alike
+(crypto/sr25519.challenge_batch).
 
-The JAX package permutes with a native C library (tendermint_tpu/native,
-which the port cannot load). Here the permutation is written once,
-`keccak_f`: numpy over a group of G states at a time, the 25 lanes as a
-(25, G) uint64 array, 24 rounds of whole-array operations and no loop
-over rows. A single transcript is a group of one. `_keccak_f_py`, the
-per-state pure-Python permutation, is kept as the oracle the tests hold
-`keccak_f` against.
+The permutation is written once, `keccak_f`: numpy over a group of G
+states at a time, the 25 lanes as a (25, G) uint64 array, 24 rounds of
+whole-array operations and no loop over rows. A transcript is a group of
+one. `_keccak_f_py`, the per-state pure-Python permutation, is kept as
+the oracle the tests hold `keccak_f` against.
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ import struct
 
 import numpy as np
 
-__all__ = ["Transcript", "TranscriptBatch", "keccak_f"]
+__all__ = ["Transcript", "keccak_f"]
 
 # -- Keccak-f[1600] ---------------------------------------------------------
 
@@ -273,129 +271,4 @@ class Transcript:
     def challenge_bytes(self, label: bytes, n: int) -> bytes:
         self._strobe.meta_ad(label, False)
         self._strobe.meta_ad(struct.pack("<I", n), True)
-        return self._strobe.prf(n, False)
-
-
-# -- batched transcripts ----------------------------------------------------
-
-
-class _StrobeBatch:
-    """G STROBE-128 states advancing in lock-step.
-
-    The position/flag state machine depends only on operation lengths,
-    so G transcripts whose appended messages are equal-length per step
-    share one control flow: the 200-byte states live in a (G, 200)
-    array, absorbs are vectorised XORs, and each permutation is one
-    keccak_f over the whole group."""
-
-    def __init__(self, template: _Strobe128, g: int) -> None:
-        self.states = np.tile(
-            np.frombuffer(bytes(template.state), dtype=np.uint8), (g, 1)
-        )
-        self.pos = template.pos
-        self.pos_begin = template.pos_begin
-        self.cur_flags = template.cur_flags
-
-    def _run_f(self) -> None:
-        self.states[:, self.pos] ^= self.pos_begin
-        self.states[:, self.pos + 1] ^= 0x04
-        self.states[:, _R + 1] ^= 0x80
-        self.states = keccak_f(self.states)
-        self.pos = 0
-        self.pos_begin = 0
-
-    def _absorb(self, data: np.ndarray) -> None:
-        """data: (G, k) uint8, per-transcript bytes of equal length."""
-        off = 0
-        k = data.shape[1]
-        while off < k:
-            take = min(k - off, _R - self.pos)
-            self.states[:, self.pos : self.pos + take] ^= data[
-                :, off : off + take
-            ]
-            self.pos += take
-            off += take
-            if self.pos == _R:
-                self._run_f()
-
-    def _absorb_const(self, data: bytes) -> None:
-        """The same bytes into every state (a broadcast XOR)."""
-        off = 0
-        row = np.frombuffer(data, dtype=np.uint8)
-        while off < len(row):
-            take = min(len(row) - off, _R - self.pos)
-            self.states[:, self.pos : self.pos + take] ^= row[off : off + take]
-            self.pos += take
-            off += take
-            if self.pos == _R:
-                self._run_f()
-
-    def _begin_op(self, flags: int, more: bool) -> None:
-        if more:
-            if flags != self.cur_flags:
-                raise ValueError("'more' must continue the same operation")
-            return
-        old_begin = self.pos_begin
-        self.pos_begin = self.pos + 1
-        self.cur_flags = flags
-        self._absorb_const(bytes([old_begin, flags]))
-        if (flags & (_FLAG_C | _FLAG_K)) and self.pos != 0:
-            self._run_f()
-
-    def meta_ad_const(self, data: bytes, more: bool) -> None:
-        self._begin_op(_FLAG_M | _FLAG_A, more)
-        self._absorb_const(data)
-
-    def ad(self, data: np.ndarray, more: bool) -> None:
-        self._begin_op(_FLAG_A, more)
-        self._absorb(data)
-
-    def ad_const(self, data: bytes, more: bool) -> None:
-        self._begin_op(_FLAG_A, more)
-        self._absorb_const(data)
-
-    def prf(self, n: int, more: bool) -> np.ndarray:
-        self._begin_op(_FLAG_I | _FLAG_A | _FLAG_C, more)
-        out = np.empty((self.states.shape[0], n), dtype=np.uint8)
-        got = 0
-        while got < n:
-            take = min(n - got, _R - self.pos)
-            out[:, got : got + take] = self.states[
-                :, self.pos : self.pos + take
-            ]
-            self.states[:, self.pos : self.pos + take] = 0
-            self.pos += take
-            got += take
-            if self.pos == _R:
-                self._run_f()
-        return out
-
-
-class TranscriptBatch:
-    """G merlin transcripts advancing in lock-step (see _StrobeBatch).
-
-    Constructed from a prototype Transcript whose state every member
-    shares (e.g. the constant signing-context prefix); appended messages
-    must be equal-length across the group at each step, so callers
-    group their batch by message length."""
-
-    def __init__(self, prototype: Transcript, g: int) -> None:
-        self._strobe = _StrobeBatch(prototype._strobe, g)
-
-    def append_message_const(self, label: bytes, message: bytes) -> None:
-        self._strobe.meta_ad_const(label, False)
-        self._strobe.meta_ad_const(struct.pack("<I", len(message)), True)
-        self._strobe.ad_const(message, False)
-
-    def append_messages(self, label: bytes, messages: np.ndarray) -> None:
-        """messages: (G, k) uint8, one equal-length message per
-        transcript."""
-        self._strobe.meta_ad_const(label, False)
-        self._strobe.meta_ad_const(struct.pack("<I", messages.shape[1]), True)
-        self._strobe.ad(messages, False)
-
-    def challenge_bytes(self, label: bytes, n: int) -> np.ndarray:
-        """(G, n) uint8 challenge bytes."""
-        self._strobe.meta_ad_const(label, False)
-        self._strobe.meta_ad_const(struct.pack("<I", n), True)
         return self._strobe.prf(n, False)

@@ -33,8 +33,6 @@ import hashlib
 import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
-import numpy as np
-
 from . import ristretto as rst
 from .keys import (
     Address,
@@ -44,7 +42,7 @@ from .keys import (
     address_hash,
     register_key_type,
 )
-from .merlin import Transcript, TranscriptBatch
+from .merlin import Transcript
 
 __all__ = [
     "KEY_TYPE",
@@ -99,30 +97,16 @@ def challenge_batch(
     pks: Sequence[bytes], msgs: Sequence[bytes], rs: Sequence[bytes]
 ) -> List[int]:
     """The challenges of a whole batch, one int mod L per (pk, msg, R)
-    in input order: one TranscriptBatch per message-length group, so
-    each permutation is one keccak_f over the group. pks and rs are 32
-    bytes each."""
-    out: List[int] = [0] * len(msgs)
-    groups: dict = {}
-    for i, m in enumerate(msgs):
-        groups.setdefault(len(m), []).append(i)
-    for mlen, idxs in groups.items():
-        g = len(idxs)
+    in input order, each from the native C transcript
+    (native.sr25519_challenge: a call a signature, with no fixed cost a
+    batch, so a small window pays for its own signatures only). pks and
+    rs are 32 bytes each."""
+    from .. import native
 
-        def rows(items, width):
-            return np.frombuffer(b"".join(items), dtype=np.uint8).reshape(
-                g, width
-            )
-
-        tb = TranscriptBatch(_prefix(), g)
-        tb.append_messages(b"sign-bytes", rows([msgs[i] for i in idxs], mlen))
-        tb.append_message_const(b"proto-name", b"Schnorr-sig")
-        tb.append_messages(b"sign:pk", rows([pks[i] for i in idxs], 32))
-        tb.append_messages(b"sign:R", rows([rs[i] for i in idxs], 32))
-        wides = tb.challenge_bytes(b"sign:c", 64)
-        for row, i in enumerate(idxs):
-            out[i] = int.from_bytes(wides[row].tobytes(), "little") % L
-    return out
+    return [
+        int.from_bytes(native.sr25519_challenge(pk, r, m), "little")
+        for pk, m, r in zip(pks, msgs, rs)
+    ]
 
 
 def _parse_signature(sig: bytes) -> Optional[Tuple[bytes, int]]:

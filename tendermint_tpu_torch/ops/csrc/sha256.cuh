@@ -67,6 +67,27 @@ struct sha256_u4 { uint32_t x, y, z, w; };
 #endif
 #define SHA256_ROTR(x, n) SHA256_FSHR((x), (x), (n))
 
+// One round on the working variables with kw = K[t] + W[t]: the round of
+// X4's compression and of X5's table-fed second block.
+__device__ __forceinline__ void sha256_round(uint32_t &a, uint32_t &b,
+                                             uint32_t &c, uint32_t &d,
+                                             uint32_t &e, uint32_t &f,
+                                             uint32_t &g, uint32_t &hh,
+                                             uint32_t kw) {
+  const uint32_t S1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);
+  const uint32_t t1 = hh + S1 + (g ^ (e & (f ^ g))) + kw;
+  const uint32_t S0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);
+  const uint32_t t2 = S0 + ((a & b) | (c & (a | b)));
+  hh = g;
+  g = f;
+  f = e;
+  e = d + t1;
+  d = c;
+  c = b;
+  b = a;
+  a = t1 + t2;
+}
+
 // One compression of the 16 big-endian words w (overwritten: the schedule
 // runs in place, a ring of 16) into the state h.
 __device__ __forceinline__ void sha256_compress(uint32_t *h, uint32_t *w) {
@@ -80,18 +101,7 @@ __device__ __forceinline__ void sha256_compress(uint32_t *h, uint32_t *w) {
       const uint32_t s1 = SHA256_ROTR(w2, 17) ^ SHA256_ROTR(w2, 19) ^ (w2 >> 10);
       w[t & 15] += s0 + w[(t - 7) & 15] + s1;
     }
-    const uint32_t S1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);
-    const uint32_t t1 = hh + S1 + (g ^ (e & (f ^ g))) + K256[t] + w[t & 15];
-    const uint32_t S0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);
-    const uint32_t t2 = S0 + ((a & b) | (c & (a | b)));
-    hh = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = b;
-    b = a;
-    a = t1 + t2;
+    sha256_round(a, b, c, d, e, f, g, hh, K256[t] + w[t & 15]);
   }
   h[0] += a; h[1] += b; h[2] += c; h[3] += d;
   h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
@@ -274,26 +284,6 @@ __device__ __forceinline__ void sha256_pad_row(uint32_t b, uint32_t *kw) {
     kw[4 * j + 2] = v.z;
     kw[4 * j + 3] = v.w;
   }
-}
-
-// One round on the working variables with kw = K[t] + W[t].
-__device__ __forceinline__ void sha256_round(uint32_t &a, uint32_t &b,
-                                             uint32_t &c, uint32_t &d,
-                                             uint32_t &e, uint32_t &f,
-                                             uint32_t &g, uint32_t &hh,
-                                             uint32_t kw) {
-  const uint32_t S1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);
-  const uint32_t t1 = hh + S1 + (g ^ (e & (f ^ g))) + kw;
-  const uint32_t S0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);
-  const uint32_t t2 = S0 + ((a & b) | (c & (a | b)));
-  hh = g;
-  g = f;
-  f = e;
-  e = d + t1;
-  d = c;
-  c = b;
-  b = a;
-  a = t1 + t2;
 }
 
 // The second compression of 0x01 || L || R into h: W[0] = b << 24 |

@@ -18,6 +18,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from tendermint_tpu.types import InvalidCommitError as JaxInvalidCommitError
 from tendermint_tpu.types import validation as jax_validation
@@ -355,6 +356,7 @@ def test_open_breaker_routes_silently_without_device_touch(installed):
 
     class SpyBacking:
         bucket_sizes = [8]
+        device = torch.device("cpu")
 
         def dispatch(self, pks, msgs, sigs):  # pragma: no cover - guard
             touched.append(len(pks))
@@ -399,6 +401,7 @@ def test_midloop_gather_fault_counts_only_completed_work(installed, monkeypatch)
 
     class FlakyBacking:
         bucket_sizes = [8]
+        device = torch.device("cpu")
 
         def __init__(self):
             self.gathers = 0
@@ -424,6 +427,67 @@ def test_midloop_gather_fault_counts_only_completed_work(installed, monkeypatch)
     assert after["faults"] == before["faults"] + 1
     assert after["batches"] == before["batches"] + 3
     assert len(v) == 0 and v.verify() == (False, [])
+
+
+def _launch_error(*_a, **_k):
+    raise RuntimeError("tm_ed25519_verify_tile: launch failed: an illegal memory access")
+
+
+@pytest.mark.parametrize("method", ["dispatch", "gather"])
+def test_launch_error_raises_out_of_verify_uncontained(installed, monkeypatch, method):
+    """Only DeviceFault is contained: a launch error (check_launch's
+    RuntimeError) or a sticky CUDA error out of a dispatch or a gather
+    raises to the caller, with no CPU re-verify, no fault counted and
+    the breaker left closed."""
+    monkeypatch.setattr(Ed25519Verifier, method, _launch_error)
+    before = G.stats()
+    v = _fill(_device_ed(), _triples(4))
+    with pytest.raises(RuntimeError, match="illegal memory access") as ei:
+        v.verify()
+    assert not isinstance(ei.value, faults.DeviceFault)
+    assert not v.faulted
+    after = G.stats()
+    assert after["faults"] == before["faults"]
+    assert after["rerouted_sigs"] == before["rerouted_sigs"]
+    assert B.breaker_for("ed25519").state() == B.CLOSED
+
+
+def test_streaming_launch_error_raises_out_of_add(installed, monkeypatch):
+    """A streamed window whose launch fails outside the fault policy
+    raises from the add() that dispatched it, not deferred."""
+    monkeypatch.setattr(G._GpuBatchVerifier, "STREAM_CHUNK", 2)
+    monkeypatch.setattr(Ed25519Verifier, "dispatch", _launch_error)
+    before = G.stats()["faults"]
+    v = _device_ed()
+    (pk, msg, sig), (pk2, msg2, sig2) = _triples(2)
+    v.add(pk, msg, sig)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        v.add(pk2, msg2, sig2)
+    assert G.stats()["faults"] == before
+
+
+def test_probe_launch_error_is_raised_by_the_next_admission(installed, monkeypatch):
+    """A breaker opened by a contained fault whose background probe then
+    meets a launch error stays open, and the route's next admission
+    raises that error instead of serving the batch from the CPU in
+    silence; probe_now raises it on the caller's thread."""
+    b = B.breaker_for("ed25519")
+    with faults.inject("gpu.dispatch", mode="raise"):
+        assert _fill(_device_ed(), _triples(3)).verify() == (True, [True] * 3)
+    assert b.state() == B.OPEN
+    monkeypatch.setattr(Ed25519Verifier, "dispatch", _launch_error)
+    b.probe_now()  # the background probe, as the retry timer runs it
+    _wait_probe(b)
+    assert b.state() == B.OPEN
+    pk = _triples(1)[0][0]
+    with pytest.raises(RuntimeError, match="probe failed outside the fault policy"):
+        batch.create_batch_verifier(pk, 8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        G.probe_now("ed25519")
+    G.install(device="cpu", min_batch=2)  # a new install starts clean
+    _wait_probe(G.sr_single_breaker())
+    monkeypatch.undo()
+    assert isinstance(batch.create_batch_verifier(pk, 8), G.GpuEd25519BatchVerifier)
 
 
 def test_verify_commit_error_parity_across_fault_paths():
