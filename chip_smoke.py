@@ -21,7 +21,7 @@ verify_commit, and the 10,000 transactions' inclusion proofs in one
 crypto.merkle.verify_proofs_batch. Each of these phases fails when the
 device plane contained a fault or sent a signature to the CPU. Then
 phase min_batch times one device window against the native CPU batch at
-1-512 signatures of each key type (the crossovers the default gates come
+1-512 signatures of each key type (the crossovers the default gate comes
 from), and phase fault_containment injects a launch error, a gather hang
 past a 2 s deadline, a short bitmap and a flipped lane into one
 2048-signature window of each key type and checks each is contained
@@ -29,8 +29,8 @@ past a 2 s deadline, a short bitmap and a flipped lane into one
 the CPU, the probe closing the breaker), checks that a window dispatched
 on a side stream, its kernels held back by a sleep on that stream, is
 gathered after them and not contained as a fault, then times the mixed
-10k Commit on the CPU plane alone. Keys, key types, messages, timestamps, signing
-witnesses and transactions come from --seed.
+10k Commit on the CPU plane alone. Keys, key types, messages,
+timestamps, signing witnesses and transactions come from --seed.
 
 Before the main paths, every kernel is held against its plain version:
 K1 and X1 at the widest bucket, K2 also on the ZIP-215 corpus at buckets
@@ -966,7 +966,7 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
     one batch verifier streaming its own windows, and 75 + 75 for the
     light commit; launch counts zeroed just before each path and read
     just after."""
-    from tendermint_tpu_torch.config import DEFAULT_MIN_BATCH_SR25519, GPUConfig
+    from tendermint_tpu_torch.config import GPUConfig
     from tendermint_tpu_torch.node.device import (
         install_device_plane,
         uninstall_device_plane,
@@ -1014,11 +1014,12 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
 
     # the light commit verifies the first > 2/3 of its equal-power
     # validators; a key type's share goes to the card as one window when
-    # it reaches that type's gate, else to the native CPU plane
+    # it reaches the gate, else to the native CPU plane
     cfg = GPUConfig()
-    gates = {"ed25519": cfg.min_batch_size, "sr25519": DEFAULT_MIN_BATCH_SR25519}
     first = [v.pub_key.type() for v in vals150.validators][: 2 * LIGHT_VALIDATORS // 3 + 1]
-    light_w = {kt: int(first.count(kt) >= g) for kt, g in gates.items()}
+    light_w = {
+        kt: int(first.count(kt) >= cfg.min_batch_size) for kt in gpu_verifier.KEY_TYPES
+    }
     start = gpu_verifier.stats()
     install_device_plane(cfg)
     try:
@@ -1082,7 +1083,7 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
             "rejected_bad_sr25519_index": bad_idx,
             "launches_per_verify_commit": per_call,
             "launches_per_verify_commit_light": per_call_light,
-            "light_signatures_by_key_type": {kt: first.count(kt) for kt in gates},
+            "light_signatures_by_key_type": {kt: first.count(kt) for kt in gpu_verifier.KEY_TYPES},
             "light_windows_by_key_type": light_w,
             "launches_per_hybrid_verify_commit": hybrid,
             "verifier_stats": stats,
@@ -1491,7 +1492,7 @@ def phase_min_batch(torch, main: dict, mixed: dict) -> dict:
 
     sources = {"ed25519": main, "sr25519": mixed}
     out = {}
-    gpu_verifier.install(min_batch=1, min_batch_sr25519=1)
+    gpu_verifier.install(min_batch=1)
     try:
         for kt, src in sources.items():
             triples = key_triples(src["vals"], src["commit"], kt, max(MIN_BATCH_SIZES))
@@ -1538,10 +1539,7 @@ def phase_min_batch(torch, main: dict, mixed: dict) -> dict:
             "sizes": list(MIN_BATCH_SIZES),
             "reps": MIN_BATCH_REPS,
             **out,
-            "default_min_batch": {
-                "ed25519": gpu_verifier.DEFAULT_MIN_BATCH,
-                "sr25519": gpu_verifier.DEFAULT_MIN_BATCH_SR25519,
-            },
+            "default_min_batch": gpu_verifier.DEFAULT_MIN_BATCH,
             "verifier_stats": stats,
             "ok": True,
         }
@@ -1588,7 +1586,7 @@ def phase_fault_containment(torch, main: dict, mixed: dict) -> dict:
         ("bitflip", "gpu.gather", "bitflip"),
     )
     results = {}
-    gpu_verifier.install(gather_deadline_s=FAULT_DEADLINE_S)  # default gates
+    gpu_verifier.install(gather_deadline_s=FAULT_DEADLINE_S)  # the default gate
     try:
         for kt, src in (("ed25519", main), ("sr25519", mixed)):
             items = list(key_triples(src["vals"], src["commit"], kt, n))

@@ -13,19 +13,17 @@ from dataclasses import dataclass, field
 __all__ = [
     "DEFAULT_BUCKET_SIZES",
     "DEFAULT_MIN_BATCH",
-    "DEFAULT_MIN_BATCH_SR25519",
     "GPUConfig",
 ]
 
 DEFAULT_BUCKET_SIZES = (8, 32, 128, 512, 2048, 8192, 12288, 16384)
 
-# Below these many signatures one device window loses to the native CPU
-# batch on an H100 (chip_smoke.py phase `min_batch`, PERF.md §6): an
-# ed25519 window from 32, an sr25519 window only from 128, since its
-# merlin challenges are computed on the host in numpy (~1.5-3 ms for a
-# small window). The JAX package's figure, for a TPU, is 8 for both.
+# Below this many signatures one device window loses to the native CPU
+# batch on an H100, for either key type (chip_smoke.py phase
+# `min_batch`, PERF.md §5): from 32 on a window of ed25519 or of sr25519
+# wins at every size measured up to 512. The JAX package's figure, for a
+# TPU, is 8.
 DEFAULT_MIN_BATCH = 32
-DEFAULT_MIN_BATCH_SR25519 = 128
 
 
 @dataclass
@@ -33,9 +31,8 @@ class GPUConfig:
     """What node/device.py installs the device plane from.
 
     - enable: install crypto/gpu_verifier and ops/merkle_kernel at all;
-    - min_batch_size: the smallest ed25519 batch sent to the card
-      (smaller ones stay on the native CPU plane); sr25519's gate is the
-      measured DEFAULT_MIN_BATCH_SR25519, as TPUConfig has one gate;
+    - min_batch_size: the smallest batch of either key type sent to the
+      card (smaller ones stay on the native CPU plane);
     - bucket_sizes: the padded window widths of the signature kernels;
     - devices: 1 is one card; 0 is every visible card; more than one
       card (X6, ROADMAP item 10) is refused.

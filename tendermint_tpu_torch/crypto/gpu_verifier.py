@@ -19,7 +19,7 @@ order by verify().
 THE FAULT POLICY. The device is a coprocessor that can fail at run time;
 such a failure is contained, and nothing else is.
 
-- Contained: a window whose dispatch raises (a launch error), a gather
+- Contained: a window whose dispatch raises a DeviceFault, a gather
   that passes its deadline (60 s unless install() is told otherwise: a
   hung device surfaces as DeviceTimeout instead of wedging the caller),
   a bitmap of the wrong length, and a lane the device calls invalid
@@ -35,10 +35,9 @@ such a failure is contained, and nothing else is.
   with no device touch (their signatures counted as rerouted) until a
   single-flight background probe verifies one self-signed signature on
   the device and closes it. A fault raised while add() streams a window
-  is deferred to verify(); add() raises only on malformed input.
-  Only DeviceFault (DeviceTimeout is one) is contained: the fault
-  plane's injections raise it, and so do the deadline, the mis-shape
-  and the disproven-lane checks.
+  is deferred to verify(). Only DeviceFault (DeviceTimeout is one) is
+  contained: the fault plane's injections raise it, and so do the
+  deadline, the mis-shape and the disproven-lane checks.
 - Not contained: any other error of a dispatch or a gather, which
   raises to the caller of add() or verify(): a launch that fails
   (ops/build.check_launch's RuntimeError), a sticky CUDA error such as
@@ -61,12 +60,12 @@ that dispatched it; its gather runs on a watchdog thread under that
 same stream, so the bitmap's copy to the host is ordered after them
 whatever stream the caller verifies on.
 
-MIN-BATCH ROUTING. A batch of fewer than `min_batch` ed25519 or
-`min_batch_sr25519` sr25519 signatures stays on the CPU factory: the
-defaults (32 and 128, config.py) are where one device window stops
-losing to the native CPU batch, measured on the card (PERF.md §6,
-chip_smoke.py phase `min_batch`). The sr25519 single-verify route
-(PubKeySr25519.verify_signature) rides the device only where its gate
+MIN-BATCH ROUTING. A batch of fewer than `min_batch` signatures of
+either key type stays on the CPU factory: the default (32, config.py) is
+where one device window stops losing to the native CPU batch, measured
+on the card for both key types (PERF.md §5, chip_smoke.py phase
+`min_batch`). The sr25519 single-verify route
+(PubKeySr25519.verify_signature) rides the device only where the gate
 admits one signature.
 
 Ported here and not before: the breakers, the watchdog, the CPU
@@ -83,7 +82,7 @@ import logging
 import threading
 from typing import List, Optional, Tuple
 
-from ..config import DEFAULT_MIN_BATCH, DEFAULT_MIN_BATCH_SR25519
+from ..config import DEFAULT_MIN_BATCH
 from . import breaker as _breaker_mod
 from . import faults
 from .batch import cpu_factory, register_device_factory, unregister_device_factory
@@ -93,7 +92,6 @@ from .keys import BatchVerifier, PubKey
 __all__ = [
     "DEFAULT_GATHER_DEADLINE_S",
     "DEFAULT_MIN_BATCH",
-    "DEFAULT_MIN_BATCH_SR25519",
     "DeviceFault",
     "DeviceTimeout",
     "GpuEd25519BatchVerifier",
@@ -138,8 +136,8 @@ _STATS = {
 _WARM: set = set()  # (key type, bucket) dispatched since install()
 # the installed ops verifiers by key type (Ed25519Verifier, Sr25519Verifier)
 _VERIFIERS: dict = {}
-# the installed gates by key type
-_MIN_BATCH = {"ed25519": DEFAULT_MIN_BATCH, "sr25519": DEFAULT_MIN_BATCH_SR25519}
+# the installed gate, both key types
+_MIN_BATCH = DEFAULT_MIN_BATCH
 _GATHER_DEADLINE_S: Optional[float] = DEFAULT_GATHER_DEADLINE_S
 _PROBE_TRIPLES: dict = {}
 # by route: an error outside the fault policy that a background probe
@@ -489,7 +487,7 @@ def _raise_probe_error(route: str) -> None:
 
 
 def _make(key_type: str, size_hint: int) -> Optional[BatchVerifier]:
-    if 0 < size_hint < _MIN_BATCH[key_type]:
+    if 0 < size_hint < _MIN_BATCH:
         return None  # a small batch stays on the native CPU plane
     _raise_probe_error(key_type)
     if not _breaker(key_type).allow():
@@ -594,7 +592,7 @@ def _sr_single_probe() -> bool:
     """The single route's probe: where the min-batch gate keeps one
     signature on the CPU there is nothing to prove; else one device
     verify."""
-    if _MIN_BATCH["sr25519"] > 1:
+    if _MIN_BATCH > 1:
         return True
     return _device_probe("sr25519")
 
@@ -623,7 +621,6 @@ def probe_now(route: str) -> bool:
 def install(
     device="cuda",
     min_batch: int = DEFAULT_MIN_BATCH,
-    min_batch_sr25519: int = DEFAULT_MIN_BATCH_SR25519,
     program: str = "tile",
     bucket_sizes=None,
     gather_deadline_s: Optional[float] = DEFAULT_GATHER_DEADLINE_S,
@@ -632,11 +629,10 @@ def install(
     (CUDA by default; raises when there is none), after building and
     loading every kernel and the native CPU plane (raises when one fails
     to build). `program` is "tile" (kernels K2 and X3) or "hybrid"
-    (kernel K1 inside plain torch); `min_batch` and `min_batch_sr25519`
-    gate the two key types; `gather_deadline_s` bounds every gather
-    (None or 0: no watchdog).
+    (kernel K1 inside plain torch); `min_batch` gates both key types;
+    `gather_deadline_s` bounds every gather (None or 0: no watchdog).
     Each install is a new breaker generation."""
-    global _GATHER_DEADLINE_S
+    global _GATHER_DEADLINE_S, _MIN_BATCH
     import torch
 
     from .. import native
@@ -654,7 +650,7 @@ def install(
     native.ed25519_batch_lib()
     _VERIFIERS.clear()
     _VERIFIERS.update(verifiers)
-    _MIN_BATCH.update(ed25519=min_batch, sr25519=min_batch_sr25519)
+    _MIN_BATCH = min_batch
     _GATHER_DEADLINE_S = gather_deadline_s
     with _STATS_LOCK:
         _WARM.clear()
@@ -674,11 +670,11 @@ def install(
 def uninstall() -> None:
     """Remove the device factories: batches go back to the CPU default.
     The breakers are discarded; a probe in flight reports to an orphan."""
-    global _GATHER_DEADLINE_S
+    global _GATHER_DEADLINE_S, _MIN_BATCH
     for key_type in KEY_TYPES:
         unregister_device_factory(key_type)
     _VERIFIERS.clear()
-    _MIN_BATCH.update(ed25519=DEFAULT_MIN_BATCH, sr25519=DEFAULT_MIN_BATCH_SR25519)
+    _MIN_BATCH = DEFAULT_MIN_BATCH
     _GATHER_DEADLINE_S = DEFAULT_GATHER_DEADLINE_S
     _PROBE_ERRORS.clear()
     with _STATS_LOCK:
@@ -688,8 +684,8 @@ def uninstall() -> None:
 
 
 def installed() -> Optional[int]:
-    """The installed ed25519 min_batch, or None when not installed."""
-    return _MIN_BATCH["ed25519"] if _VERIFIERS else None
+    """The installed min_batch, or None when not installed."""
+    return _MIN_BATCH if _VERIFIERS else None
 
 
 def stats() -> dict:

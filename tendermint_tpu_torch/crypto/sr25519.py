@@ -10,11 +10,11 @@ transcript with an empty signing context, R || s signatures with the
 schnorrkel v1 marker bit (bit 511).
 
 The CPU plane is the JAX package's native C (tendermint_tpu_torch/
-native): keygen's and signing's [k]B and a single signature's challenge,
-a single verify as the whole-batch entry at n = 1, and a batch of n >= 2
-tested whole by the random-linear-combination equation, then checked a
-signature at a time when that fails: the answer is always the per-index
-bitmap. The pure-Python check on the host oracle (crypto/ristretto.py),
+native): keygen's and signing's [k]B, every merlin challenge (the device
+path's too, through challenge_batch), a single verify as the
+whole-batch entry at n = 1, and a batch of n >= 2 tested whole by the
+random-linear-combination equation, then checked a signature at a time
+when that fails: the answer is always the per-index bitmap. The pure-Python check on the host oracle (crypto/ristretto.py),
 `verify_signature_oracle`, answers what the C cannot decode and is the
 tests' reference. A single verify goes to the device when
 crypto/gpu_verifier's sr25519-single route admits it

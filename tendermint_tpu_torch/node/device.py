@@ -17,7 +17,7 @@ than asked for.
 
 from __future__ import annotations
 
-from ..config import DEFAULT_MIN_BATCH_SR25519, GPUConfig
+from ..config import GPUConfig
 
 __all__ = ["install_device_plane", "uninstall_device_plane", "visible_devices"]
 
@@ -59,7 +59,6 @@ def install_device_plane(cfg: GPUConfig, device="cuda") -> bool:
     gpu_verifier.install(
         device=device,
         min_batch=cfg.min_batch_size,
-        min_batch_sr25519=DEFAULT_MIN_BATCH_SR25519,
         bucket_sizes=cfg.bucket_sizes,
     )
     merkle_kernel.install(device=device)

@@ -67,25 +67,37 @@ struct sha256_u4 { uint32_t x, y, z, w; };
 #endif
 #define SHA256_ROTR(x, n) SHA256_FSHR((x), (x), (n))
 
-// One round on the working variables with kw = K[t] + W[t]: the round of
-// X4's compression and of X5's table-fed second block.
+// One round on the working variables a..hh with kw = K[t] + W[t], the
+// round of X4's compression and of X5's table-fed second block. A macro,
+// and kw pasted unparenthesised, so that X4's compression compiles as the
+// round written in place, `... + K256[t] + w[t & 15]`: through an inlined
+// function with reference arguments nvcc gave X4's tree kernel 74
+// registers instead of 68.
+#define SHA256_ROUND(a, b, c, d, e, f, g, hh, kw)                           \
+  do {                                                                      \
+    const uint32_t S1_ =                                                    \
+        SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);        \
+    const uint32_t t1_ = hh + S1_ + (g ^ (e & (f ^ g))) + kw;               \
+    const uint32_t S0_ =                                                    \
+        SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);        \
+    const uint32_t t2_ = S0_ + ((a & b) | (c & (a | b)));                   \
+    hh = g;                                                                 \
+    g = f;                                                                  \
+    f = e;                                                                  \
+    e = d + t1_;                                                            \
+    d = c;                                                                  \
+    c = b;                                                                  \
+    b = a;                                                                  \
+    a = t1_ + t2_;                                                          \
+  } while (0)
+
+// SHA256_ROUND as a function, for X5's second block (and x5_variants).
 __device__ __forceinline__ void sha256_round(uint32_t &a, uint32_t &b,
                                              uint32_t &c, uint32_t &d,
                                              uint32_t &e, uint32_t &f,
                                              uint32_t &g, uint32_t &hh,
                                              uint32_t kw) {
-  const uint32_t S1 = SHA256_ROTR(e, 6) ^ SHA256_ROTR(e, 11) ^ SHA256_ROTR(e, 25);
-  const uint32_t t1 = hh + S1 + (g ^ (e & (f ^ g))) + kw;
-  const uint32_t S0 = SHA256_ROTR(a, 2) ^ SHA256_ROTR(a, 13) ^ SHA256_ROTR(a, 22);
-  const uint32_t t2 = S0 + ((a & b) | (c & (a | b)));
-  hh = g;
-  g = f;
-  f = e;
-  e = d + t1;
-  d = c;
-  c = b;
-  b = a;
-  a = t1 + t2;
+  SHA256_ROUND(a, b, c, d, e, f, g, hh, kw);
 }
 
 // One compression of the 16 big-endian words w (overwritten: the schedule
@@ -101,7 +113,7 @@ __device__ __forceinline__ void sha256_compress(uint32_t *h, uint32_t *w) {
       const uint32_t s1 = SHA256_ROTR(w2, 17) ^ SHA256_ROTR(w2, 19) ^ (w2 >> 10);
       w[t & 15] += s0 + w[(t - 7) & 15] + s1;
     }
-    sha256_round(a, b, c, d, e, f, g, hh, K256[t] + w[t & 15]);
+    SHA256_ROUND(a, b, c, d, e, f, g, hh, K256[t] + w[t & 15]);
   }
   h[0] += a; h[1] += b; h[2] += c; h[3] += d;
   h[4] += e; h[5] += f; h[6] += g; h[7] += hh;

@@ -569,8 +569,8 @@ def test_factory_admission_pays_back_the_ticket(installed):
 
 
 def test_min_batch_gate_and_the_sr25519_single_route(monkeypatch):
-    """Below its gate each key type stays on the native CPU plane, so
-    with the default gates a single sr25519 verify never reaches the
+    """Below the gate either key type stays on the native CPU plane, so
+    with the default gate a single sr25519 verify never reaches the
     device; at a gate of 1 the single route takes it once its probe
     has closed the route, and reports to its own breaker."""
     G.install(device="cpu")
@@ -578,9 +578,9 @@ def test_min_batch_gate_and_the_sr25519_single_route(monkeypatch):
     pk = PrivKeySr25519(bytes([7]) * 32)
     sig = pk.sign(b"one", rng=lambda n: bytes(n))
     assert G.installed() == G.DEFAULT_MIN_BATCH > 1
-    small = batch.create_batch_verifier(pk.pub_key(), G.DEFAULT_MIN_BATCH_SR25519 - 1)
+    small = batch.create_batch_verifier(pk.pub_key(), G.DEFAULT_MIN_BATCH - 1)
     assert isinstance(small, Sr25519BatchVerifier)
-    big = batch.create_batch_verifier(pk.pub_key(), G.DEFAULT_MIN_BATCH_SR25519)
+    big = batch.create_batch_verifier(pk.pub_key(), G.DEFAULT_MIN_BATCH)
     assert isinstance(big, G.GpuSr25519BatchVerifier)
     ed = PrivKeyEd25519.from_seed(bytes(32)).pub_key()
     assert isinstance(
@@ -590,7 +590,7 @@ def test_min_batch_gate_and_the_sr25519_single_route(monkeypatch):
     before = G.stats()
     assert pk.pub_key().verify_signature(b"one", sig)
     assert G.stats()["batches"] == before["batches"]
-    G.install(device="cpu", min_batch=1, min_batch_sr25519=1)
+    G.install(device="cpu", min_batch=1)
     _wait_probe(G.sr_single_breaker())
     assert G.stats()["breaker_sr25519_single"] == 0
     assert isinstance(G.single_sr_verifier(), G.GpuSr25519BatchVerifier)

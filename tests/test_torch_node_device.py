@@ -33,7 +33,7 @@ def _clean():
 def test_gpu_config_defaults_against_tpu_config():
     """The same fields and defaults but donate_buffers (XLA's) and the
     min batch, measured on the card where the JAX package has its TPU
-    figure; sr25519's measured gate is a constant, not a field."""
+    figure."""
     gpu, tpu = config.GPUConfig(), TPUConfig()
     names = {f.name for f in dataclasses.fields(config.GPUConfig)}
     tpu_names = {f.name for f in dataclasses.fields(TPUConfig)}
@@ -101,11 +101,9 @@ def test_one_card_without_cuda_raises_instead_of_running_on_cpu():
 
 
 def test_config_gates_and_buckets_reach_the_verifiers():
-    """min_batch_size gates ed25519, the measured
-    DEFAULT_MIN_BATCH_SR25519 sr25519, and bucket_sizes are the windows'
-    widths: 5 signatures in a 32-lane window pad 27 lanes."""
+    """min_batch_size gates both key types and bucket_sizes are the
+    windows' widths: 5 signatures in a 32-lane window pad 27 lanes."""
     cfg = config.GPUConfig(min_batch_size=5, bucket_sizes=[32, 128])
-    sr_gate = config.DEFAULT_MIN_BATCH_SR25519
     node_device.install_device_plane(cfg, device="cpu")
     vals, bid, commit = _jax_commit(set(range(6)))
     pvals, _pbid, pcommit = _carry(vals, bid, commit)
@@ -119,12 +117,8 @@ def test_config_gates_and_buckets_reach_the_verifiers():
         bv.add(pvals.validators[i].pub_key, sbs[i], pcommit.signatures[i].signature)
     assert bv.verify() == (True, [True] * 5)
     sr = PrivKeySr25519(bytes([3]) * 32).pub_key()
-    assert not isinstance(
-        batch.create_batch_verifier(sr, sr_gate - 1), gpu_verifier.GpuSr25519BatchVerifier
-    )
-    assert isinstance(
-        batch.create_batch_verifier(sr, sr_gate), gpu_verifier.GpuSr25519BatchVerifier
-    )
+    assert not isinstance(batch.create_batch_verifier(sr, 4), gpu_verifier.GpuSr25519BatchVerifier)
+    assert isinstance(batch.create_batch_verifier(sr, 5), gpu_verifier.GpuSr25519BatchVerifier)
     after = gpu_verifier.stats()
     assert after["pad_waste"] - before["pad_waste"] == 27
     assert after["cold_buckets"] - before["cold_buckets"] == 1

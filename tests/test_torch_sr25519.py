@@ -267,7 +267,7 @@ def device_verifier():
     # gates of 1 send even one signature to the device path, which the
     # test below exercises (the default gates keep small batches on the
     # native CPU plane: tests/test_torch_faults.py)
-    gpu_verifier.install(device="cpu", min_batch=1, min_batch_sr25519=1)
+    gpu_verifier.install(device="cpu", min_batch=1)
     try:
         yield
     finally:
