@@ -29,8 +29,18 @@ past a 2 s deadline, a short bitmap and a flipped lane into one
 the CPU, the probe closing the breaker), checks that a window dispatched
 on a side stream, its kernels held back by a sleep on that stream, is
 gathered after them and not contained as a fault, then times the mixed
-10k Commit on the CPU plane alone. Keys, key types, messages,
-timestamps, signing witnesses and transactions come from --seed.
+10k Commit on the CPU plane alone. Phase config4 drives BASELINE.md
+config 4 through the light client with the device plane installed: a
+fresh sequential client syncs a 1,024-header chain of 150 validators in
+merged windows of 32 commits (windows, X1 and K2 launches counted for the
+sync, for one merged window and for the sync a commit at a time; every
+header stored, no fault), is timed as headers/s merged, a commit at a
+time and at windows of 8 and 16, rejects a signature flipped in the
+middle of its second window with that commit's own error and nothing
+above it stored, and syncs a mixed 75 + 75 chain of 256 headers with X3
+in merged windows. Keys, key types, messages, timestamps, signing
+witnesses, chains and transactions come from --seed (the builders of
+tendermint_tpu_torch.workloads).
 
 Before the main paths, every kernel is held against its plain version:
 K1 and X1 at the widest bucket, K2 also on the ZIP-215 corpus at buckets
@@ -328,98 +338,11 @@ def launches() -> dict:
 # -- commits built with the port's own types --
 
 
-# ed25519 keys by seed: keygen is pure Python, and the mixed commits
-# reuse the ed25519-only commit's keys
-_ED_KEYS: dict = {}
-
-
 def build_commit(n: int, seed: int, n_sr: int = 0, timings=None):
-    """(ValidatorSet, BlockID, Commit) of n equal-power validators that
-    all signed, keys and timestamps from the seed; n_sr of them sr25519,
-    which ones fixed by index from the seed, the rest ed25519. Vote
-    timestamps spread over one second, as a real commit's do, so the
-    sign-bytes come in several varint lengths. The sr25519 votes are
-    signed together: every R first, then the challenges through
-    challenge_batch. `timings`, a dict, receives the seconds of keygen
-    and of the signing of each key type."""
-    from tendermint_tpu_torch.crypto.ed25519 import PrivKeyEd25519
-    from tendermint_tpu_torch.crypto.sr25519 import PrivKeySr25519, sign_batch
-    from tendermint_tpu_torch.types.block_id import BlockID, PartSetHeader
-    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE
-    from tendermint_tpu_torch.types.commit import Commit, CommitSig
-    from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
-    from tendermint_tpu_torch.types.vote import Vote
+    """workloads.build_commit at this script's chain and height."""
+    from tendermint_tpu_torch.workloads import build_commit as build
 
-    clock = [time.perf_counter()]
-    seconds = {} if timings is None else timings
-
-    def lap(name):
-        now = time.perf_counter()
-        seconds[name] = now - clock[0]
-        clock[0] = now
-
-    is_sr = np.zeros(n, dtype=bool)
-    is_sr[np.random.default_rng([seed, 3]).permutation(n)[:n_sr]] = True
-    privs = []
-    for i in range(n):
-        key_seed = hashlib.sha256(b"chip-smoke-%d-%d" % (seed, i)).digest()
-        if is_sr[i]:
-            privs.append(PrivKeySr25519(key_seed))
-            continue
-        if key_seed not in _ED_KEYS:
-            _ED_KEYS[key_seed] = PrivKeyEd25519.from_seed(key_seed)
-        privs.append(_ED_KEYS[key_seed])
-    lap("keygen_s")
-    by_addr = {p.pub_key().address(): p for p in privs}
-    vals = ValidatorSet(
-        [Validator(pub_key=p.pub_key(), voting_power=10) for p in privs]
-    )
-    block_id = BlockID(
-        hashlib.sha256(b"block-%d" % seed).digest(),
-        PartSetHeader(1, hashlib.sha256(b"parts-%d" % seed).digest()),
-    )
-    rng = np.random.default_rng(seed)
-    base_ns = 1_760_000_000 * 1_000_000_000
-    votes = []
-    for i, val in enumerate(vals.validators):
-        ts = base_ns + int(rng.integers(0, 1_000_000_000))
-        vote = Vote(
-            type=PRECOMMIT_TYPE,
-            height=HEIGHT,
-            round=0,
-            block_id=block_id,
-            timestamp_ns=ts,
-            validator_address=val.address,
-            validator_index=i,
-        )
-        votes.append((by_addr[val.address], vote.sign_bytes(CHAIN_ID), ts))
-    sigs = [None] * n
-    sr_idx = []
-    for i, (priv, sb, _ts) in enumerate(votes):
-        if priv.type() == "sr25519":
-            sr_idx.append(i)
-        else:
-            sigs[i] = priv.sign(sb)
-    lap("ed25519_sign_s")
-    witness = np.random.default_rng([seed, 25519])
-    sr_sigs = sign_batch(
-        [votes[i][0] for i in sr_idx],
-        [votes[i][1] for i in sr_idx],
-        rng=witness.bytes,
-    )
-    for i, sig in zip(sr_idx, sr_sigs):
-        sigs[i] = sig
-    lap("sr25519_sign_s")
-    commit = Commit(
-        height=HEIGHT,
-        round=0,
-        block_id=block_id,
-        signatures=[
-            CommitSig.for_block(sig, val.address, ts)
-            for sig, val, (_p, _sb, ts) in zip(sigs, vals.validators, votes)
-        ],
-    )
-    return vals, block_id, commit
+    return build(n, seed, CHAIN_ID, HEIGHT, n_sr, timings)
 
 
 def commit_triples(vals, commit):
@@ -1256,11 +1179,17 @@ def phase_merkle_kernels(torch, dev, seed: int) -> None:
 
 def block_txs(seed: int):
     """N_TXS transactions, lengths in TX_LENGTHS and bytes from the seed."""
-    rng = np.random.default_rng([seed, 5])
-    lens = rng.integers(TX_LENGTHS[0], TX_LENGTHS[1] + 1, N_TXS)
-    blob = rng.bytes(int(lens.sum()))
-    ends = np.cumsum(lens).tolist()
-    return [blob[e - n : e] for e, n in zip(ends, lens.tolist())]
+    from tendermint_tpu_torch.workloads import block_txs as txs
+
+    return txs(seed, N_TXS, TX_LENGTHS)
+
+
+def set_root(vals) -> bytes:
+    """A validator set's root as ValidatorSet.hash() computes it on a new
+    set (its memo would answer a second call from the host)."""
+    from tendermint_tpu_torch.crypto import merkle
+
+    return merkle.hash_from_byte_slices([v.hash_bytes() for v in vals.validators])
 
 
 def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
@@ -1331,7 +1260,7 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
         return wrapper
 
     calls = {
-        "validator_set_hash": (vals.hash, tree_launches(n_vals)),
+        "validator_set_hash": (lambda: set_root(vals), tree_launches(n_vals)),
         "commit_hash": (commit.hash, tree_launches(n_sigs)),
         "txs_hash": (lambda: txs_hash(txs), tree_launches(N_TXS)),
         "verify_proofs_batch": (
@@ -1351,7 +1280,7 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
         if host_calls != {"reduce": 0, "compute_root_hash": 0}:
             raise AssertionError(f"a device call ran the host path: {host_calls}")
         got_small, per_call["small_set_hash"] = count_merkle_call(
-            small.hash, {}
+            lambda: set_root(small), {}
         )
         # the host reduction recurses through the wrapped name
         small_reduces = host_calls["reduce"]
@@ -1709,6 +1638,255 @@ def phase_fault_containment(torch, main: dict, mixed: dict) -> dict:
         }
     )
     return {"cases": results, "fallback": fallback}
+
+
+# BASELINE.md config 4: a light client's sequential sync at 150
+# validators, 1,024 headers (32 merged windows) and a mixed 75 + 75 chain
+# of 256 headers; window sizes timed besides the default's
+CONFIG4_CHAIN_ID = "chip-smoke-light"
+CONFIG4_HEADERS = 1024
+CONFIG4_MIXED_HEADERS = 256
+CONFIG4_WINDOWS = (8, 16)
+
+
+def light_windows(hops: int, per_commit: int, window: int, gate: int) -> int:
+    """Device windows of one key type in a sequential sync of `hops` hops
+    merged `window` at a time, `per_commit` signatures a commit: each
+    merged batch streams STREAM_CHUNK windows, and one below the gate
+    stays on the CPU."""
+    from tendermint_tpu_torch.crypto.gpu_verifier import _GpuBatchVerifier
+
+    step = _GpuBatchVerifier.STREAM_CHUNK
+    total = 0
+    for first in range(0, hops, window):
+        n = min(window, hops - first) * per_commit
+        if n >= gate:
+            total += -(-n // step)
+    return total
+
+
+def phase_config4(torch, seed: int) -> dict:
+    """BASELINE.md config 4 through the light client a user calls, with
+    the device plane installed from its config: a chain of
+    CONFIG4_HEADERS + 1 heights of LIGHT_VALIDATORS equal-power ed25519
+    validators from the seed, synced by a fresh sequential client from
+    height 1. The sync is counted (ed25519 windows, X1 and K2 launches
+    of the whole sync and of one merged window alone, and of the sync a
+    commit at a time), stores every header and contains no fault; then
+    it is timed as headers/s merged (window 32), a commit at a time and
+    at CONFIG4_WINDOWS, twice each in turns (the mean and the readings),
+    and once more merged with its host stages timed
+    and the device time of X1 and K2 read by the profiler. A signature flipped in the middle of the second
+    window raises InvalidHeaderError with that commit's own message,
+    every header below it stored and none above. A mixed 75 + 75 chain
+    of CONFIG4_MIXED_HEADERS runs the same sync with each key type's
+    windows and launches counted (X3 for sr25519)."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.light.client import SEQUENTIAL_BATCH_HOPS
+    from tendermint_tpu_torch.light import verifier
+    from tendermint_tpu_torch.light.errors import InvalidHeaderError
+    from tendermint_tpu_torch.light.store import LightStore
+    from tendermint_tpu_torch.light.verifier import verify_adjacent_batch
+    from tendermint_tpu_torch.node.device import (
+        install_device_plane,
+        uninstall_device_plane,
+    )
+    from tendermint_tpu_torch.types.commit import CommitSig
+    from tendermint_tpu_torch.types.light import LightBlock
+    from tendermint_tpu_torch.types import validation
+    from tendermint_tpu_torch.types.validation import verify_commit_light
+    from tendermint_tpu_torch.workloads import (
+        build_light_chain,
+        light_client,
+        light_sync,
+    )
+
+    t_phase = time.perf_counter()
+    hops, mixed_hops = CONFIG4_HEADERS, CONFIG4_MIXED_HEADERS
+    t0 = time.perf_counter()
+    chain = build_light_chain(CONFIG4_CHAIN_ID, hops + 1, LIGHT_VALIDATORS, seed)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixed = build_light_chain(
+        CONFIG4_CHAIN_ID, mixed_hops + 1, LIGHT_VALIDATORS, seed + 1,
+        LIGHT_VALIDATORS // 2,
+    )
+    mixed_build_s = time.perf_counter() - t0
+    # the bad chain: one signature flipped in the middle of window 2
+    bad_h = 2 + SEQUENTIAL_BATCH_HOPS + SEQUENTIAL_BATCH_HOPS // 2
+    bad = dict(chain)
+    bad_block = LightBlock.from_proto(chain[bad_h].to_proto())
+    sigs = bad_block.signed_header.commit.signatures
+    s0 = sigs[0]
+    sigs[0] = CommitSig.for_block(
+        s0.signature[:9] + bytes([s0.signature[9] ^ 0x20]) + s0.signature[10:],
+        s0.validator_address,
+        s0.timestamp_ns,
+    )
+    bad[bad_h] = bad_block
+    # the host oracle first: the error the device path must reproduce
+    sh = bad_block.signed_header
+    try:
+        verify_commit_light(
+            CONFIG4_CHAIN_ID, bad_block.validator_set, sh.commit.block_id,
+            bad_h, sh.commit,
+        )
+    except ValueError as e:
+        want_err = str(e)
+    else:
+        raise AssertionError("the flipped commit verified on the host")
+    if not want_err.startswith("wrong signature (#0): "):
+        raise AssertionError(f"host oracle: {want_err}")
+
+    cfg = GPUConfig()
+    gate = cfg.min_batch_size
+    per_commit = 2 * LIGHT_VALIDATORS // 3 + 1  # the first > 2/3 of equal powers
+    first = mixed[1].validator_set.validators[:per_commit]
+    n_sr = sum(v.pub_key.type() == "sr25519" for v in first)
+    n_ed = per_commit - n_sr
+
+    def tile(w):
+        return {"sha512_ram": w, "ed25519_verify_tile": w}
+
+    def merged(hops_, per, window=SEQUENTIAL_BATCH_HOPS):
+        return light_windows(hops_, per, window, gate)
+
+    out = {}
+    start = gpu_verifier.stats()
+    install_device_plane(cfg)
+    try:
+        synced = {}
+
+        def sync(blocks, affinity, key):
+            # a store that keeps every header of the chain
+            synced[key] = light_client(blocks, CONFIG4_CHAIN_ID, len(blocks))
+            light_sync(synced[key], affinity)
+
+        w_merged = merged(hops, per_commit)
+        out["launches_per_sync"] = count_one_call(
+            lambda: sync(chain, SEQUENTIAL_BATCH_HOPS, "merged"),
+            {"ed25519": (w_merged, tile(w_merged))},
+        )
+        if synced["merged"].store.size() != hops + 1:
+            raise AssertionError(
+                f"{synced['merged'].store.size()} headers stored, not {hops + 1}"
+            )
+        w_one = merged(SEQUENTIAL_BATCH_HOPS, per_commit)
+
+        def one_window():
+            verify_adjacent_batch(
+                CONFIG4_CHAIN_ID,
+                chain[1].signed_header,
+                [chain[h] for h in range(2, 2 + SEQUENTIAL_BATCH_HOPS)],
+                10**18,
+                chain[hops + 1].signed_header.header.time_ns,
+            )
+
+        out["launches_per_merged_window"] = count_one_call(
+            one_window, {"ed25519": (w_one, tile(w_one))}
+        )
+        w_single = merged(hops, per_commit, 1)
+        out["launches_per_sync_per_commit"] = count_one_call(
+            lambda: sync(chain, 1, "per_commit"),
+            {"ed25519": (w_single, tile(w_single))},
+        )
+        # each window size twice, in turns and then in reverse order, so
+        # drift of the host hits them alike
+        sizes = {
+            "merged": SEQUENTIAL_BATCH_HOPS,
+            "per_commit": 1,
+            **{f"window_{w}": w for w in CONFIG4_WINDOWS},
+        }
+        readings = {name: [] for name in sizes}
+        for name in [*sizes, *reversed(sizes)]:
+            seconds = light_sync(light_client(chain, CONFIG4_CHAIN_ID), sizes[name])
+            readings[name].append(hops / seconds)
+        out["headers_per_s"] = {k: float(np.mean(v)) for k, v in readings.items()}
+        out["headers_per_s_readings"] = readings
+
+        # where a merged sync's host time goes (each stage's calls timed
+        # on the host clock; collect holds the sign-bytes, verify the
+        # device batch), and the card's busy share: X1's and K2's device
+        # time of one merged window, from the profiler
+        stages = {
+            "validate_basic": (LightBlock, "validate_basic"),
+            "header_checks": (verifier, "adjacent_header_checks"),
+            "collect": (validation, "collect_commit_light"),
+            "verify": (validation, "verify_triples_grouped"),
+            "store": (LightStore, "save_light_block"),
+        }
+        spent = {name: [] for name in stages}
+        with contextlib.ExitStack() as stack:
+            for name, (owner, attr) in stages.items():
+                stack.enter_context(timed(owner, attr, spent[name]))
+            seconds = light_sync(
+                light_client(chain, CONFIG4_CHAIN_ID), SEQUENTIAL_BATCH_HOPS
+            )
+        busy = sum(
+            device_ms(torch, one_window, 5, KERNEL_NAMES[k], w_one)[0]
+            for k in ("sha512_ram", "ed25519_verify_tile")
+        ) * (w_merged / w_one)
+        out["merged_ms_per_header"] = {
+            "total": seconds * 1e3 / hops,
+            **{name: sum(v) / hops for name, v in spent.items()},
+            "device_x1_k2": busy / hops,
+        }
+        out["merged_device_idle_share"] = 1 - busy / (seconds * 1e3)
+
+        before = gpu_verifier.stats()
+        client = light_client(bad, CONFIG4_CHAIN_ID, len(bad))
+        try:
+            light_sync(client, SEQUENTIAL_BATCH_HOPS)
+        except InvalidHeaderError as e:
+            got_err = str(e)
+        else:
+            raise AssertionError("the chain with a flipped signature synced")
+        assert_no_fault(before, gpu_verifier.stats(), "config4 bad signature")
+        if got_err != want_err:
+            raise AssertionError(f"rejected with {got_err!r}, not {want_err!r}")
+        stored = sorted(client.store._heights())
+        if stored != list(range(1, bad_h)):
+            raise AssertionError(
+                f"after the bad signature at {bad_h} the store holds "
+                f"{stored[0]}..{stored[-1]} ({len(stored)} headers)"
+            )
+        out["bad_signature_height"] = bad_h
+
+        w_ed, w_sr = merged(mixed_hops, n_ed), merged(mixed_hops, n_sr)
+        out["mixed_launches_per_sync"] = count_one_call(
+            lambda: sync(mixed, SEQUENTIAL_BATCH_HOPS, "mixed"),
+            {
+                "ed25519": (w_ed, tile(w_ed)),
+                "sr25519": (w_sr, {"sr25519_verify": w_sr}),
+            },
+        )
+        if synced["mixed"].store.size() != mixed_hops + 1:
+            raise AssertionError("a mixed header was not stored")
+        seconds = light_sync(
+            light_client(mixed, CONFIG4_CHAIN_ID), SEQUENTIAL_BATCH_HOPS
+        )
+        out["mixed_headers_per_s_merged"] = mixed_hops / seconds
+        stats = gpu_verifier.stats()
+        assert_no_fault(start, stats, "config4")
+    finally:
+        uninstall_device_plane()
+    emit(
+        {
+            "phase": "config4",
+            "headers": hops,
+            "validators": LIGHT_VALIDATORS,
+            "window": SEQUENTIAL_BATCH_HOPS,
+            "chain_build_s": build_s,
+            "mixed_headers": mixed_hops,
+            "mixed_chain_build_s": mixed_build_s,
+            "mixed_signatures_per_commit": {"ed25519": n_ed, "sr25519": n_sr},
+            **out,
+            "phase_s": time.perf_counter() - t_phase,
+            "ok": True,
+        }
+    )
+    return out
 
 
 def phase_kernels(
@@ -2307,6 +2485,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     config5 = phase_config5(torch, dev, args.seed, mixed_run)
     phase_min_batch(torch, main_run, mixed_run)
     phase_fault_containment(torch, main_run, mixed_run)
+    phase_config4(torch, args.seed)
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
     )

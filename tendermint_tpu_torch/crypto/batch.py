@@ -2,14 +2,23 @@
 
 Counterpart: tendermint_tpu/crypto/batch.py:43-170 and its defaults
 :220-230 (ed25519 and sr25519; secp256k1 has no device path and is not
-ported). A device factory registered here (crypto/gpu_verifier.install)
+ported), with the group-affinity seam :77-145 and `native_cpu_affinity`
+:204. A device factory registered here (crypto/gpu_verifier.install)
 serves a key type's batches once the caller's size hint is large enough;
 until then, and for key types without one, the registered CPU factory
 does, as in the reference, where pure Go is the default.
+
+The group affinity is how many independent commits' signatures a caller
+with several at hand (the light client's sequential window) merges into
+one batch verifier: 1 verifies each commit alone. gpu_verifier.install
+sets it for its device (32 on CUDA, 1 for the plain versions on the
+CPU); uninstall puts back the lazy default, native_cpu_affinity; an
+operator's set_group_affinity wins over both.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional
 
 from .keys import BatchVerifier, PubKey
@@ -18,8 +27,14 @@ __all__ = [
     "cpu_factory",
     "create_batch_verifier",
     "device_factory_installed",
+    "group_affinity",
+    "group_affinity_state",
+    "native_cpu_affinity",
     "register_cpu_factory",
     "register_device_factory",
+    "restore_group_affinity",
+    "set_group_affinity",
+    "set_group_affinity_fn",
     "supports_batch_verifier",
     "unregister_device_factory",
 ]
@@ -58,6 +73,81 @@ def cpu_factory(key_type: str) -> Optional[Callable[[], BatchVerifier]]:
     return _CPU_FACTORIES.get(key_type)
 
 
+# The affinity, or None while a deferred function (set_group_affinity_fn)
+# has not been asked yet; whether an operator pinned it. One lock guards
+# the triple: group_affinity()'s lazy resolution is a check-then-act.
+_GROUP_AFFINITY: Optional[int] = 1
+_GROUP_AFFINITY_FN: Optional[Callable[[], int]] = None
+_GROUP_AFFINITY_EXPLICIT = False
+_affinity_lock = threading.Lock()
+
+
+def set_group_affinity(n: int) -> None:
+    """An operator's value: wins over any install's default
+    (set_group_affinity_fn does not replace it)."""
+    global _GROUP_AFFINITY, _GROUP_AFFINITY_FN, _GROUP_AFFINITY_EXPLICIT
+    with _affinity_lock:
+        _GROUP_AFFINITY = max(1, int(n))
+        _GROUP_AFFINITY_FN = None
+        _GROUP_AFFINITY_EXPLICIT = True
+
+
+def set_group_affinity_fn(fn: Callable[[], int]) -> None:
+    """Decide the affinity with fn() at its first use; a no-op when an
+    operator pinned a value."""
+    global _GROUP_AFFINITY, _GROUP_AFFINITY_FN
+    with _affinity_lock:
+        if _GROUP_AFFINITY_EXPLICIT:
+            return
+        _GROUP_AFFINITY = None
+        _GROUP_AFFINITY_FN = fn
+
+
+def group_affinity() -> int:
+    global _GROUP_AFFINITY
+    while True:
+        with _affinity_lock:
+            value = _GROUP_AFFINITY
+            fn = _GROUP_AFFINITY_FN
+        if value is not None:
+            return value
+        # fn runs outside the lock: it may build the native plane
+        computed = max(1, int(fn())) if fn is not None else 1
+        with _affinity_lock:
+            if _GROUP_AFFINITY is not None:
+                return _GROUP_AFFINITY
+            if _GROUP_AFFINITY_FN is fn:
+                _GROUP_AFFINITY = computed
+                return computed
+            # another fn was set while this one ran: resolve that one
+
+
+def group_affinity_state() -> tuple:
+    """A snapshot for restore_group_affinity. Restoring a value through
+    set_group_affinity instead would pin it as an operator's and disable
+    every later install's default."""
+    with _affinity_lock:
+        return (_GROUP_AFFINITY, _GROUP_AFFINITY_FN, _GROUP_AFFINITY_EXPLICIT)
+
+
+def restore_group_affinity(state: tuple) -> None:
+    global _GROUP_AFFINITY, _GROUP_AFFINITY_FN, _GROUP_AFFINITY_EXPLICIT
+    with _affinity_lock:
+        _GROUP_AFFINITY, _GROUP_AFFINITY_FN, _GROUP_AFFINITY_EXPLICIT = state
+
+
+def native_cpu_affinity() -> int:
+    """The merged-window size when the native C plane serves batches: 32.
+    Its batch equation is exact-size (no bucket padding) and cheaper a
+    signature the larger the batch, so a merged window wins on the CPU
+    too. The plane is built here on first use; a build failure raises,
+    as the verifiers' first use does."""
+    from .. import native
+
+    native.ed25519_batch_lib()
+    return 32
+
+
 def supports_batch_verifier(pk: Optional[PubKey]) -> bool:
     return pk is not None and pk.type() in _CPU_FACTORIES
 
@@ -87,3 +177,4 @@ def _register_defaults() -> None:
 
 
 _register_defaults()
+set_group_affinity_fn(native_cpu_affinity)

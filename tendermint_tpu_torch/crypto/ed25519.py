@@ -2,8 +2,11 @@
 
 Counterpart: tendermint_tpu/crypto/ed25519.py (PubKeyEd25519,
 PrivKeyEd25519, and the CPU batch verifier registered as the default).
-Keygen and signing keep the pure-Python RFC 8032 path (:143-155) on
-ed25519_math's comb tables; no OpenSSL. Verification is the JAX
+Keygen and signing are RFC 8032 with the fixed-base multiplies A = aB
+and R = rB in the native C plane (native.ed25519_basemul), where the
+JAX package signs through OpenSSL (:143-145); the hashes and the scalar
+arithmetic stay in Python. The pure-Python ed25519_math.mul_base_ct is
+the tests' oracle for it, never a fallback. Verification is the JAX
 package's native plane (:173-340) over the port's copy of its C
 (tendermint_tpu_torch/native): a single verify is the batch equation at
 n = 1 with weight 1, [8](sB - kA - R) == identity, exactly the
@@ -97,7 +100,7 @@ class PrivKeyEd25519(PrivKey):
             raise ValueError("ed25519 privkey must be 32 or 64 bytes")
         self._seed = bytes(seed)
         a, _prefix = _expand_seed(self._seed)
-        self._pub = ed25519_math.compress(ed25519_math.mul_base_ct(a))
+        self._pub = _basemul(a)
 
     @classmethod
     def from_seed(cls, seed: bytes) -> "PrivKeyEd25519":
@@ -113,7 +116,7 @@ class PrivKeyEd25519(PrivKey):
             int.from_bytes(hashlib.sha512(prefix + msg).digest(), "little")
             % ed25519_math.L
         )
-        R = ed25519_math.compress(ed25519_math.mul_base_ct(r))
+        R = _basemul(r)
         k = ed25519_math.sha512_mod_l(R, self._pub, msg)
         s = (r + k * a) % ed25519_math.L
         return R + s.to_bytes(32, "little")
@@ -134,6 +137,13 @@ def _lib():
     from .. import native
 
     return native.ed25519_batch_lib()
+
+
+def _basemul(scalar: int) -> bytes:
+    """The encoding of scalar B, in C."""
+    from .. import native
+
+    return native.ed25519_basemul(scalar.to_bytes(32, "little"))
 
 
 def _native_verify_one_zip215(

@@ -6,7 +6,8 @@ add/verify (:387-655) with `_disprove_invalid_lanes` (:657) and
 `_cpu_fallback` (:686), the gather deadline and its watchdog
 (:232-377), the ed25519 and sr25519 subclasses (:721-742), `stats`
 (:773), the factories and the sr25519 single-verify route (:783-893),
-`install` and `uninstall` (:894-997), and the dispatch telemetry
+`install` and `uninstall` (:894-997) with the group affinity they set
+(:950-969, :976-997), and the dispatch telemetry
 (:40-95, 130-157) as integer counters. install() registers a factory
 per key type with crypto.batch: create_batch_verifier then returns a
 GpuEd25519BatchVerifier or GpuSr25519BatchVerifier for a batch of at
@@ -85,12 +86,19 @@ from typing import List, Optional, Tuple
 from ..config import DEFAULT_MIN_BATCH
 from . import breaker as _breaker_mod
 from . import faults
-from .batch import cpu_factory, register_device_factory, unregister_device_factory
+from .batch import (
+    cpu_factory,
+    native_cpu_affinity,
+    register_device_factory,
+    set_group_affinity_fn,
+    unregister_device_factory,
+)
 from .faults import DeviceFault, DeviceTimeout
 from .keys import BatchVerifier, PubKey
 
 __all__ = [
     "DEFAULT_GATHER_DEADLINE_S",
+    "DEVICE_GROUP_AFFINITY",
     "DEFAULT_MIN_BATCH",
     "DeviceFault",
     "DeviceTimeout",
@@ -617,6 +625,13 @@ def probe_now(route: str) -> bool:
 
 # -- install ------------------------------------------------------------
 
+# Commits merged into one batch by a caller with several (crypto.batch
+# group affinity): on the card a merged window amortizes one dispatch
+# over up to 32 light commits; on the CPU device (the plain versions) a
+# window is plain torch, whose cost grows with its padded bucket, so
+# each commit goes alone, as the JAX package does on a CPU-backed JAX.
+DEVICE_GROUP_AFFINITY = {"cuda": 32, "cpu": 1}
+
 
 def install(
     device="cuda",
@@ -631,7 +646,9 @@ def install(
     to build). `program` is "tile" (kernels K2 and X3) or "hybrid"
     (kernel K1 inside plain torch); `min_batch` gates both key types;
     `gather_deadline_s` bounds every gather (None or 0: no watchdog).
-    Each install is a new breaker generation."""
+    Each install is a new breaker generation. It also sets the group
+    affinity for the device (DEVICE_GROUP_AFFINITY) unless an operator
+    pinned one."""
     global _GATHER_DEADLINE_S, _MIN_BATCH
     import torch
 
@@ -665,11 +682,15 @@ def install(
     single.probe_now()  # off this thread: warms or closes the route
     register_device_factory("ed25519", _factory)
     register_device_factory("sr25519", _factory_sr)
+    affinity = DEVICE_GROUP_AFFINITY[torch.device(device).type]
+    set_group_affinity_fn(lambda: affinity)
 
 
 def uninstall() -> None:
-    """Remove the device factories: batches go back to the CPU default.
-    The breakers are discarded; a probe in flight reports to an orphan."""
+    """Remove the device factories: batches go back to the CPU default,
+    and the group affinity to crypto.batch.native_cpu_affinity unless an
+    operator pinned one. The breakers are discarded; a probe in flight
+    reports to an orphan."""
     global _GATHER_DEADLINE_S, _MIN_BATCH
     for key_type in KEY_TYPES:
         unregister_device_factory(key_type)
@@ -681,6 +702,7 @@ def uninstall() -> None:
         _WARM.clear()
     for route in ROUTES:
         _breaker_mod.discard(route)
+    set_group_affinity_fn(native_cpu_affinity)
 
 
 def installed() -> Optional[int]:

@@ -1,8 +1,8 @@
 """Deterministic protobuf wire-format encoding (the subset the slice uses).
 
 Counterpart: tendermint_tpu/encoding/proto.py, trimmed to ProtoWriter,
-FieldReader, iter_fields, encode_varint and length_prefixed (plus the
-decoders they need). Encoding is deterministic by construction: fields
+FieldReader, iter_fields, encode_varint, encode_zigzag and
+length_prefixed (plus the decoders they need). Encoding is deterministic by construction: fields
 in ascending tag order, proto3 defaults omitted. Wire types: 0 = varint,
 1 = fixed64, 2 = length-delimited, 5 = fixed32.
 """
@@ -16,6 +16,7 @@ __all__ = [
     "FieldReader",
     "ProtoWriter",
     "encode_varint",
+    "encode_zigzag",
     "decode_varint",
     "length_prefixed",
     "read_length_prefixed",
@@ -49,6 +50,10 @@ def encode_varint(value: int) -> bytes:
         else:
             out.append(b)
             return bytes(out)
+
+
+def encode_zigzag(value: int) -> int:
+    return (value << 1) ^ (value >> 63) if value < 0 else value << 1
 
 
 def decode_varint(data: bytes, offset: int = 0) -> Tuple[int, int]:
@@ -269,3 +274,13 @@ class FieldReader:
                 f"field {field}: expected length-delimited, got varint"
             )
         return v
+
+    def string(self, field: int, default: str = "") -> str:
+        v = self.get(field)
+        if v is None:
+            return default
+        if not isinstance(v, (bytes, bytearray, memoryview)):
+            raise ValueError(
+                f"field {field}: expected length-delimited, got varint"
+            )
+        return bytes(v).decode("utf-8")

@@ -8,6 +8,9 @@ JAX package writes:
 - validator_set_from_proto: the wire bytes of
   ValidatorSet.to_proto() (types/validator.py:516) -> the port's
   ValidatorSet, ed25519 and sr25519 keys alike;
+- light_block_from_proto / signed_header_from_proto: the wire bytes of
+  LightBlock.to_proto() and SignedHeader.to_proto() (types/light.py:98,
+  :54) -> the port's LightBlock and SignedHeader;
 - points_from_numpy: a (k, 20, N) int32 limb stack from the JAX field
   and point functions (as numpy) -> a tensor for kernel K1 and the
   point-level functions here;
@@ -28,15 +31,18 @@ from .crypto import batch  # noqa: F401  (registers the key types)
 from .crypto.merkle import Proof
 from .ops import field25519 as F
 from .types.commit import Commit
+from .types.light import LightBlock, SignedHeader
 from .types.validator import ValidatorSet
 
 __all__ = [
     "cols_from_rows",
     "commit_from_proto",
+    "light_block_from_proto",
     "points_from_numpy",
     "proofs_from_proto",
     "proofs_to_proto",
     "rows_from_cols",
+    "signed_header_from_proto",
     "validator_set_from_proto",
 ]
 
@@ -47,6 +53,14 @@ def commit_from_proto(data: bytes) -> Commit:
 
 def validator_set_from_proto(data: bytes) -> ValidatorSet:
     return ValidatorSet.from_proto(bytes(data))
+
+
+def light_block_from_proto(data: bytes) -> LightBlock:
+    return LightBlock.from_proto(bytes(data))
+
+
+def signed_header_from_proto(data: bytes) -> SignedHeader:
+    return SignedHeader.from_proto(bytes(data))
 
 
 def points_from_numpy(arr, device="cuda") -> torch.Tensor:

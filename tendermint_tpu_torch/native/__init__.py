@@ -4,10 +4,14 @@ Counterpart: tendermint_tpu/native/__init__.py:41-98 (`load`, `_build`)
 and :139-256 (`ed25519_batch_lib`, `ristretto_basemul`,
 `sr25519_challenge`). ed25519_batch.c and keccakf_core.h beside this
 module are copies of the JAX package's, byte for byte but for a first
-comment naming the original: the cofactored random-linear-combination
+comment naming the original and, at the end of ed25519_batch.c, one
+function of the port's own: the cofactored random-linear-combination
 batch equation for ed25519 (ZIP-215) and sr25519 (schnorrkel over
-ristretto255), with SHA-512 and merlin challenges computed in C, and
-the fixed-base ristretto multiply of sr25519 keygen and signing.
+ristretto255), with SHA-512 and merlin challenges computed in C, the
+fixed-base ristretto multiply of sr25519 keygen and signing, and its
+Edwards twin tm_ed25519_basemul (`ed25519_basemul`), which ed25519
+keygen and signing use, as the JAX package signs ed25519 natively
+through OpenSSL (tendermint_tpu/crypto/ed25519.py:143-145).
 
 The library is compiled by the host C compiler ($CC, else `cc`; -O3
 -funroll-loops -shared -fPIC) into `build/native/` at the repository
@@ -31,6 +35,7 @@ from pathlib import Path
 
 __all__ = [
     "BUILD_DIR",
+    "ed25519_basemul",
     "ed25519_batch_lib",
     "ristretto_basemul",
     "sr25519_challenge",
@@ -92,7 +97,8 @@ def ed25519_batch_lib() -> ctypes.CDLL:
       tm_sr25519_verify_full(...) -> 1 all valid / 0 invalid somewhere /
       -1 undecodable or out of memory;
     - tm_sr25519_challenge(pk, r, msg, mlen, out32);
-    - tm_ristretto_basemul(scalar32, out32) -> 0.
+    - tm_ristretto_basemul(scalar32, out32) -> 0;
+    - tm_ed25519_basemul(scalar32, out32) -> 0.
     """
     global _LIB
     with _lock:
@@ -106,8 +112,9 @@ def ed25519_batch_lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.tm_sr25519_challenge.argtypes = [_P, _P, _P, _U64, _P]
             lib.tm_sr25519_challenge.restype = None
-            lib.tm_ristretto_basemul.argtypes = [_P, _P]
-            lib.tm_ristretto_basemul.restype = ctypes.c_int
+            for fn in (lib.tm_ristretto_basemul, lib.tm_ed25519_basemul):
+                fn.argtypes = [_P, _P]
+                fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 
@@ -118,6 +125,16 @@ def ristretto_basemul(scalar_le32: bytes) -> bytes:
         raise ValueError(f"scalar must be 32 bytes, got {len(scalar_le32)}")
     out = ctypes.create_string_buffer(32)
     ed25519_batch_lib().tm_ristretto_basemul(scalar_le32, out)
+    return out.raw
+
+
+def ed25519_basemul(scalar_le32: bytes) -> bytes:
+    """The RFC 8032 encoding of scalar B, scalar 32 little-endian
+    bytes."""
+    if len(scalar_le32) != 32:
+        raise ValueError(f"scalar must be 32 bytes, got {len(scalar_le32)}")
+    out = ctypes.create_string_buffer(32)
+    ed25519_batch_lib().tm_ed25519_basemul(scalar_le32, out)
     return out.raw
 
 

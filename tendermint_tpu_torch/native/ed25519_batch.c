@@ -1,4 +1,4 @@
-/* Copy of tendermint_tpu/native/ed25519_batch.c for the port's CPU plane (tendermint_tpu_torch/native). */
+/* Copy of tendermint_tpu/native/ed25519_batch.c for the port's CPU plane (tendermint_tpu_torch/native), with one addition at its end: tm_ed25519_basemul. */
 /* Batched ed25519 verification via the random-linear-combination batch
  * equation — the CPU-fallback analog of the reference's curve25519-voi
  * batch verifier (reference: crypto/ed25519/ed25519.go:202-237, which
@@ -1797,5 +1797,64 @@ int tm_ristretto_basemul(const uint8_t *scalar, uint8_t *out) {
     ge R;
     ge_basemul_ct(&R, scalar);
     rist_encode(out, &R);
+    return 0;
+}
+
+/* The Edwards twin of tm_ristretto_basemul, for ed25519 keygen (A = aB)
+ * and signing (R = rB): out = the RFC 8032 encoding of scalar * B, y
+ * little-endian with the sign of x in the top bit. scalar: 32 bytes
+ * little-endian, any value (B has order L, so a clamped key need not be
+ * reduced). With a table of d * 16^w * B for each of the 64 nibble
+ * positions w, a multiply is 64 additions and no doubling; each entry is
+ * picked by a constant-time select over all 16, as ge_basemul_ct picks
+ * its. 1/Z is Z^(p-2) = (Z^(2^252-3))^8 * Z^3. Returns 0. */
+static ge POS_TABLE16[64][16]; /* 160 KB, public contents */
+static atomic_int pos_table_state;
+
+static void pos_table_init(void) {
+    if (atomic_load_explicit(&pos_table_state, memory_order_acquire) == 2)
+        return;
+    int expected = 0;
+    if (atomic_compare_exchange_strong(&pos_table_state, &expected, 1)) {
+        ge base;
+        base_table_init();
+        base = BASE_TABLE16[1];
+        for (int w = 0; w < 64; w++) {
+            ge_identity(&POS_TABLE16[w][0]);
+            POS_TABLE16[w][1] = base;
+            for (int d = 2; d < 16; d++)
+                ge_add(&POS_TABLE16[w][d], &POS_TABLE16[w][d - 1], &base);
+            for (int k = 0; k < 4; k++) ge_dbl(&base, &base);
+        }
+        atomic_store_explicit(&pos_table_state, 2, memory_order_release);
+    } else {
+        while (atomic_load_explicit(&pos_table_state, memory_order_acquire)
+               != 2) {
+        }
+    }
+}
+
+int tm_ed25519_basemul(const uint8_t *scalar, uint8_t *out) {
+    ge R;
+    fe zinv, z3, x, y;
+    pos_table_init();
+    ge_identity(&R);
+    for (int w = 0; w < 64; w++) {
+        uint64_t d = (w & 1) ? (uint64_t)(scalar[w >> 1] >> 4)
+                             : (uint64_t)(scalar[w >> 1] & 0x0f);
+        ge sel = POS_TABLE16[w][0];
+        for (uint64_t j = 1; j < 16; j++)
+            ge_cmov(&sel, &POS_TABLE16[w][j], ct_eq_u64(d, j));
+        ge_add(&R, &R, &sel);
+    }
+    fe_pow2523(zinv, R.Z);
+    fe_sqn(zinv, zinv, 3);
+    fe_sq(z3, R.Z);
+    fe_mul(z3, z3, R.Z);
+    fe_mul(zinv, zinv, z3);
+    fe_mul(x, R.X, zinv);
+    fe_mul(y, R.Y, zinv);
+    fe_tobytes(out, y);
+    out[31] |= (uint8_t)(fe_isneg(x) << 7);
     return 0;
 }

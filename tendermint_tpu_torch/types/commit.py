@@ -1,17 +1,19 @@
 """Commit and CommitSig: the 2/3-majority precommit record in a block.
 
 Counterpart: tendermint_tpu/types/commit.py (wire format :148-165 and
-:438-464, sign-bytes :311-410). The JAX package's memo machinery
-(mutation epochs, sign-bytes rows, flag arrays, fingerprint tokens)
-served its warm verification paths and is left out: a Commit here
-encodes its sign-bytes on every call and caches only the per-chain
-splice templates.
+:438-464, sign-bytes :311-410, `block_id_flags_array` :262). The JAX
+package's memo machinery (mutation epochs, sign-bytes rows, the flag
+array's memo, fingerprint tokens) served its warm verification paths and
+is left out: a Commit here encodes its sign-bytes and builds its flag
+array on every call and caches only the per-chain splice templates.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from ..crypto import merkle
 from ..encoding.proto import FieldReader, ProtoWriter, iter_fields
@@ -136,6 +138,23 @@ class Commit:
         for i, cs in enumerate(self.signatures):
             ba.set(i, not cs.is_absent())
         return ba
+
+    def block_id_flags_array(self) -> Optional[np.ndarray]:
+        """The per-signature BlockIDFlags as np.uint8, or None when a
+        flag lies outside uint8 (from_proto reads an unbounded varint):
+        the caller then takes the scalar loop, so a hostile commit gets
+        the reference InvalidCommitError."""
+        try:
+            arr = np.fromiter(
+                (cs.block_id_flag for cs in self.signatures),
+                dtype=np.int64,
+                count=len(self.signatures),
+            )
+        except (OverflowError, ValueError):
+            return None
+        if arr.size and (arr.min() < 0 or arr.max() > 0xFF):
+            return None
+        return arr.astype(np.uint8)
 
     def get_vote(self, val_idx: int) -> Vote:
         """The precommit vote at a validator index."""

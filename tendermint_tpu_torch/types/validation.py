@@ -2,16 +2,20 @@
 
 Counterpart: tendermint_tpu/types/validation.py:74-190 (verify_commit,
 verify_commit_light, verify_commit_light_trusting and their errors), the
-batch path :403-475 with the scalar reference tally :752-865, the drain
-:868-895 and the single path :898-964. Error types and messages are
-byte-identical to the JAX package's.
+merged light verification of many commits (collect_commit_light :191,
+verify_triples_grouped :258, verify_commit_light_bulk :321, and
+_prefix_crossing :476), the batch path :403-475 with the scalar
+reference tally :752-865, the drain :868-895 and the single path
+:898-964. Error types and messages are byte-identical to the JAX
+package's.
 
 The batch path packs a Commit's (pubkey, sign-bytes, signature) triples
 into one crypto.batch verifier per key type; with the device verifier
 installed (crypto/gpu_verifier.install) that is the CUDA kernels on the
 padded batch. Left out on purpose: the verified-signature cache, the
 commit-level memo and tracing. A cache would skip the kernels on the
-very path being brought up.
+very path being brought up. So verify_triples_grouped verifies every
+triple it is given, and verify_commit_light_bulk collects every commit.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
+
 from ..crypto.batch import create_batch_verifier, supports_batch_verifier
 from .block_id import BlockID
-from .commit import Commit, CommitSig
+from .commit import BLOCK_ID_FLAG_COMMIT, Commit, CommitSig
 from .validator import ValidatorSet
 
 __all__ = [
@@ -29,9 +35,12 @@ __all__ = [
     "Fraction",
     "InvalidCommitError",
     "NotEnoughVotingPowerError",
+    "collect_commit_light",
     "verify_commit",
     "verify_commit_light",
+    "verify_commit_light_bulk",
     "verify_commit_light_trusting",
+    "verify_triples_grouped",
 ]
 
 BATCH_VERIFY_THRESHOLD = 2  # reference: types/validation.go:12
@@ -140,6 +149,113 @@ def verify_commit_light_trusting(
         chain_id, vals, commit, needed,
         lambda c: not c.is_for_block(), lambda c: True, False, False,
     )
+
+
+def collect_commit_light(
+    chain_id: str,
+    vals: ValidatorSet,
+    block_id: BlockID,
+    height: int,
+    commit: Commit,
+) -> list:
+    """verify_commit_light's checks but the signatures (set size, height,
+    block ID, the 2/3 tally with its early exit), returning the
+    (pub_key, sign_bytes, signature) triples it would have checked,
+    unchecked. A caller folds the triples of many commits into one batch
+    (the light client's sequential window); when that batch fails, it
+    re-verifies commit by commit for the reference's error."""
+    _verify_basic(vals, commit, height, block_id)
+    voting_power_needed = vals.total_voting_power() * 2 // 3
+    flags = commit.block_id_flags_array()
+    if flags is not None:
+        # the prefix-sum form of the early-exit tally: the crossing index
+        # is the vote after which the scalar loop below returns
+        tallied, end = _prefix_crossing(
+            np.where(flags == BLOCK_ID_FLAG_COMMIT, vals.powers_array(), 0),
+            voting_power_needed,
+        )
+        if end is None:
+            raise NotEnoughVotingPowerError(tallied, voting_power_needed)
+        validators = vals.validators
+        signatures = commit.signatures
+        return [
+            (
+                validators[i].pub_key,
+                commit.vote_sign_bytes(chain_id, i),
+                signatures[i].signature,
+            )
+            for i in np.flatnonzero(flags[:end] == BLOCK_ID_FLAG_COMMIT).tolist()
+        ]
+    # the scalar reference loop, for flags outside uint8
+    tallied = 0
+    out = []
+    for idx, commit_sig in enumerate(commit.signatures):
+        if not commit_sig.is_for_block():
+            continue
+        val = vals.validators[idx]
+        out.append(
+            (
+                val.pub_key,
+                commit.vote_sign_bytes(chain_id, idx),
+                commit_sig.signature,
+            )
+        )
+        tallied += val.voting_power
+        if tallied > voting_power_needed:
+            return out
+    raise NotEnoughVotingPowerError(tallied, voting_power_needed)
+
+
+def verify_triples_grouped(triples) -> None:
+    """One signature check over (pub_key, sign_bytes, signature) triples
+    of many commits (collect_commit_light): one batch verifier a key
+    type, each with its own size hint; a key type without batch support
+    verifies inline. Raises InvalidCommitError on any bad signature,
+    without an index: the caller re-verifies commit by commit for the
+    reference's error."""
+    pending: dict = {}
+    for pk, sb, sig in triples:
+        if not supports_batch_verifier(pk):
+            if not pk.verify_signature(sb, sig):
+                raise InvalidCommitError("wrong signature in merged batch")
+            continue
+        pending.setdefault(pk.type(), []).append((pk, sb, sig))
+    for items in pending.values():
+        bv = create_batch_verifier(items[0][0], size_hint=len(items))
+        for pk, sb, sig in items:
+            bv.add(pk, sb, sig)
+        ok, _bits = bv.verify()
+        if not ok:
+            raise InvalidCommitError("wrong signature in merged batch")
+
+
+def verify_commit_light_bulk(chain_id: str, rows) -> None:
+    """verify_commit_light of M commits in one pass: `rows` holds
+    (vals, block_id, height, commit), checked in order with
+    collect_commit_light's errors, then every commit's triples in one
+    verify_triples_grouped call. A bad signature raises
+    InvalidCommitError without the commit's index."""
+    triples: list = []
+    for vals, block_id, height, commit in rows:
+        triples.extend(
+            collect_commit_light(chain_id, vals, block_id, height, commit)
+        )
+    if triples:
+        verify_triples_grouped(triples)
+
+
+def _prefix_crossing(masked_powers, voting_power_needed: int):
+    """(tallied, end) of the reference's early-exit scan over
+    `masked_powers`, the power each position adds (0 where the scan
+    skips): the scan stops after the vote whose running total first
+    exceeds the threshold, so `end` is that index + 1, or None when the
+    whole array is scanned without crossing it."""
+    cum = masked_powers.cumsum()
+    total = int(cum[-1]) if cum.size else 0
+    if total > voting_power_needed:
+        cross = int(np.argmax(cum > voting_power_needed))
+        return int(cum[cross]), cross + 1
+    return total, None
 
 
 def _verify_basic(

@@ -1,14 +1,21 @@
-"""Validator and ValidatorSet: what commit verification reads.
+"""Validator and ValidatorSet: what commit and light verification read.
 
-Counterpart: tendermint_tpu/types/validator.py (construction from a
-validator list, order, hash, proto round-trip). Proposer selection (the
-priority increments, rescaling and change sets) is left to the slice
-that wires the node: commit verification reads only the order, the
-powers, the keys and the proposer's key type. A set built here keeps the
-priorities it was given (zero by default) and names a proposer only when
-one came with it on the wire (from_proto), so its to_proto equals the
-JAX package's for a set carried across, not for one built here; the
-hash, which covers keys and powers only, is the same either way.
+Counterpart: tendermint_tpu/types/validator.py: Validator (:58-121), the
+set's construction from a validator list into an empty set (:146-160,
+:389-512 restricted to additions), proposer selection (:124-140,
+:298-371), `powers_array` (:193), the `hash()` memo and its
+invalidation by `_reindex` (:276-285, :373-385), `validate_basic`
+(:591) and the proto round-trip with its memo (:516-570). A set built
+here gets the priorities and the proposer the JAX package's constructor
+gives it, so its to_proto equals the JAX package's. Left out: change
+sets (update_with_change_set), copies, and the memos of the JAX
+package's warm commit paths (pubkey bytes, fingerprint tokens);
+powers_array is computed per call.
+
+The hash memo covers keys and powers only; like the JAX package's, it is
+dropped by _reindex, which every path that changes the membership here
+runs, and an in-place change of a validator's key or power is not a
+supported mutation of a set.
 """
 
 from __future__ import annotations
@@ -16,14 +23,29 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
+
 from ..crypto import merkle
 from ..crypto.keys import PubKey, pubkey_from_proto, pubkey_to_proto
 from ..encoding.proto import FieldReader, ProtoWriter, iter_fields
 
-__all__ = ["Validator", "ValidatorSet", "MAX_TOTAL_VOTING_POWER"]
+__all__ = [
+    "MAX_TOTAL_VOTING_POWER",
+    "PRIORITY_WINDOW_SIZE_FACTOR",
+    "Validator",
+    "ValidatorSet",
+]
 
-# reference: types/validator_set.go:25
-MAX_TOTAL_VOTING_POWER = ((1 << 63) - 1) // 8
+INT64_MAX = (1 << 63) - 1
+INT64_MIN = -(1 << 63)
+
+# reference: types/validator_set.go:25,29
+MAX_TOTAL_VOTING_POWER = INT64_MAX // 8
+PRIORITY_WINDOW_SIZE_FACTOR = 2
+
+
+def _clip(v: int) -> int:
+    return INT64_MAX if v > INT64_MAX else INT64_MIN if v < INT64_MIN else v
 
 
 @dataclass
@@ -39,6 +61,14 @@ class Validator:
 
     def copy(self) -> "Validator":
         return replace(self)
+
+    def validate_basic(self) -> None:
+        if self.pub_key is None:
+            raise ValueError("validator does not have a public key")
+        if self.voting_power < 0:
+            raise ValueError("validator has negative voting power")
+        if len(self.address) != 20:
+            raise ValueError("validator address is the wrong size")
 
     def hash_bytes(self) -> bytes:
         """SimpleValidator proto (pubkey + power, no priority/address) —
@@ -71,6 +101,19 @@ class Validator:
         )
 
 
+def _cmp_most_priority(a: Validator, b: Validator) -> Validator:
+    """Higher priority wins; ties break toward the lower address."""
+    if a.proposer_priority > b.proposer_priority:
+        return a
+    if a.proposer_priority < b.proposer_priority:
+        return b
+    if a.address < b.address:
+        return a
+    if a.address > b.address:
+        return b
+    raise ValueError("cannot compare identical validators")
+
+
 class ValidatorSet:
     """Validators sorted by voting power desc, then address asc, with an
     address index for O(1) get_by_address."""
@@ -80,7 +123,10 @@ class ValidatorSet:
         self.proposer: Optional[Validator] = None
         self._total_voting_power = 0
         self._addr_index: Dict[bytes, int] = {}
+        self._hash: Optional[bytes] = None
         self._add_validators([v.copy() for v in validators or ()])
+        if self.validators:
+            self.increment_proposer_priority(1)
 
     # -- basic accessors --
 
@@ -105,10 +151,19 @@ class ValidatorSet:
             self._update_total_voting_power()
         return self._total_voting_power
 
+    def powers_array(self) -> np.ndarray:
+        """Voting powers as an int64 array aligned with self.validators."""
+        return np.fromiter(
+            (v.voting_power for v in self.validators),
+            dtype=np.int64,
+            count=len(self.validators),
+        )
+
     def _reindex(self) -> None:
         self._addr_index = {
             v.address: i for i, v in enumerate(self.validators)
         }
+        self._hash = None  # the membership changed
 
     def _update_total_voting_power(self) -> None:
         total = 0
@@ -120,26 +175,75 @@ class ValidatorSet:
                 )
         self._total_voting_power = total
 
+    # -- proposer selection (reference: types/validator_set.go:107-226) --
+
     def get_proposer(self) -> Validator:
-        """The proposer from the wire, else the validator of highest
-        priority, ties to the lower address (reference:
-        types/validator.go:77-97)."""
         if not self.validators:
             raise ValueError("empty validator set")
-        if self.proposer is not None:
-            return self.proposer.copy()
-        return min(
-            self.validators, key=lambda v: (-v.proposer_priority, v.address)
-        ).copy()
+        if self.proposer is None:
+            self.proposer = self._find_proposer()
+        return self.proposer.copy()
+
+    def _find_proposer(self) -> Validator:
+        result = None
+        for v in self.validators:
+            result = v if result is None else _cmp_most_priority(result, v)
+        return result
+
+    def increment_proposer_priority(self, times: int) -> None:
+        if not self.validators:
+            raise ValueError("empty validator set")
+        if times <= 0:
+            raise ValueError("times must be positive")
+        self._rescale_priorities(
+            PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        )
+        self._shift_by_avg_proposer_priority()
+        proposer = None
+        for _ in range(times):
+            proposer = self._increment_proposer_priority()
+        self.proposer = proposer
+
+    def _increment_proposer_priority(self) -> Validator:
+        for v in self.validators:
+            v.proposer_priority = _clip(v.proposer_priority + v.voting_power)
+        mostest = self._find_proposer()
+        mostest.proposer_priority = _clip(
+            mostest.proposer_priority - self.total_voting_power()
+        )
+        return mostest
+
+    def _rescale_priorities(self, diff_max: int) -> None:
+        if diff_max <= 0:
+            return
+        prios = [v.proposer_priority for v in self.validators]
+        diff = max(prios) - min(prios)
+        ratio = (diff + diff_max - 1) // diff_max
+        if diff > diff_max:
+            for v in self.validators:
+                # Go integer division truncates toward zero
+                p = v.proposer_priority
+                v.proposer_priority = -((-p) // ratio) if p < 0 else p // ratio
+
+    def _shift_by_avg_proposer_priority(self) -> None:
+        # Go's big.Int Div floors for a positive divisor, as // does
+        avg = sum(v.proposer_priority for v in self.validators) // len(
+            self.validators
+        )
+        for v in self.validators:
+            v.proposer_priority = _clip(v.proposer_priority - avg)
 
     # -- hashing --
 
     def hash(self) -> bytes:
         """Merkle root of the SimpleValidator leaves (pub_key and power
-        in order, not priorities)."""
-        return merkle.hash_from_byte_slices(
-            [v.hash_bytes() for v in self.validators]
-        )
+        in order, not priorities). Memoized until _reindex(): light sync
+        hashes the same set several times a header otherwise."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices(
+                [v.hash_bytes() for v in self.validators]
+            )
+        return self._hash
 
     # -- construction: validator_set.go:380-651 restricted to additions
     #    into an empty set --
@@ -161,18 +265,50 @@ class ValidatorSet:
             changes, key=lambda v: (-v.voting_power, v.address)
         )
         self._update_total_voting_power()
+        # every validator is new: -1.125 * the total power
+        # (reference: types/validator_set.go:540-552)
+        tvp = self._total_voting_power
+        for v in self.validators:
+            v.proposer_priority = -(tvp + (tvp >> 3))
         self._reindex()
 
     # -- proto --
 
     def to_proto(self) -> bytes:
+        """Memoized against every field the wire form reads: the light
+        store saves one LightBlock a header, each with the same set, and
+        re-encoding its validators is most of a save otherwise.
+        Priorities change in place (increment_proposer_priority) and the
+        validators are handed out live, so the memo is checked against
+        their fields on every call rather than dropped by a hook."""
+        key = (
+            tuple(
+                (v.address, v.pub_key.bytes(), v.voting_power, v.proposer_priority)
+                for v in self.validators
+            ),
+            (
+                (
+                    self.proposer.address,
+                    self.proposer.pub_key.bytes(),
+                    self.proposer.voting_power,
+                    self.proposer.proposer_priority,
+                )
+                if self.proposer is not None
+                else None
+            ),
+        )
+        memo = getattr(self, "_proto_memo", None)
+        if memo is not None and memo[0] == key:
+            return memo[1]
         w = ProtoWriter()
         for v in self.validators:
             w.message(1, v.to_proto())
         if self.proposer is not None:
             w.message(2, self.proposer.to_proto())
         w.int(3, self.total_voting_power())
-        return w.finish()
+        out = w.finish()
+        self._proto_memo = (key, out)
+        return out
 
     @classmethod
     def from_proto(cls, data: bytes) -> "ValidatorSet":
@@ -191,6 +327,18 @@ class ValidatorSet:
         new._total_voting_power = 0
         new._reindex()
         return new
+
+    def validate_basic(self) -> None:
+        if not self.validators:
+            raise ValueError("validator set is nil or empty")
+        for i, v in enumerate(self.validators):
+            try:
+                v.validate_basic()
+            except ValueError as e:
+                raise ValueError(f"invalid validator #{i}: {e}") from e
+        if self.proposer is None:
+            raise ValueError("proposer failed validate basic: nil")
+        self.proposer.validate_basic()
 
     def __repr__(self) -> str:
         return (

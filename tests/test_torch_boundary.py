@@ -68,17 +68,28 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         "tendermint_tpu_torch.node.device",
         "tendermint_tpu_torch.crypto.faults",
         "tendermint_tpu_torch.crypto.breaker",
+        "tendermint_tpu_torch.light.client",
+        "tendermint_tpu_torch.light.verifier",
+        "tendermint_tpu_torch.light.provider",
+        "tendermint_tpu_torch.light.store",
+        "tendermint_tpu_torch.types.header",
+        "tendermint_tpu_torch.types.light",
+        "tendermint_tpu_torch.types.evidence",
+        "tendermint_tpu_torch.store.kv",
+        "tendermint_tpu_torch.workloads",
+        "tendermint_tpu_torch.bench",
     ):
         assert m in added
     assert [m for m in added if _forbidden(m)] == []
 
 
 def test_importing_the_device_plane_builds_and_starts_nothing():
-    """Importing native/, node/, faults and breaker compiles no library
-    and starts no thread: the native plane builds at first use."""
+    """Importing native/, node/, faults and breaker, the light client,
+    the workloads and the bench compiles no library and starts no
+    thread: the native plane builds at first use."""
     code = (
         "import json, threading\n"
-        "from tendermint_tpu_torch import native\n"
+        "from tendermint_tpu_torch import bench, light, native, workloads\n"
         "from tendermint_tpu_torch.node import device\n"
         "from tendermint_tpu_torch.crypto import breaker, faults, gpu_verifier\n"
         "print(json.dumps([native._LIB is None, threading.active_count(),\n"

@@ -6,9 +6,14 @@ verify through it (singles at n = 1, batches by the random-linear-
 combination equation and then a signature at a time). Held here against
 the JAX package's CPU verifiers and the pure-Python oracles on the port's
 ZIP-215 and sr25519 corpora: singles, and batches of 1, 2, 8 and 64 with
-0, 1 and 3 bad entries at fixed indices. Tolerance: zero (identical
-bitmaps). A compiler that fails makes the loader raise.
+0, 1 and 3 bad entries at fixed indices. ed25519 keygen and signing
+take their fixed-base multiplies from the same library: its encodings
+are held against the pure-Python multiply, and keys and signatures
+against the JAX package's. Tolerance: zero (identical bitmaps and
+bytes). A compiler that fails makes the loader raise.
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -170,6 +175,45 @@ def test_sr25519_native_keygen_and_signing_match_the_pure_python_path():
         assert sig == priv._finish(r, r_bytes, k)
         assert PS.PubKeySr25519(priv._pub).verify_signature_oracle(msg, sig)
         assert JS.PubKeySr25519(priv._pub).verify_signature_cpu(msg, sig)
+
+
+# scalars of the fixed-base multiply: zero, one, L - 1, L, L + 1, the
+# largest 32-byte value, each byte's extremes, and seeded ones
+_EDGE_SCALARS = [0, 1, em.L - 1, em.L, em.L + 1, (1 << 256) - 1, 0x0F << 248, 0xF0]
+
+
+def test_ed25519_native_basemul_matches_the_python_oracle():
+    """tm_ed25519_basemul(s) is compress(mul_base_ct(s)) for any 256-bit
+    s: the RFC 8032 encoding, bit for bit."""
+    rng = np.random.default_rng(7)
+    scalars = _EDGE_SCALARS + [
+        int.from_bytes(rng.bytes(32), "little") for _ in range(24)
+    ]
+    for s in scalars:
+        got = native.ed25519_basemul(s.to_bytes(32, "little"))
+        assert got == em.compress(em.mul_base_ct(s)), hex(s)
+    with pytest.raises(ValueError, match="32 bytes"):
+        native.ed25519_basemul(b"\x01" * 31)
+
+
+def test_ed25519_keygen_and_signing_match_the_jax_package():
+    """Keys and signatures from the native multiply: the JAX package's
+    (OpenSSL's) public keys and signatures on seeded keys and messages,
+    and the pure-Python RFC 8032 route's."""
+    rng = np.random.default_rng(11)
+    for i in range(12):
+        seed = rng.bytes(32)
+        msg = rng.bytes(int(rng.integers(0, 300)))
+        port, jax = PE.PrivKeyEd25519(seed), JE.PrivKeyEd25519.from_seed(seed)
+        assert port.pub_key().bytes() == jax.pub_key().bytes()
+        sig = port.sign(msg)
+        assert sig == jax.sign(msg)
+        a, prefix = PE._expand_seed(seed)
+        r = int.from_bytes(hashlib.sha512(prefix + msg).digest(), "little") % em.L
+        R = em.compress(em.mul_base_ct(r))
+        k = em.sha512_mod_l(R, port.pub_key().bytes(), msg)
+        assert sig == R + ((r + k * a) % em.L).to_bytes(32, "little")
+        assert port.pub_key().bytes() == em.compress(em.mul_base_ct(a))
 
 
 def test_a_failing_compiler_makes_the_loader_raise(monkeypatch, tmp_path):
