@@ -39,7 +39,7 @@ time and at windows of 8 and 16, rejects a signature flipped in the
 middle of its second window with that commit's own error and nothing
 above it stored, and syncs a mixed 75 + 75 chain of 256 headers with X3
 in merged windows. Keys, key types, messages, timestamps, signing
-witnesses, chains and transactions come from --seed (the builders of
+witnesses, chains and transactions come from --seed (made by
 tendermint_tpu_torch.workloads).
 
 Before the main paths, every kernel is held against its plain version:
