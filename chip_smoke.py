@@ -13,7 +13,14 @@ types.validation.verify_commit on a 10,000-validator ed25519 Commit
 and a 10,000-validator Commit with one bad signature that must be
 rejected at that index; then the same on mixed Commits, 5,000 ed25519
 and 5,000 sr25519 validators (75 + 75 for the light one), and the mixed
-10k Commit once through the hybrid program; then BASELINE.md config 5
+10k Commit once through the hybrid program; then phase host_path holds
+the host path of a Commit against its references on the card's host:
+the sign-bytes spliced in C against the Python splice on both 10k
+Commits, the vector plans of types/validation.py against its scalar loop
+(outcome, message and launches; clean, with a bad signature, a nil vote
+and too little power) on both 10k Commits and both 150-validator ones,
+and the merlin challenges of 5,000 sr25519 signatures in one C call
+against a call a signature; then BASELINE.md config 5
 whole (phase config5): with crypto.gpu_verifier and ops.merkle_kernel
 installed, the merkle roots of the mixed 10k validator set, of its
 Commit and of a block of 10,000 transactions (100-300 bytes), its
@@ -68,7 +75,9 @@ thread's chain of inner hashes; for every kernel its registers, stack
 frame and spill bytes from ptxas -v); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises and the script exits non-zero
 without that line. It exits non-zero at once when CUDA is not available
-or when the package is not beside it.
+or when the package is not beside it. With --profile, each 10k Commit's
+verify_commit is broken down by stage and by kernel, on the vector plans
+and then on the scalar loop (the phases named *_scalar).
 """
 
 from __future__ import annotations
@@ -880,6 +889,9 @@ def phase_main_path(torch, seed: int) -> dict:
         "commit": commit,
         "tile": per_call,
         "hybrid": hybrid,
+        "keys": (N_VALIDATORS, seed, 0),
+        "light": (vals150, commit150),
+        "light_keys": (LIGHT_VALIDATORS, seed + 1, 0),
     }
 
 
@@ -1019,7 +1031,314 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
         "tile": per_call,
         "hybrid": hybrid,
         "p50": p50,
+        "keys": (N_VALIDATORS, seed, n_sr),
+        "light": (vals150, commit150),
+        "light_keys": (LIGHT_VALIDATORS, seed + 1, LIGHT_VALIDATORS // 2),
     }
+
+
+# -- the host path of a Commit: C sign-bytes, the vector plans, the
+# merlin challenges of a window --
+
+# repetitions of each host-only timing in phase host_path (median)
+HOST_PATH_REPS = 7
+# where phase host_path makes a signature bad and plants a nil vote: in
+# a light commit both inside the first > 2/3 of its votes that the light
+# plans visit; in a 10k one the bad signature past them (verify_commit
+# alone meets it)
+LIGHT_BAD, LIGHT_NIL = 20, 10
+WIDE_BAD, WIDE_NIL = N_VALIDATORS * 7 // 9, N_VALIDATORS // 3
+
+
+def outcome(fn) -> tuple:
+    """("ok", "") after fn(), or the type and message of what it raised."""
+    try:
+        fn()
+    except Exception as e:  # the outcome compared IS the exception
+        return type(e).__name__, str(e)
+    return "ok", ""
+
+
+@contextlib.contextmanager
+def scalar_route():
+    """types/validation.py's scalar reference loop for the block, reached
+    the way a commit whose BlockIDFlags do not fit uint8 reaches it:
+    Commit.block_id_flags_array() returns None."""
+    from tendermint_tpu_torch.types.commit import Commit
+
+    real = Commit.block_id_flags_array
+    Commit.block_id_flags_array = lambda self: None
+    try:
+        yield
+    finally:
+        Commit.block_id_flags_array = real
+
+
+def python_sign_bytes(commit) -> list:
+    """Commit.sign_bytes_batch through the Python splice, which the port
+    takes only for timestamps outside int64."""
+    sigs = commit.signatures
+    out = [None] * len(sigs)
+    for for_block in (True, False):
+        idxs = [
+            i
+            for i, cs in enumerate(sigs)
+            if not cs.is_absent() and cs.is_for_block() == for_block
+        ]
+        tpl = commit._template(CHAIN_ID, for_block)
+        rows = tpl._sign_bytes_python([sigs[i].timestamp_ns for i in idxs])
+        for i, row in zip(idxs, rows):
+            out[i] = row
+    return out
+
+
+def host_ms(fn, reps: int = HOST_PATH_REPS) -> float:
+    """Median host-clock ms of fn() over reps calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def reference_plan(vals, commit, entry: str, bad: int):
+    """(outcome, {key type: windows}) an entry point must give, from the
+    reference's rule written out here apart from the port's plans:
+    verify_commit verifies every non-absent vote and counts the for-block
+    ones; the light and trusting checks (the trusted set being the
+    commit's own here) verify the for-block votes in index order until
+    the tally first exceeds 2/3 (1/3) of the power. A tally that never
+    does raises before any signature is checked; else the bad signature
+    fails if it was verified. Each key type's verified signatures go to
+    the card in STREAM_CHUNK windows when they reach the min-batch gate."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto.gpu_verifier import _GpuBatchVerifier
+
+    total = sum(v.voting_power for v in vals.validators)
+    needed = total * (1 if entry == "trusting" else 2) // 3
+    tally, picked = 0, []
+    for i, cs in enumerate(commit.signatures):
+        if entry == "verify_commit":
+            if cs.is_absent():
+                continue
+            picked.append(i)
+            tally += vals.validators[i].voting_power if cs.is_for_block() else 0
+            continue
+        if not cs.is_for_block():
+            continue
+        picked.append(i)
+        tally += vals.validators[i].voting_power
+        if tally > needed:
+            break
+    if tally <= needed:
+        return (
+            (
+                "NotEnoughVotingPowerError",
+                f"invalid commit -- insufficient voting power: got {tally}, "
+                f"needed more than {needed}",
+            ),
+            {},
+        )
+    gate, step = GPUConfig().min_batch_size, _GpuBatchVerifier.STREAM_CHUNK
+    counts: dict = {}
+    for i in picked:
+        kt = vals.validators[i].pub_key.type()
+        counts[kt] = counts.get(kt, 0) + 1
+    windows = {kt: -(-c // step) if c >= gate else 0 for kt, c in counts.items()}
+    if bad in picked:
+        sig = commit.signatures[bad].signature
+        return ("InvalidCommitError", f"wrong signature (#{bad}): {sig.hex()}"), windows
+    return ("ok", ""), windows
+
+
+@contextlib.contextmanager
+def commit_variant(commit, keys, at: tuple, name: str, seed: int):
+    """The commit as it is ("clean"), with the signature at at[0] made
+    bad, with the for-block vote at at[1] replaced by a nil vote its
+    validator signed, or with the first third of its votes absent (too
+    little power), for the block; yields the bad signature's index (or
+    -1), then restores the commit. keys: seeded_keys' arguments."""
+    from tendermint_tpu_torch.types.block_id import BlockID
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE
+    from tendermint_tpu_torch.types.commit import CommitSig
+    from tendermint_tpu_torch.types.vote import Vote
+    from tendermint_tpu_torch.workloads import seeded_keys
+
+    sigs = commit.signatures
+    n = len(sigs)
+    saved = list(sigs)
+    bad = -1
+    if name == "bad_signature":
+        bad = at[0]
+        good = sigs[bad]
+        flipped = good.signature[:9] + bytes([good.signature[9] ^ 0x20]) + good.signature[10:]
+        sigs[bad] = CommitSig.for_block(flipped, good.validator_address, good.timestamp_ns)
+    elif name == "nil_vote":
+        i = at[1]
+        cs = sigs[i]
+        privs = {p.pub_key().address(): p for p in seeded_keys(*keys)}
+        priv = privs[cs.validator_address]
+        vote = Vote(
+            type=PRECOMMIT_TYPE,
+            height=commit.height,
+            round=commit.round,
+            block_id=BlockID(),
+            timestamp_ns=cs.timestamp_ns,
+            validator_address=cs.validator_address,
+            validator_index=i,
+        )
+        msg = vote.sign_bytes(CHAIN_ID)
+        if priv.type() == "sr25519":
+            sig = priv.sign(msg, rng=np.random.default_rng([seed, i]).bytes)
+        else:
+            sig = priv.sign(msg)
+        sigs[i] = CommitSig.for_nil(sig, cs.validator_address, cs.timestamp_ns)
+    elif name == "too_little_power":
+        for i in range(n // 3 + 1):
+            sigs[i] = CommitSig.absent()
+    try:
+        yield bad
+    finally:
+        sigs[:] = saved
+
+
+HOST_PATH_VARIANTS = ("clean", "bad_signature", "nil_vote", "too_little_power")
+
+
+def phase_host_path(torch, seed: int, main: dict, mixed: dict) -> dict:
+    """The host path of a Commit on the card's host: the C sign-bytes
+    (native/signbytes.c) against the Python splice, byte for byte, on both
+    10k commits; the vector plans of types/validation.py against its
+    scalar loop on the 10k ed25519 and mixed commits and on the
+    150-validator (config 3) ones, each clean, with a bad signature, a nil
+    vote and too little power, through verify_commit, verify_commit_light
+    and verify_commit_light_trusting with the device plane installed:
+    the same outcome and message as the reference rule gives, on both
+    routes, and the launches each route makes counted against the
+    windows that rule gives; and the merlin challenges of the mixed
+    commit's 5,000 sr25519 signatures in one C call against a call a
+    signature. Host ms of each pair are medians of HOST_PATH_REPS; the
+    collect stage of a config-4 header (collect_commit_light on the
+    150-validator ed25519 commit) on both routes too."""
+    from tendermint_tpu_torch import native
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, sr25519
+    from tendermint_tpu_torch.node.device import (
+        install_device_plane,
+        uninstall_device_plane,
+    )
+    from tendermint_tpu_torch.types import validation as V
+
+    t_phase = time.perf_counter()
+    sign_bytes = {}
+    for name, run in (("ed25519_10k", main), ("mixed_10k", mixed)):
+        commit = run["commit"]
+        rows = commit.sign_bytes_batch(CHAIN_ID)
+        if rows != python_sign_bytes(commit) or None in rows:
+            raise AssertionError(f"{name}: the C sign-bytes differ from the Python splice")
+        sign_bytes[name] = {
+            "rows": len(rows),
+            "c_ms": host_ms(lambda: commit.sign_bytes_batch(CHAIN_ID)),
+            "python_ms": host_ms(lambda: python_sign_bytes(commit)),
+        }
+
+    vals, commit = mixed["vals"], mixed["commit"]
+    rows = commit.sign_bytes_batch(CHAIN_ID)
+    sr = [i for i, v in enumerate(vals.validators) if v.pub_key.type() == "sr25519"]
+    pks = [vals.validators[i].pub_key.bytes() for i in sr]
+    msgs = [rows[i] for i in sr]
+    rs = [commit.signatures[i].signature[:32] for i in sr]
+
+    def singles():
+        return [native.sr25519_challenge(pk, r, m) for pk, m, r in zip(pks, msgs, rs)]
+
+    window = sr25519.challenge_rows(pks, msgs, rs)
+    if [row.tobytes() for row in window] != singles():
+        raise AssertionError("the window's challenges differ from single calls")
+    challenges = {
+        "signatures": len(sr),
+        "window_ms": host_ms(lambda: sr25519.challenge_rows(pks, msgs, rs)),
+        "singles_ms": host_ms(singles),
+    }
+
+    def tile(kt, w):
+        if kt == "ed25519":
+            return {"sha512_ram": w, "ed25519_verify_tile": w}
+        return {"sr25519_verify": w}
+
+    entries = {
+        "verify_commit": lambda v, c: V.verify_commit(CHAIN_ID, v, c.block_id, HEIGHT, c),
+        "verify_commit_light": lambda v, c: V.verify_commit_light(
+            CHAIN_ID, v, c.block_id, HEIGHT, c
+        ),
+        "trusting": lambda v, c: V.verify_commit_light_trusting(
+            CHAIN_ID, v, c, V.Fraction(1, 3)
+        ),
+    }
+    wide, light = (WIDE_BAD, WIDE_NIL), (LIGHT_BAD, LIGHT_NIL)
+    commits = {
+        "ed25519_10k": (main["vals"], main["commit"], main["keys"], wide),
+        "mixed_10k": (mixed["vals"], mixed["commit"], mixed["keys"], wide),
+        "ed25519_150": (*main["light"], main["light_keys"], light),
+        "mixed_150": (*mixed["light"], mixed["light_keys"], light),
+    }
+    plans = {}
+    start = gpu_verifier.stats()
+    install_device_plane(GPUConfig())
+    try:
+        for cname, (vals, commit, keys, at) in commits.items():
+            for variant in HOST_PATH_VARIANTS:
+                with commit_variant(commit, keys, at, variant, seed) as bad:
+                    for ename, entry in entries.items():
+                        want, windows = reference_plan(vals, commit, ename, bad)
+                        expect = {
+                            kt: (windows.get(kt, 0), tile(kt, windows.get(kt, 0)))
+                            for kt in gpu_verifier.KEY_TYPES
+                        }
+                        for route in ("vector", "scalar"):
+                            got = []
+                            ctx = scalar_route() if route == "scalar" else contextlib.nullcontext()
+                            with ctx:
+                                count_one_call(
+                                    lambda: got.append(outcome(lambda: entry(vals, commit))),
+                                    expect,
+                                )
+                            if got[0] != want:
+                                raise AssertionError(
+                                    f"{cname} {variant} {ename} {route}: {got[0]}, not {want}"
+                                )
+                        plans[f"{cname}/{variant}/{ename}"] = {
+                            "outcome": want[0],
+                            "windows": windows,
+                        }
+        vals150, commit150 = main["light"]
+        bid150 = commit150.block_id
+
+        def collect():
+            V.collect_commit_light(CHAIN_ID, vals150, bid150, HEIGHT, commit150)
+
+        collect_ms = {"vector": host_ms(collect, 50)}
+        with scalar_route():
+            collect_ms["scalar"] = host_ms(collect, 50)
+        stats = gpu_verifier.stats()
+        assert_no_fault(start, stats, "host_path")
+    finally:
+        uninstall_device_plane()
+    emit(
+        {
+            "phase": "host_path",
+            "sign_bytes": sign_bytes,
+            "challenges": challenges,
+            "plans_checked": len(plans) * 2,
+            "plans": plans,
+            "collect_150_ms": collect_ms,
+            "phase_s": time.perf_counter() - t_phase,
+            "ok": True,
+        }
+    )
+    return {"sign_bytes": sign_bytes, "challenges": challenges, "collect": collect_ms}
 
 
 def count_merkle_call(fn, expect: dict):
@@ -2321,10 +2640,19 @@ def phase_profile(torch, main: dict, reps: int, out_dir: str, name: str):
     (validation._drain_pending: each key type's add loop, full windows
     dispatched from add(), and its verify()), verify (the batch
     verifiers' verify(): the last windows and the gathers); add is drain
-    less verify, scan the rest (the per-vote predicates and tally).
-    "merlin_in_add_and_verify" is the time inside challenge_batch, the
-    host part of the sr25519 windows that computes their challenges.
-    The signatures per key type are what the verifiers counted."""
+    less verify, scan the rest (the plan: the vector tally or, in a
+    phase named *_scalar, run inside scalar_route(), the scalar loop's
+    per-vote predicates and tally). "merlin_in_add_and_verify" is the
+    time inside challenge_rows, the host part of the sr25519 windows
+    that computes their challenges, one C call a window. The signatures
+    per key type are what the verifiers counted."""
+    if name.endswith("_scalar"):
+        with scalar_route():
+            return _profile(torch, main, reps, out_dir, name)
+    return _profile(torch, main, reps, out_dir, name)
+
+
+def _profile(torch, main: dict, reps: int, out_dir: str, name: str):
     from torch.profiler import ProfilerActivity, profile
 
     from tendermint_tpu_torch.crypto import gpu_verifier
@@ -2346,7 +2674,7 @@ def phase_profile(torch, main: dict, reps: int, out_dir: str, name: str):
                 (type(commit), "sign_bytes_batch", "sign_bytes"),
                 (validation, "_drain_pending", "drain"),
                 (gpu_verifier._GpuBatchVerifier, "verify", "verify"),
-                (sr_mod, "challenge_batch", "merlin"),
+                (sr_mod, "challenge_rows", "merlin"),
             ):
                 hooks.enter_context(timed(owner, attr, stages[into]))
             for _ in range(reps):
@@ -2482,6 +2810,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     phase_merkle_kernels(torch, dev, args.seed)
     main_run = phase_main_path(torch, args.seed)
     mixed_run = phase_sr25519_main_path(torch, args.seed)
+    phase_host_path(torch, args.seed, main_run, mixed_run)
     config5 = phase_config5(torch, dev, args.seed, mixed_run)
     phase_min_batch(torch, main_run, mixed_run)
     phase_fault_containment(torch, main_run, mixed_run)
@@ -2511,8 +2840,11 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     x5["latency_floor_ms_per_batch"] = x5_floor["ns"] / 1e6
     x5["latency_floor_cycles"] = x5_floor["cycles"]
     if args.profile:
-        phase_profile(torch, main_run, 5, args.out, "profile")
-        phase_profile(torch, mixed_run, 5, args.out, "sr25519_profile")
+        # the vector plans and the scalar loop on the same commits, in
+        # turns, so that both meet the same host
+        for run, name in ((main_run, "profile"), (mixed_run, "sr25519_profile")):
+            phase_profile(torch, run, 5, args.out, name)
+            phase_profile(torch, run, 5, args.out, f"{name}_scalar")
     torch.cuda.synchronize()
     print(smi, flush=True)
     emit(kernels)

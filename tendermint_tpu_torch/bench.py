@@ -17,8 +17,9 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   bench.py:74 bench_throughput);
 - commit10k_ed25519, commit10k_mixed: p50 and p95 of verify_commit on a
   10,000-validator Commit (all ed25519; 5,000 + 5,000 sr25519), and the
-  p50 of its stages run alone: sign-bytes, the batch verifiers' add loop
-  (which dispatches full windows) and their verify (bench.py:242, :365);
+  p50 of its stages timed inside the call: sign-bytes, the batch
+  verifiers' add loop (which dispatches full windows), their verify, and
+  the scan, the vector plan's tally (bench.py:242, :365);
 - light150_ed25519, light150_mixed: p50 and p95 of verify_commit_light on
   a 150-validator Commit (75 + 75 mixed; BASELINE.md config 3);
 - light_sync: headers/s of a fresh sequential light client verifying a
@@ -54,6 +55,7 @@ module's size constants).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -239,33 +241,61 @@ def cell_throughput(ctx: Ctx) -> dict:
     return {"sig_verifies_per_s": out, "batch": n, "in_flight": depth, "reps": reps}
 
 
-def _stages(vals, commit, reps: int) -> dict:
-    """p50 ms of verify_commit's stages run alone, as it runs them:
-    sign-bytes; the add loop of one batch verifier a key type (full
-    windows dispatched as they fill); their verify()."""
-    from .crypto.batch import create_batch_verifier
+@contextlib.contextmanager
+def _clocked(spots):
+    """For the block, each (owner, attribute, list) in `spots` is wrapped
+    to append its calls' host ms to the list; the calls are unchanged."""
+    saved = []
 
-    times = {"sign_bytes": [], "assemble": [], "verify": []}
-    for _ in range(reps + 1):
-        t0 = time.perf_counter()
-        rows = commit.sign_bytes_batch(CHAIN_ID)
-        t1 = time.perf_counter()
-        groups: dict = {}
-        for v, sb, cs in zip(vals.validators, rows, commit.signatures):
-            groups.setdefault(v.pub_key.type(), []).append((v.pub_key, sb, cs.signature))
-        bvs = []
-        for items in groups.values():
-            bv = create_batch_verifier(items[0][0], size_hint=len(items))
-            for pk, sb, sig in items:
-                bv.add(pk, sb, sig)
-            bvs.append(bv)
-        t2 = time.perf_counter()
-        oks = [bv.verify()[0] for bv in bvs]
-        t3 = time.perf_counter()
-        if not all(oks):
-            raise AssertionError("a valid commit's batch failed")
-        for name, dt in (("sign_bytes", t1 - t0), ("assemble", t2 - t1), ("verify", t3 - t2)):
-            times[name].append(dt * 1e3)
+    def clock(fn, into):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                into.append((time.perf_counter() - t0) * 1e3)
+
+        return wrapper
+
+    for owner, attr, into in spots:
+        saved.append((owner, attr, vars(owner)[attr]))
+        setattr(owner, attr, clock(getattr(owner, attr), into))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def _stages(vals, commit, reps: int) -> dict:
+    """p50 ms of verify_commit's stages inside the real call (its vector
+    plan), each timed by wrapping a function it calls: sign_bytes
+    (Commit.sign_bytes_batch), assemble (types.validation._drain_pending,
+    each key type's add loop, which dispatches full windows, less verify),
+    verify (the batch verifiers' verify(): the last windows and the
+    gathers) and scan (the rest: the plan's tally and its triples)."""
+    from .crypto.gpu_verifier import _GpuBatchVerifier
+    from .types import validation
+
+    times = {"sign_bytes": [], "assemble": [], "verify": [], "scan": []}
+    spent = {"sign_bytes": [], "drain": [], "verify": []}
+    spots = (
+        (type(commit), "sign_bytes_batch", spent["sign_bytes"]),
+        (validation, "_drain_pending", spent["drain"]),
+        (_GpuBatchVerifier, "verify", spent["verify"]),
+    )
+    with _clocked(spots):
+        for _ in range(reps + 1):
+            for v in spent.values():
+                v.clear()
+            t0 = time.perf_counter()
+            validation.verify_commit(CHAIN_ID, vals, commit.block_id, HEIGHT, commit)
+            total = (time.perf_counter() - t0) * 1e3
+            sb, drain, verify = (sum(spent[k]) for k in ("sign_bytes", "drain", "verify"))
+            times["sign_bytes"].append(sb)
+            times["assemble"].append(drain - verify)
+            times["verify"].append(verify)
+            times["scan"].append(total - sb - drain)
     return {k: float(np.median(v[1:])) for k, v in times.items()}
 
 

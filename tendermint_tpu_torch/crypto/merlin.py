@@ -4,9 +4,9 @@ Counterpart: tendermint_tpu/crypto/merlin.py (`_keccak_f_py` :77,
 `_Strobe128` :124, `Transcript` :227). The Fiat-Shamir transcript of
 schnorrkel/sr25519 (merlin spec: merlin.cool, STROBE spec:
 strobe.sourceforge.io), in Python: the tests' reference for the native C
-transcript (native.sr25519_challenge) that computes every signature's
-challenge, signing's and the device path's alike
-(crypto/sr25519.challenge_batch).
+transcript that computes every signature's challenge, signing's
+(native.sr25519_challenge) and the device path's, a window in one call
+(native.sr25519_challenge_batch through crypto/sr25519.challenge_rows).
 
 The permutation is written once, `keccak_f`: numpy over a group of G
 states at a time, the 25 lanes as a (25, G) uint64 array, 24 rounds of

@@ -1,7 +1,8 @@
 """sr25519: schnorrkel Schnorr signatures over ristretto255.
 
 Counterpart: tendermint_tpu/crypto/sr25519.py (`_basemul_encode` :54-66,
-`_signing_transcript`, `_challenge`, `challenge_batch` :69-127,
+`_signing_transcript`, `_challenge`, `challenge_batch` :69-127 (its
+lock-step transcripts are one C loop here, `challenge_rows`),
 `_native_verify_one` :130-166, `PubKeySr25519.verify_signature` :198-252
 and `verify_signature_cpu` :254-277, `_parse_signature` :280-292,
 `PrivKeySr25519` :295-353, `Sr25519BatchVerifier` over the native
@@ -11,7 +12,7 @@ schnorrkel v1 marker bit (bit 511).
 
 The CPU plane is the JAX package's native C (tendermint_tpu_torch/
 native): keygen's and signing's [k]B, every merlin challenge (the device
-path's too, through challenge_batch), a single verify as the
+path's a window in one call, challenge_rows), a single verify as the
 whole-batch entry at n = 1, and a batch of n >= 2 tested whole by the
 random-linear-combination equation, then checked a signature at a time
 when that fails: the answer is always the per-index bitmap. The pure-Python check on the host oracle (crypto/ristretto.py),
@@ -33,6 +34,8 @@ import hashlib
 import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from . import ristretto as rst
 from .keys import (
     Address,
@@ -50,6 +53,7 @@ __all__ = [
     "PubKeySr25519",
     "Sr25519BatchVerifier",
     "challenge_batch",
+    "challenge_rows",
     "sign_batch",
 ]
 
@@ -93,19 +97,28 @@ def _challenge(t: Transcript, pk_bytes: bytes, r_bytes: bytes) -> int:
     return int.from_bytes(wide, "little") % L
 
 
+def challenge_rows(
+    pks: Sequence[bytes], msgs: Sequence[bytes], rs: Sequence[bytes]
+) -> np.ndarray:
+    """The challenges of a whole batch as an (n, 32) uint8 array, row i
+    the little-endian scalar mod L of (pks[i], msgs[i], rs[i]), from one
+    native C call (native.sr25519_challenge_batch: the lock-step
+    transcripts of the JAX package's challenge_batch, a C loop here).
+    pks and rs are 32 bytes each."""
+    from .. import native
+
+    return native.sr25519_challenge_batch(b"".join(pks), b"".join(rs), msgs)
+
+
 def challenge_batch(
     pks: Sequence[bytes], msgs: Sequence[bytes], rs: Sequence[bytes]
 ) -> List[int]:
     """The challenges of a whole batch, one int mod L per (pk, msg, R)
-    in input order, each from the native C transcript
-    (native.sr25519_challenge: a call a signature, with no fixed cost a
-    batch, so a small window pays for its own signatures only). pks and
-    rs are 32 bytes each."""
-    from .. import native
-
+    in input order: challenge_rows' one C call, read as integers."""
+    raw = challenge_rows(pks, msgs, rs).tobytes()
     return [
-        int.from_bytes(native.sr25519_challenge(pk, r, m), "little")
-        for pk, m, r in zip(pks, msgs, rs)
+        int.from_bytes(raw[i : i + 32], "little")
+        for i in range(0, len(raw), 32)
     ]
 
 

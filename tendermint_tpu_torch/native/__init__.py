@@ -1,26 +1,32 @@
 """The port's native CPU plane: the C batch equation, built at first use.
 
-Counterpart: tendermint_tpu/native/__init__.py:41-98 (`load`, `_build`)
-and :139-256 (`ed25519_batch_lib`, `ristretto_basemul`,
-`sr25519_challenge`). ed25519_batch.c and keccakf_core.h beside this
-module are copies of the JAX package's, byte for byte but for a first
-comment naming the original and, at the end of ed25519_batch.c, one
-function of the port's own: the cofactored random-linear-combination
-batch equation for ed25519 (ZIP-215) and sr25519 (schnorrkel over
+Counterpart: tendermint_tpu/native/__init__.py:41-98 (`load`, `_build`),
+:99-121 (`signbytes_lib`) and :139-256 (`ed25519_batch_lib`,
+`ristretto_basemul`, `sr25519_challenge`). ed25519_batch.c,
+keccakf_core.h and signbytes.c beside this module are copies of the JAX
+package's, byte for byte but for a first comment naming the original
+and, at the end of ed25519_batch.c, two functions of the port's own.
+ed25519_batch.c holds the cofactored random-linear-combination batch
+equation for ed25519 (ZIP-215) and sr25519 (schnorrkel over
 ristretto255), with SHA-512 and merlin challenges computed in C, the
-fixed-base ristretto multiply of sr25519 keygen and signing, and its
-Edwards twin tm_ed25519_basemul (`ed25519_basemul`), which ed25519
-keygen and signing use, as the JAX package signs ed25519 natively
-through OpenSSL (tendermint_tpu/crypto/ed25519.py:143-145).
+fixed-base ristretto multiply of sr25519 keygen and signing, and the
+port's two: its Edwards twin tm_ed25519_basemul (`ed25519_basemul`),
+which ed25519 keygen and signing use, as the JAX package signs ed25519
+natively through OpenSSL (tendermint_tpu/crypto/ed25519.py:143-145),
+and tm_sr25519_challenge_batch (`sr25519_challenge_batch`), the merlin
+challenges of a whole window in one call. signbytes.c splices a
+commit's CanonicalVote sign-bytes around each vote's timestamp
+(types/canonical.py VoteSignTemplate.sign_bytes_batch).
 
-The library is compiled by the host C compiler ($CC, else `cc`; -O3
+Each library is compiled by the host C compiler ($CC, else `cc`; -O3
 -funroll-loops -shared -fPIC) into `build/native/` at the repository
 root, named by a digest of the source, the headers and the command, so
 an edited source is rebuilt and concurrent processes (test workers)
 converge on one file: each compiles to a temporary name and renames it
 into place. Importing this module builds nothing. A build that fails
 raises: there is no switch that turns the native plane off and no
-Python fallback behind it. keccakf.c and signbytes.c are not ported.
+Python fallback behind it. keccakf.c is not ported: the merlin
+transcripts it served are computed in ed25519_batch.c.
 """
 
 from __future__ import annotations
@@ -33,12 +39,16 @@ import tempfile
 import threading
 from pathlib import Path
 
+import numpy as np
+
 __all__ = [
     "BUILD_DIR",
     "ed25519_basemul",
     "ed25519_batch_lib",
     "ristretto_basemul",
+    "signbytes_lib",
     "sr25519_challenge",
+    "sr25519_challenge_batch",
 ]
 
 SRC_DIR = Path(__file__).resolve().parent
@@ -47,6 +57,7 @@ FLAGS = ["-O3", "-funroll-loops", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _LIB = None
+_SIGNBYTES_LIB = None
 
 _P = ctypes.c_char_p
 _U64 = ctypes.c_uint64
@@ -97,6 +108,8 @@ def ed25519_batch_lib() -> ctypes.CDLL:
       tm_sr25519_verify_full(...) -> 1 all valid / 0 invalid somewhere /
       -1 undecodable or out of memory;
     - tm_sr25519_challenge(pk, r, msg, mlen, out32);
+    - tm_sr25519_challenge_batch(n, pks, rs, msgs, offsets, out) -> 0:
+      n rows of 32 bytes, each tm_sr25519_challenge's;
     - tm_ristretto_basemul(scalar32, out32) -> 0;
     - tm_ed25519_basemul(scalar32, out32) -> 0.
     """
@@ -112,11 +125,35 @@ def ed25519_batch_lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.tm_sr25519_challenge.argtypes = [_P, _P, _P, _U64, _P]
             lib.tm_sr25519_challenge.restype = None
+            lib.tm_sr25519_challenge_batch.argtypes = [
+                _U64, _P, _P, _P, ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            lib.tm_sr25519_challenge_batch.restype = ctypes.c_int
             for fn in (lib.tm_ristretto_basemul, lib.tm_ed25519_basemul):
                 fn.argtypes = [_P, _P]
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
+
+
+def signbytes_lib() -> ctypes.CDLL:
+    """The sign-bytes assembler, built on first use:
+    tm_vote_sign_bytes_batch(prefix, prefix_len, suffix, suffix_len,
+    ts_tag, ts_ns, n, out, out_cap, lens) -> bytes written, or -1 when
+    out_cap is too small (signbytes.c has the byte contract)."""
+    global _SIGNBYTES_LIB
+    with _lock:
+        if _SIGNBYTES_LIB is None:
+            lib = ctypes.CDLL(str(_build("signbytes")))
+            fn = lib.tm_vote_sign_bytes_batch
+            fn.argtypes = [
+                _P, ctypes.c_long, _P, ctypes.c_long, ctypes.c_uint8,
+                ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+                ctypes.c_long, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_long
+            _SIGNBYTES_LIB = lib
+        return _SIGNBYTES_LIB
 
 
 def ristretto_basemul(scalar_le32: bytes) -> bytes:
@@ -146,3 +183,20 @@ def sr25519_challenge(pub: bytes, r: bytes, msg: bytes) -> bytes:
     out = ctypes.create_string_buffer(32)
     ed25519_batch_lib().tm_sr25519_challenge(pub, r, msg, len(msg), out)
     return out.raw
+
+
+def sr25519_challenge_batch(pks: bytes, rs: bytes, msgs):
+    """The merlin challenges of n = len(msgs) signatures in one C call,
+    an (n, 32) uint8 array of little-endian scalars mod L, row i equal
+    to sr25519_challenge(pk_i, R_i, msg_i). pks and rs are the n 32-byte
+    keys and R's concatenated."""
+    n = len(msgs)
+    if len(pks) != 32 * n or len(rs) != 32 * n:
+        raise ValueError("pks and rs must be 32 bytes a message each")
+    offsets = np.zeros(n + 1, dtype=np.uint64)
+    offsets[1:] = np.cumsum([len(m) for m in msgs], dtype=np.uint64)
+    out = np.empty((n, 32), dtype=np.uint8)
+    ed25519_batch_lib().tm_sr25519_challenge_batch(
+        n, pks, rs, b"".join(msgs), offsets.ctypes.data, out.ctypes.data
+    )
+    return out

@@ -1,4 +1,4 @@
-/* Copy of tendermint_tpu/native/ed25519_batch.c for the port's CPU plane (tendermint_tpu_torch/native), with one addition at its end: tm_ed25519_basemul. */
+/* Copy of tendermint_tpu/native/ed25519_batch.c for the port's CPU plane (tendermint_tpu_torch/native), with two additions at its end: tm_ed25519_basemul and tm_sr25519_challenge_batch. */
 /* Batched ed25519 verification via the random-linear-combination batch
  * equation — the CPU-fallback analog of the reference's curve25519-voi
  * batch verifier (reference: crypto/ed25519/ed25519.go:202-237, which
@@ -1856,5 +1856,24 @@ int tm_ed25519_basemul(const uint8_t *scalar, uint8_t *out) {
     fe_mul(y, R.Y, zinv);
     fe_tobytes(out, y);
     out[31] |= (uint8_t)(fe_isneg(x) << 7);
+    return 0;
+}
+
+/* The merlin challenges of a whole window in one call (the port's own,
+ * for crypto/sr25519.challenge_batch and the sr25519 device window's
+ * upload): out row i (32 bytes) is tm_sr25519_challenge(pks + 32 i,
+ * rs + 32 i, msgs + offs[i], offs[i + 1] - offs[i]), computed from one
+ * signing-context prefix. Returns 0. */
+int tm_sr25519_challenge_batch(uint64_t n, const uint8_t *pks,
+                               const uint8_t *rs, const uint8_t *msgs,
+                               const uint64_t *offs, uint8_t *out) {
+    strobe_t prefix;
+    uint64_t k[4];
+    merlin_signing_prefix(&prefix);
+    for (uint64_t i = 0; i < n; i++) {
+        sr_challenge(&prefix, pks + 32 * i, rs + 32 * i, msgs + offs[i],
+                     (size_t)(offs[i + 1] - offs[i]), k);
+        sc4_tobytes(out + 32 * i, k);
+    }
     return 0;
 }

@@ -6,7 +6,7 @@ Counterpart: tendermint_tpu/ops/sr25519_kernel.py (`_abs_dev` :63,
 `_sqrt_ratio_m1_dev` :73, `ristretto_decode_dev` :96, `_ristretto_eq_dev`
 :134, `_verify_tile_sr` :150, `_jit_verify_tile_sr_hybrid` :187,
 `Sr25519Verifier` :204). The check, for a merlin challenge k computed on
-the host (crypto/sr25519.challenge_batch):
+the host (crypto/sr25519.challenge_rows, one C call a window):
 
     [s]B - [k]A == R   as ristretto255 elements,  s < L,  marker bit set,
 
@@ -189,21 +189,18 @@ class Sr25519Verifier(BucketedVerifier):
         """One non-empty batch on the device, in one host-to-device copy:
         pk, sig and challenge byte rows padded with zero lanes to the
         bucket B (lanes of malformed size as zero rows, masked after the
-        fact), the challenges computed here by challenge_batch."""
-        from ..crypto.sr25519 import challenge_batch
+        fact), the challenges computed here by challenge_rows in one C
+        call and written into the buffer as they come, 32-byte rows."""
+        from ..crypto.sr25519 import challenge_rows
 
         n = len(pubkeys)
         size_ok, pubkeys, sigs = size_mask(pubkeys, sigs)
-        ks = [
-            k.to_bytes(32, "little")
-            for k in challenge_batch(pubkeys, msgs, [sig[:32] for sig in sigs])
-        ]
+        ks = challenge_rows(pubkeys, msgs, [sig[:32] for sig in sigs])
         bucket = bucket_for(n, self.bucket_sizes)
         # [pk rows | sig rows | k rows], each (k, bucket), batch-minor
         buf = np.zeros(128 * bucket, dtype=np.uint8)
-        self._pack_rows(
-            buf, bucket, ((0, pubkeys, 32), (32, sigs, 64), (96, ks, 32))
-        )
+        self._pack_rows(buf, bucket, ((0, pubkeys, 32), (32, sigs, 64)))
+        buf[96 * bucket :].reshape(32, bucket)[:, :n] = ks.T
         dev = torch.from_numpy(buf).to(self.device)
         return SrWindow(
             pk_b=dev[: 32 * bucket].view(32, bucket),

@@ -5,7 +5,8 @@ Counterpart: tendermint_tpu/types/commit.py (wire format :148-165 and
 package's memo machinery (mutation epochs, sign-bytes rows, the flag
 array's memo, fingerprint tokens) served its warm verification paths and
 is left out: a Commit here encodes its sign-bytes and builds its flag
-array on every call and caches only the per-chain splice templates.
+array on every call and caches only the per-chain splice templates. The
+sign-bytes of a batch of votes are spliced in C (types/canonical.py).
 """
 
 from __future__ import annotations
@@ -191,25 +192,50 @@ class Commit:
         tpl = self._template(chain_id, for_block)
         return tpl.sign_bytes(cs.timestamp_ns)
 
+    def vote_sign_bytes_batch(
+        self, chain_id: str, idxs: List[int]
+    ) -> List[bytes]:
+        """vote_sign_bytes of each index in `idxs`, in that order, in one
+        splice call a template (the for-block votes, the rest): the
+        encoding of the indexes an early-exit plan visits, where the JAX
+        package encodes them one by one into its memo
+        (tendermint_tpu/types/commit.py:344)."""
+        return self._splice(chain_id, enumerate(idxs), len(idxs))
+
     def sign_bytes_batch(self, chain_id: str) -> List[Optional[bytes]]:
-        """Sign-bytes for every non-absent signature in one pass (None
-        at absent indexes)."""
+        """Sign-bytes for every non-absent signature, in one splice call
+        for each of the two templates (None at absent indexes)."""
         sigs = self.signatures
-        out: List[Optional[bytes]] = [None] * len(sigs)
-        for for_block in (True, False):
-            idxs = [
-                i
-                for i, cs in enumerate(sigs)
-                if not cs.is_absent()
-                and (cs.block_id_flag == BLOCK_ID_FLAG_COMMIT) == for_block
-            ]
-            if not idxs:
+        live = (
+            (i, i)
+            for i, cs in enumerate(sigs)
+            if cs.block_id_flag != BLOCK_ID_FLAG_ABSENT
+        )
+        return self._splice(chain_id, live, len(sigs))
+
+    def _splice(self, chain_id: str, places, n: int) -> List[Optional[bytes]]:
+        """A list of n rows holding, at each (position, index) of
+        `places`, the sign-bytes of the vote at that index: the votes
+        grouped by template in one pass, each group spliced in one call."""
+        sigs = self.signatures
+        fb_pos, fb_ts, nil_pos, nil_ts = [], [], [], []
+        for j, i in places:
+            cs = sigs[i]
+            if cs.block_id_flag == BLOCK_ID_FLAG_COMMIT:
+                fb_pos.append(j)
+                fb_ts.append(cs.timestamp_ns)
+            else:
+                nil_pos.append(j)
+                nil_ts.append(cs.timestamp_ns)
+        out: List[Optional[bytes]] = [None] * n
+        for for_block, pos, ts in ((True, fb_pos, fb_ts), (False, nil_pos, nil_ts)):
+            if not pos:
                 continue
-            rows = self._template(chain_id, for_block).sign_bytes_batch(
-                [sigs[i].timestamp_ns for i in idxs]
-            )
-            for i, row in zip(idxs, rows):
-                out[i] = row
+            rows = self._template(chain_id, for_block).sign_bytes_batch(ts)
+            if len(pos) == n:  # every row, in order
+                return rows
+            for j, row in zip(pos, rows):
+                out[j] = row
         return out
 
     def validate_basic(self) -> None:

@@ -4,18 +4,25 @@ Counterpart: tendermint_tpu/types/validation.py:74-190 (verify_commit,
 verify_commit_light, verify_commit_light_trusting and their errors), the
 merged light verification of many commits (collect_commit_light :191,
 verify_triples_grouped :258, verify_commit_light_bulk :321, and
-_prefix_crossing :476), the batch path :403-475 with the scalar
-reference tally :752-865, the drain :868-895 and the single path
-:898-964. Error types and messages are byte-identical to the JAX
-package's.
+_prefix_crossing :476), the batch path's dispatch :430-474, the vector
+plans :526-750, the scalar reference tally :752-865, the drain :868-895
+and the single path :898-964. Error types and messages are
+byte-identical to the JAX package's.
 
 The batch path packs a Commit's (pubkey, sign-bytes, signature) triples
 into one crypto.batch verifier per key type; with the device verifier
 installed (crypto/gpu_verifier.install) that is the CUDA kernels on the
-padded batch. Left out on purpose: the verified-signature cache, the
-commit-level memo and tracing. A cache would skip the kernels on the
-very path being brought up. So verify_triples_grouped verifies every
-triple it is given, and verify_commit_light_bulk collects every commit.
+padded batch. The three entry points run the vector plans
+(_verify_commit_batch_vector): a masked sum or a prefix sum over the
+powers picks the indexes the reference loop would visit and its tally,
+and their sign-bytes are spliced in one C call. The scalar loop
+(_verify_commit_batch_scalar) runs only for a commit whose BlockIDFlags
+do not fit uint8 (Commit.block_id_flags_array() is None), the JAX
+package's own data route, so such a commit gets the reference error.
+Left out on purpose: the verified-signature cache, the commit-level memo
+and tracing. A cache would skip the kernels on the very path being
+brought up. So verify_triples_grouped verifies every triple it is given,
+and verify_commit_light_bulk collects every commit.
 """
 
 from __future__ import annotations
@@ -27,7 +34,12 @@ import numpy as np
 
 from ..crypto.batch import create_batch_verifier, supports_batch_verifier
 from .block_id import BlockID
-from .commit import BLOCK_ID_FLAG_COMMIT, Commit, CommitSig
+from .commit import (
+    BLOCK_ID_FLAG_ABSENT,
+    BLOCK_ID_FLAG_COMMIT,
+    Commit,
+    CommitSig,
+)
 from .validator import ValidatorSet
 
 __all__ = [
@@ -83,10 +95,22 @@ def _should_batch_verify(vals: ValidatorSet, commit: Commit) -> bool:
 def _verify(
     chain_id, vals, commit, needed, ignore, count, count_all, by_index
 ) -> None:
+    """The batch path's dispatch (JAX :430-474 with vector_tally=True, as
+    its three entry points pass it): the vector plans, unless the flags
+    do not fit uint8; a commit too small to batch verifies one by one.
+    ignore and count are the entry point's standard predicates, which
+    the vector plans compute from the flags."""
     if _should_batch_verify(vals, commit):
-        _verify_commit_batch(
-            chain_id, vals, commit, needed, ignore, count, count_all, by_index
-        )
+        flags = commit.block_id_flags_array()
+        if flags is not None:
+            _verify_commit_batch_vector(
+                chain_id, vals, commit, needed, count_all, by_index, flags
+            )
+        else:
+            _verify_commit_batch_scalar(
+                chain_id, vals, commit, needed, ignore, count, count_all,
+                by_index,
+            )
     else:
         _verify_commit_single(
             chain_id, vals, commit, needed, ignore, count, count_all, by_index
@@ -178,13 +202,10 @@ def collect_commit_light(
             raise NotEnoughVotingPowerError(tallied, voting_power_needed)
         validators = vals.validators
         signatures = commit.signatures
+        idxs = np.flatnonzero(flags[:end] == BLOCK_ID_FLAG_COMMIT).tolist()
         return [
-            (
-                validators[i].pub_key,
-                commit.vote_sign_bytes(chain_id, i),
-                signatures[i].signature,
-            )
-            for i in np.flatnonzero(flags[:end] == BLOCK_ID_FLAG_COMMIT).tolist()
+            (validators[i].pub_key, sb, signatures[i].signature)
+            for i, sb in zip(idxs, commit.vote_sign_bytes_batch(chain_id, idxs))
         ]
     # the scalar reference loop, for flags outside uint8
     tallied = 0
@@ -284,7 +305,121 @@ def _verify_basic(
         )
 
 
-def _verify_commit_batch(
+def _verify_commit_batch_vector(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    voting_power_needed: int,
+    count_all_signatures: bool,
+    look_up_by_index: bool,
+    flags: np.ndarray,
+) -> None:
+    """The vector plans: the indexes the reference loop visits and its
+    tally, from the flags and the powers, with the same processed
+    indexes, early-exit points and errors as _verify_commit_batch_scalar:
+
+    - verify_commit (count all, by index): every non-absent index; the
+      tally is the sum of the powers where the flag is COMMIT;
+    - verify_commit_light (early exit, by index): the reference loop
+      counts the for-block votes in index order and stops after the one
+      that crosses the threshold, the first index where the prefix sum
+      of the COMMIT-masked powers exceeds it; the for-block votes
+      through that index are processed;
+    - verify_commit_light_trusting (early exit, by address): the same
+      prefix sum over the powers resolved through the trusted set's
+      address index (a missing address adds 0, as the reference skips
+      it). A duplicated address can only inflate the prefix sum, so the
+      crossing k never lies past the reference loop's end: a duplicate
+      at j <= k is met by the per-index replay below, which raises the
+      reference's double-vote error; a duplicate at j > k the reference
+      loop never reached either, and then the prefix through k holds no
+      duplicate, so its sums agree exactly.
+
+    The sign-bytes of the processed indexes are spliced in one call
+    (Commit.sign_bytes_batch for verify_commit, vote_sign_bytes_batch of
+    the visited prefix for the early-exit plans). The triples are
+    grouped per key type and drained after the plan, so each group's
+    verifier gets its own size hint; a key type with no batch support
+    verifies inline."""
+    sigs = commit.signatures
+    powers = vals.powers_array()
+    if count_all_signatures:
+        tallied = int(powers[flags == BLOCK_ID_FLAG_COMMIT].sum())
+        idx_list = np.flatnonzero(flags != BLOCK_ID_FLAG_ABSENT).tolist()
+    elif look_up_by_index:
+        tallied, end = _prefix_crossing(
+            np.where(flags == BLOCK_ID_FLAG_COMMIT, powers, 0),
+            voting_power_needed,
+        )
+        idx_list = np.flatnonzero(
+            (flags if end is None else flags[:end]) == BLOCK_ID_FLAG_COMMIT
+        ).tolist()
+    else:
+        fb = np.flatnonzero(flags == BLOCK_ID_FLAG_COMMIT)
+        addr_index = vals._addr_index
+        vi = np.fromiter(
+            (addr_index.get(sigs[i].validator_address, -1) for i in fb.tolist()),
+            dtype=np.int64,
+            count=fb.size,
+        )
+        tallied, end = _prefix_crossing(
+            np.where(vi >= 0, powers[np.maximum(vi, 0)], 0),
+            voting_power_needed,
+        )
+        idx_list = (fb if end is None else fb[:end]).tolist()
+
+    if look_up_by_index:
+        if count_all_signatures:
+            rows = commit.sign_bytes_batch(chain_id)
+            sbs = [rows[i] for i in idx_list]
+        else:
+            sbs = commit.vote_sign_bytes_batch(chain_id, idx_list)
+        validators = vals.validators
+        triples = zip([validators[i].pub_key for i in idx_list], sbs, idx_list)
+    else:
+        # trusting: the per-index replay of the reference body over the
+        # plan's prefix, for the double-vote error and its order
+        sbs = commit.vote_sign_bytes_batch(chain_id, idx_list)
+        triples = _replay_by_address(vals, sigs, idx_list, sbs)
+    # key type -> [(pub_key, sign_bytes, signature, commit idx)]
+    pending: dict[str, list] = {}
+    inline: set = set()  # key types with no batch support
+    for pub_key, sb, i in triples:
+        sig = sigs[i].signature
+        key_type = pub_key.type()
+        group = pending.get(key_type)
+        if group is None:
+            if key_type in inline or not supports_batch_verifier(pub_key):
+                inline.add(key_type)
+                if not pub_key.verify_signature(sb, sig):
+                    raise InvalidCommitError(f"wrong signature (#{i}): {sig.hex()}")
+                continue
+            group = pending[key_type] = []
+        group.append((pub_key, sb, sig, i))
+    if tallied <= voting_power_needed:
+        raise NotEnoughVotingPowerError(tallied, voting_power_needed)
+    _drain_pending(commit, pending)
+
+
+def _replay_by_address(vals: ValidatorSet, sigs, idx_list, sbs):
+    """(pub_key, sign_bytes, idx) of each index of the trusting plan
+    whose address the trusted set holds, in order, raising the
+    reference's double-vote error at the second vote of a validator."""
+    seen_vals: dict[int, int] = {}
+    for idx, sb in zip(idx_list, sbs):
+        val_idx, val = vals.get_by_address(sigs[idx].validator_address)
+        if val is None:
+            continue
+        if val_idx in seen_vals:
+            raise InvalidCommitError(
+                f"double vote from {val.address.hex()} "
+                f"({seen_vals[val_idx]} and {idx})"
+            )
+        seen_vals[val_idx] = idx
+        yield val.pub_key, sb, idx
+
+
+def _verify_commit_batch_scalar(
     chain_id: str,
     vals: ValidatorSet,
     commit: Commit,
@@ -295,9 +430,12 @@ def _verify_commit_batch(
     look_up_by_index: bool,
 ) -> None:
     """The reference scan: per-vote predicates, incremental tally, early
-    exit by running total. Triples are grouped per key type and drained
-    after the scan, so each group's verifier gets its own size hint; a
-    key type with no batch support verifies inline."""
+    exit by running total. The vector plans must stop at the same vote
+    and raise the same errors as this loop: it is the route of a commit
+    whose flags do not fit uint8 and the oracle the tests hold them
+    against. Triples are grouped per key type and drained after the
+    scan, so each group's verifier gets its own size hint; a key type
+    with no batch support verifies inline."""
     tallied = 0
     seen_vals: dict[int, int] = {}
     # key type -> [(pub_key, sign_bytes, signature, commit idx)]
