@@ -45,9 +45,23 @@ header stored, no fault), is timed as headers/s merged, a commit at a
 time and at windows of 8 and 16, rejects a signature flipped in the
 middle of its second window with that commit's own error and nothing
 above it stored, and syncs a mixed 75 + 75 chain of 256 headers with X3
-in merged windows. Keys, key types, messages, timestamps, signing
-witnesses, chains and transactions come from --seed (made by
-tendermint_tpu_torch.workloads).
+in merged windows. Phase vote_path drives the consensus vote path with
+the device plane installed: one height's prevotes and precommits for
+one block, at 150 ed25519 validators and at the 10k mixed set, as
+VoteMessage wire bytes with a forged signature of each key type, a
+63-byte signature, a vote of another height, an index past the set, a
+duplicate and an equivocation mixed in, decoded and queued in bursts of
+256 into a consensus.state.ConsensusState: every vote gets the JAX
+package's outcome, +2/3 comes at the quorum's vote count, the cache
+holds exactly the valid triples, each burst and key type with at least
+32 signatures to verify launches one window (X1 and K2, or X3), the
+commit of the precommits verifies; timed as votes/s, ms a burst by
+stage, the device's busy time and idle share, and with the cache
+disabled; the 150 set in bursts of 16 launches nothing; and X1, K2 and
+X3 are held against their plain versions on the path's 128- and
+512-wide windows (the kernels line's `vote_path`). Keys, key types,
+messages, timestamps, signing witnesses, chains, votes and transactions
+come from --seed (made by tendermint_tpu_torch.workloads).
 
 Before the main paths, every kernel is held against its plain version:
 K1 and X1 at the widest bucket, K2 also on the ZIP-215 corpus at buckets
@@ -2208,6 +2222,461 @@ def phase_config4(torch, seed: int) -> dict:
     return out
 
 
+# the consensus vote path: the flood of one height's prevotes and
+# precommits at 150 ed25519 validators and at the 10k mixed set, queued
+# in bursts of consensus.state.PEER_DRAIN (one pre-verify a burst), and
+# the 150-validator set once more in bursts below the min-batch gate; the
+# window widths the flood gives the kernels, held against their plain
+# versions on the windows the path dispatched
+VOTE_SIZES = (("150", LIGHT_VALIDATORS, 0), ("10k", N_VALIDATORS, N_VALIDATORS // 2))
+VOTE_TRICKLE_BURST = 16
+VOTE_WIDTHS = (128, 512)
+VOTE_TIMED_RUNS = 2
+# each bad vote's outcome, the JAX package's text word for word
+# (tendermint_tpu/types/vote.py:84, types/vote_set.py:35,143; a vote of
+# another height is refused without an error, consensus/state.py:1131)
+INVALID_SIGNATURE = ("err", "ValueError", "invalid signature")
+
+
+def vote_flood(t, n: int, seed: int):
+    """The flood of VoteTraffic t with the bad cases mixed in from the
+    seed: a forged signature for each key type and a 63-byte signature,
+    each ahead of its validator's real vote; a vote of another height; a
+    validator index past the set; a duplicate of a prevote after it; and
+    an equivocation, a second precommit for another block after the
+    validator's real one. Returns (votes in order, the outcome each must
+    get, the triples the cache must hold after it)."""
+    from tendermint_tpu_torch.types.block_id import BlockID, PartSetHeader
+
+    rng = np.random.default_rng([seed, 21])
+    votes = list(t.votes)
+    want = [("ok", True)] * len(votes)
+    kind = [t.privs[v.validator_index].type() for v in votes]
+
+    def resign(v):
+        priv = t.privs[v.validator_index]
+        msg = v.sign_bytes(CHAIN_ID)
+        if priv.type() == "sr25519":
+            v.signature = priv.sign(msg, rng=np.random.default_rng([seed, 22]).bytes)
+        else:
+            v.signature = priv.sign(msg)
+        return v
+
+    def put(at: int, vote, outcome) -> None:
+        votes.insert(at, vote)
+        want.insert(at, outcome)
+        kind.insert(at, None)
+
+    def pick(kt=None, lo=0):
+        idx = [i for i in range(lo, len(votes)) if kind[i] and (kt is None or kind[i] == kt)]
+        return idx[int(rng.integers(len(idx)))]
+
+    for kt in sorted(set(k for k in kind if k)):
+        i = pick(kt)
+        forged = votes[i].copy()
+        sig = bytearray(forged.signature)
+        sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+        forged.signature = bytes(sig)
+        put(i, forged, INVALID_SIGNATURE)
+    i = pick("ed25519")
+    short = votes[i].copy()
+    short.signature = short.signature[:63]
+    put(i, short, INVALID_SIGNATURE)
+    foreign = votes[pick()].copy()
+    foreign.height = HEIGHT + 5
+    put(int(rng.integers(len(votes))), resign(foreign), ("ok", False))
+    bad_index = votes[pick()].copy()
+    bad_index.validator_index = n + 3
+    put(
+        int(rng.integers(len(votes))),
+        bad_index,
+        ("err", "ValueError", f"cannot find validator {n + 3} in valSet of size {n}"),
+    )
+    prevotes = [i for i in range(len(votes)) if kind[i] and votes[i].type == 1]
+    i = prevotes[int(rng.integers(len(prevotes)))]
+    put(int(rng.integers(i + 1, len(votes) + 1)), votes[i].copy(), ("ok", False))
+    i = pick(lo=next(j for j in range(len(votes)) if kind[j] and votes[j].type == 2))
+    other = votes[i].copy()
+    other.block_id = BlockID(b"\xee" * 32, PartSetHeader(1, b"\xef" * 32))
+    addr = other.validator_address.hex()
+    put(
+        int(rng.integers(i + 1, len(votes) + 1)),
+        resign(other),
+        ("err", "ConflictingVoteError", f"conflicting votes from validator {addr}"),
+    )
+    valid = {
+        triple(t, v) for v, k in zip(votes, kind) if k
+    } | {triple(t, other)}
+    return votes, want, valid
+
+
+def triple(t, v) -> tuple:
+    """The verified-signature cache's key of vote v of traffic t."""
+    return (t.vals.validators[v.validator_index].pub_key.bytes(), v.sign_bytes(CHAIN_ID), v.signature)
+
+
+def vote_windows(t, votes, burst: int, gate: int, valid: set) -> dict:
+    """The device windows each key type's pre-verify must dispatch for
+    `votes` in bursts of `burst`, by the reference rule: a burst's
+    candidates (this height, a 64-byte signature, an index in the set
+    and its address) of one key type not proven by an earlier burst go
+    to the card when at least `gate` (and 2) of them, as one window (a
+    burst is far below the streaming window); every valid candidate is
+    proven after its burst."""
+    vals = t.vals.validators
+    proven: set = set()
+    windows = {"ed25519": 0, "sr25519": 0}
+    for first in range(0, len(votes), burst):
+        groups: dict = {}
+        for v in votes[first : first + burst]:
+            i = v.validator_index
+            if v.height != HEIGHT or len(v.signature) != 64 or not 0 <= i < len(vals):
+                continue
+            if vals[i].address != v.validator_address:
+                continue
+            key = triple(t, v)
+            if key not in proven:
+                groups.setdefault(vals[i].pub_key.type(), []).append(key)
+        for kt, keys in groups.items():
+            windows[kt] += int(len(keys) >= max(gate, 2))
+            proven |= {k for k in keys if k in valid}
+    return windows
+
+
+def ingest_outcomes(cs):
+    """Wrap cs._add_vote to record each vote's outcome and, for round 0,
+    the count of votes of each type added when that type reached +2/3."""
+    seen = []
+    maj23_at = {}
+    added = {1: 0, 2: 0}
+    inner = cs._add_vote
+
+    async def add_vote(vote, peer_id):
+        try:
+            got = await inner(vote, peer_id)
+        except Exception as e:
+            seen.append(("err", type(e).__name__, str(e)))
+            raise
+        seen.append(("ok", got))
+        if got and vote.height == HEIGHT and vote.round == 0:
+            added[vote.type] += 1
+            vs = cs.rs.votes._get(0, vote.type)
+            if vote.type not in maj23_at and vs.maj23 is not None:
+                maj23_at[vote.type] = added[vote.type]
+        return got
+
+    cs._add_vote = add_vote
+    return seen, maj23_at
+
+
+def clock_async(owner, attr: str, into: list) -> None:
+    """owner.attr (a coroutine function) appends each call's host ms to
+    `into`; set on an instance made for one run."""
+    inner = getattr(owner, attr)
+
+    async def wrapper(*args):
+        t0 = time.perf_counter()
+        try:
+            return await inner(*args)
+        finally:
+            into.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(owner, attr, wrapper)
+
+
+@contextlib.contextmanager
+def captured_windows(into: dict):
+    """For the block, every dispatch of the ops verifiers records its
+    (pubkeys, messages, signatures) in into[key type]."""
+    from tendermint_tpu_torch.ops.ed25519_kernel import Ed25519Verifier
+    from tendermint_tpu_torch.ops.sr25519_kernel import Sr25519Verifier
+
+    classes = {Ed25519Verifier: "ed25519", Sr25519Verifier: "sr25519"}
+    originals = {cls: cls.__dict__["dispatch"] for cls in classes}
+
+    def capture(dispatch, key_type):
+        def wrapper(self, pubkeys, msgs, sigs):
+            into.setdefault(key_type, []).append((list(pubkeys), list(msgs), list(sigs)))
+            return dispatch(self, pubkeys, msgs, sigs)
+
+        return wrapper
+
+    for cls, key_type in classes.items():
+        cls.dispatch = capture(originals[cls], key_type)
+    try:
+        yield
+    finally:
+        for cls, dispatch in originals.items():
+            cls.dispatch = dispatch
+
+
+def vote_kernels(torch, dev, windows: dict, valid: set) -> dict:
+    """X1 and K2 (ed25519) and X3 (sr25519) on one window the vote path
+    dispatched at each of VOTE_WIDTHS, against their plain versions:
+    the largest difference, each bitmap against the valid triples, and
+    the kernel's and the plain version's ms (CUDA events)."""
+    from tendermint_tpu_torch.ops import ed25519_cuda as C
+    from tendermint_tpu_torch.ops import ed25519_kernel as K
+    from tendermint_tpu_torch.ops import sha512_kernel as S
+    from tendermint_tpu_torch.ops import sr25519_cuda as X
+    from tendermint_tpu_torch.ops import sr25519_kernel as SK
+
+    ed = K.Ed25519Verifier(device=dev)
+    sr = SK.Sr25519Verifier(device=dev)
+    out: dict = {}
+
+    def held(name, width, fn, plain, want_bits=None):
+        got, ref = fn(), plain()
+        err = int((got.int() - ref.int()).abs().max().item())
+        if err:
+            raise AssertionError(f"{name} differs from its plain version at {width}")
+        if want_bits is not None and got[: len(want_bits)].cpu().tolist() != want_bits:
+            raise AssertionError(f"{name}'s bitmap at {width} differs from the valid votes")
+        out.setdefault(name, {})[str(width)] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, fn, 10),
+            "plain_ms": cuda_ms(torch, plain, 1),
+        }
+
+    for kt, verifier in (("ed25519", ed), ("sr25519", sr)):
+        for width in VOTE_WIDTHS:
+            args = next(
+                (a for a in windows.get(kt, ()) if K.bucket_for(len(a[0]), verifier.bucket_sizes) == width),
+                None,
+            )
+            if args is None:
+                raise AssertionError(f"the vote path dispatched no {kt} window of width {width}")
+            pks, msgs, sigs = args
+            want_bits = [(p, m, s) in valid for p, m, s in zip(pks, msgs, sigs)]
+            if kt == "ed25519":
+                w = ed.upload(pks, msgs, sigs)
+                dig = S.sha512_ragged(w.sig_b, w.pk_b, w.msg, w.offsets, w.max_len)
+                held(
+                    "sha512_ram",
+                    width,
+                    lambda w=w: S.sha512_ragged(w.sig_b, w.pk_b, w.msg, w.offsets, w.max_len),
+                    lambda w=w: S.sha512_ragged_plain(w.sig_b, w.pk_b, w.msg, w.offsets),
+                )
+                held(
+                    "ed25519_verify_tile",
+                    width,
+                    lambda w=w, d=dig: C.verify_tile(w.pk_b, w.sig_b, d),
+                    lambda w=w, d=dig: K._verify_tile(w.pk_b, w.sig_b, d),
+                    want_bits,
+                )
+            else:
+                u = sr.upload(pks, msgs, sigs)
+                held(
+                    "sr25519_verify",
+                    width,
+                    lambda u=u: X.verify_sr(u.pk_b, u.sig_b, u.k_b),
+                    lambda u=u: SK._verify_tile_sr(u.pk_b, u.sig_b, u.k_b),
+                    want_bits,
+                )
+    return out
+
+
+def device_busy_ms(torch, fn, launched: dict) -> tuple:
+    """(device ms of one call of fn by kernel, records the profiler kept
+    by kernel): each kernel's mean time a record times the launches the
+    counted run made, so a dropped record does not shorten the sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, kept = {}, {}
+    for name, n in launched.items():
+        if not n:
+            continue
+        mine = [e for e in prof.key_averages() if KERNEL_NAMES[name] in e.key]
+        seen = sum(e.count for e in mine)
+        kept[name] = seen
+        if seen == 0:
+            raise AssertionError(f"the profiler saw no {name} in the vote ingest")
+        ms[name] = sum(e.self_device_time_total for e in mine) / seen * n / 1e3
+    return ms, kept
+
+
+def phase_vote_path(torch, dev, seed: int) -> dict:
+    """The consensus vote path a node runs, with the device plane
+    installed from its config: for each of VOTE_SIZES, the prevotes then
+    the precommits of one height and round for one block as VoteMessage
+    wire bytes (workloads.build_vote_traffic) with the bad cases of
+    vote_flood mixed in, decoded and queued into a fresh
+    consensus.state.ConsensusState in bursts of PEER_DRAIN
+    (workloads.ingest). The counted run must give every vote its outcome
+    (each valid one added once, each bad one its JAX error), reach +2/3
+    of each type at the quorum's vote count, leave exactly the valid
+    triples in the cache and launch, per key type, one window a burst
+    and group of at least GPUConfig.min_batch_size (vote_windows): X1
+    and K2 for ed25519, X3 for sr25519; the commit of its precommits
+    verifies through verify_commit on the card. Then the flood is timed
+    (VOTE_TIMED_RUNS runs: votes/s), profiled (device busy ms and idle
+    share) and timed with the cache disabled (every vote verified alone
+    on the CPU); the counted run's stages give ms a burst (pre-verify,
+    its sign-bytes, the add loop, the decoding of the wire bytes). The 150-validator set once more, in
+    bursts of VOTE_TRICKLE_BURST at the next height, must launch
+    nothing. X1, K2 and X3 are held against their plain versions on
+    windows the flood dispatched, at VOTE_WIDTHS."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.consensus.msgs import VoteMessage, encode_msg
+    from tendermint_tpu_torch.consensus.state import PEER_DRAIN
+    from tendermint_tpu_torch.crypto import gpu_verifier, sigcache
+    from tendermint_tpu_torch.node.device import (
+        install_device_plane,
+        uninstall_device_plane,
+    )
+    from tendermint_tpu_torch.types import vote as vote_module
+    from tendermint_tpu_torch.types.validation import verify_commit
+    from tendermint_tpu_torch import workloads
+    from tendermint_tpu_torch.workloads import build_vote_traffic, ingest, vote_state
+
+    cfg = GPUConfig()
+    results, launches_by_size, windows = {}, {}, {}
+    valid_all: set = set()
+    start = gpu_verifier.stats()
+    install_device_plane(cfg)
+    try:
+        for name, n, n_sr in VOTE_SIZES:
+            t0 = time.perf_counter()
+            t = build_vote_traffic(CHAIN_ID, HEIGHT, n, seed, n_sr)
+            votes, want, valid = vote_flood(t, n, seed)
+            wires = [encode_msg(VoteMessage(v)) for v in votes]
+            build_s = time.perf_counter() - t0
+            valid_all |= valid
+            bursts = -(-len(votes) // PEER_DRAIN)
+            expect_w = vote_windows(t, votes, PEER_DRAIN, cfg.min_batch_size, valid)
+            expect = {
+                "ed25519": (
+                    expect_w["ed25519"],
+                    {"sha512_ram": expect_w["ed25519"], "ed25519_verify_tile": expect_w["ed25519"]},
+                ),
+                "sr25519": (expect_w["sr25519"], {"sr25519_verify": expect_w["sr25519"]}),
+            }
+
+            # the counted run, its stages timed
+            sigcache.reset()
+            cs = vote_state(CHAIN_ID, t.vals, HEIGHT)
+            seen, maj23_at = ingest_outcomes(cs)
+            pre, adds, sign_bytes, decode = [], [], [], []
+            with timed(cs, "_preverify_votes", pre), timed(
+                vote_module, "vote_sign_bytes", sign_bytes
+            ), timed(workloads, "decode_msg", decode):
+                clock_async(cs, "_handle_msg", adds)
+                s0 = gpu_verifier.stats()
+                t0 = time.perf_counter()
+                with captured_windows(windows):
+                    counts = count_one_call(lambda: ingest(cs, wires, PEER_DRAIN), expect)
+                counted_s = time.perf_counter() - t0
+                s1 = gpu_verifier.stats()
+            if seen != want:
+                bad = next(i for i, (a, b) in enumerate(zip(seen, want)) if a != b)
+                raise AssertionError(
+                    f"vote {bad} of {len(want)} at {name}: {seen[bad]}, not {want[bad]}"
+                    if len(seen) == len(want)
+                    else f"{len(seen)} outcomes for {len(want)} votes"
+                )
+            quorum = -(-(t.vals.total_voting_power() * 2 // 3 + 1) // 10)
+            if maj23_at != {1: quorum, 2: quorum}:
+                raise AssertionError(f"+2/3 at {maj23_at}, not at {quorum} votes of each type")
+            if sigcache.entries() != len(valid) or sigcache.seen_keys_bulk(valid) != valid:
+                raise AssertionError("the cache does not hold exactly the valid triples")
+            precommits = cs.rs.votes.precommits(0)
+            if not (precommits.has_all() and cs.rs.votes.prevotes(0).has_all()):
+                raise AssertionError("a valid vote was not added")
+            commit = precommits.make_commit()
+            verify_commit(CHAIN_ID, t.vals, t.block_id, HEIGHT, commit)
+            launches_by_size[name] = counts
+
+            def once():
+                sigcache.reset()
+                ingest(vote_state(CHAIN_ID, t.vals, HEIGHT), wires, PEER_DRAIN)
+
+            timed_s = []
+            for _ in range(VOTE_TIMED_RUNS):
+                t0 = time.perf_counter()
+                once()
+                timed_s.append(time.perf_counter() - t0)
+            busy, kept = device_busy_ms(
+                torch, once, {k: v for k, v in counts.items() if k != "by_key_type"}
+            )
+            sigcache.reset()
+            with sigcache.disabled():
+                t0 = time.perf_counter()
+                ingest(vote_state(CHAIN_ID, t.vals, HEIGHT), wires, PEER_DRAIN)
+                cold_s = time.perf_counter() - t0
+            wall = float(np.mean(timed_s))
+            lanes = s1["sigs"] - s0["sigs"]
+            results[name] = {
+                "validators": {"ed25519": n - n_sr, "sr25519": n_sr},
+                "votes": len(votes),
+                "bursts": bursts,
+                "build_s": build_s,
+                "votes_per_s": len(votes) / wall,
+                "votes_per_s_readings": [len(votes) / x for x in timed_s],
+                "votes_per_s_counted_run": len(votes) / counted_s,
+                "ms_per_burst": {
+                    "total": wall * 1e3 / bursts,
+                    "counted_run_total": counted_s * 1e3 / bursts,
+                    "preverify": sum(pre) / bursts,
+                    "sign_bytes_inside_preverify": sum(sign_bytes) / bursts,
+                    "add_loop": sum(adds) / bursts,
+                    "decode": sum(decode) / bursts,
+                },
+                "windows": {kt: s1[f"batches_{kt}"] - s0[f"batches_{kt}"] for kt in ("ed25519", "sr25519")},
+                "windows_per_burst": (s1["batches"] - s0["batches"]) / bursts,
+                "signatures_on_device": lanes,
+                "pad_waste": s1["pad_waste"] - s0["pad_waste"],
+                "pad_share": (s1["pad_waste"] - s0["pad_waste"])
+                / max(1, lanes + s1["pad_waste"] - s0["pad_waste"]),
+                "device_busy_ms": busy,
+                "device_records_kept": kept,
+                "device_idle_share": 1 - sum(busy.values()) / (wall * 1e3),
+                "maj23_at_votes": quorum,
+                "cache_entries": len(valid),
+                "cache_off_votes_per_s": len(votes) / cold_s,
+                "launches": counts,
+            }
+            emit({"phase": "vote_path", "size": name, **results[name]})
+
+        # the trickle: the 150-validator set at the next height, bursts
+        # of VOTE_TRICKLE_BURST, every group below the gate
+        t = build_vote_traffic(CHAIN_ID, HEIGHT + 1, LIGHT_VALIDATORS, seed)
+        wires = t.wires
+        sigcache.reset()
+        cs = vote_state(CHAIN_ID, t.vals, HEIGHT + 1)
+        t0 = time.perf_counter()
+        trickle = count_one_call(
+            lambda: ingest(cs, wires, VOTE_TRICKLE_BURST),
+            {"ed25519": (0, {}), "sr25519": (0, {})},
+        )
+        trickle_s = time.perf_counter() - t0
+        if not (cs.rs.votes.prevotes(0).has_all() and cs.rs.votes.precommits(0).has_all()):
+            raise AssertionError("a trickled vote was not added")
+        if any(v for k, v in trickle.items() if k != "by_key_type"):
+            raise AssertionError(f"the trickle launched a kernel: {trickle}")
+        held = vote_kernels(torch, dev, windows, valid_all)
+        assert_no_fault(start, gpu_verifier.stats(), "vote_path")
+    finally:
+        uninstall_device_plane()
+        sigcache.reset()
+    out = {
+        "phase": "vote_path_checks",
+        "trickle": {
+            "validators": LIGHT_VALIDATORS,
+            "votes": len(wires),
+            "burst": VOTE_TRICKLE_BURST,
+            "votes_per_s": len(wires) / trickle_s,
+            "launches": trickle,
+        },
+        "kernels_at_widths": held,
+        "ok": True,
+    }
+    emit(out)
+    return {"sizes": results, "launches": launches_by_size, "kernels": held}
+
+
 def phase_kernels(
     torch,
     dev,
@@ -2815,9 +3284,20 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     phase_min_batch(torch, main_run, mixed_run)
     phase_fault_containment(torch, main_run, mixed_run)
     phase_config4(torch, args.seed)
+    votes = phase_vote_path(torch, dev, args.seed)
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
     )
+    # the vote path's launches per height at each size, and each kernel
+    # against its plain version on the path's windows at VOTE_WIDTHS
+    for r in kernels["kernels"]:
+        if r["name"] in votes["kernels"]:
+            r["vote_path"] = {
+                "launches_per_height": {
+                    size: c[r["name"]] for size, c in votes["launches"].items()
+                },
+                "at_widths": votes["kernels"][r["name"]],
+            }
     x1 = next(r for r in kernels["kernels"] if r["name"] == "sha512_ram")
     if x1["spill_store_bytes"] or x1["spill_load_bytes"]:
         raise AssertionError("X1 spills registers")

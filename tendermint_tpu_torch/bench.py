@@ -39,7 +39,16 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   :1461), each root and bitmap checked against the host's first;
 - commit10k_mixed_cpu_plane: the mixed 10k verify_commit with both key
   types' breakers held open, all of it on the native CPU plane
-  (bench.py:454 bench_commit_fallback).
+  (bench.py:454 bench_commit_fallback);
+- vote_ingest: votes/s of the consensus vote path, from VoteMessage wire
+  bytes to every vote in its VoteSet, for the prevotes then the
+  precommits of one height (workloads.build_vote_traffic) fed in bursts
+  of 256 (one pre-verify each) into a fresh ConsensusState, the cache
+  emptied before each run: at 150 ed25519 validators and at the 10k
+  mixed set; the mean of VOTE_REPS runs after one warm-up, and one run with the cache
+  disabled (every vote verified alone on the CPU). Each run must add
+  every vote and reach +2/3 of the precommits; the commit made of them
+  must verify.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -77,8 +86,8 @@ TXS = 10_000
 THROUGHPUT_BATCH = 8192
 CURVE_SIZES = (1, 8, 64, 1024)
 # repetitions: end-to-end calls, stages, curve points, CPU-plane commits,
-# keygens and signatures
-REPS, STAGE_REPS, CURVE_REPS, CPU_REPS, SIGN_REPS = 20, 5, 5, 3, 300
+# keygens and signatures, vote ingests
+REPS, STAGE_REPS, CURVE_REPS, CPU_REPS, SIGN_REPS, VOTE_REPS = 20, 5, 5, 3, 300, 3
 # the most light_sync may spend building its chain before it cuts it
 CHAIN_BUDGET_S = 240.0
 
@@ -101,6 +110,8 @@ CELL_KEYS = {
     ),
     "sign_keygen": ("us", "reps"),
     "config5_merkle": ("ms", "txs", "reps"),
+    "vote_ingest": ("votes_per_s", "votes_per_s_cache_off", "votes", "burst", "reps"),
+    # last: it leaves both breakers open
     "commit10k_mixed_cpu_plane": ("validators", "p50_ms", "p95_ms", "reps"),
 }
 CELLS = tuple(CELL_KEYS)
@@ -455,6 +466,47 @@ def cell_cpu_plane(ctx: Ctx) -> dict:
     return {"validators": n, **_p50_p95(times), "reps": reps}
 
 
+def cell_vote_ingest(ctx: Ctx) -> dict:
+    from .consensus.state import PEER_DRAIN
+    from .crypto import sigcache
+    from .types.validation import verify_commit
+    from .workloads import build_vote_traffic, ingest, vote_state
+
+    out = {"votes_per_s": {}, "votes_per_s_cache_off": {}, "votes": {}}
+    for n, n_sr in ((LIGHT_VALIDATORS, 0), (VALIDATORS, VALIDATORS // 2)):
+        t = build_vote_traffic(CHAIN_ID, HEIGHT, n, ctx.args.seed + 10, n_sr)
+
+        def once():
+            sigcache.reset()
+            cs = vote_state(CHAIN_ID, t.vals, HEIGHT)
+            t0 = time.perf_counter()
+            ingest(cs, t.wires, PEER_DRAIN)
+            seconds = time.perf_counter() - t0
+            votes = cs.rs.votes
+            if not (votes.prevotes(0).has_all() and votes.precommits(0).has_all()):
+                raise AssertionError(f"vote_ingest: a vote of {n} validators was not added")
+            return len(t.wires) / seconds, votes
+
+        before = _stats()
+        once()  # warm-up: the first windows of each bucket, untimed
+        rates = []
+        for _ in range(VOTE_REPS):
+            rate, votes = once()
+            rates.append(rate)
+        _no_fault(before, "vote_ingest")
+        bid, ok = votes.precommits(0).two_thirds_majority()
+        if not ok or bid != t.block_id:
+            raise AssertionError("vote_ingest: no +2/3 for the block")
+        verify_commit(CHAIN_ID, t.vals, bid, HEIGHT, votes.precommits(0).make_commit())
+        with sigcache.disabled():
+            cold, _votes = once()
+        out["votes_per_s"][str(n)] = float(np.mean(rates))
+        out["votes_per_s_cache_off"][str(n)] = cold
+        out["votes"][str(n)] = len(t.wires)
+    sigcache.reset()
+    return {**out, "burst": PEER_DRAIN, "reps": VOTE_REPS}
+
+
 RUNNERS = {
     "batch_curve": cell_batch_curve,
     "throughput_8192": cell_throughput,
@@ -466,6 +518,7 @@ RUNNERS = {
     "sign_keygen": cell_sign_keygen,
     "config5_merkle": cell_config5,
     "commit10k_mixed_cpu_plane": cell_cpu_plane,
+    "vote_ingest": cell_vote_ingest,
 }
 
 

@@ -1,7 +1,7 @@
 """Batch-verifier dispatch: the offload decision point.
 
-Counterpart: tendermint_tpu/crypto/batch.py:43-170 and its defaults
-:220-230 (ed25519 and sr25519; secp256k1 has no device path and is not
+Counterpart: tendermint_tpu/crypto/batch.py:43-170, `drain_and_cache`
+:172-201 and the defaults :220-230 (ed25519 and sr25519; secp256k1 has no device path and is not
 ported), with the group-affinity seam :77-145 and `native_cpu_affinity`
 :204. A device factory registered here (crypto/gpu_verifier.install)
 serves a key type's batches once the caller's size hint is large enough;
@@ -27,6 +27,7 @@ __all__ = [
     "cpu_factory",
     "create_batch_verifier",
     "device_factory_installed",
+    "drain_and_cache",
     "group_affinity",
     "group_affinity_state",
     "native_cpu_affinity",
@@ -166,6 +167,31 @@ def create_batch_verifier(pk: PubKey, size_hint: int = 0) -> BatchVerifier:
     if cpu is None:
         raise ValueError(f"key type {key_type!r} does not support batching")
     return cpu()
+
+
+def drain_and_cache(verifier: BatchVerifier, cache_keys) -> tuple:
+    """verifier.verify(), then every triple whose bit is True recorded
+    in the verified-signature cache (crypto.sigcache): what a batch
+    proves here, no later stage proves again. cache_keys align with the
+    add() order; None entries are skipped. Returns verify()'s
+    (all_ok, bitmap) unchanged.
+
+    A batch the device faulted under (`faulted`, set by
+    crypto/gpu_verifier.py's fault policy) caches nothing, though its
+    CPU re-verify answered right: nothing learned while a device
+    misbehaved outlives the batch."""
+    from . import sigcache
+
+    ok, bits = verifier.verify()
+    if getattr(verifier, "faulted", False):
+        return ok, bits
+    if ok:
+        sigcache.add_keys_bulk([key for key in cache_keys if key is not None])
+    else:
+        sigcache.add_keys_bulk(
+            [key for key, bit in zip(cache_keys, bits) if bit and key is not None]
+        )
+    return ok, bits
 
 
 def _register_defaults() -> None:

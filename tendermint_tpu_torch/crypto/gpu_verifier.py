@@ -70,11 +70,12 @@ on the card for both key types (PERF.md §5, chip_smoke.py phase
 admits one signature.
 
 Ported here and not before: the breakers, the watchdog, the CPU
-re-verify, the single-verify route and the counters above. Still not
-ported: the verified-signature cache and the commit memo (the port has
-neither, so nothing a faulted batch touched can be cached), trace spans
-(the port has no tracing library) and the device mesh (one card:
-node/device.py refuses more).
+re-verify, the single-verify route and the counters above. The
+verified-signature cache (crypto/sigcache.py) serves the consensus vote
+path; crypto.batch.drain_and_cache records nothing of a batch marked
+`faulted`. Still not ported: the commit memo (no port path keeps one),
+trace spans (the port has no tracing library) and the device mesh (one
+card: node/device.py refuses more).
 """
 
 from __future__ import annotations

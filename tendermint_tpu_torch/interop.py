@@ -19,7 +19,12 @@ JAX package writes:
   (ops/sha256_kernel.py here);
 - proofs_from_proto / proofs_to_proto: merkle Proofs through their wire
   bytes (tendermint_tpu/crypto/merkle.py:149-170 Proof.to_proto_bytes /
-  from_proto_bytes on the JAX side).
+  from_proto_bytes on the JAX side);
+- vote_from_proto: the wire bytes of Vote.to_proto() (types/vote.py:116)
+  -> the port's Vote;
+- msg_from_proto: the wire bytes of a consensus Message envelope
+  (consensus/msgs.py:450 encode_msg) -> the port's vote-path message, or
+  of a MsgInfo.to_proto() (:480) with `info=True` -> the port's MsgInfo.
 """
 
 from __future__ import annotations
@@ -28,22 +33,26 @@ import numpy as np
 import torch
 
 from .crypto import batch  # noqa: F401  (registers the key types)
+from .consensus.msgs import decode_msg
 from .crypto.merkle import Proof
 from .ops import field25519 as F
 from .types.commit import Commit
 from .types.light import LightBlock, SignedHeader
 from .types.validator import ValidatorSet
+from .types.vote import Vote
 
 __all__ = [
     "cols_from_rows",
     "commit_from_proto",
     "light_block_from_proto",
+    "msg_from_proto",
     "points_from_numpy",
     "proofs_from_proto",
     "proofs_to_proto",
     "rows_from_cols",
     "signed_header_from_proto",
     "validator_set_from_proto",
+    "vote_from_proto",
 ]
 
 
@@ -61,6 +70,15 @@ def light_block_from_proto(data: bytes) -> LightBlock:
 
 def signed_header_from_proto(data: bytes) -> SignedHeader:
     return SignedHeader.from_proto(bytes(data))
+
+
+def vote_from_proto(data: bytes) -> Vote:
+    return Vote.from_proto(bytes(data))
+
+
+def msg_from_proto(data: bytes):
+    """A Message envelope's vote-path message."""
+    return decode_msg(bytes(data))
 
 
 def points_from_numpy(arr, device="cuda") -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Validator and ValidatorSet: what commit and light verification read.
 
-Counterpart: tendermint_tpu/types/validator.py: Validator (:58-121), the
+Counterpart: tendermint_tpu/types/validator.py: Validator (:58-121),
+`get_by_address` and `get_by_index` (:175-191), the
 set's construction from a validator list into an empty set (:146-160,
 :389-512 restricted to additions), proposer selection (:124-140,
 :298-371), `powers_array` (:193), the `hash()` memo and its
@@ -145,6 +146,13 @@ class ValidatorSet:
         if i is None:
             return -1, None
         return i, self.validators[i].copy()
+
+    def get_by_index(self, index: int) -> Tuple[bytes, Optional[Validator]]:
+        """(address, validator) or (b"", None) out of range."""
+        if index < 0 or index >= len(self.validators):
+            return b"", None
+        v = self.validators[index]
+        return v.address, v.copy()
 
     def total_voting_power(self) -> int:
         if self._total_voting_power == 0:

@@ -1,13 +1,15 @@
 """Vote: a signed prevote/precommit from a validator.
 
-Counterpart: tendermint_tpu/types/vote.py (struct, sign-bytes, verify,
-validate_basic, proto round-trip), without the verified-signature cache.
+Counterpart: tendermint_tpu/types/vote.py: the struct, the sign-bytes
+memo a chain id (:40-68), verify with the verified-signature cache
+(:70-87), validate_basic and the proto round-trip.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
+from ..crypto import sigcache
 from ..crypto.keys import PubKey
 from ..encoding.proto import FieldReader, ProtoWriter
 from .block_id import BlockID
@@ -32,8 +34,24 @@ class Vote:
     validator_index: int = -1
     signature: bytes = b""
 
+    # the fields sign_bytes encodes: assigning one (the dataclass
+    # __init__ included) drops the memo
+    _SB_FIELDS = frozenset({"type", "height", "round", "block_id", "timestamp_ns"})
+
+    def __setattr__(self, name: str, value) -> None:
+        if name in self._SB_FIELDS:
+            self.__dict__.pop("_sb_memo", None)
+        object.__setattr__(self, name, value)
+
     def sign_bytes(self, chain_id: str) -> bytes:
-        return vote_sign_bytes(
+        """The canonical sign-bytes, memoized for one chain id: the vote
+        path encodes a vote twice (the pre-verify, then Vote.verify in
+        VoteSet.add_vote). Assigning an encoded field drops the memo; a
+        BlockID changed in place is not a supported mutation."""
+        memo = self.__dict__.get("_sb_memo")
+        if memo is not None and memo[0] == chain_id:
+            return memo[1]
+        sb = vote_sign_bytes(
             chain_id,
             self.type,
             self.height,
@@ -41,15 +59,23 @@ class Vote:
             self.block_id,
             self.timestamp_ns,
         )
+        self.__dict__["_sb_memo"] = (chain_id, sb)
+        return sb
 
     def verify(self, chain_id: str, pub_key: PubKey) -> None:
-        """Raises ValueError on an address mismatch or a bad signature."""
+        """Raises ValueError on an address mismatch or a bad signature.
+        After the address check, a triple the verified-signature cache
+        holds (proven by the consensus pre-verify or an earlier call
+        here) skips the signature equation; a fresh success is
+        recorded."""
         if pub_key.address() != self.validator_address:
             raise ValueError("invalid validator address")
-        if not pub_key.verify_signature(
-            self.sign_bytes(chain_id), self.signature
-        ):
+        sign_bytes = self.sign_bytes(chain_id)
+        if sigcache.seen(pub_key.bytes(), sign_bytes, self.signature):
+            return
+        if not pub_key.verify_signature(sign_bytes, self.signature):
             raise ValueError("invalid signature")
+        sigcache.add(pub_key.bytes(), sign_bytes, self.signature)
 
     def validate_basic(self) -> None:
         if not is_vote_type_valid(self.type):

@@ -11,7 +11,12 @@ all built with the port's own types from a seed.
 - ChainProvider: a light Provider serving such a chain; light_client, a
   fresh sequential client of it, and light_sync, which times the client
   verifying its top height;
-- block_txs: a block of transactions of seeded lengths and bytes.
+- block_txs: a block of transactions of seeded lengths and bytes;
+- build_vote_traffic: the prevotes and precommits of one height and
+  round for one block, every validator voting once of each type, as
+  VoteMessage wire bytes in a seeded order (the consensus vote path's
+  traffic); vote_state, a fresh consensus.state.ConsensusState at that
+  height, and ingest, which feeds it wire bytes in bursts.
 
 Keys, timestamps and signing witnesses come from the seed, so a seed
 gives the same bytes on every host. Signing is native: ed25519's and
@@ -25,12 +30,16 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import time
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from .crypto.ed25519 import PrivKeyEd25519
 from .crypto.sr25519 import PrivKeySr25519, sign_batch
+from .consensus.msgs import VoteMessage, decode_msg, encode_msg
+from .consensus.state import ConsensusState
+from .consensus.types import RoundState
 from .crypto import batch
 from .light.client import Client, TrustOptions
 from .light.errors import LightBlockNotFoundError
@@ -38,7 +47,7 @@ from .light.provider import Provider
 from .light.store import LightStore
 from .store.kv import MemKV
 from .types.block_id import BlockID, PartSetHeader
-from .types.canonical import PRECOMMIT_TYPE
+from .types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from .types.commit import Commit, CommitSig
 from .types.header import Consensus, Header
 from .types.light import LightBlock, SignedHeader
@@ -48,12 +57,16 @@ from .types.vote import Vote
 __all__ = [
     "BASE_TIME_NS",
     "ChainProvider",
+    "VoteTraffic",
     "block_txs",
     "build_commit",
     "build_light_chain",
+    "build_vote_traffic",
+    "ingest",
     "light_client",
     "light_sync",
     "seeded_keys",
+    "vote_state",
 ]
 
 # the time of height 0 of a built chain, and of a built commit's votes
@@ -295,3 +308,92 @@ def block_txs(seed: int, n: int, lengths: tuple) -> list:
     blob = rng.bytes(int(lens.sum()))
     ends = np.cumsum(lens).tolist()
     return [blob[e - k : e] for e, k in zip(ends, lens.tolist())]
+
+
+@dataclass
+class VoteTraffic:
+    """One height's votes (build_vote_traffic): the set, the block voted
+    for, each validator's private key by index, and the votes with their
+    VoteMessage wire bytes, prevotes then precommits, each type in a
+    seeded order."""
+
+    vals: ValidatorSet
+    block_id: BlockID
+    privs: List
+    votes: List[Vote]
+    wires: List[bytes]
+
+
+def build_vote_traffic(
+    chain_id: str, height: int, n: int, seed: int, n_sr: int = 0, round_: int = 0
+) -> VoteTraffic:
+    """Every one of n equal-power validators (n_sr of them sr25519,
+    seeded_keys) prevotes and precommits for one block at (height,
+    round_); each vote's timestamp is drawn from the seed within one
+    second, so the sign-bytes come in several lengths."""
+    privs = seeded_keys(n, seed, n_sr)
+    vals = ValidatorSet(
+        [Validator(pub_key=p.pub_key(), voting_power=10) for p in privs]
+    )
+    by_addr = {p.pub_key().address(): p for p in privs}
+    signers = [by_addr[v.address] for v in vals.validators]
+    block_id = BlockID(
+        hashlib.sha256(b"vote-block-%d-%d" % (seed, height)).digest(),
+        PartSetHeader(1, hashlib.sha256(b"vote-parts-%d" % seed).digest()),
+    )
+    rng = np.random.default_rng([seed, 6, height])
+    votes = []
+    for vote_type in (PREVOTE_TYPE, PRECOMMIT_TYPE):
+        for i in rng.permutation(n).tolist():
+            votes.append(
+                Vote(
+                    type=vote_type,
+                    height=height,
+                    round=round_,
+                    block_id=block_id,
+                    timestamp_ns=BASE_TIME_NS + int(rng.integers(0, 1_000_000_000)),
+                    validator_address=vals.validators[i].address,
+                    validator_index=i,
+                )
+            )
+    sigs = _sign_all(
+        [signers[v.validator_index] for v in votes],
+        [v.sign_bytes(chain_id) for v in votes],
+        np.random.default_rng([seed, 7, height]),
+    )
+    for vote, sig in zip(votes, sigs):
+        vote.signature = sig
+    return VoteTraffic(
+        vals=vals,
+        block_id=block_id,
+        privs=signers,
+        votes=votes,
+        wires=[encode_msg(VoteMessage(v)) for v in votes],
+    )
+
+
+def vote_state(chain_id: str, vals: ValidatorSet, height: int) -> ConsensusState:
+    """A fresh ConsensusState at `height`, round 0, with its HeightVoteSet."""
+    return ConsensusState(chain_id, RoundState(height=height, validators=vals))
+
+
+def ingest(cs: ConsensusState, wires: List[bytes], burst: int, peer_id: str = "peer") -> None:
+    """Run cs's receive loop over the wire bytes of consensus messages
+    from one peer, `burst` at a time: each burst is decoded and queued
+    whole, then handled before the next is queued (the loop drains up to
+    consensus.state.PEER_DRAIN a turn, so a burst of that size is one
+    pre-verify). Raises what the loop raises, and when a message was
+    dropped by a full queue."""
+
+    async def run():
+        cs.start()
+        try:
+            for i in range(0, len(wires), burst):
+                for w in wires[i : i + burst]:
+                    if not cs.send_peer_msg(decode_msg(w), peer_id):
+                        raise RuntimeError("the peer queue dropped a message")
+                await cs.wait_idle()
+        finally:
+            await cs.stop()
+
+    asyncio.run(run())

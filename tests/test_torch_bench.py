@@ -64,3 +64,20 @@ def test_bench_without_cuda_exits_2(capsys):
     assert bench.main(["--cells", "batch_curve"]) == 2
     out = capsys.readouterr()
     assert out.out == "" and "CUDA is not available" in out.err
+
+
+def test_bench_vote_ingest_cell(capsys, monkeypatch):
+    """The vote_ingest cell at 6 ed25519 and 8 mixed validators (below
+    the min-batch gate: the native CPU plane): every key it declares,
+    each size's votes counted and its rates positive."""
+    monkeypatch.setattr(bench, "LIGHT_VALIDATORS", 6)
+    monkeypatch.setattr(bench, "VALIDATORS", 8)
+    monkeypatch.setattr(bench, "VOTE_REPS", 2)
+    assert bench.main(["--device", "cpu", "--cells", "vote_ingest"]) == 0
+    cell = json.loads(capsys.readouterr().out)["cells"]["vote_ingest"]
+    assert set(cell) == set(bench.CELL_KEYS["vote_ingest"]) | {"cell_s"}
+    assert cell["votes"] == {"6": 12, "8": 16}
+    assert cell["burst"] == 256 and cell["reps"] == 2
+    for key in ("votes_per_s", "votes_per_s_cache_off"):
+        assert sorted(cell[key]) == ["6", "8"]
+        assert all(math.isfinite(x) and x > 0 for x in cell[key].values())

@@ -78,6 +78,12 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         "tendermint_tpu_torch.store.kv",
         "tendermint_tpu_torch.workloads",
         "tendermint_tpu_torch.bench",
+        "tendermint_tpu_torch.consensus",
+        "tendermint_tpu_torch.consensus.msgs",
+        "tendermint_tpu_torch.consensus.state",
+        "tendermint_tpu_torch.consensus.types",
+        "tendermint_tpu_torch.crypto.sigcache",
+        "tendermint_tpu_torch.types.vote_set",
     ):
         assert m in added
     assert [m for m in added if _forbidden(m)] == []
@@ -85,11 +91,12 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
 
 def test_importing_the_device_plane_builds_and_starts_nothing():
     """Importing native/, node/, faults and breaker, the light client,
-    the workloads and the bench compiles no library and starts no
-    thread: the native plane builds at first use."""
+    the consensus vote path, the workloads and the bench compiles no
+    library and starts no thread: the native plane builds at first use."""
     code = (
         "import json, threading\n"
-        "from tendermint_tpu_torch import bench, light, native, workloads\n"
+        "from tendermint_tpu_torch import bench, consensus, light, native, workloads\n"
+        "from tendermint_tpu_torch.consensus import msgs, state, types\n"
         "from tendermint_tpu_torch.node import device\n"
         "from tendermint_tpu_torch.crypto import breaker, faults, gpu_verifier\n"
         "print(json.dumps([native._LIB is None, threading.active_count(),\n"
