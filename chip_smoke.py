@@ -684,6 +684,22 @@ def phase_sr25519_tile(torch, dev, seed: int) -> None:
     )
 
 
+def settle_probes(timeout_s: float = 60.0) -> None:
+    """Wait until no breaker probe is in flight. install() warms the
+    sr25519 single route off its own thread; until that probe reports,
+    its breaker state (and, under min_batch 1, its device verify) may
+    land in whichever call is counted next."""
+    from tendermint_tpu_torch.crypto import breaker, gpu_verifier
+
+    deadline = time.monotonic() + timeout_s
+    for route in gpu_verifier.ROUTES:
+        b = breaker.breaker_for(route)
+        while b.probe_in_flight():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the {route} probe is still in flight")
+            time.sleep(0.001)
+
+
 def assert_no_fault(before: dict, after: dict, where: str) -> None:
     """A main path contains no device fault and sends nothing to the
     CPU: a fault the plane contained there would hide in its numbers."""
@@ -835,6 +851,7 @@ def phase_main_path(torch, seed: int) -> dict:
     light_w = int(2 * LIGHT_VALIDATORS // 3 + 1 >= cfg.min_batch_size)
     start = gpu_verifier.stats()
     install_device_plane(cfg)
+    settle_probes()
     try:
         # one call each, counted: X1 and K2 once per dispatched window
         def tile(w):
@@ -865,6 +882,7 @@ def phase_main_path(torch, seed: int) -> dict:
 
     # the hybrid program: plain preparation and compare around kernel K1
     gpu_verifier.install(program="hybrid")
+    settle_probes()
     try:
         hybrid = count_one_call(
             full,
@@ -971,6 +989,7 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
     }
     start = gpu_verifier.stats()
     install_device_plane(cfg)
+    settle_probes()
     try:
         per_call = count_one_call(full, tile(w_ed, w_sr))
         per_call_light = count_one_call(light, tile(light_w["ed25519"], light_w["sr25519"]))
@@ -1003,6 +1022,7 @@ def phase_sr25519_main_path(torch, seed: int) -> dict:
     # the hybrid program: plain decode and compare around kernel K1 for
     # both key types
     gpu_verifier.install(program="hybrid")
+    settle_probes()
     try:
         hybrid = count_one_call(
             full,
@@ -1301,6 +1321,7 @@ def phase_host_path(torch, seed: int, main: dict, mixed: dict) -> dict:
     plans = {}
     start = gpu_verifier.stats()
     install_device_plane(GPUConfig())
+    settle_probes()
     try:
         for cname, (vals, commit, keys, at) in commits.items():
             for variant in HOST_PATH_VARIANTS:
@@ -1603,6 +1624,7 @@ def phase_config5(torch, dev, seed: int, mixed: dict) -> dict:
     }
     start = gpu_verifier.stats()
     install_device_plane(GPUConfig())
+    settle_probes()
     reduce, compute = merkle._reduce, merkle.Proof.compute_root_hash
     merkle._reduce = counting(reduce, "reduce")
     merkle.Proof.compute_root_hash = counting(compute, "compute_root_hash")
@@ -1755,6 +1777,7 @@ def phase_min_batch(torch, main: dict, mixed: dict) -> dict:
     sources = {"ed25519": main, "sr25519": mixed}
     out = {}
     gpu_verifier.install(min_batch=1)
+    settle_probes()
     try:
         for kt, src in sources.items():
             triples = key_triples(src["vals"], src["commit"], kt, max(MIN_BATCH_SIZES))
@@ -1849,6 +1872,7 @@ def phase_fault_containment(torch, main: dict, mixed: dict) -> dict:
     )
     results = {}
     gpu_verifier.install(gather_deadline_s=FAULT_DEADLINE_S)  # the default gate
+    settle_probes()
     try:
         for kt, src in (("ed25519", main), ("sr25519", mixed)):
             items = list(key_triples(src["vals"], src["commit"], kt, n))
@@ -2088,6 +2112,7 @@ def phase_config4(torch, seed: int) -> dict:
     out = {}
     start = gpu_verifier.stats()
     install_device_plane(cfg)
+    settle_probes()
     try:
         synced = {}
 
@@ -2537,6 +2562,7 @@ def phase_vote_path(torch, dev, seed: int) -> dict:
     valid_all: set = set()
     start = gpu_verifier.stats()
     install_device_plane(cfg)
+    settle_probes()
     try:
         for name, n, n_sr in VOTE_SIZES:
             t0 = time.perf_counter()
@@ -3132,6 +3158,7 @@ def _profile(torch, main: dict, reps: int, out_dir: str, name: str):
     vals, commit = main["vals"], main["commit"]
     bid = commit.block_id
     gpu_verifier.install()
+    settle_probes()
     try:
         verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)  # warm
         stages = {"sign_bytes": [], "drain": [], "verify": [], "merlin": []}
