@@ -59,9 +59,21 @@ commit of the precommits verifies; timed as votes/s, ms a burst by
 stage, the device's busy time and idle share, and with the cache
 disabled; the 150 set in bursts of 16 launches nothing; and X1, K2 and
 X3 are held against their plain versions on the path's 128- and
-512-wide windows (the kernels line's `vote_path`). Keys, key types,
-messages, timestamps, signing witnesses, chains, votes and transactions
-come from --seed (made by tendermint_tpu_torch.workloads).
+512-wide windows (the kernels line's `vote_path`). Phase block_exec
+drives block execution, state.execution.BlockExecutor.apply_block on the
+kvstore app, with the device plane installed: three blocks of 10,000
+kvstore transactions at the mixed 10k set, each LastCommit signed by
+every validator, on a fresh node with SqliteKV stores; each block's
+launches equal a rule computed from the block (X1 and K2, X3 windows for
+the LastCommit, one X4 root a root of 512 leaves or more); a block whose
+LastCommit has one sr25519 signature flipped is refused and leaves the
+stores as they were; apply_block is timed at heights 2-3 over five
+fresh replays, by stage, with the device's busy time and idle share;
+and the same chain on the plane uninstalled gives the same app hash,
+state, results hash and ABCI responses at every height, and the same
+refusal (the kernels line's `block_exec`). Keys, key types, messages,
+timestamps, signing witnesses, chains, votes and transactions come from
+--seed (made by tendermint_tpu_torch.workloads).
 
 Before the main paths, every kernel is held against its plain version:
 K1 and X1 at the widest bucket, K2 also on the ZIP-215 corpus at buckets
@@ -710,15 +722,16 @@ def assert_no_fault(before: dict, after: dict, where: str) -> None:
             )
 
 
-def count_one_call(fn, expect: dict) -> dict:
+def count_one_call(fn, expect: dict, outside: dict = None) -> dict:
     """Launch counts of one call of fn, zeroed just before it and read
     just after, in all and per key type. For the call each verifier
     class's dispatch() is wrapped to read the counters before and after
     it (the wrapper only reads them), so a launch is charged to the key
     type whose window made it. expect: {key type: (windows the call must
     dispatch, {kernel: launches that key type's dispatches must make})};
-    every other kernel must not launch, and no launch may fall outside a
-    dispatch."""
+    every other kernel must not launch in a dispatch, and outside the
+    dispatches each kernel must launch exactly outside.get(kernel, 0)
+    times (the merkle roots of a block's execution)."""
     from tendermint_tpu_torch.crypto import gpu_verifier
     from tendermint_tpu_torch.ops.ed25519_kernel import Ed25519Verifier
     from tendermint_tpu_torch.ops.sr25519_kernel import Sr25519Verifier
@@ -764,9 +777,10 @@ def count_one_call(fn, expect: dict) -> dict:
                 )
     for name, got in counts.items():
         charged_sum = sum(t.get(name, 0) for t in by_type.values())
-        if got != charged_sum:
+        if got - charged_sum != (outside or {}).get(name, 0):
             raise AssertionError(
-                f"{name}: {got - charged_sum} launches outside a dispatch"
+                f"{name}: {got - charged_sum} launches outside a dispatch, "
+                f"not {(outside or {}).get(name, 0)}"
             )
     return {**counts, "by_key_type": by_type}
 
@@ -2703,6 +2717,270 @@ def phase_vote_path(torch, dev, seed: int) -> dict:
     return {"sizes": results, "launches": launches_by_size, "kernels": held}
 
 
+# block execution at config 5's set: heights, timed replays
+BLOCK_EXEC_HEIGHTS = 3
+BLOCK_EXEC_REPS = 5
+
+
+def block_exec_rule(state, block, app_keys: int, gate: int, step: int, min_batch: int) -> tuple:
+    """The launches one apply_block of `block` on `state` must make: for
+    the LastCommit, the windows of each key type at `step` signatures
+    (X1 and K2 a window for ed25519, X3 for sr25519), none for a key type
+    of fewer than `min_batch` signatures; outside them, one
+    X4 launch a root of at least `gate` leaves: the data hash, the
+    LastCommit hash, a validator set whose root is not memoized yet (a
+    set keeps it across copies), the results hash and the kvstore app's
+    hash over its `app_keys` entries. The header's 14 fields and the
+    part-set proofs are never roots that large."""
+    n_sigs = len(block.last_commit.signatures)
+    expect = {"ed25519": (0, {}), "sr25519": (0, {})}
+    if block.header.height > state.initial_height:
+        vals = state.last_validators.validators
+        n_sr = sum(v.pub_key.type() == "sr25519" for v in vals)
+        w_sr, w_ed = (-(-n // step) if n >= min_batch else 0 for n in (n_sr, len(vals) - n_sr))
+        expect = {
+            "ed25519": (w_ed, {"sha512_ram": w_ed, "ed25519_verify_tile": w_ed}),
+            "sr25519": (w_sr, {"sr25519_verify": w_sr}),
+        }
+    roots = [len(block.txs), len(block.txs), app_keys]
+    if block.header.height > state.initial_height:
+        roots.append(n_sigs)
+    for vals in (state.validators, state.next_validators):
+        if vals._hash is None:
+            roots.append(len(vals))
+    return expect, {"sha256_tree": sum(n >= gate for n in roots)}
+
+
+def phase_block_exec(torch, seed: int) -> dict:
+    """Block execution (state/execution.py BlockExecutor.apply_block) on
+    the kvstore app at config 5's set, with the device plane installed
+    from its config: BLOCK_EXEC_HEIGHTS blocks of N_TXS kvstore
+    transactions (TX_LENGTHS bytes) made by State.make_block from a
+    genesis of the N_VALIDATORS mixed validators (half sr25519), each
+    LastCommit signed by every validator (workloads.build_block_chain,
+    on the CPU plane). The chain is applied on a fresh node (the kvstore
+    app, state and block stores on SqliteKV in a temporary directory),
+    each apply_block counted against block_exec_rule, and at height 3 a
+    block whose LastCommit has one sr25519 signature flipped is refused
+    first, the stores left as they were. Then BLOCK_EXEC_REPS fresh
+    replays time apply_block at heights 2-3, by stage; the device's
+    busy time at height 2 under the profiler gives its idle share. Last,
+    the same chain on the plane uninstalled (the host reference): the
+    app hash, state bytes, results hash and ABCI responses must be equal
+    at every height, and the forged block refused with the same
+    message. No fault and no reroute."""
+    import asyncio
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.crypto.gpu_verifier import GpuSr25519BatchVerifier
+    from tendermint_tpu_torch.node.device import (
+        install_device_plane,
+        uninstall_device_plane,
+    )
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.types.commit import Commit
+    from tendermint_tpu_torch.types.block_id import BlockID
+    from tendermint_tpu_torch.workloads import (
+        block_exec_node,
+        build_block_chain,
+        kv_genesis,
+        kv_txs,
+        seeded_keys,
+    )
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before block_exec")
+    t0 = time.perf_counter()
+    privs = seeded_keys(N_VALIDATORS, seed, N_VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    txs = [kv_txs(seed, h, N_TXS, TX_LENGTHS) for h in range(1, BLOCK_EXEC_HEIGHTS + 1)]
+    chain = build_block_chain(genesis, privs, txs, seed)
+    build_s = time.perf_counter() - t0
+    keys_after, seen = [], set()
+    for block_txs_ in txs:
+        seen.update(t.partition(b"=")[0] for t in block_txs_)
+        keys_after.append(len(seen))
+    # the forged height: one sr25519 signature of its LastCommit flipped
+    last = chain[-1].block
+    key_type = {p.pub_key().address(): p.type() for p in privs}
+    sr_at = [
+        i for i, cs in enumerate(last.last_commit.signatures)
+        if key_type[cs.validator_address] == "sr25519"
+    ]
+    forged_idx = sr_at[int(np.random.default_rng([seed, 12]).integers(0, len(sr_at)))]
+    forged_commit = Commit.from_proto(last.last_commit.to_proto())
+    sig = bytearray(forged_commit.signatures[forged_idx].signature)
+    sig[0] ^= 0x01
+    forged_commit.signatures[forged_idx].signature = bytes(sig)
+
+    def apply(node, state, block_id, block):
+        return asyncio.run(node.executor.apply_block(state, block_id, block))
+
+    def replay(db_dir, counted: bool, forged: dict) -> dict:
+        """Apply the chain on a fresh node; before the last height, the
+        forged block (made by its State.make_block the first time)."""
+        node = block_exec_node(genesis, db_dir)
+        state, records, counts, rules = node.state, [], {}, {}
+        for h, cb in enumerate(chain, start=1):
+            if h == len(chain):
+                if "block" not in forged:
+                    block, parts = state.make_block(
+                        h, list(cb.block.txs), forged_commit, [],
+                        cb.block.header.proposer_address,
+                    )
+                    forged["block"] = block
+                    forged["id"] = BlockID(hash=block.hash(), part_set_header=parts.header())
+                kept = (node.state_store.load().to_proto(), node.app.app_hash, node.app.height)
+                forged.setdefault("outcomes", []).append(
+                    outcome(lambda: apply(node, state, forged["id"], forged["block"]))
+                )
+                after = (node.state_store.load().to_proto(), node.app.app_hash, node.app.height)
+                if after != kept or node.state_store.load_abci_responses(h) is not None:
+                    raise AssertionError("the forged block changed the stores")
+            node.block_store.save_block(cb.block, cb.parts, cb.seen_commit)
+            out = []
+            if counted:
+                expect, outside = block_exec_rule(
+                    state, cb.block, keys_after[h - 1], MK.installed(),
+                    GpuSr25519BatchVerifier.STREAM_CHUNK, gpu_verifier.installed(),
+                )
+                counts[h] = count_one_call(
+                    lambda: out.append(apply(node, state, cb.block_id, cb.block)),
+                    expect, outside,
+                )
+                rules[h] = {"windows": {k: v[0] for k, v in expect.items()}, **outside}
+                state = out[0]
+            else:
+                state = apply(node, state, cb.block_id, cb.block)
+            records.append(
+                {
+                    "app_hash": node.app.app_hash,
+                    "state": node.state_store.load().to_proto(),
+                    "results_hash": state.last_results_hash,
+                    "abci_responses": node.state_store.load_abci_responses(h).to_proto(),
+                }
+            )
+        node.close()
+        return {"records": records, "counts": counts, "rules": rules}
+
+    forged: dict = {}
+    start = gpu_verifier.stats()
+    stage_names = ("validate_block", "verify_commit", "exec_block", "saves", "update_state", "commit")
+    with tempfile.TemporaryDirectory(prefix="block-exec-") as tmp:
+        install_device_plane(GPUConfig())
+        settle_probes()
+        try:
+            run = replay(os.path.join(tmp, "counted"), True, forged)
+            # each stage's calls, and their sums per timed apply_block
+            applies, calls = [], {k: [] for k in stage_names}
+            per_apply = {k: [] for k in stage_names}
+            with contextlib.ExitStack() as hooks:
+                for owner, attr, into in (
+                    (execution, "validate_block", "validate_block"),
+                    (execution, "verify_commit", "verify_commit"),
+                    (StateStore, "save_abci_responses", "saves"),
+                    (StateStore, "save", "saves"),
+                    (execution, "update_state", "update_state"),
+                ):
+                    hooks.enter_context(timed(owner, attr, calls[into]))
+                for rep in range(BLOCK_EXEC_REPS):
+                    node = block_exec_node(genesis, os.path.join(tmp, f"rep{rep}"))
+                    clock_async(node.executor, "_exec_block", calls["exec_block"])
+                    clock_async(node.executor, "_commit", calls["commit"])
+                    state = node.state
+                    for h, cb in enumerate(chain, start=1):
+                        node.block_store.save_block(cb.block, cb.parts, cb.seen_commit)
+                        marks = {k: len(v) for k, v in calls.items()}
+                        t0 = time.perf_counter()
+                        state = apply(node, state, cb.block_id, cb.block)
+                        ms = (time.perf_counter() - t0) * 1e3
+                        if h >= 2:
+                            applies.append(ms)
+                            for k, v in calls.items():
+                                per_apply[k].append(sum(v[marks[k]:]))
+                    node.close()
+            # the device's busy time in one apply_block at height 2, by
+            # kernel: its mean time a record times the launches the
+            # counted run made; up to PROFILER_SESSIONS fresh nodes while
+            # the profiler drops every record of a kernel
+            launched = {k: v for k, v in run["counts"][2].items() if k != "by_key_type" and v}
+            busy, kept = {}, {}
+            for session in range(PROFILER_SESSIONS):
+                node = block_exec_node(genesis, os.path.join(tmp, f"profiled{session}"))
+                node.block_store.save_block(chain[0].block, chain[0].parts, chain[0].seen_commit)
+                state1 = apply(node, node.state, chain[0].block_id, chain[0].block)
+                node.block_store.save_block(chain[1].block, chain[1].parts, chain[1].seen_commit)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    apply(node, state1, chain[1].block_id, chain[1].block)
+                    torch.cuda.synchronize()
+                node.close()
+                events = prof.key_averages()
+                for name, n in launched.items():
+                    mine = [e for e in events if KERNEL_NAMES[name] in e.key]
+                    seen = sum(e.count for e in mine)
+                    kept.setdefault(name, []).append(seen)
+                    if seen and name not in busy:
+                        busy[name] = sum(e.self_device_time_total for e in mine) / seen * n / 1e3
+                if len(busy) == len(launched):
+                    break
+            assert_no_fault(start, gpu_verifier.stats(), "block_exec")
+        finally:
+            uninstall_device_plane()
+        ref = replay(os.path.join(tmp, "reference"), False, forged)
+    for h, (got, want) in enumerate(zip(run["records"], ref["records"]), start=1):
+        for key in want:
+            if got[key] != want[key]:
+                raise AssertionError(f"height {h}: {key} differs from the host reference")
+    device_out, host_out = forged["outcomes"]
+    if device_out != host_out or device_out[0] == "ok":
+        raise AssertionError(f"the forged block: {device_out} on the card, {host_out} on the host")
+    p50 = float(np.percentile(applies, 50))
+    stage_ms = {k: float(np.percentile(per_apply[k], 50)) for k in stage_names}
+    stage_ms["validate_block_less_verify_commit"] = float(
+        np.percentile(np.subtract(per_apply["validate_block"], per_apply["verify_commit"]), 50)
+    )
+    launches_per_block = {
+        str(h): {k: v for k, v in c.items() if k != "by_key_type" and v}
+        for h, c in run["counts"].items()
+    }
+    out = {
+        "phase": "block_exec",
+        "validators": {"ed25519": N_VALIDATORS - N_VALIDATORS // 2, "sr25519": N_VALIDATORS // 2},
+        "heights": len(chain),
+        "txs_per_block": N_TXS,
+        "tx_bytes_per_block": [sum(map(len, t)) for t in txs],
+        "block_bytes": [cb.block.size() for cb in chain],
+        "app_entries_after": keys_after,
+        "build_s": build_s,
+        "launches_per_block": launches_per_block,
+        "rule_per_block": {str(h): r for h, r in run["rules"].items()},
+        "apply_block_ms": {
+            "p50": p50,
+            "p95": float(np.percentile(applies, 95)),
+            "samples": applies,
+            "heights": [2, 3],
+            "reps": BLOCK_EXEC_REPS,
+        },
+        "stage_ms_p50": stage_ms,
+        "verify_commit_share_of_apply_p50": stage_ms["verify_commit"] / p50,
+        "device_busy_ms_height2": busy,
+        "device_records_kept_per_session": kept,
+        "device_kernels_not_measured": sorted(set(launched) - set(busy)),
+        "device_idle_share": 1 - sum(busy.values()) / p50,
+        "forged": {"height": len(chain), "index": forged_idx, "outcome": list(device_out)},
+        "equal_to_host_reference": ["app_hash", "state", "results_hash", "abci_responses"],
+        "ok": True,
+    }
+    emit(out)
+    return {"launches": launches_per_block}
+
+
 def phase_kernels(
     torch,
     dev,
@@ -3312,9 +3590,17 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     phase_fault_containment(torch, main_run, mixed_run)
     phase_config4(torch, args.seed)
     votes = phase_vote_path(torch, dev, args.seed)
+    block_exec = phase_block_exec(torch, args.seed)
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
     )
+    # every kernel's launches in each apply_block of phase block_exec
+    for r in kernels["kernels"]:
+        r["block_exec"] = {
+            "launches_per_block": {
+                h: c.get(r["name"], 0) for h, c in block_exec["launches"].items()
+            }
+        }
     # the vote path's launches per height at each size, and each kernel
     # against its plain version on the path's windows at VOTE_WIDTHS
     for r in kernels["kernels"]:

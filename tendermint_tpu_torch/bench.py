@@ -48,7 +48,16 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   mixed set; the mean of VOTE_REPS runs after one warm-up, and one run with the cache
   disabled (every vote verified alone on the CPU). Each run must add
   every vote and reach +2/3 of the precommits; the commit made of them
-  must verify.
+  must verify;
+- block_exec: blocks/s and the p50 and p95 of
+  state.execution.BlockExecutor.apply_block on the kvstore app at the
+  mixed 10k set: a chain of BLOCK_HEIGHTS blocks of 10,000 kvstore
+  transactions of 100-300 bytes, each LastCommit signed by every
+  validator (workloads.build_block_chain), replayed BLOCK_REPS times on
+  a fresh node with SqliteKV stores after one warm-up; blocks/s over
+  every height's apply_block, the percentiles over heights 2 and up.
+  Each replay's app hash after a height must be the one the next block
+  names.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -88,6 +97,8 @@ CURVE_SIZES = (1, 8, 64, 1024)
 # repetitions: end-to-end calls, stages, curve points, CPU-plane commits,
 # keygens and signatures, vote ingests
 REPS, STAGE_REPS, CURVE_REPS, CPU_REPS, SIGN_REPS, VOTE_REPS = 20, 5, 5, 3, 300, 3
+# block_exec's chain and replays
+BLOCK_HEIGHTS, BLOCK_REPS = 3, 5
 # the most light_sync may spend building its chain before it cuts it
 CHAIN_BUDGET_S = 240.0
 
@@ -111,6 +122,16 @@ CELL_KEYS = {
     "sign_keygen": ("us", "reps"),
     "config5_merkle": ("ms", "txs", "reps"),
     "vote_ingest": ("votes_per_s", "votes_per_s_cache_off", "votes", "burst", "reps"),
+    "block_exec": (
+        "blocks_per_s",
+        "p50_ms",
+        "p95_ms",
+        "heights",
+        "txs",
+        "validators",
+        "reps",
+        "chain_build_s",
+    ),
     # last: it leaves both breakers open
     "commit10k_mixed_cpu_plane": ("validators", "p50_ms", "p95_ms", "reps"),
 }
@@ -507,6 +528,50 @@ def cell_vote_ingest(ctx: Ctx) -> dict:
     return {**out, "burst": PEER_DRAIN, "reps": VOTE_REPS}
 
 
+def cell_block_exec(ctx: Ctx) -> dict:
+    import asyncio
+    import tempfile
+
+    from .workloads import block_exec_node, build_block_chain, kv_genesis, kv_txs, seeded_keys
+
+    seed = ctx.args.seed + 20
+    privs = seeded_keys(VALIDATORS, seed, VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    t0 = time.perf_counter()
+    txs = [kv_txs(seed, h, TXS, (100, 300)) for h in range(1, BLOCK_HEIGHTS + 1)]
+    chain = build_block_chain(genesis, privs, txs, seed)
+    build_s = time.perf_counter() - t0
+    before = _stats()
+    rates, applies = [], []
+    for rep in range(BLOCK_REPS + 1):  # the first: warm-up, untimed
+        with tempfile.TemporaryDirectory(prefix="bench-block-exec-") as tmp:
+            node = block_exec_node(genesis, tmp)
+            state, spent = node.state, 0.0
+            for h, cb in enumerate(chain, start=1):
+                node.block_store.save_block(cb.block, cb.parts, cb.seen_commit)
+                t0 = time.perf_counter()
+                state = asyncio.run(node.executor.apply_block(state, cb.block_id, cb.block))
+                ms = (time.perf_counter() - t0) * 1e3
+                spent += ms / 1e3
+                if rep and h >= 2:
+                    applies.append(ms)
+                if h < len(chain) and node.app.app_hash != chain[h].block.header.app_hash:
+                    raise AssertionError(f"block_exec: the app hash after height {h} differs")
+            node.close()
+        if rep:
+            rates.append(len(chain) / spent)
+    _no_fault(before, "block_exec")
+    return {
+        "blocks_per_s": float(np.mean(rates)),
+        **_p50_p95(applies),
+        "heights": len(chain),
+        "txs": TXS,
+        "validators": VALIDATORS,
+        "reps": BLOCK_REPS,
+        "chain_build_s": build_s,
+    }
+
+
 RUNNERS = {
     "batch_curve": cell_batch_curve,
     "throughput_8192": cell_throughput,
@@ -519,6 +584,7 @@ RUNNERS = {
     "config5_merkle": cell_config5,
     "commit10k_mixed_cpu_plane": cell_cpu_plane,
     "vote_ingest": cell_vote_ingest,
+    "block_exec": cell_block_exec,
 }
 
 

@@ -130,6 +130,11 @@ class ProtoWriter:
             self._tag(field, 0)
             self._buf += encode_varint(value)
 
+    def bool(self, field: int, value: bool) -> None:
+        if value:
+            self._tag(field, 0)
+            self._buf += b"\x01"
+
     def sfixed64(self, field: int, value: int) -> None:
         if value:
             self._tag(field, 1)

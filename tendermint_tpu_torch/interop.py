@@ -24,7 +24,15 @@ JAX package writes:
   -> the port's Vote;
 - msg_from_proto: the wire bytes of a consensus Message envelope
   (consensus/msgs.py:450 encode_msg) -> the port's vote-path message, or
-  of a MsgInfo.to_proto() (:480) with `info=True` -> the port's MsgInfo.
+  of a MsgInfo.to_proto() (:480) with `info=True` -> the port's MsgInfo;
+- genesis_from_json: the text of GenesisDoc.to_json() (types/genesis.py:88)
+  -> the port's GenesisDoc;
+- state_from_proto: the store bytes of State.to_proto() (state/types.py:132)
+  -> the port's State;
+- block_from_proto: the wire bytes of Block.to_proto() (types/block.py:132)
+  -> the port's Block;
+- abci_responses_from_proto: the store bytes of ABCIResponses.to_proto()
+  (state/store.py:99) -> the port's ABCIResponses.
 """
 
 from __future__ import annotations
@@ -36,14 +44,21 @@ from .crypto import batch  # noqa: F401  (registers the key types)
 from .consensus.msgs import decode_msg
 from .crypto.merkle import Proof
 from .ops import field25519 as F
+from .state.store import ABCIResponses
+from .state.types import State
+from .types.block import Block
 from .types.commit import Commit
+from .types.genesis import GenesisDoc
 from .types.light import LightBlock, SignedHeader
 from .types.validator import ValidatorSet
 from .types.vote import Vote
 
 __all__ = [
+    "abci_responses_from_proto",
+    "block_from_proto",
     "cols_from_rows",
     "commit_from_proto",
+    "genesis_from_json",
     "light_block_from_proto",
     "msg_from_proto",
     "points_from_numpy",
@@ -51,6 +66,7 @@ __all__ = [
     "proofs_to_proto",
     "rows_from_cols",
     "signed_header_from_proto",
+    "state_from_proto",
     "validator_set_from_proto",
     "vote_from_proto",
 ]
@@ -79,6 +95,22 @@ def vote_from_proto(data: bytes) -> Vote:
 def msg_from_proto(data: bytes):
     """A Message envelope's vote-path message."""
     return decode_msg(bytes(data))
+
+
+def genesis_from_json(text: str) -> GenesisDoc:
+    return GenesisDoc.from_json(text)
+
+
+def state_from_proto(data: bytes) -> State:
+    return State.from_proto(bytes(data))
+
+
+def block_from_proto(data: bytes) -> Block:
+    return Block.from_proto(bytes(data))
+
+
+def abci_responses_from_proto(data: bytes) -> ABCIResponses:
+    return ABCIResponses.from_proto(bytes(data))
 
 
 def points_from_numpy(arr, device="cuda") -> torch.Tensor:

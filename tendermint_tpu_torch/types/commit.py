@@ -7,6 +7,7 @@ array's memo, fingerprint tokens) served its warm verification paths and
 is left out: a Commit here encodes its sign-bytes and builds its flag
 array on every call and caches only the per-chain splice templates. The
 sign-bytes of a batch of votes are spliced in C (types/canonical.py).
+`max_commit_bytes` (:61) sizes a block's data for a proposal.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ __all__ = [
     "BLOCK_ID_FLAG_NIL",
     "Commit",
     "CommitSig",
+    "max_commit_bytes",
 ]
 
 BLOCK_ID_FLAG_ABSENT = 1  # no vote was received from this validator
@@ -37,6 +39,17 @@ BLOCK_ID_FLAG_COMMIT = 2  # voted for the committed block
 BLOCK_ID_FLAG_NIL = 3  # voted nil
 
 MAX_SIGNATURE_SIZE = 64
+MAX_COMMIT_OVERHEAD_BYTES = 94  # reference: types/block.go:597
+MAX_COMMIT_SIG_BYTES = 109  # reference: types/block.go:600
+
+
+def max_commit_bytes(val_count: int) -> int:
+    """The largest encoded Commit of val_count signatures
+    (tendermint_tpu/types/commit.py:61; reference: types/block.go:621-625)."""
+    proto_encoding_overhead = 2
+    return MAX_COMMIT_OVERHEAD_BYTES + (
+        (MAX_COMMIT_SIG_BYTES + proto_encoding_overhead) * val_count
+    )
 
 
 @dataclass

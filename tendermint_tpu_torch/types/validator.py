@@ -1,22 +1,22 @@
-"""Validator and ValidatorSet: what commit and light verification read.
+"""Validator and ValidatorSet.
 
 Counterpart: tendermint_tpu/types/validator.py: Validator (:58-121),
-`get_by_address` and `get_by_index` (:175-191), the
-set's construction from a validator list into an empty set (:146-160,
-:389-512 restricted to additions), proposer selection (:124-140,
-:298-371), `powers_array` (:193), the `hash()` memo and its
-invalidation by `_reindex` (:276-285, :373-385), `validate_basic`
-(:591) and the proto round-trip with its memo (:516-570). A set built
-here gets the priorities and the proposer the JAX package's constructor
-gives it, so its to_proto equals the JAX package's. Left out: change
-sets (update_with_change_set), copies, and the memos of the JAX
-package's warm commit paths (pubkey bytes, fingerprint tokens);
-powers_array is computed per call.
+`has_address`, `get_by_address` and `get_by_index` (:172-191), the
+set's construction from a validator list (:146-160) and its change
+sets (`update_with_change_set`, :389-512: the validator updates of
+EndBlock), `copy` (:263) and `copy_increment_proposer_priority` (:324),
+proposer selection (:124-140, :298-371), `powers_array` (:193), the
+`hash()` memo and its invalidation by `_reindex` (:276-285, :373-385),
+`validate_basic` (:591) and the proto round-trip with its memo
+(:516-570). A set built here gets the priorities and the proposer the
+JAX package's constructor gives it, so its to_proto equals the JAX
+package's. Left out: the memos of the JAX package's warm commit paths
+(pubkey bytes, fingerprint tokens); powers_array is computed per call.
 
 The hash memo covers keys and powers only; like the JAX package's, it is
-dropped by _reindex, which every path that changes the membership here
-runs, and an in-place change of a validator's key or power is not a
-supported mutation of a set.
+dropped by _reindex, which every path that changes the membership or a
+power here runs, and survives a copy; an in-place change of a
+validator's key or power is not a supported mutation of a set.
 """
 
 from __future__ import annotations
@@ -125,8 +125,9 @@ class ValidatorSet:
         self._total_voting_power = 0
         self._addr_index: Dict[bytes, int] = {}
         self._hash: Optional[bytes] = None
-        self._add_validators([v.copy() for v in validators or ()])
-        if self.validators:
+        changes = [v.copy() for v in validators or ()]
+        self._update_with_change_set(changes, allow_deletes=False)
+        if changes:
             self.increment_proposer_priority(1)
 
     # -- basic accessors --
@@ -136,6 +137,9 @@ class ValidatorSet:
 
     def __len__(self) -> int:
         return len(self.validators)
+
+    def has_address(self, address: bytes) -> bool:
+        return address in self._addr_index
 
     def get_by_address(
         self, address: bytes
@@ -166,6 +170,22 @@ class ValidatorSet:
             dtype=np.int64,
             count=len(self.validators),
         )
+
+    def copy(self) -> "ValidatorSet":
+        """A deep copy; it keeps the hash memo (the same membership has
+        the same root)."""
+        new = ValidatorSet.__new__(ValidatorSet)
+        new.validators = [v.copy() for v in self.validators]
+        new.proposer = self.proposer.copy() if self.proposer else None
+        new._total_voting_power = self._total_voting_power
+        new._addr_index = dict(self._addr_index)
+        new._hash = self._hash
+        return new
+
+    def copy_increment_proposer_priority(self, times: int) -> "ValidatorSet":
+        c = self.copy()
+        c.increment_proposer_priority(times)
+        return c
 
     def _reindex(self) -> None:
         self._addr_index = {
@@ -253,31 +273,105 @@ class ValidatorSet:
             )
         return self._hash
 
-    # -- construction: validator_set.go:380-651 restricted to additions
-    #    into an empty set --
+    # -- change sets (reference: types/validator_set.go:380-651) --
 
-    def _add_validators(self, changes: List[Validator]) -> None:
+    def update_with_change_set(self, changes: List[Validator]) -> None:
+        """Apply validator updates: power 0 removes, a new address adds,
+        a known one changes its power."""
+        self._update_with_change_set([c.copy() for c in changes], allow_deletes=True)
+
+    def _update_with_change_set(self, changes: List[Validator], allow_deletes: bool) -> None:
+        """The construction of a set (additions into an empty set, no
+        removals) and its updates."""
+        if not changes:
+            return
+        updates, deletes = self._process_changes(changes)
+        if not allow_deletes and deletes:
+            raise ValueError("cannot process validators with voting power 0")
+        num_new = sum(1 for u in updates if not self.has_address(u.address))
+        if num_new == 0 and len(self.validators) == len(deletes):
+            raise ValueError(
+                "applying the validator changes would result in empty set"
+            )
+        removed_power = self._verify_removals(deletes)
+        tvp_after = self._verify_updates(updates, removed_power)
+        # priorities for new validators: -1.125 * updated total power
+        for u in updates:
+            _, existing = self.get_by_address(u.address)
+            if existing is None:
+                u.proposer_priority = -(tvp_after + (tvp_after >> 3))
+            else:
+                u.proposer_priority = existing.proposer_priority
+        self._apply_updates(updates)
+        self._apply_removals(deletes)
+        self._total_voting_power = 0
+        self._update_total_voting_power()
+        self._rescale_priorities(
+            PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        )
+        self._shift_by_avg_proposer_priority()
+        # sort by voting power desc, address asc
+        self.validators.sort(key=lambda v: (-v.voting_power, v.address))
+        self._reindex()
+
+    @staticmethod
+    def _process_changes(
+        changes: List[Validator],
+    ) -> Tuple[List[Validator], List[Validator]]:
+        updates: List[Validator] = []
+        removals: List[Validator] = []
         prev_addr = None
         for c in sorted(changes, key=lambda v: v.address):
             if c.address == prev_addr:
                 raise ValueError(f"duplicate entry {c.address.hex()}")
             if c.voting_power < 0:
                 raise ValueError("voting power can't be negative")
-            if c.voting_power == 0:
+            if c.voting_power > MAX_TOTAL_VOTING_POWER:
                 raise ValueError(
-                    "cannot process validators with voting power 0"
+                    f"voting power can't be higher than {MAX_TOTAL_VOTING_POWER}"
                 )
+            (removals if c.voting_power == 0 else updates).append(c)
             prev_addr = c.address
-        # sort by voting power desc, address asc
-        self.validators = sorted(
-            changes, key=lambda v: (-v.voting_power, v.address)
-        )
-        self._update_total_voting_power()
-        # every validator is new: -1.125 * the total power
-        # (reference: types/validator_set.go:540-552)
-        tvp = self._total_voting_power
-        for v in self.validators:
-            v.proposer_priority = -(tvp + (tvp >> 3))
+        return updates, removals
+
+    def _verify_removals(self, deletes: List[Validator]) -> int:
+        removed = 0
+        for d in deletes:
+            _, val = self.get_by_address(d.address)
+            if val is None:
+                raise ValueError(
+                    f"failed to find validator {d.address.hex()} to remove"
+                )
+            removed += val.voting_power
+        if len(deletes) > len(self.validators):
+            raise ValueError("more deletes than validators")
+        return removed
+
+    def _verify_updates(self, updates: List[Validator], removed_power: int) -> int:
+        def delta(u: Validator) -> int:
+            _, val = self.get_by_address(u.address)
+            return u.voting_power - val.voting_power if val is not None else u.voting_power
+
+        tvp_after_removals = self.total_voting_power() - removed_power
+        for u in sorted(updates, key=delta):
+            tvp_after_removals += delta(u)
+            if tvp_after_removals > MAX_TOTAL_VOTING_POWER:
+                raise OverflowError(
+                    "total voting power of resulting valset exceeds max"
+                )
+        return tvp_after_removals + removed_power
+
+    def _apply_updates(self, updates: List[Validator]) -> None:
+        by_addr = {v.address: v for v in self.validators}
+        by_addr.update((u.address, u) for u in updates)
+        self.validators = [by_addr[a] for a in sorted(by_addr)]
+        self._reindex()
+
+    def _apply_removals(self, deletes: List[Validator]) -> None:
+        if not deletes:
+            return
+        dead = {d.address for d in deletes}
+        self.validators = [v for v in self.validators if v.address not in dead]
         self._reindex()
 
     # -- proto --

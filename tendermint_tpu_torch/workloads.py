@@ -16,7 +16,14 @@ all built with the port's own types from a seed.
   round for one block, every validator voting once of each type, as
   VoteMessage wire bytes in a seeded order (the consensus vote path's
   traffic); vote_state, a fresh consensus.state.ConsensusState at that
-  height, and ingest, which feeds it wire bytes in bursts.
+  height, and ingest, which feeds it wire bytes in bursts;
+- kv_txs: a block of kvstore transactions (`key=value`) of seeded
+  lengths; kv_genesis, the genesis JSON of a set of validators;
+  build_block_chain, a chain of blocks made by State.make_block and
+  applied by a BlockExecutor on the kvstore app, each LastCommit signed
+  by every validator whose key it is given; block_exec_node, a
+  fresh node to apply it (the state from the genesis, the kvstore app,
+  state and block stores on MemKV or on SqliteKV in a directory).
 
 Keys, timestamps and signing witnesses come from the seed, so a seed
 gives the same bytes on every host. Signing is native: ed25519's and
@@ -29,9 +36,10 @@ from __future__ import annotations
 
 import asyncio
 import hashlib
+import os
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -40,32 +48,50 @@ from .crypto.sr25519 import PrivKeySr25519, sign_batch
 from .consensus.msgs import VoteMessage, decode_msg, encode_msg
 from .consensus.state import ConsensusState
 from .consensus.types import RoundState
+from .abci.client import LocalClient
+from .abci.kvstore import KVStoreApplication
 from .crypto import batch
 from .light.client import Client, TrustOptions
 from .light.errors import LightBlockNotFoundError
 from .light.provider import Provider
 from .light.store import LightStore
-from .store.kv import MemKV
+from .mempool.nop import NopMempool
+from .state.execution import BlockExecutor
+from .state.store import StateStore
+from .state.types import State, state_from_genesis
+from .store.block_store import BlockStore
+from .store.kv import MemKV, SqliteKV
+from .types.block import Block
 from .types.block_id import BlockID, PartSetHeader
 from .types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from .types.commit import Commit, CommitSig
+from .types.genesis import GenesisDoc, GenesisValidator
 from .types.header import Consensus, Header
+from .types.params import ConsensusParams
+from .types.part_set import PartSet
 from .types.light import LightBlock, SignedHeader
 from .types.validator import Validator, ValidatorSet
 from .types.vote import Vote
 
 __all__ = [
     "BASE_TIME_NS",
+    "ChainBlock",
     "ChainProvider",
+    "ExecNode",
     "VoteTraffic",
+    "block_exec_node",
     "block_txs",
+    "build_block_chain",
     "build_commit",
     "build_light_chain",
     "build_vote_traffic",
     "ingest",
+    "kv_genesis",
+    "kv_txs",
     "light_client",
     "light_sync",
     "seeded_keys",
+    "sign_commit",
     "vote_state",
 ]
 
@@ -397,3 +423,131 @@ def ingest(cs: ConsensusState, wires: List[bytes], burst: int, peer_id: str = "p
             await cs.stop()
 
     asyncio.run(run())
+
+
+def kv_txs(seed: int, height: int, n: int, lengths: tuple) -> list:
+    """n kvstore transactions `key=value` of lengths in [lengths[0],
+    lengths[1]] (at least 34): a key of 32 hex digits, then '=' and a
+    value of hex digits, all from the seed and the height. Keys are
+    128 random bits, so a block's transactions add as many entries."""
+    rng = np.random.default_rng([seed, 8, height])
+    lens = rng.integers(lengths[0], lengths[1] + 1, n).tolist()
+    digits = rng.bytes((sum(lens) + 1) // 2).hex().encode()
+    out, at = [], 0
+    for k in lens:
+        out.append(digits[at : at + 32] + b"=" + digits[at + 33 : at + k])
+        at += k
+    return out
+
+
+def kv_genesis(chain_id: str, privs: Sequence, power: int = 10) -> str:
+    """The genesis JSON of equal-power validators holding `privs` at
+    BASE_TIME_NS, accepting the key types among them."""
+    types = sorted({p.type() for p in privs})
+    params = ConsensusParams()
+    params.validator.pub_key_types = types
+    doc = GenesisDoc(
+        chain_id=chain_id,
+        genesis_time_ns=BASE_TIME_NS,
+        consensus_params=params,
+        validators=[GenesisValidator(pub_key=p.pub_key(), power=power) for p in privs],
+    )
+    return doc.to_json()
+
+
+def sign_commit(chain_id: str, vals: ValidatorSet, block_id: BlockID, height: int,
+                time_ns: int, privs: Sequence, seed: int) -> Commit:
+    """The Commit of block_id at height, round 0: every validator of vals
+    whose key is in privs signs a precommit (timestamps after time_ns,
+    within one second, from the seed); the others are absent."""
+    by_addr = {p.pub_key().address(): p for p in privs}
+    rng = np.random.default_rng([seed, 9, height])
+    stamps = (time_ns + 1 + rng.integers(0, 1_000_000_000, len(vals))).tolist()
+    signers, msgs, at = [], [], []
+    for i, (v, ts) in enumerate(zip(vals.validators, stamps)):
+        priv = by_addr.get(v.address)
+        if priv is None:
+            continue
+        vote = Vote(type=PRECOMMIT_TYPE, height=height, round=0,
+                    block_id=block_id, timestamp_ns=ts)
+        signers.append(priv)
+        msgs.append(vote.sign_bytes(chain_id))
+        at.append(i)
+    sigs = _sign_all(signers, msgs, np.random.default_rng([seed, 10, height]))
+    commit_sigs = [CommitSig.absent() for _ in vals.validators]
+    for i, sig in zip(at, sigs):
+        commit_sigs[i] = CommitSig.for_block(sig, vals.validators[i].address, stamps[i])
+    return Commit(height=height, round=0, block_id=block_id, signatures=commit_sigs)
+
+
+@dataclass
+class ChainBlock:
+    """One height of a built chain: the block, its id and parts, and the
+    commit a node saw for it (the next block's LastCommit)."""
+
+    block: Block
+    block_id: BlockID
+    parts: PartSet
+    seen_commit: Commit
+
+
+@dataclass
+class ExecNode:
+    """What applies blocks on one node: the state from the genesis, the
+    kvstore app behind a local client, and the state and block stores."""
+
+    state: State
+    app: KVStoreApplication
+    executor: BlockExecutor
+    state_store: StateStore
+    block_store: BlockStore
+    dbs: tuple
+
+    def close(self) -> None:
+        for db in self.dbs:
+            db.close()
+
+
+def block_exec_node(genesis_json: str, db_dir: Optional[str] = None) -> ExecNode:
+    """A fresh node at the genesis: the stores on MemKV, or on SqliteKV
+    files `state.sqlite` and `blockstore.sqlite` in db_dir (made if
+    missing; ExecNode.close closes them)."""
+    if db_dir is None:
+        state_db, block_db = MemKV(), MemKV()
+    else:
+        os.makedirs(db_dir, exist_ok=True)
+        state_db = SqliteKV(os.path.join(db_dir, "state.sqlite"))
+        block_db = SqliteKV(os.path.join(db_dir, "blockstore.sqlite"))
+    state = state_from_genesis(GenesisDoc.from_json(genesis_json))
+    state_store, block_store = StateStore(state_db), BlockStore(block_db)
+    state_store.save(state)
+    app = KVStoreApplication()
+    executor = BlockExecutor(
+        state_store, LocalClient(app), NopMempool(), block_store=block_store
+    )
+    return ExecNode(state, app, executor, state_store, block_store, (state_db, block_db))
+
+
+def build_block_chain(genesis_json: str, privs: Sequence, txs: Sequence[list],
+                      seed: int) -> List[ChainBlock]:
+    """Blocks 1..len(txs) of the genesis's chain, block h holding txs[h-1]:
+    each made by State.make_block from the state after the height before
+    (its proposer the set's, its LastCommit that height's commit, signed
+    by sign_commit), then applied on a node of block_exec_node so that the
+    next block carries its app and results hashes."""
+    node = block_exec_node(genesis_json)
+    chain_id = node.state.chain_id
+    state = node.state
+    last_commit = Commit(height=0)
+    out = []
+    for h, block_txs_ in enumerate(txs, start=state.initial_height):
+        proposer = state.validators.get_proposer().address
+        block, parts = state.make_block(h, list(block_txs_), last_commit, [], proposer)
+        block_id = BlockID(hash=block.hash(), part_set_header=parts.header())
+        seen = sign_commit(chain_id, state.validators, block_id, h,
+                           block.header.time_ns, privs, seed)
+        node.block_store.save_block(block, parts, seen)
+        state = asyncio.run(node.executor.apply_block(state, block_id, block))
+        out.append(ChainBlock(block, block_id, parts, seen))
+        last_commit = seen
+    return out

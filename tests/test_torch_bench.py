@@ -81,3 +81,18 @@ def test_bench_vote_ingest_cell(capsys, monkeypatch):
     for key in ("votes_per_s", "votes_per_s_cache_off"):
         assert sorted(cell[key]) == ["6", "8"]
         assert all(math.isfinite(x) and x > 0 for x in cell[key].values())
+
+
+def test_bench_block_exec_cell(capsys, monkeypatch):
+    """The block_exec cell at 8 mixed validators and 40 transactions a
+    block (the native CPU plane below the gate): every key it declares,
+    its rates and times positive."""
+    monkeypatch.setattr(bench, "VALIDATORS", 8)
+    monkeypatch.setattr(bench, "TXS", 40)
+    monkeypatch.setattr(bench, "BLOCK_REPS", 2)
+    assert bench.main(["--device", "cpu", "--cells", "block_exec"]) == 0
+    cell = json.loads(capsys.readouterr().out)["cells"]["block_exec"]
+    assert set(cell) == set(bench.CELL_KEYS["block_exec"]) | {"cell_s"}
+    assert (cell["heights"], cell["txs"], cell["validators"], cell["reps"]) == (3, 40, 8, 2)
+    for key in ("blocks_per_s", "p50_ms", "p95_ms", "chain_build_s"):
+        assert math.isfinite(cell[key]) and cell[key] > 0

@@ -84,6 +84,17 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         "tendermint_tpu_torch.consensus.types",
         "tendermint_tpu_torch.crypto.sigcache",
         "tendermint_tpu_torch.types.vote_set",
+        "tendermint_tpu_torch.abci.client",
+        "tendermint_tpu_torch.abci.kvstore",
+        "tendermint_tpu_torch.abci.proxy",
+        "tendermint_tpu_torch.libs.service",
+        "tendermint_tpu_torch.mempool.nop",
+        "tendermint_tpu_torch.state.execution",
+        "tendermint_tpu_torch.state.store",
+        "tendermint_tpu_torch.store.block_store",
+        "tendermint_tpu_torch.types.block",
+        "tendermint_tpu_torch.types.genesis",
+        "tendermint_tpu_torch.types.part_set",
     ):
         assert m in added
     assert [m for m in added if _forbidden(m)] == []
