@@ -71,7 +71,24 @@ stores as they were; apply_block is timed at heights 2-3 over five
 fresh replays, by stage, with the device's busy time and idle share;
 and the same chain on the plane uninstalled gives the same app hash,
 state, results hash and ABCI responses at every height, and the same
-refusal (the kernels line's `block_exec`). Keys, key types, messages,
+refusal (the kernels line's `block_exec`). Phase consensus_heights
+drives the step machine, consensus.state.ConsensusState, of one node
+whose validator (an ed25519 member signing through FilePV) commits
+heights from genesis with its WAL, evidence pool and event bus on
+SqliteKV stores, the device plane installed: three heights of 10,000
+kvstore transactions at the mixed 10k set and five at 150 ed25519
+validators (one proposed by the node itself), each reaching it as a
+proposal and its parts, then the other validators' prevotes and
+precommits as wire bytes in bursts of 256. Every height commits in
+round 0 with the launches of a rule computed from its traffic (the vote
+bursts' windows, four LastCommit verify_commit calls a height, the X4
+roots), a forged proposal is ignored, an equivocating precommit leaves
+DuplicateVoteEvidence pending, a light-client attack against the 10k
+set verifies on the card and its forged copy is refused with the JAX
+message, and the blocks, seen commits, state, app hash and WAL EndHeight
+records equal the same run on the native CPU plane; timed a height and
+by stage, with the device's idle share (the kernels line's
+`consensus_heights`). Keys, key types, messages,
 timestamps, signing witnesses, chains, votes and transactions come from
 --seed (made by tendermint_tpu_torch.workloads).
 
@@ -722,21 +739,14 @@ def assert_no_fault(before: dict, after: dict, where: str) -> None:
             )
 
 
-def count_one_call(fn, expect: dict, outside: dict = None) -> dict:
-    """Launch counts of one call of fn, zeroed just before it and read
-    just after, in all and per key type. For the call each verifier
-    class's dispatch() is wrapped to read the counters before and after
-    it (the wrapper only reads them), so a launch is charged to the key
-    type whose window made it. expect: {key type: (windows the call must
-    dispatch, {kernel: launches that key type's dispatches must make})};
-    every other kernel must not launch in a dispatch, and outside the
-    dispatches each kernel must launch exactly outside.get(kernel, 0)
-    times (the merkle roots of a block's execution)."""
-    from tendermint_tpu_torch.crypto import gpu_verifier
+@contextlib.contextmanager
+def charged_dispatches(by_type: dict):
+    """For the block each verifier class's dispatch() is wrapped to read
+    the launch counters before and after it (the wrapper only reads
+    them) and add the difference to by_type[key type][kernel], so a
+    launch is charged to the key type whose window made it."""
     from tendermint_tpu_torch.ops.ed25519_kernel import Ed25519Verifier
     from tendermint_tpu_torch.ops.sr25519_kernel import Sr25519Verifier
-
-    by_type: dict = {}
 
     def charged(dispatch, key_type):
         def wrapper(self, *args):
@@ -751,38 +761,60 @@ def count_one_call(fn, expect: dict, outside: dict = None) -> dict:
 
     classes = {Ed25519Verifier: "ed25519", Sr25519Verifier: "sr25519"}
     originals = {cls: cls.__dict__["dispatch"] for cls in classes}
-    before = gpu_verifier.stats()
     for cls, key_type in classes.items():
         cls.dispatch = charged(originals[cls], key_type)
     try:
-        reset_launches()
-        fn()
-        counts = launches()
+        yield by_type
     finally:
         for cls, dispatch in originals.items():
             cls.dispatch = dispatch
-    after = gpu_verifier.stats()
-    assert_no_fault(before, after, "one counted call")
+
+
+def check_counts(before: dict, after: dict, by_type: dict, counts: dict,
+                 expect: dict, outside: dict = None, where: str = "one counted call") -> dict:
+    """The checks of count_one_call on one span's stats() before and
+    after, the launches charged to each key type and all the launches."""
+    assert_no_fault(before, after, where)
     for key_type, (want, _kernels) in expect.items():
         got = after[f"batches_{key_type}"] - before[f"batches_{key_type}"]
         if got != want:
-            raise AssertionError(f"{got} {key_type} windows, not {want}")
+            raise AssertionError(f"{where}: {got} {key_type} windows, not {want}")
     for key_type in set(by_type) | set(expect):
         want = expect.get(key_type, (0, {}))[1]
         for name, got in by_type.get(key_type, {}).items():
             if got != want.get(name, 0):
                 raise AssertionError(
-                    f"{key_type} windows launched {name} {got} times, "
+                    f"{where}: {key_type} windows launched {name} {got} times, "
                     f"not {want.get(name, 0)}"
                 )
     for name, got in counts.items():
         charged_sum = sum(t.get(name, 0) for t in by_type.values())
         if got - charged_sum != (outside or {}).get(name, 0):
             raise AssertionError(
-                f"{name}: {got - charged_sum} launches outside a dispatch, "
+                f"{where}: {name}: {got - charged_sum} launches outside a dispatch, "
                 f"not {(outside or {}).get(name, 0)}"
             )
-    return {**counts, "by_key_type": by_type}
+    return {**counts, "by_key_type": {k: dict(v) for k, v in by_type.items()}}
+
+
+def count_one_call(fn, expect: dict, outside: dict = None) -> dict:
+    """Launch counts of one call of fn, zeroed just before it and read
+    just after, in all and per key type (charged_dispatches). expect:
+    {key type: (windows the call must dispatch, {kernel: launches that
+    key type's dispatches must make})}; every other kernel must not
+    launch in a dispatch, and outside the dispatches each kernel must
+    launch exactly outside.get(kernel, 0) times (the merkle roots of a
+    block's execution)."""
+    from tendermint_tpu_torch.crypto import gpu_verifier
+
+    by_type: dict = {}
+    before = gpu_verifier.stats()
+    with charged_dispatches(by_type):
+        reset_launches()
+        fn()
+        counts = launches()
+    after = gpu_verifier.stats()
+    return check_counts(before, after, by_type, counts, expect, outside)
 
 
 def phase_x1_latency() -> dict:
@@ -2354,12 +2386,12 @@ def triple(t, v) -> tuple:
     return (t.vals.validators[v.validator_index].pub_key.bytes(), v.sign_bytes(CHAIN_ID), v.signature)
 
 
-def vote_windows(t, votes, burst: int, gate: int, valid: set) -> dict:
+def vote_windows(t, votes, burst: int, gate: int, valid: set, height: int = HEIGHT) -> dict:
     """The device windows each key type's pre-verify must dispatch for
     `votes` in bursts of `burst`, by the reference rule: a burst's
-    candidates (this height, a 64-byte signature, an index in the set
-    and its address) of one key type not proven by an earlier burst go
-    to the card when at least `gate` (and 2) of them, as one window (a
+    candidates (the node's height, a 64-byte signature, an index in the
+    set and its address) of one key type not proven by an earlier burst
+    go to the card when at least `gate` (and 2) of them, as one window (a
     burst is far below the streaming window); every valid candidate is
     proven after its burst."""
     vals = t.vals.validators
@@ -2369,7 +2401,7 @@ def vote_windows(t, votes, burst: int, gate: int, valid: set) -> dict:
         groups: dict = {}
         for v in votes[first : first + burst]:
             i = v.validator_index
-            if v.height != HEIGHT or len(v.signature) != 64 or not 0 <= i < len(vals):
+            if v.height != height or len(v.signature) != 64 or not 0 <= i < len(vals):
                 continue
             if vals[i].address != v.validator_address:
                 continue
@@ -2979,6 +3011,526 @@ def phase_block_exec(torch, seed: int) -> dict:
     }
     emit(out)
     return {"launches": launches_per_block}
+
+
+# the step machine: config 5's mixed set at CONSENSUS_HEIGHTS heights,
+# and 150 ed25519 validators at CONSENSUS_LIGHT_HEIGHTS, one of them
+# proposed by the node
+CONSENSUS_HEIGHTS = 3
+CONSENSUS_LIGHT_HEIGHTS = 5
+CONSENSUS_LIGHT_PROPOSES_AT = 3
+# the height with a forged proposal ahead of the genuine one and one
+# equivocating precommit
+CONSENSUS_FORGED_AT = 2
+
+
+def consensus_node_priv(privs, heights: int, proposes_at: int = 0):
+    """The node's validator: the first ed25519 key, in the set's seeded
+    order, that proposes round 0 of no height in 1..heights but
+    proposes_at (of none when 0). The set is static (kvstore txs change
+    no validator): height h's proposer is the genesis set's after h - 1
+    increments."""
+    from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
+
+    vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in privs])
+    proposers = []
+    for _ in range(heights):
+        proposers.append(vals.get_proposer().address)
+        vals = vals.copy_increment_proposer_priority(1)
+    for p in privs:
+        if p.type() != "ed25519":
+            continue
+        at = [h for h, a in enumerate(proposers, start=1) if a == p.pub_key().address()]
+        if at == ([proposes_at] if proposes_at else []):
+            return p
+    raise AssertionError(f"no ed25519 validator proposes exactly at {proposes_at or 'no height'}")
+
+
+def consensus_rule(chain, k: int, vals, node_index: int, proposer_type: str, gate: int,
+                   step: int, merkle_gate: int, app_keys: int, burst: int,
+                   proposals: int) -> tuple:
+    """(expect, outside, quorum) for count checks of height chain[k],
+    from its traffic: the pre-verify windows of its prevote bursts and
+    of its precommit bursts up to the one whose vote `quorum` brings
+    +2/3 (the node moves on to the next height there: the rest are the
+    previous height's late precommits, each verified alone on the CPU);
+    the LastCommit's verify_commit in each validate_block (at prevote,
+    at precommit, at finalize and in apply_block) of a height but the
+    first, a window a key type of at least `gate` signatures, `step` at
+    most; an sr25519 proposer's `proposals` on the card only where the
+    gate admits one signature; and one X4 root a root of `merkle_gate`
+    leaves or more: the data and LastCommit roots of each validate_block
+    and of finalize's validate_basic, the results and the app's hash
+    (over `app_keys` entries), and the set's two roots at the first
+    height. Where the node proposes, its block's prevote check runs
+    before that height's first message, at the end of the height before
+    (the node handles its own proposal as it enters the height)."""
+    from types import SimpleNamespace
+
+    from tendermint_tpu_torch.consensus.msgs import decode_msg
+
+    ch = chain[k]
+    first = chain[0].height
+    nxt = chain[k + 1] if k + 1 < len(chain) and chain[k + 1].node_proposes else None
+    t = SimpleNamespace(vals=vals)
+    prevotes = [decode_msg(w).vote for w in ch.prevotes]
+    precommits = [decode_msg(w).vote for w in ch.precommits]
+    valid = {triple(t, v) for v in prevotes + precommits}
+    power = [v.voting_power for v in vals.validators]
+    need = sum(power) * 2 // 3
+    acc, counted, quorum = power[node_index], {node_index}, None
+    for i, v in enumerate(precommits):
+        if v.block_id == ch.block_id and v.validator_index not in counted:
+            counted.add(v.validator_index)
+            acc += power[v.validator_index]
+            if acc > need:
+                quorum = i
+                break
+    if quorum is None:
+        raise AssertionError(f"the precommits of height {ch.height} never reach +2/3")
+    windows = {"ed25519": 0, "sr25519": 0}
+    for votes in (prevotes, precommits[: (quorum // burst + 1) * burst]):
+        for kt, n in vote_windows(t, votes, burst, gate, valid, height=ch.height).items():
+            windows[kt] += n
+    # (block, validate_basic calls, verify_commit calls) in this span
+    checks = [(ch, 4 if ch.node_proposes else 5)]
+    if nxt is not None:
+        checks.append((nxt, 1))
+    for c, n in checks:
+        if c.height == first:
+            continue
+        calls = n - 1 if c is ch else n  # finalize's validate_basic verifies nothing
+        for kt in windows:
+            m = sum(vals.validators[i].pub_key.type() == kt
+                    for i, s in enumerate(c.block.last_commit.signatures) if not s.is_absent())
+            windows[kt] += calls * (-(-m // step) if m >= gate else 0)
+    if proposer_type == "sr25519" and gate <= 1:
+        windows["sr25519"] += proposals
+    roots = []
+    for c, n in checks:
+        per = [len(c.block.txs)]
+        if c.height > first:
+            per.append(len(c.block.last_commit.signatures))
+        roots += per * n
+    roots += [len(ch.block.txs), app_keys]
+    if k == 0:
+        roots += [len(vals), len(vals)]
+    expect = {
+        "ed25519": (windows["ed25519"], {"sha512_ram": windows["ed25519"],
+                                         "ed25519_verify_tile": windows["ed25519"]}),
+        "sr25519": (windows["sr25519"], {"sr25519_verify": windows["sr25519"]}),
+    }
+    return expect, {"sha256_tree": sum(n >= merkle_gate for n in roots)}, quorum
+
+
+def run_consensus(torch, genesis: str, node_priv, chain, home: str, counted: bool,
+                  rules: dict = None, extra: dict = None, profile: tuple = (), at_end=None) -> dict:
+    """Drive a fresh node (workloads.consensus_node at `home`) through
+    the chain (workloads.drive_heights, bursts of PEER_DRAIN). With
+    `counted`, each height's launches are zeroed at its first message
+    and read once the node stands at the next height, and checked
+    against rules[height]; the heights in `profile` run under
+    torch.profiler. Returns each height's HeightRun, its stages' host
+    ms, its stores' bytes and, with `counted`, its launches and the
+    profiler's events; at_end(node), if given, runs before the node
+    closes."""
+    import asyncio
+
+    from tendermint_tpu_torch.consensus.state import PEER_DRAIN
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.workloads import consensus_node, drive_heights
+
+    node = consensus_node(genesis, node_priv, home)
+    calls = {k: [] for k in ("validate_block", "verify_commit", "save_block", "wal", "apply_block", "finalize")}
+    marks, out = {}, {"stages": {}, "stores": {}, "launches": {}}
+    by_type: dict = {}
+    prof: dict = {}
+
+    def before(h: int) -> None:
+        marks[h] = {k: len(v) for k, v in calls.items()}
+        if h in profile and "p" not in prof:
+            from torch.profiler import ProfilerActivity, profile as make
+
+            prof["p"] = make(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+        if counted:
+            by_type.clear()
+            marks[h]["stats"] = gpu_verifier.stats()
+            reset_launches()
+
+    def after(h: int) -> None:
+        if counted:
+            counts = launches()
+            expect, outside = rules[h]
+            out["launches"][h] = check_counts(
+                marks[h]["stats"], gpu_verifier.stats(), by_type, counts, expect, outside,
+                where=f"height {h}",
+            )
+        if profile and h == profile[-1]:
+            torch.cuda.synchronize()
+            prof["p"].__exit__(None, None, None)
+            out["profile"] = prof["p"].key_averages()
+        out["stages"][h] = {k: v[marks[h][k]:] for k, v in calls.items()}
+        out["stores"][h] = {
+            "block": node.block_store.load_block(h).to_proto(),
+            "block_meta": node.block_store.load_block_meta(h).to_proto(),
+            "seen_commit": node.block_store.load_seen_commit().to_proto(),
+            "state": node.state_store.load().to_proto(),
+            "app_hash": node.app.app_hash,
+        }
+
+    clock_async(node.executor, "apply_block", calls["apply_block"])
+    clock_async(node.cs, "_finalize_commit", calls["finalize"])
+    # each proposal's outcome, by height: accepted, or what it raised
+    out["proposals"] = {}
+    set_proposal = node.cs._set_proposal
+
+    def record_proposal(proposal):
+        seen = out["proposals"].setdefault(proposal.height, [])
+        try:
+            set_proposal(proposal)
+        except Exception as e:  # recorded, and raised on as it was
+            seen.append([type(e).__name__, str(e)])
+            raise
+        seen.append(["ok", ""])
+
+    node.cs._set_proposal = record_proposal
+    try:
+        with contextlib.ExitStack() as hooks:
+            for owner, attr, into in (
+                (node.executor, "validate_block", "validate_block"),
+                (execution, "verify_commit", "verify_commit"),
+                (node.block_store, "save_block", "save_block"),
+                (node.cs.wal, "write_end_height", "wal"),
+            ):
+                hooks.enter_context(timed(owner, attr, calls[into]))
+            if counted:
+                hooks.enter_context(charged_dispatches(by_type))
+            out["runs"] = asyncio.run(
+                drive_heights(node, chain, PEER_DRAIN, before, after, extra)
+            )
+        out["end_heights"] = node.end_heights()
+        out["evidence"] = [
+            [type(ev).__name__, ev.vote_a.validator_address.hex()]
+            for ev in node.evpool.pending_evidence(1 << 20)[0]
+        ]
+        if at_end is not None:
+            out["at_end"] = at_end(node)
+    finally:
+        node.close()
+    return out
+
+
+def consensus_stages(res: dict, heights) -> dict:
+    """p50 over `heights` of each stage's host ms: the height (first
+    message to EndHeight, and to the node at the next height), the
+    proposal and its parts, the prevote and precommit ingests (the
+    latter less finalize), finalize by part, and the four validate_block
+    and verify_commit calls each."""
+    rows = []
+    for run in res["runs"]:
+        if run.height not in heights:
+            continue
+        st = res["stages"][run.height]
+        fin = sum(st["finalize"])
+        rows.append(
+            {
+                "height_ms": run.end_height_s * 1e3,
+                "height_through_apply_ms": run.next_height_s * 1e3,
+                "all_messages_ms": run.precommits_s * 1e3,
+                "late_precommits_ms": (run.precommits_s - run.next_height_s) * 1e3,
+                "proposal_and_parts_ms": run.proposal_s * 1e3,
+                "prevote_ingest_ms": (run.prevotes_s - run.proposal_s) * 1e3,
+                "precommit_ingest_ms": (run.precommits_s - run.prevotes_s) * 1e3 - fin,
+                "finalize_ms": fin,
+                "finalize_validate_block_ms": st["validate_block"][2] if len(st["validate_block"]) > 2 else None,
+                "finalize_save_block_ms": sum(st["save_block"]),
+                "finalize_wal_ms": sum(st["wal"]),
+                "finalize_apply_block_ms": sum(st["apply_block"]),
+                "validate_block_ms": st["validate_block"],
+                "verify_commit_ms": st["verify_commit"],
+            }
+        )
+    out = {}
+    for key in rows[0]:
+        vals = [r[key] for r in rows]
+        if isinstance(vals[0], list):
+            out[key] = [float(np.percentile([v[i] for v in vals], 50)) for i in range(len(vals[0]))]
+        elif vals[0] is not None:
+            out[key] = float(np.percentile(vals, 50))
+    out["height_ms_samples"] = [r["height_ms"] for r in rows]
+    return out
+
+
+def phase_consensus_heights(torch, seed: int) -> dict:
+    """The step machine (consensus/state.py ConsensusState) of one node
+    with the device plane installed from its config, committing heights
+    from genesis: at config 5's mixed set (N_VALIDATORS, half sr25519),
+    CONSENSUS_HEIGHTS blocks of N_TXS kvstore transactions (TX_LENGTHS
+    bytes) in 64 KB parts, and at LIGHT_VALIDATORS ed25519 validators
+    CONSENSUS_LIGHT_HEIGHTS heights, the node proposing the empty block
+    of CONSENSUS_LIGHT_PROPOSES_AT itself. The node's validator is one
+    ed25519 member signing through FilePV, its stores SqliteKV files, a
+    WAL, an evidence pool and an event bus beside it, the JAX package's
+    default timeouts with skip_timeout_commit, and its clock pinned
+    (workloads.pinned_clock). Each height reaches it as a ProposalMessage
+    and BlockPartMessages, then the other validators' prevotes, then
+    their precommits, as wire bytes in bursts of PEER_DRAIN
+    (workloads.build_consensus_chain, drive_heights). Every height must
+    commit in round 0 and make the launches of consensus_rule (zeroed
+    at its first message, read when the node stands at the next
+    height). The timeouts acted on are the first height's start and,
+    reported, the next height's timeout_commit where it fires before
+    the last late precommit of a height is in; any other fails the run.
+    At
+    CONSENSUS_FORGED_AT a proposal with one signature bit flipped, sent
+    ahead of the genuine one, is ignored, and one equivocating precommit
+    leaves DuplicateVoteEvidence pending in the pool. A light-client
+    attack against the 10k set (a conflicting header at that height
+    signed by every validator, common height 1) passes
+    evidence.verify_evidence on the card with the trusting windows of
+    reference_plan, and with one counted signature flipped is refused
+    with the JAX message. The blocks, seen commits, state bytes, app
+    hash and the WAL's EndHeight records must equal those of the same
+    run on the native CPU plane. Timed by stage (consensus_stages);
+    the device's busy time at heights 2-3 under the profiler gives its
+    idle share. No fault and no reroute."""
+    import tempfile
+
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.consensus.msgs import ProposalMessage, decode_msg, encode_msg
+    from tendermint_tpu_torch.consensus.state import PEER_DRAIN
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.crypto.gpu_verifier import _GpuBatchVerifier
+    from tendermint_tpu_torch.evidence.verify import verify_evidence
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.types.block_id import BlockID
+    from tendermint_tpu_torch.types.evidence import LightClientAttackEvidence
+    from tendermint_tpu_torch.types.light import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
+    from tendermint_tpu_torch.workloads import (
+        build_consensus_chain,
+        kv_genesis,
+        kv_txs,
+        seeded_keys,
+        sign_commit,
+    )
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before consensus_heights")
+    cfg = GPUConfig()
+    t_phase = time.perf_counter()
+
+    # the traffic, built on the CPU plane
+    t0 = time.perf_counter()
+    privs = seeded_keys(N_VALIDATORS, seed, N_VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    node_priv = consensus_node_priv(privs, CONSENSUS_HEIGHTS)
+    txs = [kv_txs(seed, h, N_TXS, TX_LENGTHS) for h in range(1, CONSENSUS_HEIGHTS + 1)]
+    chain = build_consensus_chain(genesis, privs, node_priv, txs, seed, CONSENSUS_FORGED_AT)
+    vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in privs])
+    forged = decode_msg(chain[CONSENSUS_FORGED_AT - 1].proposal).proposal
+    sig = bytearray(forged.signature)
+    sig[int(np.random.default_rng([seed, 15]).integers(64))] ^= 0x10
+    forged.signature = bytes(sig)
+    extra = {CONSENSUS_FORGED_AT: [encode_msg(ProposalMessage(forged))]}
+    # the light-client attack: the block of CONSENSUS_FORGED_AT with
+    # another app hash, signed by every validator; common height 1
+    attacked = chain[CONSENSUS_FORGED_AT - 1].block
+    header = type(attacked.header).from_proto(attacked.header.to_proto())
+    header.app_hash = hashlib.sha256(b"attack-%d" % seed).digest()
+    attack_id = BlockID(hash=header.hash(), part_set_header=chain[CONSENSUS_FORGED_AT - 1].block_id.part_set_header)
+    attack_commit = sign_commit(CHAIN_ID, vals, attack_id, header.height, header.time_ns, privs, seed + 1)
+    attack = LightClientAttackEvidence(
+        conflicting_block=LightBlock(SignedHeader(header, attack_commit), vals),
+        common_height=1,
+        total_voting_power=vals.total_voting_power(),
+        timestamp_ns=chain[0].block.header.time_ns,
+    )
+    bad_at = int(np.random.default_rng([seed, 16]).integers(0, len(vals) // 4))
+    forged_commit = type(attack_commit).from_proto(attack_commit.to_proto())
+    bad_sig = bytearray(forged_commit.signatures[bad_at].signature)
+    bad_sig[0] ^= 0x01
+    forged_commit.signatures[bad_at].signature = bytes(bad_sig)
+    forged_attack = LightClientAttackEvidence(
+        conflicting_block=LightBlock(SignedHeader(header, forged_commit), vals),
+        common_height=1,
+        total_voting_power=vals.total_voting_power(),
+        timestamp_ns=attack.timestamp_ns,
+    )
+    # the 150-validator chain, the node proposing one height
+    light_privs = seeded_keys(LIGHT_VALIDATORS, seed)
+    light_genesis = kv_genesis(CHAIN_ID, light_privs)
+    light_node = consensus_node_priv(light_privs, CONSENSUS_LIGHT_HEIGHTS, CONSENSUS_LIGHT_PROPOSES_AT)
+    light_txs = [kv_txs(seed, h, 100, TX_LENGTHS) for h in range(1, CONSENSUS_LIGHT_HEIGHTS + 1)]
+    light_chain = build_consensus_chain(light_genesis, light_privs, light_node, light_txs, seed)
+    light_vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in light_privs])
+    build_s = time.perf_counter() - t0
+
+    def rules_for(ch_list, v, node_priv_, extra_) -> tuple:
+        """consensus_rule of each height of ch_list, and the precommit
+        that brings +2/3 at each, by height."""
+        node_index, _ = v.get_by_address(node_priv_.pub_key().address())
+        out, quorums, keys, cur = {}, {}, set(), v
+        for k, ch in enumerate(ch_list):
+            keys.update(t.partition(b"=")[0] for t in ch.block.txs)
+            expect, outside, quorums[ch.height] = consensus_rule(
+                ch_list, k, v, node_index, cur.get_proposer().pub_key.type(),
+                cfg.min_batch_size, _GpuBatchVerifier.STREAM_CHUNK, MK.installed(),
+                len(keys), PEER_DRAIN, 1 + len(extra_.get(ch.height, ())),
+            )
+            out[ch.height] = (expect, outside)
+            cur = cur.copy_increment_proposer_priority(1)
+        return out, quorums
+
+    results = {}
+    start = gpu_verifier.stats()
+    with tempfile.TemporaryDirectory(prefix="consensus-") as tmp:
+        install_device_plane(cfg)
+        settle_probes()
+        try:
+            rules, quorums = rules_for(chain, vals, node_priv, extra)
+            light_rules, _ = rules_for(light_chain, light_vals, light_node, {})
+
+            def attack_checks(node):
+                """Each attack through verify_evidence on the node's
+                stores, counted against reference_plan's windows."""
+                state = node.state_store.load()
+                out = {"forged_index": bad_at}
+                for name, ev, commit, bad in (("ok", attack, attack_commit, -1),
+                                              ("forged", forged_attack, forged_commit, bad_at)):
+                    want, windows = reference_plan(vals, commit, "trusting", bad)
+                    got = []
+                    out[f"{name}_launches"] = count_one_call(
+                        lambda: got.append(outcome(lambda: verify_evidence(
+                            ev, state, node.state_store, node.block_store))),
+                        {kt: (n, {"sr25519_verify": n} if kt == "sr25519"
+                              else {"sha512_ram": n, "ed25519_verify_tile": n})
+                         for kt, n in windows.items()},
+                    )
+                    if got[0] != want:
+                        raise AssertionError(f"light-client attack ({name}): {got[0]}, not {want}")
+                    out[f"{name}_outcome"], out[f"{name}_windows"] = list(got[0]), windows
+                return out
+
+            results["10k"] = run_consensus(
+                torch, genesis, node_priv, chain, os.path.join(tmp, "device"), True,
+                rules, extra, profile=(2, CONSENSUS_HEIGHTS),
+                at_end=attack_checks,
+            )
+            results["150"] = run_consensus(
+                torch, light_genesis, light_node, light_chain, os.path.join(tmp, "device150"),
+                True, light_rules,
+            )
+            assert_no_fault(start, gpu_verifier.stats(), "consensus_heights")
+        finally:
+            uninstall_device_plane()
+        ref = run_consensus(torch, genesis, node_priv, chain, os.path.join(tmp, "cpu"), False,
+                            extra=extra)
+        light_ref = run_consensus(torch, light_genesis, light_node, light_chain,
+                                  os.path.join(tmp, "cpu150"), False)
+    for name, got, want in (("10k", results["10k"], ref), ("150", results["150"], light_ref)):
+        for h, stores in want["stores"].items():
+            for key, value in stores.items():
+                if got["stores"][h][key] != value:
+                    raise AssertionError(f"{name} height {h}: {key} differs from the CPU plane's")
+        if got["end_heights"] != want["end_heights"] or len(want["end_heights"]) != len(want["runs"]):
+            raise AssertionError(f"{name}: the WAL's EndHeight records differ from the CPU plane's")
+        for res in (got, want):
+            for run in res["runs"]:
+                if run.round != 0:
+                    raise AssertionError(f"{name} height {run.height} committed in round {run.round}")
+                # acted on: height 1's start, and, reported, the next
+                # height's timeout_commit where it fires before the last
+                # late precommit is in (the node then starts the height
+                # without it); any other timeout fails the run
+                allowed = {(1, 0, 1)} if run.height == 1 else set()
+                allowed.add((run.height + 1, 0, 1))
+                stray = [t for t in run.timeouts if t[3] and t[:3] not in allowed]
+                if stray:
+                    raise AssertionError(f"{name} height {run.height}: timeouts acted on {stray}")
+    equivocator = vals.validators[chain[CONSENSUS_FORGED_AT - 1].equivocator].address.hex()
+    for res in (results["10k"], ref):
+        if res["evidence"] != [["DuplicateVoteEvidence", equivocator]]:
+            raise AssertionError(f"the pool holds {res['evidence']}, not the equivocation")
+        got = res["proposals"][CONSENSUS_FORGED_AT]
+        if got != [["ValueError", "invalid proposal signature"], ["ok", ""]]:
+            raise AssertionError(f"the proposals at height {CONSENSUS_FORGED_AT}: {got}")
+
+    # the device's busy time at heights 2..CONSENSUS_HEIGHTS, by kernel:
+    # its mean time a record times the launches counted there
+    dev = results["10k"]
+    timed_heights = list(range(2, CONSENSUS_HEIGHTS + 1))
+    launched: dict = {}
+    for h in timed_heights:
+        for name, n in dev["launches"][h].items():
+            if name != "by_key_type" and n:
+                launched[name] = launched.get(name, 0) + n
+    busy, kept = {}, {}
+    for name, n in launched.items():
+        mine = [e for e in dev["profile"] if KERNEL_NAMES[name] in e.key]
+        seen_n = sum(e.count for e in mine)
+        kept[name] = seen_n
+        if seen_n:
+            busy[name] = sum(e.self_device_time_total for e in mine) / seen_n * n / 1e3
+    wall_ms = sum(r.next_height_s for r in dev["runs"] if r.height in timed_heights) * 1e3
+    stages = consensus_stages(dev, timed_heights)
+    ref_stages = consensus_stages(ref, timed_heights)
+    out = {
+        "phase": "consensus_heights",
+        "validators": {"ed25519": N_VALIDATORS - N_VALIDATORS // 2, "sr25519": N_VALIDATORS // 2},
+        "heights": CONSENSUS_HEIGHTS,
+        "txs_per_block": N_TXS,
+        "parts_per_block": [len(ch.parts) for ch in chain],
+        "node_index": vals.get_by_address(node_priv.pub_key().address())[0],
+        "build_s": build_s,
+        "quorum_vote_index": quorums,
+        "rounds": [r.round for r in dev["runs"]],
+        "timeouts": {r.height: r.timeouts for r in dev["runs"]},
+        "cpu_plane_timeouts": {r.height: r.timeouts for r in ref["runs"]},
+        # the next height's timeout_commit acted on before every late
+        # precommit of a height was in, on the card and on the CPU plane
+        "timeout_commit_fired_at": {
+            name: [r.height + 1 for r in res["runs"] if (r.height + 1, 0, 1, True) in r.timeouts]
+            for name, res in (("card", dev), ("cpu_plane", ref))
+        },
+        "launches_per_height": {
+            h: {k: v for k, v in c.items() if k != "by_key_type" and v} for h, c in dev["launches"].items()
+        },
+        "rule_per_height": {
+            h: {"windows": {k: v[0] for k, v in r[0].items()}, **r[1]} for h, r in rules.items()
+        },
+        "ms_p50_heights_2_3": stages,
+        "cpu_plane_ms_p50_heights_2_3": ref_stages,
+        "device_busy_ms_heights_2_3": busy,
+        "device_records_kept": kept,
+        "device_kernels_not_measured": sorted(set(launched) - set(busy)),
+        "device_idle_share": 1 - sum(busy.values()) / wall_ms,
+        "forged_proposal": {"height": CONSENSUS_FORGED_AT,
+                            "outcomes": dev["proposals"][CONSENSUS_FORGED_AT]},
+        "equivocation": {"height": CONSENSUS_FORGED_AT, "pending": dev["evidence"]},
+        "light_client_attack": dev["at_end"],
+        "equal_to_cpu_plane": ["block", "block_meta", "seen_commit", "state", "app_hash", "end_heights"],
+        "light": {
+            "validators": LIGHT_VALIDATORS,
+            "heights": CONSENSUS_LIGHT_HEIGHTS,
+            "node_proposes_at": CONSENSUS_LIGHT_PROPOSES_AT,
+            "rounds": [r.round for r in results["150"]["runs"]],
+            "launches_per_height": {
+                h: {k: v for k, v in c.items() if k != "by_key_type" and v}
+                for h, c in results["150"]["launches"].items()
+            },
+            "height_ms": [r.end_height_s * 1e3 for r in results["150"]["runs"]],
+            "height_through_apply_ms": [r.next_height_s * 1e3 for r in results["150"]["runs"]],
+            "cpu_plane_height_ms": [r.end_height_s * 1e3 for r in light_ref["runs"]],
+        },
+        "phase_s": time.perf_counter() - t_phase,
+        "ok": True,
+    }
+    emit(out)
+    return {"launches": out["launches_per_height"], "light_launches": out["light"]["launches_per_height"]}
 
 
 def phase_kernels(
@@ -3591,6 +4143,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     phase_config4(torch, args.seed)
     votes = phase_vote_path(torch, dev, args.seed)
     block_exec = phase_block_exec(torch, args.seed)
+    heights = phase_consensus_heights(torch, args.seed)
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
     )
@@ -3600,6 +4153,16 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
             "launches_per_block": {
                 h: c.get(r["name"], 0) for h, c in block_exec["launches"].items()
             }
+        }
+    # every kernel's launches in each height of phase consensus_heights
+    for r in kernels["kernels"]:
+        r["consensus_heights"] = {
+            "launches_per_height": {
+                str(h): c.get(r["name"], 0) for h, c in heights["launches"].items()
+            },
+            "launches_per_height_150": {
+                str(h): c.get(r["name"], 0) for h, c in heights["light_launches"].items()
+            },
         }
     # the vote path's launches per height at each size, and each kernel
     # against its plain version on the path's windows at VOTE_WIDTHS

@@ -58,6 +58,18 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   every height's apply_block, the percentiles over heights 2 and up.
   Each replay's app hash after a height must be the one the next block
   names.
+- consensus_height: ms a height and heights/s of the step machine
+  (consensus.state.ConsensusState) of one node whose validator is an
+  ed25519 member of the mixed 10k set, signing through FilePV, on
+  SqliteKV stores, with its WAL, evidence pool and event bus: a chain
+  of CONSENSUS_HEIGHTS blocks of 10,000 kvstore transactions, each
+  reaching the node as a proposal and its 64 KB parts, then the other
+  validators' prevotes and precommits as wire bytes in bursts of 256
+  (workloads.build_consensus_chain, drive_heights, the node's clock
+  pinned), over CONSENSUS_REPS fresh nodes; the p50 and p95 over
+  heights 2 and up of the first message to EndHeight, the p50 to the
+  node standing at the next height, and heights/s over those spans.
+  Every height must commit in round 0.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -97,8 +109,9 @@ CURVE_SIZES = (1, 8, 64, 1024)
 # repetitions: end-to-end calls, stages, curve points, CPU-plane commits,
 # keygens and signatures, vote ingests
 REPS, STAGE_REPS, CURVE_REPS, CPU_REPS, SIGN_REPS, VOTE_REPS = 20, 5, 5, 3, 300, 3
-# block_exec's chain and replays
+# block_exec's chain and replays, consensus_height's chain and nodes
 BLOCK_HEIGHTS, BLOCK_REPS = 3, 5
+CONSENSUS_HEIGHTS, CONSENSUS_REPS = 4, 2
 # the most light_sync may spend building its chain before it cuts it
 CHAIN_BUDGET_S = 240.0
 
@@ -126,6 +139,17 @@ CELL_KEYS = {
         "blocks_per_s",
         "p50_ms",
         "p95_ms",
+        "heights",
+        "txs",
+        "validators",
+        "reps",
+        "chain_build_s",
+    ),
+    "consensus_height": (
+        "heights_per_s",
+        "p50_ms",
+        "p95_ms",
+        "p50_through_apply_ms",
         "heights",
         "txs",
         "validators",
@@ -572,6 +596,65 @@ def cell_block_exec(ctx: Ctx) -> dict:
     }
 
 
+def cell_consensus_height(ctx: Ctx) -> dict:
+    import asyncio
+    import tempfile
+
+    from .types.validator import Validator, ValidatorSet
+    from .workloads import (
+        build_consensus_chain,
+        consensus_node,
+        drive_heights,
+        kv_genesis,
+        kv_txs,
+        seeded_keys,
+    )
+
+    seed = ctx.args.seed + 30
+    privs = seeded_keys(VALIDATORS, seed, VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    # the node: an ed25519 validator that proposes none of the heights
+    proposers = set()
+    state_vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in privs])
+    for _ in range(CONSENSUS_HEIGHTS):
+        proposers.add(state_vals.get_proposer().address)
+        state_vals = state_vals.copy_increment_proposer_priority(1)
+    node_priv = next(
+        p for p in privs if p.type() == "ed25519" and p.pub_key().address() not in proposers
+    )
+    t0 = time.perf_counter()
+    txs = [kv_txs(seed, h, TXS, (100, 300)) for h in range(1, CONSENSUS_HEIGHTS + 1)]
+    chain = build_consensus_chain(genesis, privs, node_priv, txs, seed)
+    build_s = time.perf_counter() - t0
+    before = _stats()
+    heights, through, spans = [], [], []
+    for _rep in range(CONSENSUS_REPS):
+        with tempfile.TemporaryDirectory(prefix="bench-consensus-") as tmp:
+            node = consensus_node(genesis, node_priv, tmp)
+            try:
+                runs = asyncio.run(drive_heights(node, chain))
+            finally:
+                node.close()
+        for run in runs:
+            if run.round != 0:
+                raise AssertionError(f"consensus_height: height {run.height} in round {run.round}")
+            if run.height >= 2:
+                heights.append(run.end_height_s * 1e3)
+                through.append(run.next_height_s * 1e3)
+                spans.append(run.next_height_s)
+    _no_fault(before, "consensus_height")
+    return {
+        "heights_per_s": len(spans) / sum(spans),
+        **_p50_p95(heights),
+        "p50_through_apply_ms": float(np.percentile(through, 50)),
+        "heights": len(chain),
+        "txs": TXS,
+        "validators": VALIDATORS,
+        "reps": CONSENSUS_REPS,
+        "chain_build_s": build_s,
+    }
+
+
 RUNNERS = {
     "batch_curve": cell_batch_curve,
     "throughput_8192": cell_throughput,
@@ -585,6 +668,7 @@ RUNNERS = {
     "commit10k_mixed_cpu_plane": cell_cpu_plane,
     "vote_ingest": cell_vote_ingest,
     "block_exec": cell_block_exec,
+    "consensus_height": cell_consensus_height,
 }
 
 

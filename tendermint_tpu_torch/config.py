@@ -1,7 +1,7 @@
-"""The device plane's configuration.
+"""The device plane's configuration, and the step machine's timeouts.
 
-Counterpart: tendermint_tpu/config.py:47 (DEFAULT_BUCKET_SIZES) and
-:254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
+Counterpart: tendermint_tpu/config.py:47 (DEFAULT_BUCKET_SIZES),
+:172-202 (ConsensusConfig) and :254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
 10k signatures to 16384 would waste 39% of the device work, 12288 cuts
 that to 18%.
 """
@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 __all__ = [
+    "ConsensusConfig",
     "DEFAULT_BUCKET_SIZES",
     "DEFAULT_MIN_BATCH",
     "GPUConfig",
@@ -45,3 +46,30 @@ class GPUConfig:
     min_batch_size: int = DEFAULT_MIN_BATCH
     bucket_sizes: list = field(default_factory=lambda: list(DEFAULT_BUCKET_SIZES))
     devices: int = 1
+
+
+@dataclass
+class ConsensusConfig:
+    """The step machine's timeouts, in seconds (reference defaults,
+    config/config.go:923-939, milliseconds there). The JAX package's
+    other fields (the WAL's path, empty-block creation, the reactor's
+    gossip knobs, the double-sign check height) serve node start and the
+    reactors (ROADMAP items 17 and 21)."""
+
+    timeout_propose: float = 3.0
+    timeout_propose_delta: float = 0.5
+    timeout_prevote: float = 1.0
+    timeout_prevote_delta: float = 0.5
+    timeout_precommit: float = 1.0
+    timeout_precommit_delta: float = 0.5
+    timeout_commit: float = 1.0
+    skip_timeout_commit: bool = False
+
+    def propose_timeout(self, round_: int) -> float:
+        return self.timeout_propose + self.timeout_propose_delta * round_
+
+    def prevote_timeout(self, round_: int) -> float:
+        return self.timeout_prevote + self.timeout_prevote_delta * round_
+
+    def precommit_timeout(self, round_: int) -> float:
+        return self.timeout_precommit + self.timeout_precommit_delta * round_

@@ -1,5 +1,6 @@
-"""The consensus vote path: VoteSet tallies of every round of a height,
-the vote messages' wire codec, and the receive loop's vote ingest with
-its vote-burst pre-verify on the device (counterpart:
-tendermint_tpu/consensus/). The step machine, timeouts, the WAL, replay
-and the reactor are not ported yet."""
+"""Consensus (counterpart: tendermint_tpu/consensus/): the step machine
+of one node with its receive loop and vote-burst pre-verify on the
+device, the round state and VoteSet tallies of every round of a height,
+the wire messages and WAL records, the WAL and the timeout ticker. The
+reactors, the Handshaker, the WAL generator, the flight recorder and
+the metrics are not ported yet."""

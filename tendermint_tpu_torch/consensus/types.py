@@ -1,12 +1,11 @@
-"""Round steps, the RoundState the vote path reads, and HeightVoteSet.
+"""Round steps, the RoundState, and HeightVoteSet.
 
 Counterpart: tendermint_tpu/consensus/types.py: `RoundStep` and
-`step_name` (:31-57), `RoundState` (:60-88) with the fields the vote
-path reads (height, round, step, validators, votes, last_commit,
-last_validators), and `HeightVoteSet` (:90-177): rounds 0..round+1, the
-peer catch-up bound of two rounds a peer, set_round and pol_info.
-RoundState's proposal, block and lock fields come with the step machine
-(ROADMAP item 14b).
+`step_name` (:31-57), `RoundState` (:60-88: the height, round and step,
+the proposal and its block and parts, the locked and valid blocks, the
+votes, the commit round, the LastCommit), and `HeightVoteSet`
+(:90-177): rounds 0..round+1, the peer catch-up bound of two rounds a
+peer, set_round and pol_info.
 """
 
 from __future__ import annotations
@@ -14,8 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from ..types.block import Block
 from ..types.block_id import BlockID
 from ..types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
+from ..types.part_set import PartSet
+from ..types.proposal import Proposal
 from ..types.validator import ValidatorSet
 from ..types.vote import Vote
 from ..types.vote_set import VoteSet
@@ -54,16 +56,32 @@ def step_name(step: int) -> str:
 
 @dataclass
 class RoundState:
-    """What the vote path reads of the consensus state
-    (reference: round_state.go:65-115)."""
+    """The consensus state of the current height (reference:
+    round_state.go:65-115)."""
 
     height: int = 0
     round: int = 0
     step: int = RoundStep.NEW_HEIGHT
+    start_time_ns: int = 0
+    commit_time_ns: int = 0
     validators: Optional[ValidatorSet] = None
+    proposal: Optional[Proposal] = None
+    proposal_block: Optional[Block] = None
+    proposal_block_parts: Optional[PartSet] = None
+    locked_round: int = -1
+    locked_block: Optional[Block] = None
+    locked_block_parts: Optional[PartSet] = None
+    valid_round: int = -1  # the last POL round, if any
+    valid_block: Optional[Block] = None
+    valid_block_parts: Optional[PartSet] = None
     votes: Optional["HeightVoteSet"] = None
+    commit_round: int = -1
     last_commit: Optional[VoteSet] = None
     last_validators: Optional[ValidatorSet] = None
+    triggered_timeout_precommit: bool = False
+
+    def height_round_step(self) -> str:
+        return f"{self.height}/{self.round}/{step_name(self.step)}"
 
 
 class HeightVoteSet:

@@ -103,6 +103,10 @@ class PrivKeyEd25519(PrivKey):
         self._pub = _basemul(a)
 
     @classmethod
+    def generate(cls) -> "PrivKeyEd25519":
+        return cls(os.urandom(32))
+
+    @classmethod
     def from_seed(cls, seed: bytes) -> "PrivKeyEd25519":
         return cls(seed)
 

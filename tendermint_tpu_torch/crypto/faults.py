@@ -1,18 +1,24 @@
 """Injectable device faults: seeded, scoped chaos at the device seam.
 
 Counterpart: tendermint_tpu/crypto/faults.py, trimmed to what the port's
-device verifier and its tests use: `DeviceFault` and `DeviceTimeout`
-(:120-130), `Rule` (:139-215, the point, mode, probability, seed,
-budget, hang length and key filter), `armed` (:273), `inject` and
-`reset` (:397-440), `fire` and `mangle` (:556-601). The network plan,
-partitions, the TM_TPU_FAULT environment spec and `clip` stay out: no
-port module has a network, a WAL or a process boundary to arm across.
+device verifier, WAL, signer and their tests use: `DeviceFault` and
+`DeviceTimeout` (:120-130), `Rule` (:139-215, the point, mode,
+probability, seed, budget, hang length and key filter), `armed` (:273),
+`inject` and `reset` (:397-440), `fire`, `mangle` and `clip`
+(:556-614). The network plan, partitions and the TM_TPU_FAULT
+environment spec stay out: the port has no network or process boundary
+to arm across yet.
 
-Fault points are named strings consulted where a device would fail:
+Fault points are named strings consulted where a device or a disk would
+fail:
 
     gpu.dispatch   crypto/gpu_verifier.py, before every window's launch
     gpu.gather     crypto/gpu_verifier.py, inside the gather (under its
                    deadline) and on the bitmap it returns
+    wal.write      consensus/wal.py, the framed append (short writes)
+    wal.fsync      consensus/wal.py, every fsync (rotation included)
+    privval.save   privval/file.py, the last-sign-state checkpoint,
+                   keyed by the node home's basename
 
 Modes:
 
@@ -21,6 +27,9 @@ Modes:
                 this surfaces as DeviceTimeout
     misshape    mangle() drops the last lane (a wrong-shaped bitmap)
     bitflip     mangle() inverts one seeded lane (silent corruption)
+    io_error    the point raises OSError (an fsync failure)
+    short_write clip() keeps a seeded strict prefix of the buffer (the
+                torn record a crash mid-write leaves)
 
 Every rule owns a `random.Random(seed)`, so whether a consult fires is a
 function of (seed, consult index) alone. `inject()` arms a rule for the
@@ -41,6 +50,7 @@ __all__ = [
     "DeviceTimeout",
     "Rule",
     "armed",
+    "clip",
     "fire",
     "inject",
     "mangle",
@@ -58,8 +68,9 @@ class DeviceTimeout(DeviceFault):
     """A gather exceeded its deadline (a hung device)."""
 
 
-_CONTROL_MODES = ("raise", "hang")
+_CONTROL_MODES = ("raise", "hang", "io_error")
 _DATA_MODES = ("misshape", "bitflip")
+_CLIP_MODES = ("short_write",)
 
 
 class Rule:
@@ -76,7 +87,7 @@ class Rule:
         hang_s: float = 30.0,
         key: Optional[str] = None,
     ) -> None:
-        if mode not in _CONTROL_MODES + _DATA_MODES:
+        if mode not in _CONTROL_MODES + _DATA_MODES + _CLIP_MODES:
             raise ValueError(f"unknown fault mode {mode!r}")
         self.point = point
         self.mode = mode
@@ -158,8 +169,9 @@ def reset() -> None:
 
 
 def fire(point: str, key: Optional[str] = None) -> None:
-    """Consult the control modes at a point: may raise DeviceFault or
-    sleep. Callers gate on armed()."""
+    """Consult the control modes at a point: may raise DeviceFault
+    (`raise`) or OSError (`io_error`), or sleep (`hang`). Callers gate on
+    armed()."""
     with _LOCK:
         actions = [
             r for r in _RULES
@@ -168,6 +180,8 @@ def fire(point: str, key: Optional[str] = None) -> None:
     for r in actions:
         if r.mode == "raise":
             raise DeviceFault(f"injected device fault at {point} (seed={r.seed})")
+        if r.mode == "io_error":
+            raise OSError(f"injected I/O fault at {point} (seed={r.seed})")
         time.sleep(r.hang_s)  # "hang": the wedged device under test
 
 
@@ -188,3 +202,17 @@ def mangle(point: str, bits: list, key: Optional[str] = None) -> list:
             bits = list(bits)
             bits[i] = not bits[i]
     return bits
+
+
+def clip(point: str, data: bytes) -> bytes:
+    """Apply `short_write` at a point: a seeded strict prefix of data,
+    the shape a crash mid-write leaves on disk. Callers gate on
+    armed()."""
+    with _LOCK:
+        actions = [
+            r for r in _RULES
+            if r.mode in _CLIP_MODES and r._matches(point, None) and r._roll()
+        ]
+    for r in actions:
+        data = data[: r.rng.randrange(len(data))] if data else data
+    return data

@@ -26,6 +26,8 @@ __all__ = [
     "PrivKey",
     "PubKey",
     "address_hash",
+    "generate_priv_key",
+    "privkey_from_type_and_bytes",
     "pubkey_from_proto",
     "pubkey_from_type_and_bytes",
     "pubkey_to_proto",
@@ -119,6 +121,29 @@ def pubkey_from_type_and_bytes(key_type: str, data: bytes) -> PubKey:
     if cls is None:
         raise ValueError(f"unknown key type {key_type!r}")
     return cls(data)
+
+
+# privval key types (tendermint_tpu/crypto/keys.py:133-150; reference:
+# privval/file.go:188 GenFilePV's switch): ed25519, the default. The JAX
+# package also signs with secp256k1, which the port's keys do not have
+# yet (ROADMAP item 22): it is refused with the message of any type the
+# signer does not take.
+
+
+def _privval_priv_cls(key_type: str) -> type:
+    if key_type in ("", "ed25519"):
+        from .ed25519 import PrivKeyEd25519
+
+        return PrivKeyEd25519
+    raise ValueError(f"key type: {key_type} is not supported")
+
+
+def generate_priv_key(key_type: str = "ed25519") -> PrivKey:
+    return _privval_priv_cls(key_type).generate()
+
+
+def privkey_from_type_and_bytes(key_type: str, data: bytes) -> PrivKey:
+    return _privval_priv_cls(key_type)(data)
 
 
 def pubkey_to_proto(pk: PubKey) -> bytes:

@@ -140,6 +140,11 @@ class ProtoWriter:
             self._tag(field, 1)
             self._buf += struct.pack("<q", value)
 
+    def fixed64(self, field: int, value: int) -> None:
+        if value:
+            self._tag(field, 1)
+            self._buf += struct.pack("<Q", value)
+
     def bytes(self, field: int, value: bytes) -> None:
         if value:
             self._tag(field, 2)
@@ -268,6 +273,17 @@ class FieldReader:
             )
         v = int(v)
         return v - (1 << 64) if v >= 1 << 63 else v
+
+    def bool(self, field: int) -> bool:
+        vals = self._fields.get(field)
+        if not vals:
+            return False
+        v = vals[-1]
+        if not isinstance(v, int):
+            raise ValueError(
+                f"field {field}: expected varint, got length-delimited"
+            )
+        return bool(v)
 
     def bytes(self, field: int, default: bytes = b"") -> bytes:
         vals = self._fields.get(field)

@@ -4,26 +4,28 @@ Counterpart: tendermint_tpu/state/execution.py:1-534:
 build_last_commit_info (:53), results_hash (:97), the validator-update
 checks (:105-130), EmptyEvidencePool (:133), validate_block (:147),
 BlockExecutor (:227) with create_proposal_block, apply_block, _exec_block
-(:339) and _commit (:416), and update_state (:487); reference:
-internal/state/execution.go and validation.go:14.
+(:339), _commit (:416) and _fire_events (:440), and update_state (:487);
+reference: internal/state/execution.go and validation.go:14.
 
 validate_block checks the LastCommit with one
 types.validation.verify_commit, so with the device plane installed a
 block's LastCommit runs on the card (kernels X1 and K2 for ed25519, X3
 for sr25519); its data, LastCommit, validator-set and results roots, and
-the kvstore app's hash, go to kernel X4 at 512 leaves or more. Left out
-until the event bus is ported: the events apply_block publishes
-(_fire_events), the state metrics and the block_execute trace span.
+the kvstore app's hash, go to kernel X4 at 512 leaves or more. With an
+event bus, apply_block publishes the new block, its header, its evidence
+and every transaction, as the JAX package does. Left out: the state
+metrics and the block_execute trace span (ROADMAP item 11).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from ..abci import types as abci
 from ..abci.client import ABCIClient
 from ..abci.codec import enc_resp_begin_block, enc_resp_deliver_tx, enc_resp_end_block
+from ..eventbus import EventBus
 from ..crypto.keys import pubkey_from_type_and_bytes
 from ..crypto.merkle import hash_from_byte_slices
 from ..encoding.proto import ProtoWriter
@@ -36,7 +38,9 @@ from ..types.evidence import (
     Evidence,
     LightClientAttackEvidence,
 )
+from ..types import events as E
 from ..types.header import BLOCK_PROTOCOL
+from ..types.tx import tx_hash
 from ..types.validation import verify_commit
 from ..types.validator import Validator, ValidatorSet
 from .store import ABCIResponses, StateStore
@@ -230,10 +234,9 @@ def validate_block(state: State, block: Block) -> None:
 
 
 class BlockExecutor:
-    """reference: internal/state/execution.go:53-100. It takes no event
-    bus and no metrics: it runs as the JAX package's does with
-    event_bus=None, publishing nothing, and records no
-    block_processing histogram or block_execute span."""
+    """reference: internal/state/execution.go:53-100. It takes no
+    metrics: it records no block_processing histogram or block_execute
+    span."""
 
     def __init__(
         self,
@@ -242,12 +245,14 @@ class BlockExecutor:
         mempool: Mempool,
         evidence_pool=None,
         block_store=None,
+        event_bus: Optional[EventBus] = None,
     ) -> None:
         self.store = state_store
         self.app = app_conn
         self.mempool = mempool
         self.evpool = evidence_pool or EmptyEvidencePool()
         self.block_store = block_store
+        self.event_bus = event_bus
         self.logger = _log
 
     # -- proposal --
@@ -325,6 +330,8 @@ class BlockExecutor:
                 )
             except Exception as e:
                 self.logger.error("failed to prune blocks: %s", e)
+
+        self._fire_events(block, block_id, responses, validator_updates)
         return new_state
 
     async def _exec_block(self, state: State, block: Block) -> ABCIResponses:
@@ -425,6 +432,48 @@ class BlockExecutor:
             return res.data, res.retain_height
         finally:
             self.mempool.unlock()
+
+    def _fire_events(
+        self, block: Block, block_id: BlockID, responses: ABCIResponses,
+        validator_updates: List[Validator],
+    ) -> None:
+        """reference: internal/state/execution.go:505-550."""
+        if self.event_bus is None:
+            return
+        self.event_bus.publish_new_block(
+            E.EventDataNewBlock(
+                block=block,
+                block_id=block_id,
+                result_begin_block=responses.begin_block_obj,
+                result_end_block=responses.end_block_obj,
+            )
+        )
+        self.event_bus.publish_new_block_header(
+            E.EventDataNewBlockHeader(
+                header=block.header,
+                num_txs=len(block.txs),
+                result_begin_block=responses.begin_block_obj,
+                result_end_block=responses.end_block_obj,
+            )
+        )
+        for ev in block.evidence:
+            self.event_bus.publish_new_evidence(
+                E.EventDataNewEvidence(evidence=ev, height=block.header.height)
+            )
+        for i, txb in enumerate(block.txs):
+            self.event_bus.publish_tx(
+                E.EventDataTx(
+                    height=block.header.height,
+                    tx=txb,
+                    index=i,
+                    result=responses.deliver_tx_objs[i],
+                ),
+                tx_hash=tx_hash(txb),
+            )
+        if validator_updates:
+            self.event_bus.publish_validator_set_updates(
+                E.EventDataValidatorSetUpdates(validator_updates=tuple(validator_updates))
+            )
 
 def update_state(
     state: State,

@@ -84,6 +84,9 @@ class Block:
         self.fill_header()
         return self.header.hash()
 
+    def hashes_to(self, h: bytes) -> bool:
+        return bool(h) and self.hash() == h
+
     def make_part_set(
         self, part_size: int = BLOCK_PART_SIZE_BYTES
     ) -> PartSet:

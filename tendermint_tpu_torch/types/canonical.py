@@ -1,8 +1,10 @@
-"""Canonical vote sign-bytes: the byte strings validators sign.
+"""Canonical vote and proposal sign-bytes: the byte strings validators
+sign.
 
 Counterpart: tendermint_tpu/types/canonical.py (CanonicalVote marshalled
 with a varint length prefix; height and round sfixed64;
-`VoteSignTemplate.sign_bytes_batch` :140-217). A commit's sign-bytes are
+`VoteSignTemplate.sign_bytes_batch` :140-217; PROPOSAL_TYPE :35 and
+`proposal_sign_bytes` :221). A commit's sign-bytes are
 spliced in C (native/signbytes.c, one call a batch); the Python splice
 serves only timestamps outside int64, which the C cannot take: that
 route is chosen on the data, as the JAX package chooses it, and a failed
@@ -24,15 +26,18 @@ from .timestamp import encode_timestamp
 __all__ = [
     "PRECOMMIT_TYPE",
     "PREVOTE_TYPE",
+    "PROPOSAL_TYPE",
     "VoteSignTemplate",
     "canonical_block_id",
     "canonical_vote_bytes",
+    "proposal_sign_bytes",
     "vote_sign_bytes",
 ]
 
-# SignedMsgType enum: prevote=1, precommit=2
+# SignedMsgType enum: prevote=1, precommit=2, proposal=32
 PREVOTE_TYPE = 1
 PRECOMMIT_TYPE = 2
+PROPOSAL_TYPE = 32
 
 # the range of the C splice's timestamps (int64 nanoseconds)
 _INT64_MIN, _INT64_MAX = -(1 << 63), (1 << 63) - 1
@@ -191,3 +196,24 @@ class VoteSignTemplate:
             body = join((prefix, ts_tag, enc(len(ts)), ts, suffix))
             append(enc(len(body)) + body)
         return out
+
+
+def proposal_sign_bytes(
+    chain_id: str,
+    height: int,
+    round_: int,
+    pol_round: int,
+    block_id: BlockID,
+    timestamp_ns: int,
+) -> bytes:
+    """CanonicalProposal sign-bytes (reference: types/proposal.go:110,
+    types/canonical.go:42-53); pol_round is a varint int64, -1 for none."""
+    w = ProtoWriter()
+    w.int(1, PROPOSAL_TYPE)
+    w.sfixed64(2, height)
+    w.sfixed64(3, round_)
+    w.int(4, pol_round)
+    w.message(5, canonical_block_id(block_id))
+    w.message(6, encode_timestamp(timestamp_ns))
+    w.string(7, chain_id)
+    return length_prefixed(w.finish())

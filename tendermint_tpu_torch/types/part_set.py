@@ -115,6 +115,9 @@ class PartSet:
     def header(self) -> PartSetHeader:
         return PartSetHeader(total=self.total, hash=self.hash)
 
+    def has_header(self, header: PartSetHeader) -> bool:
+        return self.header() == header
+
     def get_part(self, index: int) -> Optional[Part]:
         if 0 <= index < self.total:
             return self.parts[index]

@@ -23,7 +23,13 @@ all built with the port's own types from a seed.
   applied by a BlockExecutor on the kvstore app, each LastCommit signed
   by every validator whose key it is given; block_exec_node, a
   fresh node to apply it (the state from the genesis, the kvstore app,
-  state and block stores on MemKV or on SqliteKV in a directory).
+  state and block stores on MemKV or on SqliteKV in a directory);
+- build_consensus_chain: the heights of a chain as one node's step
+  machine meets them (the proposer's signed proposal and parts, every
+  other validator's prevote and precommit as wire bytes, the node's own
+  votes and proposals predicted, its clock pinned by pinned_clock);
+  consensus_node, a node with FilePV, WAL, evidence pool and event bus
+  on SqliteKV; drive_heights, which feeds it the chain height by height.
 
 Keys, timestamps and signing witnesses come from the seed, so a seed
 gives the same bytes on every host. Signing is native: ed25519's and
@@ -35,6 +41,7 @@ type, and its light_sync cell the build of a chain.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
 import os
 import time
@@ -45,9 +52,21 @@ import numpy as np
 
 from .crypto.ed25519 import PrivKeyEd25519
 from .crypto.sr25519 import PrivKeySr25519, sign_batch
-from .consensus.msgs import VoteMessage, decode_msg, encode_msg
-from .consensus.state import ConsensusState
-from .consensus.types import RoundState
+from .config import ConsensusConfig
+from .consensus.msgs import (
+    BlockPartMessage,
+    EndHeightMessage,
+    ProposalMessage,
+    VoteMessage,
+    decode_msg,
+    encode_msg,
+)
+from .consensus.state import PEER_DRAIN, ConsensusState
+from .consensus.types import RoundStep
+from .consensus.wal import WAL
+from .eventbus import EventBus
+from .evidence.pool import EvidencePool
+from .privval.file import FilePV
 from .abci.client import LocalClient
 from .abci.kvstore import KVStoreApplication
 from .crypto import batch
@@ -65,31 +84,44 @@ from .types.block import Block
 from .types.block_id import BlockID, PartSetHeader
 from .types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from .types.commit import Commit, CommitSig
+from .types.evidence import DuplicateVoteEvidence
 from .types.genesis import GenesisDoc, GenesisValidator
 from .types.header import Consensus, Header
 from .types.params import ConsensusParams
 from .types.part_set import PartSet
+from .types.proposal import Proposal
 from .types.light import LightBlock, SignedHeader
 from .types.validator import Validator, ValidatorSet
 from .types.vote import Vote
 
 __all__ = [
     "BASE_TIME_NS",
+    "CLOCK_BASE_NS",
+    "CLOCK_STEP_NS",
     "ChainBlock",
     "ChainProvider",
+    "ConsensusHeight",
+    "ConsensusNode",
     "ExecNode",
+    "HeightRun",
     "VoteTraffic",
     "block_exec_node",
     "block_txs",
     "build_block_chain",
     "build_commit",
+    "build_consensus_chain",
     "build_light_chain",
     "build_vote_traffic",
+    "clock_at",
+    "consensus_node",
+    "drive_heights",
+    "end_height_records",
     "ingest",
     "kv_genesis",
     "kv_txs",
     "light_client",
     "light_sync",
+    "pinned_clock",
     "seeded_keys",
     "sign_commit",
     "vote_state",
@@ -399,8 +431,25 @@ def build_vote_traffic(
 
 
 def vote_state(chain_id: str, vals: ValidatorSet, height: int) -> ConsensusState:
-    """A fresh ConsensusState at `height`, round 0, with its HeightVoteSet."""
-    return ConsensusState(chain_id, RoundState(height=height, validators=vals))
+    """A fresh ConsensusState at `height`, round 0, with its
+    HeightVoteSet: the state of a chain whose first height is `height`
+    and whose set is vals, on MemKV stores and the kvstore app, with no
+    signer (an observer: it votes nothing) and the default timeouts."""
+    state = State(
+        chain_id=chain_id,
+        initial_height=height,
+        last_block_time_ns=BASE_TIME_NS,
+        validators=vals,
+        next_validators=vals.copy_increment_proposer_priority(1),
+        last_height_validators_changed=height,
+        last_height_consensus_params_changed=height,
+    )
+    state_store, block_store = StateStore(MemKV()), BlockStore(MemKV())
+    state_store.save(state)
+    executor = BlockExecutor(
+        state_store, LocalClient(KVStoreApplication()), NopMempool(), block_store=block_store
+    )
+    return ConsensusState(ConsensusConfig(), state, executor, block_store)
 
 
 def ingest(cs: ConsensusState, wires: List[bytes], burst: int, peer_id: str = "peer") -> None:
@@ -412,7 +461,7 @@ def ingest(cs: ConsensusState, wires: List[bytes], burst: int, peer_id: str = "p
     dropped by a full queue."""
 
     async def run():
-        cs.start()
+        await cs.start()
         try:
             for i in range(0, len(wires), burst):
                 for w in wires[i : i + burst]:
@@ -551,3 +600,382 @@ def build_block_chain(genesis_json: str, privs: Sequence, txs: Sequence[list],
         out.append(ChainBlock(block, block_id, parts, seen))
         last_commit = seen
     return out
+
+
+# -- the step machine's harness --
+
+# the pinned clock of a driven node: time.time_ns() reads CLOCK_BASE_NS
+# plus CLOCK_STEP_NS a height, the height the node is at when it reads
+# it; an hour after BASE_TIME_NS, so after every block time of a chain
+# built here, and a millisecond a height, well inside timeout_commit
+CLOCK_BASE_NS = BASE_TIME_NS + 3600 * 1_000_000_000
+CLOCK_STEP_NS = 1_000_000
+
+
+def clock_at(height: int) -> int:
+    return CLOCK_BASE_NS + CLOCK_STEP_NS * height
+
+
+@contextlib.contextmanager
+def pinned_clock(height_of):
+    """For the block, time.time_ns() returns clock_at(height_of()): every
+    read of the clock within one height gives the same value, whatever
+    the host's speed, so two runs of a node write the same bytes."""
+    real = time.time_ns
+    time.time_ns = lambda: clock_at(height_of())
+    try:
+        yield
+    finally:
+        time.time_ns = real
+
+
+@dataclass
+class ConsensusNode:
+    """One validator node without p2p: the step machine with its WAL,
+    FilePV, evidence pool and event bus, over the kvstore app and state,
+    block and evidence stores on SqliteKV files in `home`."""
+
+    cs: ConsensusState
+    executor: BlockExecutor
+    state_store: StateStore
+    block_store: BlockStore
+    evpool: EvidencePool
+    event_bus: EventBus
+    privval: FilePV
+    app: KVStoreApplication
+    home: str
+    dbs: tuple
+
+    def end_heights(self) -> List[bytes]:
+        return end_height_records(self.cs.wal.path)
+
+    def close(self) -> None:
+        for db in self.dbs:
+            db.close()
+
+
+def end_height_records(wal_path: str) -> List[bytes]:
+    """The framed bytes (crc, length, TimedWALMessage) of every EndHeight
+    record of a WAL group, in order."""
+    from .consensus import wal as wal_mod
+
+    out = []
+    for path in wal_mod.wal_group_files(wal_path):
+        with open(path, "rb") as f:
+            while (payload := wal_mod._read_record(f)) is not None:
+                if isinstance(wal_mod._decode_record(payload)[1], EndHeightMessage):
+                    out.append(wal_mod._frame(payload))
+    return out
+
+
+def consensus_node(genesis_json: str, priv, home: str, cfg: Optional[ConsensusConfig] = None) -> ConsensusNode:
+    """A fresh node at the genesis whose validator signs with priv
+    through a FilePV in home/config and home/data, its WAL in
+    home/data/cs.wal; cfg defaults to the JAX package's timeouts with
+    skip_timeout_commit (every precommit arrives)."""
+    for d in ("config", "data"):
+        os.makedirs(os.path.join(home, d), exist_ok=True)
+    data = os.path.join(home, "data")
+    state_db = SqliteKV(os.path.join(data, "state.sqlite"))
+    block_db = SqliteKV(os.path.join(data, "blockstore.sqlite"))
+    evidence_db = SqliteKV(os.path.join(data, "evidence.sqlite"))
+    state = state_from_genesis(GenesisDoc.from_json(genesis_json))
+    state_store, block_store = StateStore(state_db), BlockStore(block_db)
+    state_store.save(state)
+    evpool = EvidencePool(evidence_db, state_store, block_store)
+    event_bus = EventBus()
+    app = KVStoreApplication()
+    executor = BlockExecutor(
+        state_store, LocalClient(app), NopMempool(), evpool, block_store, event_bus
+    )
+    privval = FilePV.from_priv_key(
+        priv,
+        os.path.join(home, "config", "priv_validator_key.json"),
+        os.path.join(data, "priv_validator_state.json"),
+    )
+    privval.save()
+    with pinned_clock(lambda: 0):  # the constructor reads the clock at height 0
+        cs = ConsensusState(
+            cfg or ConsensusConfig(skip_timeout_commit=True),
+            state,
+            executor,
+            block_store,
+            privval=privval,
+            event_bus=event_bus,
+            wal=WAL(os.path.join(data, "cs.wal", "wal")),
+            evidence_pool=evpool,
+        )
+    return ConsensusNode(
+        cs, executor, state_store, block_store, evpool, event_bus, privval, app, home,
+        (state_db, block_db, evidence_db),
+    )
+
+
+@dataclass
+class ConsensusHeight:
+    """One height of a consensus chain as its node meets it: the block
+    and its id, the proposal and the parts as wire bytes (none when the
+    node proposes), then the other validators' prevotes and precommits
+    as VoteMessage wire bytes in a seeded order, and the commit of every
+    validator (the next block's LastCommit). `equivocator` is the index
+    of a validator whose second precommit, for another block, follows
+    its real one (-1: none)."""
+
+    height: int
+    block: Block
+    block_id: BlockID
+    node_proposes: bool
+    proposal: Optional[bytes]
+    parts: List[bytes]
+    prevotes: List[bytes]
+    precommits: List[bytes]
+    commit: Commit
+    equivocator: int = -1
+
+
+def _node_vote(priv, chain_id: str, vote_type: int, height: int, block_id: BlockID,
+               index: int, last_block_time_ns: int) -> Vote:
+    """The vote the node's own validator signs at `height` (its pinned
+    clock and consensus.state's vote time: never before the last block's
+    time plus 1 ms; ed25519 signatures are deterministic)."""
+    vote = Vote(
+        type=vote_type,
+        height=height,
+        round=0,
+        block_id=block_id,
+        timestamp_ns=max(clock_at(height), last_block_time_ns + 1_000_000),
+        validator_address=priv.pub_key().address(),
+        validator_index=index,
+    )
+    vote.signature = priv.sign(vote.sign_bytes(chain_id))
+    return vote
+
+
+def build_consensus_chain(genesis_json: str, privs: Sequence, node_priv, txs: Sequence[list],
+                          seed: int, equivocate_at: int = 0) -> List[ConsensusHeight]:
+    """Heights 1..len(txs) of the genesis's chain as one node, whose
+    validator holds node_priv (ed25519), meets them in round 0: block h
+    holds txs[h-1] and is made by State.make_block from the state after
+    h - 1, its LastCommit the commit of every validator at h - 1 (the
+    node's own precommit as the node signs it, the others from the
+    seed); the proposer's signed proposal and the parts, then every
+    other validator's prevote and precommit. Where the node proposes,
+    the block is the one it makes (no transactions: its mempool is
+    empty; the evidence its pool holds) and no proposal or part is sent.
+    At height equivocate_at one validator also precommits another block
+    right after its real precommit. Each block is applied on a
+    harness node so the next carries its app and results hashes."""
+    node = block_exec_node(genesis_json)
+    chain_id = node.state.chain_id
+    state = node.state
+    by_addr = {p.pub_key().address(): p for p in privs}
+    node_addr = node_priv.pub_key().address()
+    last_commit = Commit(height=0, round=0, block_id=BlockID(), signatures=[])
+    out, pending = [], []
+    for h, block_txs_ in enumerate(txs, start=state.initial_height):
+        vals = state.validators.validators
+        node_index, _ = state.validators.get_by_address(node_addr)
+        proposer = state.validators.get_proposer()
+        node_proposes = proposer.address == node_addr
+        if node_proposes:
+            # the node reaps an empty mempool and its pool's evidence
+            block, parts = state.make_block(h, [], last_commit, pending, proposer.address)
+            pending = []
+        else:
+            block, parts = state.make_block(h, list(block_txs_), last_commit, [], proposer.address)
+        block_id = BlockID(hash=block.hash(), part_set_header=parts.header())
+        rng = np.random.default_rng([seed, 13, h])
+        proposal_wire, part_wires = None, []
+        if not node_proposes:
+            proposal = Proposal(height=h, round=0, pol_round=-1, block_id=block_id,
+                                timestamp_ns=block.header.time_ns)
+            proposal.signature = _sign_all(
+                [by_addr[proposer.address]], [proposal.sign_bytes(chain_id)], rng
+            )[0]
+            proposal_wire = encode_msg(ProposalMessage(proposal))
+            part_wires = [
+                encode_msg(BlockPartMessage(height=h, round=0, part=parts.get_part(i)))
+                for i in range(parts.total)
+            ]
+        others = [i for i in rng.permutation(len(vals)).tolist() if i != node_index]
+        votes = {}
+        for vote_type in (PREVOTE_TYPE, PRECOMMIT_TYPE):
+            votes[vote_type] = [
+                Vote(
+                    type=vote_type,
+                    height=h,
+                    round=0,
+                    block_id=block_id,
+                    timestamp_ns=block.header.time_ns + 1 + int(rng.integers(0, 1_000_000_000)),
+                    validator_address=vals[i].address,
+                    validator_index=i,
+                )
+                for i in others
+            ]
+        signed = votes[PREVOTE_TYPE] + votes[PRECOMMIT_TYPE]
+        equivocator = -1
+        if h == equivocate_at:
+            real = votes[PRECOMMIT_TYPE][0]
+            equivocator = real.validator_index
+            other = real.copy()
+            other.block_id = BlockID(
+                hashlib.sha256(b"equivocation-%d-%d" % (seed, h)).digest(),
+                PartSetHeader(1, hashlib.sha256(b"equivocation-parts-%d" % seed).digest()),
+            )
+            votes[PRECOMMIT_TYPE].insert(1, other)
+            signed.append(other)
+        sigs = _sign_all(
+            [by_addr[v.validator_address] for v in signed],
+            [v.sign_bytes(chain_id) for v in signed],
+            np.random.default_rng([seed, 14, h]),
+        )
+        for v, sig in zip(signed, sigs):
+            v.signature = sig
+        own = _node_vote(node_priv, chain_id, PRECOMMIT_TYPE, h, block_id, node_index,
+                         state.last_block_time_ns)
+        by_index = {v.validator_index: v for v in votes[PRECOMMIT_TYPE] if v.block_id == block_id}
+        by_index[node_index] = own
+        commit = Commit(
+            height=h,
+            round=0,
+            block_id=block_id,
+            signatures=[
+                CommitSig.for_block(by_index[i].signature, vals[i].address, by_index[i].timestamp_ns)
+                for i in range(len(vals))
+            ],
+        )
+        if equivocator >= 0:
+            # the pool's evidence of it once the height is applied
+            pending.append(
+                DuplicateVoteEvidence.from_votes(
+                    votes[PRECOMMIT_TYPE][0], votes[PRECOMMIT_TYPE][1],
+                    block.header.time_ns, state.validators,
+                )
+            )
+        node.block_store.save_block(block, parts, commit)
+        state = asyncio.run(node.executor.apply_block(state, block_id, block))
+        out.append(
+            ConsensusHeight(
+                height=h,
+                block=block,
+                block_id=block_id,
+                node_proposes=node_proposes,
+                proposal=proposal_wire,
+                parts=part_wires,
+                prevotes=[encode_msg(VoteMessage(v)) for v in votes[PREVOTE_TYPE]],
+                precommits=[encode_msg(VoteMessage(v)) for v in votes[PRECOMMIT_TYPE]],
+                commit=commit,
+                equivocator=equivocator,
+            )
+        )
+        last_commit = commit
+    node.close()
+    return out
+
+
+@dataclass
+class HeightRun:
+    """What drive_heights saw of one height (host clock, seconds from
+    the height's first message): when the proposal's messages, the
+    prevotes and the precommits had been handled, when EndHeight was
+    written, when the node stood at the next height, and the round it
+    committed in; the timeouts the loop handled, each (step, acted on)."""
+
+    height: int
+    round: int = -1
+    proposal_s: float = 0.0
+    prevotes_s: float = 0.0
+    precommits_s: float = 0.0
+    end_height_s: float = 0.0
+    next_height_s: float = 0.0
+    timeouts: List[tuple] = None
+
+
+async def drive_heights(node: ConsensusNode, chain: List[ConsensusHeight], burst: int = PEER_DRAIN,
+                        before=None, after=None, extra=None) -> List[HeightRun]:
+    """Start node's step machine, feed it the chain's heights and stop
+    it: at each height, once the node stands in round 0 (height 1 waits
+    for its start timeout), the messages of extra.get(h, []) (wire bytes
+    sent first, such as a forged proposal), the proposal and its parts,
+    then the prevotes and then the precommits in bursts of `burst`, each
+    burst queued whole and handled before the next. before(h) and
+    after(h), if given, run at a height's first message and once the
+    node stands at the next height. Raises what the loop raises, when a
+    queue dropped a message, and when a height did not end."""
+    cs = node.cs
+    runs: List[HeightRun] = []
+    marks: Dict[str, float] = {}
+    write_end = cs.wal.write_end_height
+    handle_timeout = cs._handle_timeout
+    finalize_commit = cs._finalize_commit
+
+    def end_height(height: int) -> None:
+        write_end(height)
+        marks["end_height"] = time.perf_counter()
+
+    async def finalize(height: int) -> None:
+        await finalize_commit(height)
+        marks["finalized"] = time.perf_counter()
+
+    async def timeout(ti):
+        rs = cs.rs
+        acted = not (
+            ti.height != rs.height or ti.round < rs.round
+            or (ti.round == rs.round and ti.step < rs.step)
+        )
+        timeouts.append((ti.height, ti.round, ti.step, acted))
+        await handle_timeout(ti)
+
+    timeouts: List[tuple] = []
+    cs._handle_timeout = timeout
+    cs._finalize_commit = finalize
+    await node.event_bus.start()
+    with pinned_clock(lambda: cs.rs.height):
+        await cs.start()
+        cs.wal.write_end_height = end_height
+        try:
+            mark = 0  # the first height's timeouts include the start's
+            for ch in chain:
+                deadline = time.monotonic() + 30
+                while not (cs.rs.height == ch.height and cs.rs.step >= RoundStep.NEW_ROUND):
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"the node did not enter height {ch.height}")
+                    await asyncio.sleep(0.001)
+                run = HeightRun(height=ch.height, timeouts=[])
+                if before is not None:
+                    before(ch.height)
+                t0 = time.perf_counter()
+                head = list((extra or {}).get(ch.height, ()))
+                if ch.proposal is not None:
+                    head += [ch.proposal] + ch.parts
+                await _send(cs, head, len(head) or 1)
+                run.proposal_s = time.perf_counter() - t0
+                await _send(cs, ch.prevotes, burst)
+                run.prevotes_s = time.perf_counter() - t0
+                await _send(cs, ch.precommits, burst)
+                run.precommits_s = time.perf_counter() - t0
+                if cs.rs.height != ch.height + 1:
+                    raise RuntimeError(f"height {ch.height} did not end (at {cs.rs.height})")
+                run.end_height_s = marks.pop("end_height") - t0
+                run.next_height_s = marks.pop("finalized") - t0
+                seen = node.block_store.load_seen_commit()
+                run.round = seen.round if seen is not None and seen.height == ch.height else -1
+                run.timeouts, mark = timeouts[mark:], len(timeouts)
+                if after is not None:
+                    after(ch.height)
+                runs.append(run)
+        finally:
+            cs.wal.write_end_height = write_end
+            cs._handle_timeout = handle_timeout
+            cs._finalize_commit = finalize_commit
+            await cs.stop()
+            await node.event_bus.stop()
+    return runs
+
+
+async def _send(cs: ConsensusState, wires: List[bytes], burst: int) -> None:
+    for i in range(0, len(wires), burst):
+        for w in wires[i : i + burst]:
+            if not cs.send_peer_msg(decode_msg(w), "peer"):
+                raise RuntimeError("the peer queue dropped a message")
+        await cs.wait_idle()

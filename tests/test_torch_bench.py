@@ -96,3 +96,19 @@ def test_bench_block_exec_cell(capsys, monkeypatch):
     assert (cell["heights"], cell["txs"], cell["validators"], cell["reps"]) == (3, 40, 8, 2)
     for key in ("blocks_per_s", "p50_ms", "p95_ms", "chain_build_s"):
         assert math.isfinite(cell[key]) and cell[key] > 0
+
+
+def test_bench_consensus_height_cell(capsys, monkeypatch):
+    """The consensus_height cell at 8 mixed validators and 40
+    transactions a block (the native CPU plane below the gate): every key
+    it declares, each height in round 0, its rates and times positive."""
+    monkeypatch.setattr(bench, "VALIDATORS", 8)
+    monkeypatch.setattr(bench, "TXS", 40)
+    monkeypatch.setattr(bench, "CONSENSUS_HEIGHTS", 3)
+    monkeypatch.setattr(bench, "CONSENSUS_REPS", 1)
+    assert bench.main(["--device", "cpu", "--cells", "consensus_height"]) == 0
+    cell = json.loads(capsys.readouterr().out)["cells"]["consensus_height"]
+    assert set(cell) == set(bench.CELL_KEYS["consensus_height"]) | {"cell_s"}
+    assert (cell["heights"], cell["txs"], cell["validators"], cell["reps"]) == (3, 40, 8, 1)
+    for key in ("heights_per_s", "p50_ms", "p95_ms", "p50_through_apply_ms", "chain_build_s"):
+        assert math.isfinite(cell[key]) and cell[key] > 0

@@ -95,6 +95,20 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         "tendermint_tpu_torch.types.block",
         "tendermint_tpu_torch.types.genesis",
         "tendermint_tpu_torch.types.part_set",
+        "tendermint_tpu_torch.types.proposal",
+        "tendermint_tpu_torch.types.events",
+        "tendermint_tpu_torch.pubsub",
+        "tendermint_tpu_torch.pubsub.query",
+        "tendermint_tpu_torch.eventbus",
+        "tendermint_tpu_torch.consensus.ticker",
+        "tendermint_tpu_torch.consensus.wal",
+        "tendermint_tpu_torch.privval",
+        "tendermint_tpu_torch.privval.types",
+        "tendermint_tpu_torch.privval.file",
+        "tendermint_tpu_torch.evidence",
+        "tendermint_tpu_torch.evidence.pool",
+        "tendermint_tpu_torch.evidence.verify",
+        "tendermint_tpu_torch.libs.osutil",
     ):
         assert m in added
     assert [m for m in added if _forbidden(m)] == []
@@ -102,12 +116,14 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
 
 def test_importing_the_device_plane_builds_and_starts_nothing():
     """Importing native/, node/, faults and breaker, the light client,
-    the consensus vote path, the workloads and the bench compiles no
-    library and starts no thread: the native plane builds at first use."""
+    the step machine with its WAL, ticker, signer, evidence pool and
+    event bus, the workloads and the bench compiles no library and starts
+    no thread: the native plane builds at first use."""
     code = (
         "import json, threading\n"
         "from tendermint_tpu_torch import bench, consensus, light, native, workloads\n"
-        "from tendermint_tpu_torch.consensus import msgs, state, types\n"
+        "from tendermint_tpu_torch.consensus import msgs, state, ticker, types, wal\n"
+        "from tendermint_tpu_torch import eventbus, evidence, privval, pubsub\n"
         "from tendermint_tpu_torch.node import device\n"
         "from tendermint_tpu_torch.crypto import breaker, faults, gpu_verifier\n"
         "print(json.dumps([native._LIB is None, threading.active_count(),\n"
