@@ -283,10 +283,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# profiler sessions device_ms takes at most: torch.profiler on an H100
-# host has dropped kernel records at random (seen: 48 of 50 K2 records in
-# one session, 4 and 0 of X5's 10 in two others, while every launch's
-# cudaLaunchKernel was recorded)
+# profiler sessions device_ms and device_busy_ms take at most:
+# torch.profiler on an H100 host has dropped kernel records at random
+# (seen: 48 of 50 K2 records in one session, 4 and 0 of X5's 10 in two
+# others, and 0 of the earlier X5 design's 10 in three sessions in a
+# row, while every launch's cudaLaunchKernel was recorded)
 PROFILER_SESSIONS = 3
 
 
@@ -298,7 +299,9 @@ def device_ms(torch, fn, reps: int, kernel: str, launches: int):
     launches the kernel `launches` times a call. The first session that
     holds every record gives the time; when none of PROFILER_SESSIONS
     does, the fullest one's mean time per record, times reps * launches.
-    Raises when no session saw the kernel."""
+    When no session kept a record of the kernel, the time is fn's
+    between two CUDA events (cuda_ms), host gaps included, and every
+    count in the records is 0."""
     from torch.profiler import ProfilerActivity, profile
 
     want = reps * launches
@@ -318,7 +321,13 @@ def device_ms(torch, fn, reps: int, kernel: str, launches: int):
             break
     n, total_us = best
     if n == 0:
-        raise AssertionError(f"the profiler saw no {kernel} on the card")
+        print(
+            f"chip_smoke: the profiler kept no record of {kernel} in "
+            f"{PROFILER_SESSIONS} sessions; timed between CUDA events",
+            file=sys.stderr,
+            flush=True,
+        )
+        return cuda_ms(torch, fn, reps), seen
     return total_us / n * want / 1e3 / reps, seen
 
 
@@ -2549,23 +2558,27 @@ def vote_kernels(torch, dev, windows: dict, valid: set) -> dict:
 
 def device_busy_ms(torch, fn, launched: dict) -> tuple:
     """(device ms of one call of fn by kernel, records the profiler kept
-    by kernel): each kernel's mean time a record times the launches the
-    counted run made, so a dropped record does not shorten the sum."""
+    by kernel and session): each kernel's mean time a record times the
+    launches the counted run made, so a dropped record does not shorten
+    the sum; up to PROFILER_SESSIONS calls under the profiler while it
+    drops every record of a kernel, whose time is then None."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ms, kept = {}, {}
-    for name, n in launched.items():
-        if not n:
-            continue
-        mine = [e for e in prof.key_averages() if KERNEL_NAMES[name] in e.key]
-        seen = sum(e.count for e in mine)
-        kept[name] = seen
-        if seen == 0:
-            raise AssertionError(f"the profiler saw no {name} in the vote ingest")
-        ms[name] = sum(e.self_device_time_total for e in mine) / seen * n / 1e3
+    want = {name: n for name, n in launched.items() if n}
+    ms, kept = {name: None for name in want}, {}
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        for name, n in want.items():
+            mine = [e for e in events if KERNEL_NAMES[name] in e.key]
+            seen = sum(e.count for e in mine)
+            kept.setdefault(name, []).append(seen)
+            if seen and ms[name] is None:
+                ms[name] = sum(e.self_device_time_total for e in mine) / seen * n / 1e3
+        if None not in ms.values():
+            break
     return ms, kept
 
 
@@ -2704,7 +2717,10 @@ def phase_vote_path(torch, dev, seed: int) -> dict:
                 / max(1, lanes + s1["pad_waste"] - s0["pad_waste"]),
                 "device_busy_ms": busy,
                 "device_records_kept": kept,
-                "device_idle_share": 1 - sum(busy.values()) / (wall * 1e3),
+                # not measured while the profiler kept no record of a kernel
+                "device_idle_share": None
+                if None in busy.values()
+                else 1 - sum(busy.values()) / (wall * 1e3),
                 "maj23_at_votes": quorum,
                 "cache_entries": len(valid),
                 "cache_off_votes_per_s": len(votes) / cold_s,
