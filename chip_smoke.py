@@ -88,7 +88,18 @@ set verifies on the card and its forged copy is refused with the JAX
 message, and the blocks, seen commits, state, app hash and WAL EndHeight
 records equal the same run on the native CPU plane; timed a height and
 by stage, with the device's idle share (the kernels line's
-`consensus_heights`). Keys, key types, messages,
+`consensus_heights`). Phase mempool_proposer drives the mempool and its
+gossip: a full node's TxMempool admits 10,000 kvstore transactions
+(with resubmissions and malformed validator txs, refused with the JAX
+messages) and its mempool reactor gossips them over a MemoryNetwork
+router to a validator of the mixed 10k set, which proposes the height
+whose proposer it is by reaping its own TxMempool (the block's data and
+LastCommit roots, then its own validate_block, on the card) and commits
+it from the other validators' votes; every height in round 0 with the
+launches of a rule, the block exactly the gossiped txs in order, nothing
+sent back, the committed txs gone from the pool, and every byte equal to
+the same run on the native CPU plane; also 256 txs over TCP through
+SecretConnection (the kernels line's `mempool_proposer`). Keys, key types, messages,
 timestamps, signing witnesses, chains, votes and transactions come from
 --seed (made by tendermint_tpu_torch.workloads).
 
@@ -3176,6 +3187,7 @@ def run_consensus(torch, genesis: str, node_priv, chain, home: str, counted: boo
             reset_launches()
 
     def after(h: int) -> None:
+        t_after = time.perf_counter()
         if counted:
             counts = launches()
             expect, outside = rules[h]
@@ -3547,6 +3559,541 @@ def phase_consensus_heights(torch, seed: int) -> dict:
     }
     emit(out)
     return {"launches": out["launches_per_height"], "light_launches": out["light"]["launches_per_height"]}
+
+
+# the mempool and its gossip (phase mempool_proposer): B's pool admits
+# MEMPOOL_DUPLICATES resubmissions and MEMPOOL_MALFORMED malformed
+# validator txs among its N_TXS new ones, MEMPOOL_LATE more after the
+# node's proposal; both pools MEMPOOL_SIZE deep (the JAX default of 5,000
+# cannot hold a 10,000-tx block); MEMPOOL_TCP_TXS gossiped over TCP
+MEMPOOL_SIZE = 20_000
+MEMPOOL_DUPLICATES = 500
+MEMPOOL_MALFORMED = 20
+MEMPOOL_LATE = 2_000
+MEMPOOL_TCP_TXS = 256
+MEMPOOL_GOSSIP_TIMEOUT_S = 120.0
+# the node's timeout_commit in this phase (the JAX default is 1 s): with
+# skip_timeout_commit it enters its own height as the last late precommit
+# of the height before is in, so the LastCommit of the block it proposes
+# holds every validator, as the harness predicts; at 10k those ~3,100
+# precommits can take longer than 1 s (PERF.md §7), and a node that
+# proposes on its timeout_commit instead signs a block no vote is for.
+# Height 1 starts after it, as it starts after 1 s by default.
+MEMPOOL_TIMEOUT_COMMIT_S = 5.0
+DUPLICATE = ("MempoolError", "tx already exists in cache")
+
+
+def malformed_val_tx(i: int, rng) -> tuple:
+    """A validator tx (`val:` prefix) kvstore's check_tx refuses, and the
+    log it refuses it with (the JAX kvstore's messages): no `!`, a pubkey
+    that is not hex, a power that is not an int, a negative power, in
+    turn."""
+    pk = rng.bytes(32).hex()
+    kind = i % 4
+    if kind == 0:
+        return b"val:" + pk.encode(), "expected val:<pubkey>!<power>"
+    if kind == 1:
+        bad = "zz" + pk[2:]
+        return f"val:{bad}!10".encode(), f"pubkey {bad!r} is not hex"
+    if kind == 2:
+        return f"val:{pk}!ten{i}".encode(), f"power {'ten%d' % i!r} is not an int"
+    return f"val:{pk}!-{i + 1}".encode(), "power must be >= 0"
+
+
+def mempool_stream(seed: int, txs: list) -> tuple:
+    """B's admission stream: txs in order, with MEMPOOL_DUPLICATES
+    resubmissions (each after its original) and MEMPOOL_MALFORMED
+    malformed validator txs at seeded places; and each item's expected
+    outcome: ("code", 0, "") admitted, DUPLICATE, or ("code", 1, log)."""
+    rng = np.random.default_rng([seed, 30])
+    extras = []
+    for _ in range(MEMPOOL_DUPLICATES):
+        at = int(rng.integers(1, len(txs) + 1))
+        extras.append((at, txs[int(rng.integers(0, at))], DUPLICATE))
+    for i in range(MEMPOOL_MALFORMED):
+        tx, log = malformed_val_tx(i, rng)
+        extras.append((int(rng.integers(0, len(txs) + 1)), tx, ("code", 1, log)))
+    extras.sort(key=lambda e: e[0])
+    stream, want, k = [], [], 0
+    for i, tx in enumerate(txs + [None]):
+        while k < len(extras) and extras[k][0] == i:
+            stream.append(extras[k][1])
+            want.append(extras[k][2])
+            k += 1
+        if tx is not None:
+            stream.append(tx)
+            want.append(("code", 0, ""))
+    return stream, want
+
+
+def check_outcome(res) -> tuple:
+    """A check_tx_batch outcome as compared: (the error's type, its
+    message) or ("code", code, log)."""
+    if isinstance(res, Exception):
+        return (type(res).__name__, str(res))
+    return ("code", res.code, res.log)
+
+
+def proposer_rule(chain, vals, node_priv, gate: int, step: int, merkle_gate: int, burst: int) -> dict:
+    """consensus_rule of each height, and, in the span of the height
+    before the node proposes, the two roots of its own block's header
+    that create_proposal_block computes (State.make_block: the data root
+    over the reaped txs, the LastCommit root): the node proposes as it
+    enters its height, before that height's first message."""
+    node_index, _ = vals.get_by_address(node_priv.pub_key().address())
+    out, keys, cur = {}, set(), vals
+    for k, ch in enumerate(chain):
+        keys.update(t.partition(b"=")[0] for t in ch.block.txs)
+        expect, outside, _ = consensus_rule(
+            chain, k, vals, node_index, cur.get_proposer().pub_key.type(), gate, step,
+            merkle_gate, len(keys), burst, 1,
+        )
+        if k + 1 < len(chain) and chain[k + 1].node_proposes:
+            nxt = chain[k + 1].block
+            own = [len(nxt.txs), len(nxt.last_commit.signatures)]
+            outside = {"sha256_tree": outside["sha256_tree"] + sum(n >= merkle_gate for n in own)}
+        out[ch.height] = (expect, outside)
+        cur = cur.copy_increment_proposer_priority(1)
+    return out
+
+
+def run_tcp_gossip(seed: int, txs: list) -> dict:
+    """Two gossip nodes on TCPTransport at 127.0.0.1:0 (B listening, A
+    dialing), B's pool admitting txs, which reach A through
+    SecretConnection on the pure-Python AEAD: each side must have
+    authenticated the other's node ID, and A must hold every tx once,
+    in B's order. Returns the handshakes' ms and the gossip's txs/s."""
+    import asyncio
+
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.config import MempoolConfig
+    from tendermint_tpu_torch.p2p import transport as T
+    from tendermint_tpu_torch.p2p.types import node_id_from_pubkey
+    from tendermint_tpu_torch.workloads import admit, gossip_node, kv_mempool, node_key, wait_for_pool
+
+    handshakes = []
+    inner = T._TCPConnection.handshake
+
+    async def timed_handshake(self, node_info, priv_key):
+        t0 = time.perf_counter()
+        try:
+            return await inner(self, node_info, priv_key)
+        finally:
+            handshakes.append((time.perf_counter() - t0) * 1e3)
+
+    async def run():
+        cfg = MempoolConfig(size=MEMPOOL_SIZE)
+        pa, pb = kv_mempool(KVStoreApplication(), cfg), kv_mempool(KVStoreApplication(), cfg)
+        b = gossip_node(pb, node_key(seed, 11), T.TCPTransport(), CHAIN_ID,
+                        listen_addr="127.0.0.1:0", moniker="tcp-b")
+        a = gossip_node(pa, node_key(seed, 10), T.TCPTransport(), CHAIN_ID, moniker="tcp-a")
+        await b.start()
+        try:
+            t_up = time.perf_counter()
+            a.peer_manager.add(f"{b.node_id}@127.0.0.1:{b.router.transport.listen_port}")
+            await a.start()
+            try:
+                deadline = time.monotonic() + 30
+                while not (a.peer_manager.peers() and b.peer_manager.peers()):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("the TCP peers did not connect")
+                    await asyncio.sleep(0.001)
+                up_ms = (time.perf_counter() - t_up) * 1e3
+                seen = {}
+                for me, other in ((a, b), (b, a)):
+                    conn = me.router._peer_conns[other.node_id]
+                    seen[me.node_id] = node_id_from_pubkey(conn._secret.remote_pubkey)
+                if seen != {a.node_id: b.node_id, b.node_id: a.node_id}:
+                    raise AssertionError(f"TCP: authenticated {seen}")
+                t0 = time.perf_counter()
+                outs, _ = await admit(pb, txs, cfg.tx_batch_size)
+                if [check_outcome(r) for r in outs] != [("code", 0, "")] * len(txs):
+                    raise AssertionError("TCP: B refused a tx")
+                t1 = await wait_for_pool(pa, len(txs), MEMPOOL_GOSSIP_TIMEOUT_S)
+                await asyncio.sleep(0.05)  # a second copy would land by now
+                if pa.reap_max_txs(-1) != list(txs) or pa.size() != len(txs):
+                    raise AssertionError("TCP: A's pool is not B's txs, once each, in order")
+                return {"connect_ms": up_ms, "gossip_s": t1 - t0, "txs_per_s": len(txs) / (t1 - t0)}
+            finally:
+                await a.stop()
+        finally:
+            await b.stop()
+
+    T._TCPConnection.handshake = timed_handshake
+    try:
+        out = asyncio.run(run())
+    finally:
+        T._TCPConnection.handshake = inner
+    if len(handshakes) != 2:
+        raise AssertionError(f"TCP: {len(handshakes)} handshakes, not 2")
+    return {**out, "handshake_ms": handshakes, "txs": len(txs)}
+
+
+def run_proposer(torch, genesis: str, node_priv, chain, stream: list, late: list,
+                 home: str, seed: int, counted: bool, rules: dict = None,
+                 profile: tuple = ()) -> dict:
+    """Node A (workloads.consensus_node with a TxMempool of MEMPOOL_SIZE)
+    and node B (a kvstore app and its pool) through
+    workloads.drive_mempool_heights: B admits `stream`, its admitted txs
+    gossip to A, A meets the chain and proposes its height from its
+    pool, B admits `late` at that height's first message. With
+    `counted`, each height's launches are zeroed at its first message,
+    read when the node stands at the next one and checked against
+    rules[height]; heights in `profile` run under torch.profiler. Also
+    records what each pool receives from its peer, A's reap, A's pool
+    after each height and the txs each recheck took. Returns what the
+    phase checks and times."""
+    import asyncio
+
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.config import ConsensusConfig, MempoolConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.workloads import consensus_node, drive_mempool_heights, kv_mempool
+
+    mcfg = MempoolConfig(size=MEMPOOL_SIZE)
+    ccfg = ConsensusConfig(skip_timeout_commit=True, timeout_commit=MEMPOOL_TIMEOUT_COMMIT_S)
+    node = consensus_node(genesis, node_priv, home, ccfg, mempool_cfg=mcfg)
+    pool_a, pool_b = node.mempool, kv_mempool(KVStoreApplication(), mcfg)
+    out = {"stages": {}, "stores": {}, "launches": {}, "reaped": [], "received_by_b": 0,
+           "received_by_a": [], "pool_after": {}, "recheck_txs": {}, "first_message": {},
+           "after_s": {}}
+    calls = {k: [] for k in ("validate_block", "verify_commit", "save_block", "wal",
+                             "apply_block", "finalize", "update", "recheck",
+                             "create_proposal_block")}
+    marks, by_type, prof = {}, {}, {}
+
+    # what each pool receives from its peer
+    def receiving(pool, into):
+        inner = pool.check_tx_batch
+
+        async def wrapper(txs, tx_info=None):
+            if tx_info is not None and tx_info.sender_id:
+                into(txs)
+            return await inner(txs, tx_info)
+
+        pool.check_tx_batch = wrapper
+
+    receiving(pool_a, out["received_by_a"].extend)
+    receiving(pool_b, lambda txs: out.__setitem__("received_by_b", out["received_by_b"] + len(txs)))
+    reap = pool_a.reap_max_bytes_max_gas
+
+    def reaping(max_bytes, max_gas):
+        t0 = time.perf_counter()
+        txs = reap(max_bytes, max_gas)
+        out["reap_ms"] = (time.perf_counter() - t0) * 1e3
+        out["reaped"].append(txs)
+        return txs
+
+    pool_a.reap_max_bytes_max_gas = reaping
+    clock_async(pool_a, "update", calls["update"])
+    clock_async(pool_a, "_recheck", calls["recheck"])
+    recheck = pool_a._recheck
+
+    async def rechecking():
+        out["recheck_txs"][node.cs.rs.height] = pool_a.size()
+        return await recheck()
+
+    pool_a._recheck = rechecking
+    clock_async(node.executor, "apply_block", calls["apply_block"])
+    clock_async(node.cs, "_finalize_commit", calls["finalize"])
+
+    def before(h: int) -> None:
+        marks[h] = {k: len(v) for k, v in calls.items()}
+        out["first_message"][h] = time.perf_counter()
+        if h in profile and "p" not in prof:
+            from torch.profiler import ProfilerActivity, profile as make
+
+            prof["p"] = make(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+        if counted:
+            by_type.clear()
+            marks[h]["stats"] = gpu_verifier.stats()
+            reset_launches()
+
+    def after(h: int) -> None:
+        t_after = time.perf_counter()
+        if counted:
+            counts = launches()
+            expect, outside = rules[h]
+            out["launches"][h] = check_counts(
+                marks[h]["stats"], gpu_verifier.stats(), by_type, counts, expect, outside,
+                where=f"mempool_proposer height {h}",
+            )
+        if profile and h == profile[-1]:
+            torch.cuda.synchronize()
+            prof["p"].__exit__(None, None, None)
+            out["profile"] = prof["p"].key_averages()
+        out["stages"][h] = {k: v[marks[h][k]:] for k, v in calls.items()}
+        out["pool_after"][h] = pool_a.reap_max_txs(-1)
+        out["stores"][h] = {
+            "block": node.block_store.load_block(h).to_proto(),
+            "block_meta": node.block_store.load_block_meta(h).to_proto(),
+            "seen_commit": node.block_store.load_seen_commit().to_proto(),
+            "state": node.state_store.load().to_proto(),
+            "app_hash": node.app.app_hash,
+        }
+        # this hook's own time: the next height's _enter_propose may
+        # precede it, so proposer_stages takes it out of the own height
+        out["after_s"][h] = time.perf_counter() - t_after
+
+    try:
+        with contextlib.ExitStack() as hooks:
+            for owner, attr, into in (
+                (node.executor, "validate_block", "validate_block"),
+                (node.executor, "create_proposal_block", "create_proposal_block"),
+                (execution, "verify_commit", "verify_commit"),
+                (node.block_store, "save_block", "save_block"),
+                (node.cs.wal, "write_end_height", "wal"),
+            ):
+                hooks.enter_context(timed(owner, attr, calls[into]))
+            if counted:
+                hooks.enter_context(charged_dispatches(by_type))
+            out["run"] = asyncio.run(drive_mempool_heights(
+                node, pool_b, chain, stream, late, seed, before, after, MEMPOOL_GOSSIP_TIMEOUT_S))
+        out["end_heights"] = node.end_heights()
+    finally:
+        node.close()
+    out["proposer_height"] = next(ch.height for ch in chain if ch.node_proposes)
+    return out
+
+
+def proposer_stages(res: dict) -> dict:
+    """Host ms of the node's own height, from _enter_propose to
+    EndHeight, by stage: create_proposal_block (with its roots), the own
+    validate_block at prevote, prevote ingest, precommit ingest less
+    finalize, finalize by part (validate_block, save_block, WAL,
+    apply_block, and in it the mempool's update and recheck); and to the
+    node at the next height. The harness's after() hook of the height
+    before (reading the stores) runs after _enter_propose and is taken
+    out."""
+    mrun, h = res["run"], res["proposer_height"]
+    prev, st = res["stages"][h - 1], res["stages"][h]
+    run = next(r for r in mrun.runs if r.height == h)
+    hook = res["after_s"][h - 1] * 1e3
+    lead = (res["first_message"][h] - mrun.enter_propose_at) * 1e3 - hook
+    fin = sum(st["finalize"])
+    return {
+        "height_ms": mrun.own_height_s * 1e3 - hook,
+        "harness_hook_ms_taken_out": hook,
+        "enter_propose_to_first_message_ms": lead,
+        "create_proposal_block_ms": prev["create_proposal_block"][-1],
+        # the own block's check at prevote: that span's last validate_block
+        "own_validate_block_ms": prev["validate_block"][-1],
+        "prevote_ingest_ms": (run.prevotes_s - run.proposal_s) * 1e3,
+        "precommit_ingest_ms": (run.precommits_s - run.prevotes_s) * 1e3 - fin,
+        "finalize_ms": fin,
+        "finalize_validate_block_ms": st["validate_block"][-2],
+        "finalize_save_block_ms": sum(st["save_block"]),
+        "finalize_wal_ms": sum(st["wal"]),
+        "finalize_apply_block_ms": sum(st["apply_block"]),
+        "finalize_mempool_update_ms": sum(st["update"]),
+        "finalize_mempool_recheck_ms": sum(st["recheck"]),
+        "verify_commit_ms": prev["verify_commit"][-1:] + st["verify_commit"],
+        "to_next_height_ms": lead + run.next_height_s * 1e3,
+    }
+
+
+def phase_mempool_proposer(torch, seed: int) -> dict:
+    """The mempool and its gossip with the device plane installed
+    (install_device_plane(GPUConfig()), then settle_probes()): at config
+    5's mixed 10k genesis, node A, a validator (workloads.consensus_node:
+    the ed25519 member that proposes round 0 of the first height from 2
+    on whose proposer holds an ed25519 key, FilePV, WAL, evidence pool
+    and event bus on SqliteKV) with a TxMempool, and node B, a kvstore
+    app and its TxMempool, each with a router and the mempool reactor on
+    one MemoryNetwork; both pools take the JAX MempoolConfig but
+    size=MEMPOOL_SIZE. B admits N_TXS new kvstore txs (TX_LENGTHS bytes)
+    with MEMPOOL_DUPLICATES resubmissions and MEMPOOL_MALFORMED malformed
+    validator txs among them through check_tx_batch in batches of 64;
+    the admitted txs gossip to A on channel 0x30. Once A holds them all,
+    the heights before A's come from the harness with N_TXS other txs
+    (A's update rechecks its pool at each commit); A proposes its
+    height, reaping all of B's txs in B's order, and the harness feeds
+    the other validators' prevotes and precommits for that block
+    (workloads.build_consensus_chain with node_reaps); at its first
+    message B admits MEMPOOL_LATE more; the next height comes from the
+    harness. Checks: B's outcomes (the duplicates and the malformed txs
+    refused with the JAX messages), A never receives a refused tx nor one
+    twice, nothing is sent back to B, A's block is B's txs in order, every
+    height commits in round 0 with the launches of proposer_rule, A's
+    pool holds none of the committed txs after its height and every late
+    tx at the end, no fault and no reroute; the blocks, seen commits,
+    state, app hash, WAL EndHeight records and A's reap equal the same
+    run on the native CPU plane through A's height (the reference stops
+    there, to keep the script's time). Also MEMPOOL_TCP_TXS txs over TCP
+    (run_tcp_gossip). Timed: B's admission, the gossip, the recheck, the
+    reap, A's height by stage (proposer_stages), the device's busy time
+    and idle share over A's height and the one before it."""
+    import tempfile
+
+    from tendermint_tpu_torch.config import GPUConfig, P2PConfig
+    from tendermint_tpu_torch.consensus.state import PEER_DRAIN
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.crypto.gpu_verifier import _GpuBatchVerifier
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.types.tx import txs_hash
+    from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
+    from tendermint_tpu_torch.workloads import (
+        build_consensus_chain,
+        first_proposer_height,
+        kv_genesis,
+        kv_txs,
+        seeded_keys,
+    )
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before mempool_proposer")
+    cfg = GPUConfig()
+    t_phase = time.perf_counter()
+
+    # the traffic, built on the CPU plane
+    t0 = time.perf_counter()
+    privs = seeded_keys(N_VALIDATORS, seed, N_VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    proposer_h = first_proposer_height(privs)
+    heights = proposer_h + 1
+    node_priv = consensus_node_priv(privs, heights, proposer_h)
+    gossiped = kv_txs(seed + 1, proposer_h, N_TXS, TX_LENGTHS)
+    late = kv_txs(seed + 1, proposer_h + 1, MEMPOOL_LATE, TX_LENGTHS)
+    txs = [gossiped if h == proposer_h else kv_txs(seed, h, N_TXS, TX_LENGTHS)
+           for h in range(1, heights + 1)]
+    chain = build_consensus_chain(genesis, privs, node_priv, txs, seed, node_reaps=True)
+    stream, want = mempool_stream(seed, gossiped)
+    vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in privs])
+    tcp_txs = kv_txs(seed + 2, 1, MEMPOOL_TCP_TXS, TX_LENGTHS)
+    build_s = time.perf_counter() - t0
+    if [ch.height for ch in chain if ch.node_proposes] != [proposer_h]:
+        raise AssertionError("the node must propose exactly one height")
+
+    with tempfile.TemporaryDirectory(prefix="mempool-") as tmp:
+        start = gpu_verifier.stats()
+        install_device_plane(cfg)
+        settle_probes()
+        try:
+            rules = proposer_rule(chain, vals, node_priv, cfg.min_batch_size,
+                                  _GpuBatchVerifier.STREAM_CHUNK, MK.installed(), PEER_DRAIN)
+            dev = run_proposer(torch, genesis, node_priv, chain, stream, late,
+                               os.path.join(tmp, "device"), seed, True, rules,
+                               profile=(proposer_h - 1, proposer_h))
+            assert_no_fault(start, gpu_verifier.stats(), "mempool_proposer")
+        finally:
+            uninstall_device_plane()
+        # the CPU plane's reference through the node's own height (the
+        # height after it is the harness's, as in the card's run)
+        ref = run_proposer(torch, genesis, node_priv, chain[:proposer_h], stream, late,
+                           os.path.join(tmp, "cpu"), seed, False)
+    tcp = run_tcp_gossip(seed, tcp_txs)  # host only: no device plane to compare
+
+    committed = set(gossiped)
+    refused = {tx for tx, w in zip(stream, want) if w != ("code", 0, "")} - committed
+    for name, res in (("card", dev), ("cpu_plane", ref)):
+        mrun = res["run"]
+        got = [check_outcome(r) for r in mrun.outcomes]
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            raise AssertionError(f"{name}: B's outcome {bad} is {got[bad]}, not {want[bad]}")
+        if [check_outcome(r) for r in mrun.late_outcomes] != [("code", 0, "")] * len(late):
+            raise AssertionError(f"{name}: B refused a late tx")
+        got = res["received_by_a"]
+        if got != gossiped + late or refused & set(got):
+            raise AssertionError(f"{name}: A received {len(got)} txs, not B's admitted ones once each in order")
+        if res["received_by_b"]:
+            raise AssertionError(f"{name}: {res['received_by_b']} txs were sent back to B")
+        if res["reaped"] != [gossiped]:
+            raise AssertionError(f"{name}: A reaped {[len(r) for r in res['reaped']]} txs, not B's {len(gossiped)}")
+        if res["stores"][proposer_h]["block"] != chain[proposer_h - 1].block.to_proto():
+            raise AssertionError(f"{name}: A's block at {proposer_h} is not the harness's")
+        if chain[proposer_h - 1].block.header.data_hash != txs_hash(gossiped):
+            raise AssertionError(f"{name}: the data hash is not the host's root")
+        after_own = res["pool_after"][proposer_h]
+        if committed & set(after_own) or not set(after_own) <= set(late):
+            raise AssertionError(f"{name}: A's pool after its height holds a committed or foreign tx")
+        if mrun.pool_end != late:
+            raise AssertionError(f"{name}: A's pool at the end is not the late txs in order")
+        for run in mrun.runs:
+            if run.round != 0:
+                raise AssertionError(f"{name} height {run.height} committed in round {run.round}")
+            allowed = {(1, 0, 1)} if run.height == 1 else set()
+            allowed.add((run.height + 1, 0, 1))
+            stray = [t for t in run.timeouts if t[3] and t[:3] not in allowed]
+            if stray:
+                raise AssertionError(f"{name} height {run.height}: timeouts acted on {stray}")
+    for h, stores in ref["stores"].items():
+        for key, value in stores.items():
+            if dev["stores"][h][key] != value:
+                raise AssertionError(f"mempool_proposer height {h}: {key} differs from the CPU plane's")
+    if (dev["end_heights"][:proposer_h] != ref["end_heights"]
+            or (len(dev["end_heights"]), len(ref["end_heights"])) != (heights, proposer_h)):
+        raise AssertionError("mempool_proposer: the WAL's EndHeight records differ from the CPU plane's")
+    if dev["reaped"] != ref["reaped"]:
+        raise AssertionError("mempool_proposer: A's reap differs from the CPU plane's")
+
+    # the device's busy time over the profiled heights, by kernel
+    timed_heights = [proposer_h - 1, proposer_h]
+    launched: dict = {}
+    for h in timed_heights:
+        for name, n in dev["launches"][h].items():
+            if name != "by_key_type" and n:
+                launched[name] = launched.get(name, 0) + n
+    busy, kept = {}, {}
+    for name, n in launched.items():
+        mine = [e for e in dev["profile"] if KERNEL_NAMES[name] in e.key]
+        seen_n = sum(e.count for e in mine)
+        kept[name] = seen_n
+        if seen_n:
+            busy[name] = sum(e.self_device_time_total for e in mine) / seen_n * n / 1e3
+    wall_ms = sum(r.next_height_s for r in dev["run"].runs if r.height in timed_heights) * 1e3
+    n_bytes = sum(len(t) for t in gossiped)
+    send_rate = P2PConfig().send_rate  # bytes/s
+    out = {
+        "phase": "mempool_proposer",
+        "validators": {"ed25519": N_VALIDATORS - N_VALIDATORS // 2, "sr25519": N_VALIDATORS // 2},
+        "heights": heights,
+        "proposer_height": proposer_h,
+        "node_index": vals.get_by_address(node_priv.pub_key().address())[0],
+        "mempool_size": MEMPOOL_SIZE,
+        "stream": {"new": len(gossiped), "duplicates": MEMPOOL_DUPLICATES,
+                   "malformed": MEMPOOL_MALFORMED, "late": MEMPOOL_LATE},
+        "build_s": build_s,
+        "rounds": [r.round for r in dev["run"].runs],
+        "timeouts": {r.height: r.timeouts for r in dev["run"].runs},
+        "launches_per_height": {
+            h: {k: v for k, v in c.items() if k != "by_key_type" and v} for h, c in dev["launches"].items()
+        },
+        "rule_per_height": {
+            h: {"windows": {k: v[0] for k, v in r[0].items()}, **r[1]} for h, r in rules.items()
+        },
+        "gossip_bytes": n_bytes,
+        "send_rate_floor_s": n_bytes / send_rate,
+        "rechecked_txs_by_height": dev["recheck_txs"],
+        "cpu_plane_rechecked_txs_by_height": ref["recheck_txs"],
+        "equal_to_cpu_plane": ["block", "block_meta", "seen_commit", "state", "app_hash",
+                               "end_heights", "reaped"],
+        "cpu_plane_heights": proposer_h,
+        "device_busy_ms_own_and_previous_height": busy,
+        "device_records_kept": kept,
+        "device_kernels_not_measured": sorted(set(launched) - set(busy)),
+        "device_idle_share": 1 - sum(busy.values()) / wall_ms,
+        "ok": True,
+    }
+    for name, res in (("card", dev), ("cpu_plane", ref)):
+        mrun = res["run"]
+        out[name] = {
+            "admission_txs_per_s": len(stream) / mrun.admit_s,
+            "admission_s": mrun.admit_s,
+            "gossip_s": mrun.gossip_s,
+            "gossip_txs_per_s": len(gossiped) / mrun.gossip_s,
+            "recheck_ms_height_1": res["stages"][1]["recheck"],
+            "reap_ms": res["reap_ms"],
+            "own_height_ms": proposer_stages(res),
+            "height_ms": [r.end_height_s * 1e3 for r in mrun.runs],
+        }
+    out["tcp"] = tcp
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"launches": out["launches_per_height"]}
 
 
 def phase_kernels(
@@ -4160,6 +4707,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     votes = phase_vote_path(torch, dev, args.seed)
     block_exec = phase_block_exec(torch, args.seed)
     heights = phase_consensus_heights(torch, args.seed)
+    mempool = phase_mempool_proposer(torch, args.seed)
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
     )
@@ -4178,6 +4726,13 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
             },
             "launches_per_height_150": {
                 str(h): c.get(r["name"], 0) for h, c in heights["light_launches"].items()
+            },
+        }
+    # every kernel's launches in each height of phase mempool_proposer
+    for r in kernels["kernels"]:
+        r["mempool_proposer"] = {
+            "launches_per_height": {
+                str(h): c.get(r["name"], 0) for h, c in mempool["launches"].items()
             },
         }
     # the vote path's launches per height at each size, and each kernel

@@ -1,13 +1,13 @@
 """ABCI clients: the async interface and the in-process local client.
 
-Counterpart: tendermint_tpu/abci/client.py: ABCIClient (:31-93),
-LocalClient (:157-216), ClientCreator and local_creator (:349-354);
+Counterpart: tendermint_tpu/abci/client.py: ABCIClient (:31-93, with
+check_tx_batch :50), LocalClient (:157-216, its batch in one lock hold
+:185), ClientCreator and local_creator (:349-354);
 reference: abci/client/client.go, local_client.go, creators.go:12-36.
 Every method is a coroutine; the local client runs the synchronous
 application inline under one lock, as the reference's mutex-serialized
 local client does. The socket and gRPC clients wait for the servers
-(a later item), and with them the state-sync methods; check_tx_batch
-waits for the mempool (item 16).
+(a later item), and with them the state-sync methods.
 """
 
 from __future__ import annotations
@@ -39,6 +39,11 @@ class ABCIClient(Service):
 
     async def check_tx(self, req: T.RequestCheckTx) -> T.ResponseCheckTx:
         raise NotImplementedError
+
+    async def check_tx_batch(self, reqs: "list[T.RequestCheckTx]") -> "list[T.ResponseCheckTx]":
+        """Validate a batch with one client round. Default: one await a
+        request; LocalClient folds the batch into one lock hold."""
+        return [await self.check_tx(r) for r in reqs]
 
     async def init_chain(self, req: T.RequestInitChain) -> T.ResponseInitChain:
         raise NotImplementedError
@@ -83,6 +88,11 @@ class LocalClient(ABCIClient):
 
     async def check_tx(self, req):
         return await self._call(self.app.check_tx, req)
+
+    async def check_tx_batch(self, reqs):
+        # one lock hold for the whole batch, as the JAX client does
+        async with self._lock:
+            return [self.app.check_tx(r) for r in reqs]
 
     async def init_chain(self, req):
         return await self._call(self.app.init_chain, req)

@@ -70,6 +70,22 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   heights 2 and up of the first message to EndHeight, the p50 to the
   node standing at the next height, and heights/s over those spans.
   Every height must commit in round 0.
+- mempool_proposer: the mempool and its gossip with one node proposing:
+  a full node's TxMempool admits TXS kvstore transactions through
+  check_tx_batch in batches of 64 and gossips them to the validator
+  node's over a MemoryNetwork (routers and mempool reactors); the
+  validator (an ed25519 member of the mixed 10k set, FilePV, SqliteKV,
+  WAL, evidence pool and event bus) meets the heights before its own
+  from the harness, then proposes its height from its pool and commits
+  it from the other validators' prevotes and precommits
+  (workloads.drive_mempool_heights), over CONSENSUS_REPS fresh pairs of
+  nodes; the admission's and the gossip's txs/s (the mean), and the
+  p50 and p95 of the own height from _enter_propose to EndHeight. Both
+  pools hold MEMPOOL_SIZE txs (the JAX default of 5,000 cannot hold the
+  block), and the node's timeout_commit is MEMPOOL_TIMEOUT_COMMIT_S (with
+  skip_timeout_commit it proposes once every precommit of the height
+  before is in, the LastCommit the harness predicts); the own block must
+  be every gossiped tx, in order, and every height commit in round 0.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -112,6 +128,9 @@ REPS, STAGE_REPS, CURVE_REPS, CPU_REPS, SIGN_REPS, VOTE_REPS = 20, 5, 5, 3, 300,
 # block_exec's chain and replays, consensus_height's chain and nodes
 BLOCK_HEIGHTS, BLOCK_REPS = 3, 5
 CONSENSUS_HEIGHTS, CONSENSUS_REPS = 4, 2
+# mempool_proposer's pools and its node's timeout_commit (seconds)
+MEMPOOL_SIZE = 20_000
+MEMPOOL_TIMEOUT_COMMIT_S = 5.0
 # the most light_sync may spend building its chain before it cuts it
 CHAIN_BUDGET_S = 240.0
 
@@ -150,6 +169,18 @@ CELL_KEYS = {
         "p50_ms",
         "p95_ms",
         "p50_through_apply_ms",
+        "heights",
+        "txs",
+        "validators",
+        "reps",
+        "chain_build_s",
+    ),
+    "mempool_proposer": (
+        "admission_txs_per_s",
+        "gossip_txs_per_s",
+        "p50_ms",
+        "p95_ms",
+        "proposer_height",
         "heights",
         "txs",
         "validators",
@@ -655,6 +686,74 @@ def cell_consensus_height(ctx: Ctx) -> dict:
     }
 
 
+def cell_mempool_proposer(ctx: Ctx) -> dict:
+    import asyncio
+    import tempfile
+
+    from .abci.kvstore import KVStoreApplication
+    from .config import ConsensusConfig, MempoolConfig
+    from .types.validator import Validator, ValidatorSet
+    from .workloads import (
+        build_consensus_chain,
+        consensus_node,
+        drive_mempool_heights,
+        first_proposer_height,
+        kv_genesis,
+        kv_mempool,
+        kv_txs,
+        seeded_keys,
+    )
+
+    seed = ctx.args.seed + 40
+    privs = seeded_keys(VALIDATORS, seed, VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    own = first_proposer_height(privs)
+    # the node: the ed25519 validator that proposes round 0 of `own`
+    state_vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in privs])
+    for _ in range(own - 1):
+        state_vals = state_vals.copy_increment_proposer_priority(1)
+    proposer = state_vals.get_proposer().address
+    node_priv = next(p for p in privs if p.pub_key().address() == proposer)
+    t0 = time.perf_counter()
+    gossiped = kv_txs(seed + 1, own, TXS, (100, 300))
+    txs = [gossiped if h == own else kv_txs(seed, h, TXS, (100, 300)) for h in range(1, own + 2)]
+    chain = build_consensus_chain(genesis, privs, node_priv, txs, seed, node_reaps=True)
+    build_s = time.perf_counter() - t0
+    mcfg = MempoolConfig(size=MEMPOOL_SIZE)
+    ccfg = ConsensusConfig(skip_timeout_commit=True, timeout_commit=MEMPOOL_TIMEOUT_COMMIT_S)
+    before = _stats()
+    admission, gossip, heights = [], [], []
+    for _rep in range(CONSENSUS_REPS):
+        with tempfile.TemporaryDirectory(prefix="bench-mempool-") as tmp:
+            node = consensus_node(genesis, node_priv, tmp, ccfg, mempool_cfg=mcfg)
+            pool_b = kv_mempool(KVStoreApplication(), mcfg)
+            try:
+                run = asyncio.run(drive_mempool_heights(node, pool_b, chain, gossiped, [], seed))
+                block = node.block_store.load_block(own)
+            finally:
+                node.close()
+        if list(block.txs) != gossiped:
+            raise AssertionError("mempool_proposer: the own block is not the gossiped txs in order")
+        for r in run.runs:
+            if r.round != 0:
+                raise AssertionError(f"mempool_proposer: height {r.height} in round {r.round}")
+        admission.append(len(gossiped) / run.admit_s)
+        gossip.append(len(gossiped) / run.gossip_s)
+        heights.append(run.own_height_s * 1e3)
+    _no_fault(before, "mempool_proposer")
+    return {
+        "admission_txs_per_s": float(np.mean(admission)),
+        "gossip_txs_per_s": float(np.mean(gossip)),
+        **_p50_p95(heights),
+        "proposer_height": own,
+        "heights": len(chain),
+        "txs": TXS,
+        "validators": VALIDATORS,
+        "reps": CONSENSUS_REPS,
+        "chain_build_s": build_s,
+    }
+
+
 RUNNERS = {
     "batch_curve": cell_batch_curve,
     "throughput_8192": cell_throughput,
@@ -669,6 +768,7 @@ RUNNERS = {
     "vote_ingest": cell_vote_ingest,
     "block_exec": cell_block_exec,
     "consensus_height": cell_consensus_height,
+    "mempool_proposer": cell_mempool_proposer,
 }
 
 

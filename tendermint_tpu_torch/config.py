@@ -1,7 +1,9 @@
-"""The device plane's configuration, and the step machine's timeouts.
+"""The device plane's configuration, the step machine's timeouts, the
+mempool's settings and the p2p settings the router and peer manager read.
 
 Counterpart: tendermint_tpu/config.py:47 (DEFAULT_BUCKET_SIZES),
-:172-202 (ConsensusConfig) and :254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
+:104-130 (P2PConfig), :132-151 (MempoolConfig), :172-202
+(ConsensusConfig) and :254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
 10k signatures to 16384 would waste 39% of the device work, 12288 cuts
 that to 18%.
 """
@@ -15,6 +17,8 @@ __all__ = [
     "DEFAULT_BUCKET_SIZES",
     "DEFAULT_MIN_BATCH",
     "GPUConfig",
+    "MempoolConfig",
+    "P2PConfig",
 ]
 
 DEFAULT_BUCKET_SIZES = (8, 32, 128, 512, 2048, 8192, 12288, 16384)
@@ -73,3 +77,50 @@ class ConsensusConfig:
 
     def precommit_timeout(self, round_: int) -> float:
         return self.timeout_precommit + self.timeout_precommit_delta * round_
+
+
+@dataclass
+class P2PConfig:
+    """The fields of the JAX P2PConfig that node start hands the peer
+    manager and the router (tendermint_tpu/node/node.py:284-330); the
+    listen and external addresses, PEX, the bootstrap peers and the
+    queue type serve node start and PEX (ROADMAP items 17 and 21)."""
+
+    persistent_peers: str = ""
+    max_connections: int = 64
+    max_incoming_connection_attempts: int = 100
+    send_rate: int = 5_120_000
+    recv_rate: int = 5_120_000
+    handshake_timeout: float = 20.0
+    dial_timeout: float = 3.0
+    # jittered capped exponential dial backoff (peer manager)
+    min_retry_time: float = 0.25
+    max_retry_time: float = 600.0
+    max_retry_time_persistent: float = 20.0
+    # keepalive liveness (router; any received traffic counts)
+    ping_interval: float = 30.0
+    pong_timeout: float = 15.0
+    # slow-peer shedding: this many send-queue drops inside the window
+    # evict the peer with reason slow_peer and ban it for the sit-out
+    slow_peer_drop_threshold: int = 64
+    slow_peer_window: float = 10.0
+    slow_peer_ban: float = 30.0
+
+
+@dataclass
+class MempoolConfig:
+    recheck: bool = True
+    broadcast: bool = True
+    size: int = 5000
+    max_txs_bytes: int = 1 << 30
+    cache_size: int = 10000
+    keep_invalid_txs_in_cache: bool = False
+    max_tx_bytes: int = 1 << 20
+    ttl_duration: float = 0.0  # seconds; 0: no TTL
+    ttl_num_blocks: int = 0
+    # admission shards: CheckTx takes only its tx-key-hashed shard's
+    # lock; consensus's lock() is a barrier across every shard
+    shards: int = 8
+    # the most txs in one gossip envelope or one batched admission call
+    # (the recheck's ABCI grain too)
+    tx_batch_size: int = 64

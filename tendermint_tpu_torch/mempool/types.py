@@ -1,18 +1,19 @@
 """The Mempool interface.
 
 Counterpart: tendermint_tpu/mempool/types.py: tx_key (:17), MempoolError
-(:22), TxInfo (:34) and Mempool (:70-109); reference:
-internal/mempool/types.go:30-77. WrappedTx and the full-pool error belong
-to the transaction pool, which is not ported yet.
+(:22), TxMempoolFullError (:26), TxInfo (:34), WrappedTx (:45-67) and
+Mempool (:70-109); reference: internal/mempool/types.go:30-77,
+internal/mempool/tx.go.
 """
 
 from __future__ import annotations
 
 import hashlib
-from dataclasses import dataclass
+import itertools
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
-__all__ = ["Mempool", "MempoolError", "TxInfo", "tx_key"]
+__all__ = ["Mempool", "MempoolError", "TxInfo", "TxMempoolFullError", "WrappedTx", "tx_key"]
 
 
 def tx_key(tx: bytes) -> bytes:
@@ -24,12 +25,46 @@ class MempoolError(Exception):
     pass
 
 
+class TxMempoolFullError(MempoolError):
+    def __init__(self, num_txs: int, total_bytes: int) -> None:
+        super().__init__(f"mempool is full: {num_txs} txs, {total_bytes} bytes")
+
+
 @dataclass(frozen=True)
 class TxInfo:
     """Who sent us the tx (reference: internal/mempool/types.go:96-104)."""
 
     sender_id: int = 0
     sender_node_id: str = ""
+
+
+_seq = itertools.count(1)
+
+
+@dataclass
+class WrappedTx:
+    """A pool-resident tx with its CheckTx verdict attached
+    (reference: internal/mempool/tx.go:27-77)."""
+
+    tx: bytes
+    priority: int = 0
+    sender: str = ""
+    gas_wanted: int = 0
+    height: int = 0  # the height at which it entered the pool
+    timestamp: float = 0.0
+    peers: set = field(default_factory=set)  # the peers that sent it
+    seq: int = 0  # arrival order: the gossip cursor's and the reap's tie-break
+
+    def __post_init__(self) -> None:
+        if self.seq == 0:
+            self.seq = next(_seq)
+
+    @property
+    def key(self) -> bytes:
+        return tx_key(self.tx)
+
+    def size(self) -> int:
+        return len(self.tx)
 
 
 class Mempool:

@@ -29,7 +29,17 @@ all built with the port's own types from a seed.
   other validator's prevote and precommit as wire bytes, the node's own
   votes and proposals predicted, its clock pinned by pinned_clock);
   consensus_node, a node with FilePV, WAL, evidence pool and event bus
-  on SqliteKV; drive_heights, which feeds it the chain height by height.
+  on SqliteKV (and, if asked, a TxMempool its proposals reap);
+  drive_heights, which feeds it the chain height by height;
+- the mempool harness: kv_mempool, a TxMempool on its own connection to
+  a kvstore app; node_key, a node's p2p identity from the seed;
+  gossip_node, a router on a memory or TCP transport with the mempool
+  reactor on channel 0x30; admit, which feeds a pool txs through
+  check_tx_batch in batches; wait_for_pool, which waits until a pool
+  holds a count of txs; drive_mempool_heights, which gossips a stream
+  of txs from a full node's pool to a consensus_node's over a
+  MemoryNetwork, then feeds the node a chain in which it proposes a
+  height from its pool.
 
 Keys, timestamps and signing witnesses come from the seed, so a seed
 gives the same bytes on every host. Signing is native: ed25519's and
@@ -52,7 +62,7 @@ import numpy as np
 
 from .crypto.ed25519 import PrivKeyEd25519
 from .crypto.sr25519 import PrivKeySr25519, sign_batch
-from .config import ConsensusConfig
+from .config import ConsensusConfig, MempoolConfig, P2PConfig
 from .consensus.msgs import (
     BlockPartMessage,
     EndHeightMessage,
@@ -74,7 +84,13 @@ from .light.client import Client, TrustOptions
 from .light.errors import LightBlockNotFoundError
 from .light.provider import Provider
 from .light.store import LightStore
+from .mempool.mempool import TxMempool
 from .mempool.nop import NopMempool
+from .mempool.reactor import MempoolReactor, mempool_channel_descriptor
+from .p2p.peermanager import PeerManager, peer_manager_options
+from .p2p.router import Router, router_options
+from .p2p.transport import MemoryNetwork, MemoryTransport, Transport
+from .p2p.types import NodeInfo, node_id_from_pubkey
 from .state.execution import BlockExecutor
 from .state.store import StateStore
 from .state.types import State, state_from_genesis
@@ -103,7 +119,9 @@ __all__ = [
     "ConsensusHeight",
     "ConsensusNode",
     "ExecNode",
+    "GossipNode",
     "HeightRun",
+    "MempoolRun",
     "VoteTraffic",
     "block_exec_node",
     "block_txs",
@@ -111,20 +129,27 @@ __all__ = [
     "build_commit",
     "build_consensus_chain",
     "build_light_chain",
+    "admit",
     "build_vote_traffic",
     "clock_at",
     "consensus_node",
     "drive_heights",
+    "drive_mempool_heights",
     "end_height_records",
+    "first_proposer_height",
+    "gossip_node",
     "ingest",
     "kv_genesis",
+    "kv_mempool",
     "kv_txs",
     "light_client",
     "light_sync",
+    "node_key",
     "pinned_clock",
     "seeded_keys",
     "sign_commit",
     "vote_state",
+    "wait_for_pool",
 ]
 
 # the time of height 0 of a built chain, and of a built commit's votes
@@ -631,9 +656,10 @@ def pinned_clock(height_of):
 
 @dataclass
 class ConsensusNode:
-    """One validator node without p2p: the step machine with its WAL,
-    FilePV, evidence pool and event bus, over the kvstore app and state,
-    block and evidence stores on SqliteKV files in `home`."""
+    """One validator node: the step machine with its WAL, FilePV,
+    evidence pool and event bus, over the kvstore app and state, block
+    and evidence stores on SqliteKV files in `home`, and the mempool its
+    proposals reap (NopMempool, or a TxMempool)."""
 
     cs: ConsensusState
     executor: BlockExecutor
@@ -645,6 +671,7 @@ class ConsensusNode:
     app: KVStoreApplication
     home: str
     dbs: tuple
+    mempool: object = None
 
     def end_heights(self) -> List[bytes]:
         return end_height_records(self.cs.wal.path)
@@ -668,11 +695,14 @@ def end_height_records(wal_path: str) -> List[bytes]:
     return out
 
 
-def consensus_node(genesis_json: str, priv, home: str, cfg: Optional[ConsensusConfig] = None) -> ConsensusNode:
+def consensus_node(genesis_json: str, priv, home: str, cfg: Optional[ConsensusConfig] = None,
+                   mempool_cfg: Optional[MempoolConfig] = None) -> ConsensusNode:
     """A fresh node at the genesis whose validator signs with priv
     through a FilePV in home/config and home/data, its WAL in
     home/data/cs.wal; cfg defaults to the JAX package's timeouts with
-    skip_timeout_commit (every precommit arrives)."""
+    skip_timeout_commit (every precommit arrives). Its proposals reap a
+    NopMempool, or, given mempool_cfg, a TxMempool on its own connection
+    to the node's app (kv_mempool)."""
     for d in ("config", "data"):
         os.makedirs(os.path.join(home, d), exist_ok=True)
     data = os.path.join(home, "data")
@@ -685,8 +715,9 @@ def consensus_node(genesis_json: str, priv, home: str, cfg: Optional[ConsensusCo
     evpool = EvidencePool(evidence_db, state_store, block_store)
     event_bus = EventBus()
     app = KVStoreApplication()
+    mempool = NopMempool() if mempool_cfg is None else kv_mempool(app, mempool_cfg)
     executor = BlockExecutor(
-        state_store, LocalClient(app), NopMempool(), evpool, block_store, event_bus
+        state_store, LocalClient(app), mempool, evpool, block_store, event_bus
     )
     privval = FilePV.from_priv_key(
         priv,
@@ -707,7 +738,7 @@ def consensus_node(genesis_json: str, priv, home: str, cfg: Optional[ConsensusCo
         )
     return ConsensusNode(
         cs, executor, state_store, block_store, evpool, event_bus, privval, app, home,
-        (state_db, block_db, evidence_db),
+        (state_db, block_db, evidence_db), mempool,
     )
 
 
@@ -752,7 +783,8 @@ def _node_vote(priv, chain_id: str, vote_type: int, height: int, block_id: Block
 
 
 def build_consensus_chain(genesis_json: str, privs: Sequence, node_priv, txs: Sequence[list],
-                          seed: int, equivocate_at: int = 0) -> List[ConsensusHeight]:
+                          seed: int, equivocate_at: int = 0,
+                          node_reaps: bool = False) -> List[ConsensusHeight]:
     """Heights 1..len(txs) of the genesis's chain as one node, whose
     validator holds node_priv (ed25519), meets them in round 0: block h
     holds txs[h-1] and is made by State.make_block from the state after
@@ -761,7 +793,9 @@ def build_consensus_chain(genesis_json: str, privs: Sequence, node_priv, txs: Se
     seed); the proposer's signed proposal and the parts, then every
     other validator's prevote and precommit. Where the node proposes,
     the block is the one it makes (no transactions: its mempool is
-    empty; the evidence its pool holds) and no proposal or part is sent.
+    empty; the evidence its pool holds) and no proposal or part is sent;
+    with node_reaps, its mempool holds txs[h-1] in arrival order by then
+    (kvstore's priority is 0), and the block holds them.
     At height equivocate_at one validator also precommits another block
     right after its real precommit. Each block is applied on a
     harness node so the next carries its app and results hashes."""
@@ -778,8 +812,9 @@ def build_consensus_chain(genesis_json: str, privs: Sequence, node_priv, txs: Se
         proposer = state.validators.get_proposer()
         node_proposes = proposer.address == node_addr
         if node_proposes:
-            # the node reaps an empty mempool and its pool's evidence
-            block, parts = state.make_block(h, [], last_commit, pending, proposer.address)
+            # the node reaps its mempool and its pool's evidence
+            reaped = list(block_txs_) if node_reaps else []
+            block, parts = state.make_block(h, reaped, last_commit, pending, proposer.address)
             pending = []
         else:
             block, parts = state.make_block(h, list(block_txs_), last_commit, [], proposer.address)
@@ -979,3 +1014,186 @@ async def _send(cs: ConsensusState, wires: List[bytes], burst: int) -> None:
             if not cs.send_peer_msg(decode_msg(w), "peer"):
                 raise RuntimeError("the peer queue dropped a message")
         await cs.wait_idle()
+
+
+# -- the mempool harness --
+
+
+def first_proposer_height(privs: Sequence, key_type: str = "ed25519", start: int = 2) -> int:
+    """The first height from `start` on whose round-0 proposer holds a
+    key of key_type, in a static set of equal-power validators holding
+    privs (height h's proposer is the genesis set's after h - 1
+    increments)."""
+    by_addr = {p.pub_key().address(): p for p in privs}
+    vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in privs])
+    h = 1
+    while h < start or by_addr[vals.get_proposer().address].type() != key_type:
+        vals = vals.copy_increment_proposer_priority(1)
+        h += 1
+    return h
+
+
+def kv_mempool(app: KVStoreApplication, cfg: Optional[MempoolConfig] = None) -> TxMempool:
+    """A TxMempool on a connection of its own to app (a node's mempool
+    connection, tendermint_tpu_torch/abci/proxy.py)."""
+    return TxMempool(LocalClient(app), cfg or MempoolConfig())
+
+
+def node_key(seed: int, i: int) -> PrivKeyEd25519:
+    """Node i's p2p identity (its node ID is the key's address), from
+    the seed."""
+    return PrivKeyEd25519.from_seed(hashlib.sha256(b"node-key-%d-%d" % (seed, i)).digest())
+
+
+@dataclass
+class GossipNode:
+    """A node's p2p half: its router on a transport, the peer manager
+    and the mempool reactor on channel 0x30 over `mempool`."""
+
+    node_id: str
+    mempool: TxMempool
+    router: Router
+    reactor: MempoolReactor
+    peer_manager: PeerManager
+
+    async def start(self) -> None:
+        await self.router.start()
+        await self.reactor.start()
+
+    async def stop(self) -> None:
+        await self.reactor.stop()
+        await self.router.stop()
+
+
+def gossip_node(mempool: TxMempool, key, transport: Transport, chain_id: str,
+                listen_addr: str = "", moniker: str = "") -> GossipNode:
+    """A router with the node key `key` on `transport` (listening on
+    listen_addr when given), its peer manager and router options from
+    the JAX P2PConfig defaults as node start wires them, and the mempool
+    reactor over mempool (its channel sized by the pool's max_tx_bytes,
+    broadcasting if the pool's config says so). Add peers with
+    node.peer_manager.add("<id>@host:port")."""
+    cfg = P2PConfig()
+    node_id = node_id_from_pubkey(key.pub_key())
+    info = NodeInfo(node_id=node_id, listen_addr=listen_addr, network=chain_id,
+                    version="tendermint_tpu_torch", moniker=moniker)
+    manager = PeerManager(node_id, peer_manager_options(cfg))
+    router = Router(info, key, manager, transport, listen_addr=listen_addr,
+                    options=router_options(cfg))
+    channel = router.open_channel(mempool_channel_descriptor(mempool.cfg.max_tx_bytes))
+    reactor = MempoolReactor(mempool, channel, manager.subscribe(), broadcast=mempool.cfg.broadcast)
+    return GossipNode(node_id, mempool, router, reactor, manager)
+
+
+async def admit(pool: TxMempool, txs: Sequence[bytes], batch: int) -> tuple:
+    """Feed txs to pool through check_tx_batch, `batch` at a time,
+    yielding to the loop between batches (so gossip runs beside the
+    admission). Returns (outcomes in order, seconds inside the calls)."""
+    out, spent = [], 0.0
+    for i in range(0, len(txs), batch):
+        t0 = time.perf_counter()
+        out += await pool.check_tx_batch(list(txs[i : i + batch]))
+        spent += time.perf_counter() - t0
+        await asyncio.sleep(0)
+    return out, spent
+
+
+async def wait_for_pool(pool: TxMempool, n: int, timeout_s: float) -> float:
+    """Wait until pool holds at least n txs; the host clock then.
+    Raises if it does not within timeout_s."""
+    deadline = time.monotonic() + timeout_s
+    while pool.size() < n:
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"the pool holds {pool.size()} txs, not {n}, after {timeout_s} s")
+        await asyncio.sleep(0.001)
+    return time.perf_counter()
+
+
+@dataclass
+class MempoolRun:
+    """What drive_mempool_heights saw (host clock): the full node's
+    admission outcomes of the stream and of the late txs, the seconds
+    inside its check_tx_batch calls, the seconds from its first admission
+    to the last tx in the node's pool, the node's heights, its own
+    height from _enter_propose to EndHeight (and the clock at its
+    _enter_propose), and the node's pool at the end in arrival order."""
+
+    outcomes: list
+    admit_s: float
+    gossip_s: float
+    late_outcomes: list
+    runs: List[HeightRun]
+    own_height_s: float
+    enter_propose_at: float
+    pool_end: List[bytes]
+
+
+async def drive_mempool_heights(node: ConsensusNode, pool_b: TxMempool, chain: List[ConsensusHeight],
+                                stream: Sequence[bytes], late: Sequence[bytes], seed: int,
+                                before=None, after=None, timeout_s: float = 120.0) -> MempoolRun:
+    """Node A (node, its pool node.mempool a TxMempool) and a full node B
+    (pool_b) gossip on one MemoryNetwork, each with a router and the
+    mempool reactor (node keys node_key(seed, 0) and (seed, 1), A
+    dialing B). B admits `stream` through check_tx_batch in batches of
+    its tx_batch_size; once A's pool holds as many txs as the block of
+    the height A proposes, A meets the chain (drive_heights, where
+    before and after are passed on); at the first message of A's own
+    height B admits `late`, and the run ends once A's pool holds as
+    many. Raises what drive_heights raises, and when a pool does not
+    fill within timeout_s."""
+    own = next(ch for ch in chain if ch.node_proposes)
+    pool_a, batch = node.mempool, pool_b.cfg.tx_batch_size
+    net = MemoryNetwork()
+    a = gossip_node(pool_a, node_key(seed, 0), MemoryTransport(net, "node-a.mem:1"),
+                    node.cs.state.chain_id, listen_addr="node-a.mem:1", moniker="node-a")
+    b = gossip_node(pool_b, node_key(seed, 1), MemoryTransport(net, "node-b.mem:2"),
+                    node.cs.state.chain_id, listen_addr="node-b.mem:2", moniker="node-b")
+    a.peer_manager.add(f"{b.node_id}@node-b.mem:2")
+    marks: Dict[str, float] = {}
+    late_admission = []
+    enter_propose = node.cs._enter_propose
+    write_end = node.cs.wal.write_end_height
+
+    async def entering_propose(height: int, round_: int) -> None:
+        if height == own.height:
+            marks.setdefault("enter_propose", time.perf_counter())
+        await enter_propose(height, round_)
+
+    def end_height(height: int) -> None:
+        write_end(height)
+        if height == own.height:
+            marks.setdefault("end_height", time.perf_counter())
+
+    def first_message(h: int) -> None:
+        if h == own.height:
+            late_admission.append(asyncio.get_running_loop().create_task(admit(pool_b, late, batch)))
+        if before is not None:
+            before(h)
+
+    node.cs._enter_propose = entering_propose
+    node.cs.wal.write_end_height = end_height
+    await b.start()
+    await a.start()
+    try:
+        deadline = time.monotonic() + timeout_s
+        while not (a.peer_manager.peers() and b.peer_manager.peers()):
+            if time.monotonic() > deadline:
+                raise RuntimeError("the nodes did not connect")
+            await asyncio.sleep(0.001)
+        t0 = time.perf_counter()
+        outcomes, admit_s = await admit(pool_b, stream, batch)
+        gossip_s = await wait_for_pool(pool_a, len(own.block.txs), timeout_s) - t0
+        runs = await drive_heights(node, chain, before=first_message, after=after)
+        late_outcomes, _ = await late_admission[0]
+        await wait_for_pool(pool_a, len(late), timeout_s)
+        await asyncio.sleep(0.05)  # a second copy would have landed by now
+        return MempoolRun(outcomes, admit_s, gossip_s, late_outcomes, runs,
+                          marks["end_height"] - marks["enter_propose"], marks["enter_propose"],
+                          pool_a.reap_max_txs(-1))
+    finally:
+        for t in late_admission:
+            t.cancel()
+        await a.stop()
+        await b.stop()
+        node.cs._enter_propose = enter_propose
+        node.cs.wal.write_end_height = write_end

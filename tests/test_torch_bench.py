@@ -112,3 +112,21 @@ def test_bench_consensus_height_cell(capsys, monkeypatch):
     assert (cell["heights"], cell["txs"], cell["validators"], cell["reps"]) == (3, 40, 8, 1)
     for key in ("heights_per_s", "p50_ms", "p95_ms", "p50_through_apply_ms", "chain_build_s"):
         assert math.isfinite(cell[key]) and cell[key] > 0
+
+
+def test_bench_mempool_proposer_cell(capsys, monkeypatch):
+    """The mempool_proposer cell at 8 mixed validators and 40
+    transactions gossiped to the node that proposes (the native CPU
+    plane below the gate): every key it declares, the own block the
+    gossiped txs, each height in round 0, its rates and times positive."""
+    monkeypatch.setattr(bench, "VALIDATORS", 8)
+    monkeypatch.setattr(bench, "TXS", 40)
+    monkeypatch.setattr(bench, "CONSENSUS_REPS", 2)
+    monkeypatch.setattr(bench, "MEMPOOL_TIMEOUT_COMMIT_S", 0.2)
+    assert bench.main(["--device", "cpu", "--cells", "mempool_proposer"]) == 0
+    cell = json.loads(capsys.readouterr().out)["cells"]["mempool_proposer"]
+    assert set(cell) == set(bench.CELL_KEYS["mempool_proposer"]) | {"cell_s"}
+    assert (cell["txs"], cell["validators"], cell["reps"]) == (40, 8, 2)
+    assert cell["heights"] == cell["proposer_height"] + 1 >= 3
+    for key in ("admission_txs_per_s", "gossip_txs_per_s", "p50_ms", "p95_ms", "chain_build_s"):
+        assert math.isfinite(cell[key]) and cell[key] > 0

@@ -2,7 +2,9 @@
 
 tendermint_tpu_torch imports torch and numpy, never jax and nothing of
 tendermint_tpu (not even the JAX package's framework-free modules), and
-chip_smoke.py imports neither. Its entry points target CUDA unless the
+chip_smoke.py imports neither. Neither imports the `cryptography`
+package either: SecretConnection and crypto/symmetric.py run their
+pure-Python X25519, HKDF and AEAD. Its entry points target CUDA unless the
 caller passes device="cpu"; without a card they raise instead of running
 the plain versions.
 """
@@ -38,6 +40,8 @@ def _forbidden(name: str) -> bool:
         or name.startswith("jaxlib")
         or name == "tendermint_tpu"
         or name.startswith("tendermint_tpu.")
+        or name == "cryptography"
+        or name.startswith("cryptography.")
     )
 
 
@@ -109,6 +113,18 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         "tendermint_tpu_torch.evidence.pool",
         "tendermint_tpu_torch.evidence.verify",
         "tendermint_tpu_torch.libs.osutil",
+        "tendermint_tpu_torch.mempool",
+        "tendermint_tpu_torch.mempool.cache",
+        "tendermint_tpu_torch.mempool.mempool",
+        "tendermint_tpu_torch.mempool.reactor",
+        "tendermint_tpu_torch.p2p",
+        "tendermint_tpu_torch.p2p.channel",
+        "tendermint_tpu_torch.p2p.conn",
+        "tendermint_tpu_torch.p2p.peermanager",
+        "tendermint_tpu_torch.p2p.router",
+        "tendermint_tpu_torch.p2p.transport",
+        "tendermint_tpu_torch.p2p.types",
+        "tendermint_tpu_torch.crypto.symmetric",
     ):
         assert m in added
     assert [m for m in added if _forbidden(m)] == []
@@ -117,11 +133,13 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
 def test_importing_the_device_plane_builds_and_starts_nothing():
     """Importing native/, node/, faults and breaker, the light client,
     the step machine with its WAL, ticker, signer, evidence pool and
-    event bus, the workloads and the bench compiles no library and starts
-    no thread: the native plane builds at first use."""
+    event bus, the mempool, the p2p stack, the workloads and the bench
+    compiles no library and starts no thread: the native plane builds at
+    first use."""
     code = (
         "import json, threading\n"
-        "from tendermint_tpu_torch import bench, consensus, light, native, workloads\n"
+        "from tendermint_tpu_torch import bench, consensus, light, mempool, native, p2p, workloads\n"
+        "from tendermint_tpu_torch.mempool import reactor\n"
         "from tendermint_tpu_torch.consensus import msgs, state, ticker, types, wal\n"
         "from tendermint_tpu_torch import eventbus, evidence, privval, pubsub\n"
         "from tendermint_tpu_torch.node import device\n"

@@ -128,13 +128,16 @@ def test_mangle_modes():
     with faults.inject("g", mode="bitflip", seed=3):
         flipped = faults.mangle("g", bits)
         assert len(flipped) == 4 and flipped != bits
-    # the WAL's short_write is a mode since the WAL came; the network
-    # modes are not the port's
+    # the WAL's short_write is a mode since the WAL came, the network
+    # modes since the router came: neither mangles a bitmap
     with faults.inject("g", mode="short_write", seed=9):
         assert faults.mangle("g", bits) == bits
         assert len(faults.clip("g", b"0123456789")) < 10
+    with faults.inject("g", mode="drop"):
+        assert faults.mangle("g", bits) == bits
+        assert faults.clip("g", b"0123") == b"0123"
     with pytest.raises(ValueError, match="unknown fault mode"):
-        faults.Rule("g", "drop")
+        faults.Rule("g", "teleport")
 
 
 # -- the circuit breaker ----------------------------------------------
