@@ -86,7 +86,8 @@ roots), a forged proposal is ignored, an equivocating precommit leaves
 DuplicateVoteEvidence pending, a light-client attack against the 10k
 set verifies on the card and its forged copy is refused with the JAX
 message, and the blocks, seen commits, state, app hash and WAL EndHeight
-records equal the same run on the native CPU plane; timed a height and
+records equal the same run on the native CPU plane (its first two 10k
+heights); timed a height and
 by stage, with the device's idle share (the kernels line's
 `consensus_heights`). Phase mempool_proposer drives the mempool and its
 gossip: a full node's TxMempool admits 10,000 kvstore transactions
@@ -98,8 +99,21 @@ LastCommit roots, then its own validate_block, on the card) and commits
 it from the other validators' votes; every height in round 0 with the
 launches of a rule, the block exactly the gossiped txs in order, nothing
 sent back, the committed txs gone from the pool, and every byte equal to
-the same run on the native CPU plane; also 256 txs over TCP through
-SecretConnection (the kernels line's `mempool_proposer`). Keys, key types, messages,
+the same run on the native CPU plane (its first two heights); also 256
+txs over TCP through
+SecretConnection (the kernels line's `mempool_proposer`). Phase
+consensus_gossip drives consensus gossip: three validators of the mixed
+10k set, each a step machine with FilePV, WAL, evidence pool, event bus
+and TxMempool on a router with the consensus, mempool and evidence
+reactors, and a harness peer that signs for the other 9,997 validators,
+all on one MemoryNetwork; each of the harness's votes goes to one node
+and the rest travels by the nodes' gossip; three heights, the last
+proposed by one of the nodes from the txs another's pool gossiped, and
+one node doubling its prevote at height 2 (the Byzantine plane), whose
+DuplicateVoteEvidence that last block carries; round 0 at every node,
+the same blocks, launches a pre-verify burst and a LastCommit check as
+their rules say, and heights 1-2 equal to the CPU plane's (the kernels
+line's `consensus_gossip`). Keys, key types, messages,
 timestamps, signing witnesses, chains, votes and transactions come from
 --seed (made by tendermint_tpu_torch.workloads).
 
@@ -3044,6 +3058,8 @@ def phase_block_exec(torch, seed: int) -> dict:
 # and 150 ed25519 validators at CONSENSUS_LIGHT_HEIGHTS, one of them
 # proposed by the node
 CONSENSUS_HEIGHTS = 3
+# the 10k heights the CPU plane's reference runs
+CONSENSUS_CPU_HEIGHTS = 2
 CONSENSUS_LIGHT_HEIGHTS = 5
 CONSENSUS_LIGHT_PROPOSES_AT = 3
 # the height with a forged proposal ahead of the genuine one and one
@@ -3321,7 +3337,8 @@ def phase_consensus_heights(torch, seed: int) -> dict:
     reference_plan, and with one counted signature flipped is refused
     with the JAX message. The blocks, seen commits, state bytes, app
     hash and the WAL's EndHeight records must equal those of the same
-    run on the native CPU plane. Timed by stage (consensus_stages);
+    run on the native CPU plane (its first CONSENSUS_CPU_HEIGHTS heights
+    at 10k, every height at 150). Timed by stage (consensus_stages);
     the device's busy time at heights 2-3 under the profiler gives its
     idle share. No fault and no reroute."""
     import tempfile
@@ -3455,8 +3472,10 @@ def phase_consensus_heights(torch, seed: int) -> dict:
             assert_no_fault(start, gpu_verifier.stats(), "consensus_heights")
         finally:
             uninstall_device_plane()
-        ref = run_consensus(torch, genesis, node_priv, chain, os.path.join(tmp, "cpu"), False,
-                            extra=extra)
+        # the CPU plane's reference runs CONSENSUS_CPU_HEIGHTS of the
+        # 10k heights (the script's time: PERF.md §4)
+        ref = run_consensus(torch, genesis, node_priv, chain[:CONSENSUS_CPU_HEIGHTS],
+                            os.path.join(tmp, "cpu"), False, extra=extra)
         light_ref = run_consensus(torch, light_genesis, light_node, light_chain,
                                   os.path.join(tmp, "cpu150"), False)
     for name, got, want in (("10k", results["10k"], ref), ("150", results["150"], light_ref)):
@@ -3464,7 +3483,8 @@ def phase_consensus_heights(torch, seed: int) -> dict:
             for key, value in stores.items():
                 if got["stores"][h][key] != value:
                     raise AssertionError(f"{name} height {h}: {key} differs from the CPU plane's")
-        if got["end_heights"] != want["end_heights"] or len(want["end_heights"]) != len(want["runs"]):
+        ended = got["end_heights"][: len(want["end_heights"])]
+        if ended != want["end_heights"] or len(want["end_heights"]) != len(want["runs"]):
             raise AssertionError(f"{name}: the WAL's EndHeight records differ from the CPU plane's")
         for res in (got, want):
             for run in res["runs"]:
@@ -3531,6 +3551,7 @@ def phase_consensus_heights(torch, seed: int) -> dict:
             h: {"windows": {k: v[0] for k, v in r[0].items()}, **r[1]} for h, r in rules.items()
         },
         "ms_p50_heights_2_3": stages,
+        "cpu_plane_heights": CONSENSUS_CPU_HEIGHTS,
         "cpu_plane_ms_p50_heights_2_3": ref_stages,
         "device_busy_ms_heights_2_3": busy,
         "device_records_kept": kept,
@@ -3580,6 +3601,9 @@ MEMPOOL_GOSSIP_TIMEOUT_S = 120.0
 # proposes on its timeout_commit instead signs a block no vote is for.
 # Height 1 starts after it, as it starts after 1 s by default.
 MEMPOOL_TIMEOUT_COMMIT_S = 5.0
+# the heights the CPU plane's reference runs (the script's time: PERF.md
+# §4); where the node proposes among them, its height is compared too
+MEMPOOL_CPU_HEIGHTS = 2
 DUPLICATE = ("MempoolError", "tx already exists in cache")
 
 
@@ -3854,7 +3878,7 @@ def run_proposer(torch, genesis: str, node_priv, chain, stream: list, late: list
         out["end_heights"] = node.end_heights()
     finally:
         node.close()
-    out["proposer_height"] = next(ch.height for ch in chain if ch.node_proposes)
+    out["proposer_height"] = next((ch.height for ch in chain if ch.node_proposes), None)
     return out
 
 
@@ -3920,8 +3944,9 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
     pool holds none of the committed txs after its height and every late
     tx at the end, no fault and no reroute; the blocks, seen commits,
     state, app hash, WAL EndHeight records and A's reap equal the same
-    run on the native CPU plane through A's height (the reference stops
-    there, to keep the script's time). Also MEMPOOL_TCP_TXS txs over TCP
+    run on the native CPU plane through its first MEMPOOL_CPU_HEIGHTS
+    heights (A's reap too where A's height is among them; the reference
+    is cut to keep the script's time). Also MEMPOOL_TCP_TXS txs over TCP
     (run_tcp_gossip). Timed: B's admission, the gossip, the recheck, the
     reap, A's height by stage (proposer_stages), the device's busy time
     and idle share over A's height and the one before it."""
@@ -3929,7 +3954,7 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
 
     from tendermint_tpu_torch.config import GPUConfig, P2PConfig
     from tendermint_tpu_torch.consensus.state import PEER_DRAIN
-    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle, sigcache
     from tendermint_tpu_torch.crypto.gpu_verifier import _GpuBatchVerifier
     from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
     from tendermint_tpu_torch.ops import merkle_kernel as MK
@@ -3968,6 +3993,9 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
         raise AssertionError("the node must propose exactly one height")
 
     with tempfile.TemporaryDirectory(prefix="mempool-") as tmp:
+        # an empty verified-signature cache: consensus_heights's
+        # reference leaves the same harness votes of heights 1-2 in it
+        sigcache.reset()
         start = gpu_verifier.stats()
         install_device_plane(cfg)
         settle_probes()
@@ -3980,9 +4008,11 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
             assert_no_fault(start, gpu_verifier.stats(), "mempool_proposer")
         finally:
             uninstall_device_plane()
-        # the CPU plane's reference through the node's own height (the
-        # height after it is the harness's, as in the card's run)
-        ref = run_proposer(torch, genesis, node_priv, chain[:proposer_h], stream, late,
+        # the CPU plane's reference: its first heights (the node's own
+        # among them where it proposes by MEMPOOL_CPU_HEIGHTS)
+        cpu_heights = min(MEMPOOL_CPU_HEIGHTS, proposer_h)
+        sigcache.reset()
+        ref = run_proposer(torch, genesis, node_priv, chain[:cpu_heights], stream, late,
                            os.path.join(tmp, "cpu"), seed, False)
     tcp = run_tcp_gossip(seed, tcp_txs)  # host only: no device plane to compare
 
@@ -3990,27 +4020,32 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
     refused = {tx for tx, w in zip(stream, want) if w != ("code", 0, "")} - committed
     for name, res in (("card", dev), ("cpu_plane", ref)):
         mrun = res["run"]
+        proposed = res["proposer_height"] is not None
         got = [check_outcome(r) for r in mrun.outcomes]
         if got != want:
             bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
             raise AssertionError(f"{name}: B's outcome {bad} is {got[bad]}, not {want[bad]}")
-        if [check_outcome(r) for r in mrun.late_outcomes] != [("code", 0, "")] * len(late):
+        late_in = late if proposed else []
+        if [check_outcome(r) for r in mrun.late_outcomes] != [("code", 0, "")] * len(late_in):
             raise AssertionError(f"{name}: B refused a late tx")
         got = res["received_by_a"]
-        if got != gossiped + late or refused & set(got):
+        if got != gossiped + late_in or refused & set(got):
             raise AssertionError(f"{name}: A received {len(got)} txs, not B's admitted ones once each in order")
         if res["received_by_b"]:
             raise AssertionError(f"{name}: {res['received_by_b']} txs were sent back to B")
-        if res["reaped"] != [gossiped]:
-            raise AssertionError(f"{name}: A reaped {[len(r) for r in res['reaped']]} txs, not B's {len(gossiped)}")
-        if res["stores"][proposer_h]["block"] != chain[proposer_h - 1].block.to_proto():
-            raise AssertionError(f"{name}: A's block at {proposer_h} is not the harness's")
+        if proposed:
+            # (a run cut short before A's height may or may not have
+            # reaped as A entered it: not compared)
+            if res["reaped"] != [gossiped]:
+                raise AssertionError(f"{name}: A reaped {[len(r) for r in res['reaped']]} txs, not B's {len(gossiped)}")
+            if res["stores"][proposer_h]["block"] != chain[proposer_h - 1].block.to_proto():
+                raise AssertionError(f"{name}: A's block at {proposer_h} is not the harness's")
+            after_own = res["pool_after"][proposer_h]
+            if committed & set(after_own) or not set(after_own) <= set(late):
+                raise AssertionError(f"{name}: A's pool after its height holds a committed or foreign tx")
         if chain[proposer_h - 1].block.header.data_hash != txs_hash(gossiped):
             raise AssertionError(f"{name}: the data hash is not the host's root")
-        after_own = res["pool_after"][proposer_h]
-        if committed & set(after_own) or not set(after_own) <= set(late):
-            raise AssertionError(f"{name}: A's pool after its height holds a committed or foreign tx")
-        if mrun.pool_end != late:
+        if mrun.pool_end != (late if proposed else gossiped):
             raise AssertionError(f"{name}: A's pool at the end is not the late txs in order")
         for run in mrun.runs:
             if run.round != 0:
@@ -4024,10 +4059,10 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
         for key, value in stores.items():
             if dev["stores"][h][key] != value:
                 raise AssertionError(f"mempool_proposer height {h}: {key} differs from the CPU plane's")
-    if (dev["end_heights"][:proposer_h] != ref["end_heights"]
-            or (len(dev["end_heights"]), len(ref["end_heights"])) != (heights, proposer_h)):
+    if (dev["end_heights"][:cpu_heights] != ref["end_heights"]
+            or (len(dev["end_heights"]), len(ref["end_heights"])) != (heights, cpu_heights)):
         raise AssertionError("mempool_proposer: the WAL's EndHeight records differ from the CPU plane's")
-    if dev["reaped"] != ref["reaped"]:
+    if ref["proposer_height"] is not None and dev["reaped"] != ref["reaped"]:
         raise AssertionError("mempool_proposer: A's reap differs from the CPU plane's")
 
     # the device's busy time over the profiled heights, by kernel
@@ -4071,7 +4106,7 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
         "cpu_plane_rechecked_txs_by_height": ref["recheck_txs"],
         "equal_to_cpu_plane": ["block", "block_meta", "seen_commit", "state", "app_hash",
                                "end_heights", "reaped"],
-        "cpu_plane_heights": proposer_h,
+        "cpu_plane_heights": cpu_heights,
         "device_busy_ms_own_and_previous_height": busy,
         "device_records_kept": kept,
         "device_kernels_not_measured": sorted(set(launched) - set(busy)),
@@ -4086,11 +4121,476 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
             "gossip_s": mrun.gossip_s,
             "gossip_txs_per_s": len(gossiped) / mrun.gossip_s,
             "recheck_ms_height_1": res["stages"][1]["recheck"],
-            "reap_ms": res["reap_ms"],
-            "own_height_ms": proposer_stages(res),
+            "reap_ms": res.get("reap_ms"),
+            "own_height_ms": proposer_stages(res) if res["proposer_height"] is not None else None,
             "height_ms": [r.end_height_s * 1e3 for r in mrun.runs],
         }
     out["tcp"] = tcp
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"launches": out["launches_per_height"]}
+
+
+# consensus gossip (phase consensus_gossip): three real validators of
+# config 5's mixed set (A proposes height GOSSIP_PROPOSES_AT, C
+# equivocates on its prevote of GOSSIP_EQUIVOCATE_AT) and the harness
+# peer on one MemoryNetwork; GOSSIP_TXS txs in each harness block and in
+# B's pool, which A reaps; the CPU plane's reference runs
+# GOSSIP_CPU_HEIGHTS heights
+GOSSIP_HEIGHTS = 3
+GOSSIP_PROPOSES_AT = 3
+GOSSIP_EQUIVOCATE_AT = 2
+GOSSIP_TXS = 2_000
+GOSSIP_CPU_HEIGHTS = 2
+GOSSIP_TIMEOUT_S = 120.0
+# at GOSSIP_EQUIVOCATE_AT the harness holds its votes until a node found
+# C's two prevotes, this long at most: the HasVote of the first one can
+# mark the index at every peer, so the second travels only once a live
+# stall reset (2 s of a frozen round state) makes a node resend it
+GOSSIP_DETECT_S = 15.0
+GOSSIP_MONIKERS = ("node-a", "node-b", "node-c")
+
+
+def burst_survivors(cs, batch) -> dict:
+    """What cs._preverify_votes will verify of `batch`, read before it
+    runs: by key type, the votes of the node's height with a 64-byte
+    signature, an index in its set and that validator's address, whose
+    triple the verified-signature cache does not hold (looked up without
+    touching the cache)."""
+    from tendermint_tpu_torch.consensus.msgs import VoteMessage
+    from tendermint_tpu_torch.crypto import sigcache
+
+    rs, chain_id = cs.rs, cs.state.chain_id
+    out: dict = {}
+    for mi in batch:
+        if not isinstance(mi.msg, VoteMessage):
+            continue
+        v = mi.msg.vote
+        if v.height != rs.height or len(v.signature) != 64:
+            continue
+        addr, val = rs.validators.get_by_index(v.validator_index)
+        if val is None or addr != v.validator_address or val.pub_key.address() != v.validator_address:
+            continue
+        key = (val.pub_key.bytes(), v.sign_bytes(chain_id), v.signature)
+        if key in sigcache._gen0 or key in sigcache._gen1:
+            continue
+        kt = val.pub_key.type()
+        out[kt] = out.get(kt, 0) + 1
+    return out
+
+
+def window_rule(by_type: dict, gate: int, step: int) -> dict:
+    """The launches of a batch verify of by_type[kt] signatures a key
+    type: none under the gate (the native CPU plane), else a window of up
+    to `step` each; X1 and K2 a window of ed25519, X3 one of sr25519."""
+    ed, sr = by_type.get("ed25519", 0), by_type.get("sr25519", 0)
+    w_ed = -(-ed // step) if ed >= max(gate, 2) else 0
+    w_sr = -(-sr // step) if sr >= max(gate, 2) else 0
+    return {"sha512_ram": w_ed, "ed25519_verify_tile": w_ed, "sr25519_verify": w_sr}
+
+
+def exact(got: dict, want: dict) -> bool:
+    """got has want's launches and none of any other kernel."""
+    return all(got.get(k, 0) == want.get(k, 0) for k in set(got) | set(want))
+
+
+def run_gossip(torch, genesis: str, privs, keys: tuple, node_keys: tuple, txs: list, pool_txs: list,
+               home: str, seed: int, counted: bool, profile: tuple = ()) -> dict:
+    """workloads.run_gossip_network: A, B and C (each a consensus_node
+    with a TxMempool of MEMPOOL_SIZE and a timeout_commit of
+    MEMPOOL_TIMEOUT_COMMIT_S) and the harness peer, C's prevote of
+    GOSSIP_EQUIVOCATE_AT doubled by the Byzantine plane's equivocate
+    rule. Every pre-verify burst records its size, and with `counted`
+    its launches beside the rule of its survivors by key type (read
+    before it runs); so does every verify_commit call; the run's
+    launches are zeroed just before it and read just after; heights in
+    `profile` run under torch.profiler. Each node's block, raw state
+    bytes and app hash are read once every node stands past a height.
+    Returns what the phase checks and reports."""
+    import asyncio
+
+    from tendermint_tpu_torch.config import ConsensusConfig, MempoolConfig
+    from tendermint_tpu_torch.consensus import byzantine
+    from tendermint_tpu_torch.consensus import peer_state, reactor as cs_reactor
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.crypto.gpu_verifier import _GpuBatchVerifier
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.state import store as state_store
+    from tendermint_tpu_torch.workloads import run_gossip_network
+
+    gate = gpu_verifier.installed() or 0
+    step = _GpuBatchVerifier.STREAM_CHUNK
+    out = {"bursts": [], "commits": [], "picks_ms": {}, "stores": {}, "evidence_in": {},
+           "detected": {}, "profile": None, "x4_by_height": {}, "x4_seen": 0}
+    current = [0]
+    prof: dict = {}
+    nodes: list = []
+
+    def record(vn) -> None:
+        cs, name, pool = vn.node.cs, vn.moniker, vn.node.evpool
+        preverify, report, add = cs._preverify_votes, pool.report_conflicting_votes, pool.add_evidence
+
+        def preverifying(batch):
+            entry = {"node": name, "height": cs.rs.height, "size": len(batch)}
+            if counted:
+                entry["want"] = window_rule(burst_survivors(cs, batch), gate, step)
+                before_ = launches()
+            preverify(batch)
+            if counted:
+                entry["got"] = {k: n - before_[k] for k, n in launches().items()}
+            out["bursts"].append(entry)
+
+        def reported(a, b):
+            out["detected"].setdefault(name, []).append((a.height, a.type, a.validator_index))
+            report(a, b)
+
+        def added(ev):
+            known = pool.is_pending(ev) or pool.is_committed(ev)
+            add(ev)
+            out["evidence_in"].setdefault(name, []).append(
+                {"hash": ev.hash().hex(), "height": cs.rs.height, "known": known})
+
+        cs._preverify_votes = preverifying
+        pool.report_conflicting_votes = reported
+        pool.add_evidence = added
+
+    def instrument(made, harness) -> None:
+        nodes.extend(made)
+        for vn in made:
+            record(vn)
+        c = made[2]
+        out["byzantine"] = byzantine.maybe_install(c.node.cs, c.consensus, c.moniker)
+        out["real_ids"] = {vn.moniker: vn.node_id for vn in made}
+        out["harness_id"] = harness.node_id
+        if counted:
+            reset_launches()
+        out["t0"] = time.perf_counter()
+
+    def before(h: int) -> None:
+        current[0] = h
+        if h in profile and "p" not in prof:
+            from torch.profiler import ProfilerActivity, profile as make
+
+            prof["p"] = make(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+
+    def after(h: int) -> None:
+        if profile and h == profile[-1] and "p" in prof:
+            torch.cuda.synchronize()
+            out["profile_wall_s"] = time.perf_counter() - prof["t0"]
+            prof["p"].__exit__(None, None, None)
+            out["profile"] = prof["p"].key_averages()
+        if h == GOSSIP_EQUIVOCATE_AT:
+            out["targets"] = out["byzantine"]._target_peers()
+        if counted:
+            # X4 launches outside the spans, by the harness's heights
+            x4 = launches()["sha256_tree"]
+            out["x4_by_height"][h] = x4 - out["x4_seen"]
+            out["x4_seen"] = x4
+        out["stores"][h] = {
+            vn.moniker: {
+                "block": vn.node.block_store.load_block(h).to_proto(),
+                # the stored bytes: decoding a 10k set three times a
+                # height would cost ~1 s of the run
+                "state": vn.node.state_store._db.get(state_store._STATE),
+                "app_hash": vn.node.app.app_hash,
+            }
+            for vn in nodes
+        }
+
+    async def hold(h: int) -> None:
+        if h != GOSSIP_EQUIVOCATE_AT:
+            return
+        t0 = time.perf_counter()
+        while not out["detected"] and time.perf_counter() - t0 < GOSSIP_DETECT_S:
+            await asyncio.sleep(0.01)
+        out["held_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def clocked(fn):
+        def wrapper(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                out["picks_ms"][current[0]] = out["picks_ms"].get(current[0], 0.0) + ms
+
+        return wrapper
+
+    inner_verify = execution.verify_commit
+
+    def verifying(chain_id, vals, block_id, height, commit):
+        present: dict = {}
+        for v, s in zip(vals.validators, commit.signatures):
+            if not s.is_absent():
+                present[v.pub_key.type()] = present.get(v.pub_key.type(), 0) + 1
+        before_ = launches()
+        try:
+            return inner_verify(chain_id, vals, block_id, height, commit)
+        finally:
+            if counted:
+                # a block's LastCommit: the block's height is commit's + 1
+                out["commits"].append({
+                    "height": height + 1, "present": present, "want": window_rule(present, gate, step),
+                    "got": {k: n - before_[k] for k, n in launches().items()},
+                })
+
+    picks = ((peer_state.PeerState, "pick_vote_to_send"),
+             (cs_reactor.ConsensusReactor, "_send_commit_vote"),
+             (cs_reactor.ConsensusReactor, "_pick_part_to_send"))
+    originals = {(cls, attr): cls.__dict__[attr] for cls, attr in picks}
+    ccfg = ConsensusConfig(skip_timeout_commit=True, timeout_commit=MEMPOOL_TIMEOUT_COMMIT_S)
+    with byzantine.inject("equivocate", h_lo=GOSSIP_EQUIVOCATE_AT, h_hi=GOSSIP_EQUIVOCATE_AT,
+                          step="prevote", victim=GOSSIP_MONIKERS[2], seed=seed):
+        try:
+            for (cls, attr), fn in originals.items():
+                setattr(cls, attr, clocked(fn))
+            execution.verify_commit = verifying
+            out["run"] = run_gossip_network(
+                genesis, privs, keys, node_keys, txs, pool_txs, home, seed, ccfg,
+                MempoolConfig(size=MEMPOOL_SIZE), instrument, before, after, GOSSIP_MONIKERS,
+                GOSSIP_TIMEOUT_S, hold,
+            )
+            out["run_s"] = time.perf_counter() - out["t0"]
+            if counted:
+                out["launches"] = launches()
+        finally:
+            execution.verify_commit = inner_verify
+            for (cls, attr), fn in originals.items():
+                setattr(cls, attr, fn)
+            fired = list(out["byzantine"].fired) if out.get("byzantine") else []
+            byzantine.reset()
+    out["fired"] = fired
+    return out
+
+
+def phase_consensus_gossip(torch, seed: int) -> dict:
+    """Consensus gossip with the device plane installed
+    (install_device_plane(GPUConfig()), then settle_probes()): config 5's
+    mixed 10k genesis; validators A (the proposer of height
+    GOSSIP_PROPOSES_AT), B (ed25519) and C (sr25519 where the set has
+    one; workloads.gossip_keys), each a consensus_node (FilePV, WAL,
+    evidence pool and event bus on SqliteKV, a TxMempool) on a router
+    with the consensus, mempool and evidence reactors, and the harness
+    peer H with the consensus channels and no step machine, all on one
+    MemoryNetwork in a full mesh (workloads.run_gossip_network). B admits
+    GOSSIP_TXS kvstore txs, which the mempool reactors carry to A and C.
+    The harness signs for the other 9,997 validators: its proposals and
+    parts go from H to one node, each of its votes to one node (index mod
+    3), the rest travels by the reactors' gossip; at A's height it signs
+    A's block as A made it. C's prevote at GOSSIP_EQUIVOCATE_AT is
+    doubled towards the first of its peers in node ID order, a real node
+    (workloads.gossip_node_keys); the harness holds that height's votes
+    until a node has found the two prevotes (GOSSIP_DETECT_S at most). Checks: every node commits heights
+    1..GOSSIP_HEIGHTS in round 0 with the same blocks and app hashes,
+    each block the one its proposer made; A's block carries B's txs and
+    C's DuplicateVoteEvidence, and every node that did not find the
+    conflict itself got it through its evidence reactor before height
+    GOSSIP_PROPOSES_AT ended; every pre-verify burst launches what its
+    recorded survivors imply (a window a key type at the gate of 32 or
+    more, none under it), every LastCommit verify_commit its windows,
+    nothing else launches but X4, and the pre-verify launches X1 and X3;
+    no fault or reroute; and the CPU plane's run of heights
+    1..GOSSIP_CPU_HEIGHTS gives the same blocks, states and app hashes at
+    every node. Reports, a height: ms from the proposal to each node's
+    EndHeight and their spread, the proposal's ms to the complete block
+    at the farthest node, votes/s by gossip from real peers and from H,
+    duplicates, envelopes by channel (HasVote apart), burst sizes, the
+    picks' ms, launches; device busy ms and idle share over heights
+    2..GOSSIP_HEIGHTS; the phase's seconds."""
+    import tempfile
+
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle, sigcache
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+    from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
+    from tendermint_tpu_torch.workloads import (
+        gossip_keys,
+        gossip_node_keys,
+        kv_genesis,
+        kv_txs,
+        seeded_keys,
+        seeded_witness,
+    )
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before consensus_gossip")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    privs = seeded_keys(N_VALIDATORS, seed, N_VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    keys = gossip_keys(privs, GOSSIP_HEIGHTS, GOSSIP_PROPOSES_AT)
+    for p in keys:
+        seeded_witness(p, seed)
+    node_keys = gossip_node_keys(seed)
+    txs = [kv_txs(seed + 3, h, GOSSIP_TXS, TX_LENGTHS) for h in range(1, GOSSIP_HEIGHTS + 1)]
+    pool_txs = kv_txs(seed + 4, GOSSIP_PROPOSES_AT, GOSSIP_TXS, TX_LENGTHS)
+    vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in privs])
+    build_s = time.perf_counter() - t0
+    if any(p.type() == "sr25519" for p in privs) and not any(p.type() == "sr25519" for p in keys):
+        raise AssertionError("no real node holds an sr25519 key")
+
+    with tempfile.TemporaryDirectory(prefix="gossip-") as tmp:
+        sigcache.reset()
+        start = gpu_verifier.stats()
+        install_device_plane(GPUConfig())
+        settle_probes()
+        try:
+            dev = run_gossip(torch, genesis, privs, keys, node_keys, txs, pool_txs,
+                             os.path.join(tmp, "device"), seed, True, profile=(2, GOSSIP_HEIGHTS))
+            assert_no_fault(start, gpu_verifier.stats(), "consensus_gossip")
+        finally:
+            uninstall_device_plane()
+        sigcache.reset()
+        t_ref = time.perf_counter()
+        ref = run_gossip(torch, genesis, privs, keys, node_keys, txs[:GOSSIP_CPU_HEIGHTS], pool_txs,
+                         os.path.join(tmp, "cpu"), seed, False)
+        ref_s = time.perf_counter() - t_ref
+
+    run = dev["run"]
+    ids = dev["real_ids"]
+    if not dev["targets"] or not set(dev["targets"]) <= {ids["node-a"], ids["node-b"]}:
+        raise AssertionError(f"C's equivocation targets {dev['targets']}, not a real node")
+    if dev["fired"] != [("equivocate", GOSSIP_EQUIVOCATE_AT, 0, 1)]:
+        raise AssertionError(f"C's rule fired {dev['fired']}")
+    # every node commits every height in round 0, the same bytes, the
+    # proposer's block
+    for g in run.heights:
+        if set(g.rounds.values()) != {0} or len(g.rounds) != 3:
+            raise AssertionError(f"height {g.height} committed in rounds {g.rounds}")
+        stores = dev["stores"][g.height]
+        for key in ("block", "state", "app_hash"):
+            if len({s[key] for s in stores.values()}) != 1:
+                raise AssertionError(f"the nodes' {key} differ at height {g.height}")
+        if stores["node-a"]["block"] != g.block.to_proto():
+            raise AssertionError(f"height {g.height}'s block is not the one its proposer made")
+        want = "node-a" if g.height == GOSSIP_PROPOSES_AT else "harness"
+        if g.proposer != want:
+            raise AssertionError(f"height {g.height} was proposed by {g.proposer}, not {want}")
+    own = next(g for g in run.heights if g.height == GOSSIP_PROPOSES_AT)
+    if sorted(own.block.txs) != sorted(pool_txs):
+        raise AssertionError("A's block is not B's gossiped txs")
+    evidence = list(own.block.evidence)
+    c_addr = keys[2].pub_key().address()
+    if (len(evidence) != 1 or not isinstance(evidence[0], DuplicateVoteEvidence)
+            or evidence[0].vote_a.validator_address != c_addr
+            or evidence[0].vote_a.height != GOSSIP_EQUIVOCATE_AT):
+        raise AssertionError(f"A's block carries {evidence}, not C's equivocation")
+    ev_hash = evidence[0].hash().hex()
+    detected = sorted(dev["detected"])
+    through_reactor = sorted(n for n, items in dev["evidence_in"].items()
+                             if any(i["hash"] == ev_hash and i["height"] <= GOSSIP_PROPOSES_AT for i in items))
+    if not detected or "node-c" in detected:
+        raise AssertionError(f"the conflict was found by {detected}")
+    missing = set(GOSSIP_MONIKERS) - set(detected) - set(through_reactor)
+    if missing:
+        raise AssertionError(f"the evidence never reached {sorted(missing)} through the evidence reactor")
+    # launches: each burst and each verify_commit its rule, the rest X4
+    for b in dev["bursts"]:
+        if not exact(b["got"], b["want"]):
+            raise AssertionError(f"a pre-verify burst launched {b['got']}, not {b['want']}: {b}")
+    for c in dev["commits"]:
+        if not exact(c["got"], c["want"]):
+            raise AssertionError(f"a verify_commit launched {c['got']}, not {c['want']}")
+    spans = dev["bursts"] + dev["commits"]
+    inside = {k: sum(x["got"][k] for x in spans) for k in dev["launches"]}
+    outside = {k: n - inside[k] for k, n in dev["launches"].items()}
+    if any(n for k, n in outside.items() if k != "sha256_tree"):
+        raise AssertionError(f"launches outside a pre-verify or verify_commit: {outside}")
+    preverify = {k: sum(b["got"][k] for b in dev["bursts"]) for k in dev["launches"]}
+    if not preverify["sha512_ram"] or not preverify["sr25519_verify"]:
+        raise AssertionError(f"the pre-verify launched {preverify} at 10k")
+    for name in ("sha512_ram", "ed25519_verify_tile", "sr25519_verify", "sha256_tree"):
+        if not dev["launches"][name]:
+            raise AssertionError(f"{name} was not launched on consensus_gossip")
+    # the CPU plane's heights
+    for h in range(1, GOSSIP_CPU_HEIGHTS + 1):
+        for name in GOSSIP_MONIKERS:
+            for key in ("block", "state", "app_hash"):
+                if dev["stores"][h][name][key] != ref["stores"][h][name][key]:
+                    raise AssertionError(f"consensus_gossip height {h}: {name}'s {key} differs from the CPU plane's")
+
+    def height_report(res: dict, g) -> dict:
+        r, h = res["run"], g.height
+        ends = {n: g.end_height_at[n] - g.proposal_at for n in GOSSIP_MONIKERS}
+        dur = max(ends.values())
+        bursts = [x for x in res["bursts"] if x["height"] == h]
+        sizes = [x["size"] for x in bursts]
+        rep = {
+            "proposer": g.proposer,
+            "proposal_sent_to": g.sent_to,
+            "ms_to_end_height": {n: s * 1e3 for n, s in ends.items()},
+            "commit_spread_ms": (max(ends.values()) - min(ends.values())) * 1e3,
+            "proposal_to_complete_block_farthest_ms": (max(g.complete_at.values()) - g.proposal_at) * 1e3,
+            "gossip_votes_per_s": {n: r.votes_from_peers[n].get(h, 0) / dur for n in GOSSIP_MONIKERS},
+            "harness_votes_per_s": {n: r.votes_from_harness[n].get(h, 0) / dur for n in GOSSIP_MONIKERS},
+            "votes_from_peers": {n: r.votes_from_peers[n].get(h, 0) for n in GOSSIP_MONIKERS},
+            "votes_from_harness": {n: r.votes_from_harness[n].get(h, 0) for n in GOSSIP_MONIKERS},
+            "duplicate_votes": {n: r.duplicate_votes[n].get(h, 0) for n in GOSSIP_MONIKERS},
+            "envelopes": {n: r.envelopes[n].get(h, {}) for n in GOSSIP_MONIKERS},
+            "timeouts_acted": {n: [t[:2] for t in g.timeouts[n] if t[2]] for n in GOSSIP_MONIKERS},
+            "bursts": len(bursts),
+            "burst_size_min_median_max": [min(sizes), float(np.median(sizes)), max(sizes)] if sizes else None,
+            "picks_ms": res["picks_ms"].get(h, 0.0),
+        }
+        if "launches" in res:
+            commits = [c for c in res["commits"] if c["height"] == h]
+            rep["verify_commit_calls"] = len(commits)
+            rep["preverify_launches"] = {k: sum(x["got"][k] for x in bursts) for k in res["launches"]
+                                         if sum(x["got"][k] for x in bursts)}
+            rep["launches"] = {k: sum(x["got"][k] for x in bursts + commits) for k in res["launches"]
+                               if sum(x["got"][k] for x in bursts + commits)}
+            # X4 from one after() to the next: the roots of that span
+            rep["launches"]["sha256_tree"] = res["x4_by_height"][h]
+        return rep
+
+    by_height = {g.height: height_report(dev, g) for g in run.heights}
+    # the device's busy time over the profiled heights, by kernel: each
+    # kernel's mean time a record times its launches there
+    launched: dict = {}
+    for h in range(2, GOSSIP_HEIGHTS + 1):
+        for k, n in by_height[h]["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+    busy, kept = {}, {}
+    for name, n in launched.items():
+        mine = [e for e in dev["profile"] if KERNEL_NAMES[name] in e.key]
+        kept[name] = sum(e.count for e in mine)
+        if kept[name]:
+            busy[name] = sum(e.self_device_time_total for e in mine) / kept[name] * n / 1e3
+    out = {
+        "phase": "consensus_gossip",
+        "validators": {"ed25519": N_VALIDATORS - N_VALIDATORS // 2, "sr25519": N_VALIDATORS // 2},
+        "real_nodes": {n: {"key_type": k.type(), "index": vals.get_by_address(k.pub_key().address())[0]}
+                       for n, k in zip(GOSSIP_MONIKERS, keys)},
+        "heights": GOSSIP_HEIGHTS,
+        "txs_a_block": GOSSIP_TXS,
+        "build_s": build_s,
+        "tx_gossip_s": run.tx_gossip_s,
+        "run_s": dev["run_s"],
+        "equivocation": {"fired": dev["fired"], "targets": dev["targets"], "found_by": detected,
+                         "through_evidence_reactor": through_reactor,
+                         "harness_held_votes_ms": dev["held_ms"],
+                         "cpu_plane_harness_held_votes_ms": ref["held_ms"]},
+        "queue_drops": run.dropped,
+        "launches": {k: n for k, n in dev["launches"].items() if n},
+        "launches_per_height": {h: r["launches"] for h, r in by_height.items()},
+        "launches_outside_spans": {k: n for k, n in outside.items() if n},
+        "by_height": by_height,
+        "cpu_plane": {
+            "heights": GOSSIP_CPU_HEIGHTS,
+            "run_s": ref["run_s"],
+            "phase_s": ref_s,
+            "by_height": {g.height: height_report(ref, g) for g in ref["run"].heights},
+        },
+        "equal_to_cpu_plane": ["block", "state", "app_hash"],
+        "device_busy_ms_heights_2_3": busy,
+        "device_records_kept": kept,
+        "device_kernels_not_measured": sorted(k for k, n in launched.items() if n and k not in busy),
+        "device_idle_share_heights_2_3": 1 - sum(busy.values()) / (dev["profile_wall_s"] * 1e3),
+        "ok": True,
+    }
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return {"launches": out["launches_per_height"]}
@@ -4708,6 +5208,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     block_exec = phase_block_exec(torch, args.seed)
     heights = phase_consensus_heights(torch, args.seed)
     mempool = phase_mempool_proposer(torch, args.seed)
+    gossip = phase_consensus_gossip(torch, args.seed)
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
     )
@@ -4733,6 +5234,13 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
         r["mempool_proposer"] = {
             "launches_per_height": {
                 str(h): c.get(r["name"], 0) for h, c in mempool["launches"].items()
+            },
+        }
+    # every kernel's launches in each height of phase consensus_gossip
+    for r in kernels["kernels"]:
+        r["consensus_gossip"] = {
+            "launches_per_height": {
+                str(h): c.get(r["name"], 0) for h, c in gossip["launches"].items()
             },
         }
     # the vote path's launches per height at each size, and each kernel

@@ -86,6 +86,20 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   skip_timeout_commit it proposes once every precommit of the height
   before is in, the LastCommit the harness predicts); the own block must
   be every gossiped tx, in order, and every height commit in round 0.
+- consensus_gossip: three validators of the mixed 10k set (A the
+  proposer of the last height, B ed25519, C sr25519 where the set has
+  one; workloads.gossip_keys), each a consensus_node on a router with
+  the consensus, mempool and evidence reactors, and a harness peer on
+  one MemoryNetwork (workloads.run_gossip_network): B's pool gossips
+  GOSSIP_TXS txs to the others, the harness proposes the other heights
+  (GOSSIP_TXS txs each) and signs for every other validator, each vote
+  sent to one node, the rest carried by the reactors' gossip; C doubles
+  its prevote of GOSSIP_EQUIVOCATE_AT (the Byzantine plane). Over
+  GOSSIP_REPS fresh networks of GOSSIP_HEIGHTS heights: the p50 and p95
+  of ms from a height's proposal to the last node's EndHeight, and the
+  votes/s the nodes took from real peers and from the harness (the
+  mean). Every node must commit every height in round 0, all the same
+  block.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -131,6 +145,9 @@ CONSENSUS_HEIGHTS, CONSENSUS_REPS = 4, 2
 # mempool_proposer's pools and its node's timeout_commit (seconds)
 MEMPOOL_SIZE = 20_000
 MEMPOOL_TIMEOUT_COMMIT_S = 5.0
+# consensus_gossip's heights, txs a block, networks, and the height whose
+# prevote the Byzantine node doubles
+GOSSIP_HEIGHTS, GOSSIP_TXS, GOSSIP_REPS, GOSSIP_EQUIVOCATE_AT = 2, 2_000, 2, 2
 # the most light_sync may spend building its chain before it cuts it
 CHAIN_BUDGET_S = 240.0
 
@@ -186,6 +203,16 @@ CELL_KEYS = {
         "validators",
         "reps",
         "chain_build_s",
+    ),
+    "consensus_gossip": (
+        "gossip_votes_per_s",
+        "harness_votes_per_s",
+        "p50_ms",
+        "p95_ms",
+        "heights",
+        "txs",
+        "validators",
+        "reps",
     ),
     # last: it leaves both breakers open
     "commit10k_mixed_cpu_plane": ("validators", "p50_ms", "p95_ms", "reps"),
@@ -754,6 +781,71 @@ def cell_mempool_proposer(ctx: Ctx) -> dict:
     }
 
 
+def cell_consensus_gossip(ctx: Ctx) -> dict:
+    import tempfile
+
+    from .config import ConsensusConfig, MempoolConfig
+    from .consensus import byzantine
+    from .workloads import (
+        gossip_keys,
+        gossip_node_keys,
+        kv_genesis,
+        kv_txs,
+        run_gossip_network,
+        seeded_keys,
+        seeded_witness,
+    )
+
+    seed = ctx.args.seed
+    privs = seeded_keys(VALIDATORS, seed, VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    keys = gossip_keys(privs, GOSSIP_HEIGHTS, GOSSIP_HEIGHTS)
+    for p in keys:
+        seeded_witness(p, seed)
+    txs = [kv_txs(seed + 3, h, GOSSIP_TXS, (100, 300)) for h in range(1, GOSSIP_HEIGHTS + 1)]
+    pool_txs = kv_txs(seed + 4, GOSSIP_HEIGHTS, GOSSIP_TXS, (100, 300))
+    ccfg = ConsensusConfig(skip_timeout_commit=True, timeout_commit=MEMPOOL_TIMEOUT_COMMIT_S)
+    before = _stats()
+    ms, gossip, harness = [], [], []
+    for _rep in range(GOSSIP_REPS):
+        with byzantine.inject("equivocate", h_lo=GOSSIP_EQUIVOCATE_AT, h_hi=GOSSIP_EQUIVOCATE_AT,
+                              step="prevote", victim="node-c", seed=seed):
+            stores = {}
+
+            def instrument(nodes, _harness, stores=stores):
+                stores["nodes"] = nodes
+                byzantine.maybe_install(nodes[2].node.cs, nodes[2].consensus, "node-c")
+
+            def after(h, stores=stores):
+                stores[h] = {vn.node.block_store.load_block(h).hash() for vn in stores["nodes"]}
+
+            try:
+                with tempfile.TemporaryDirectory(prefix="bench-gossip-") as tmp:
+                    run = run_gossip_network(genesis, privs, keys, gossip_node_keys(seed), txs, pool_txs,
+                                             tmp, seed, ccfg, MempoolConfig(size=MEMPOOL_SIZE),
+                                             instrument, None, after)
+            finally:
+                byzantine.reset()
+        for g in run.heights:
+            if set(g.rounds.values()) != {0} or len(stores[g.height]) != 1:
+                raise AssertionError(f"consensus_gossip: height {g.height} in rounds {g.rounds}, "
+                                     f"{len(stores[g.height])} blocks")
+            dur = max(g.end_height_at.values()) - g.proposal_at
+            ms.append(dur * 1e3)
+            gossip.append(sum(v.get(g.height, 0) for v in run.votes_from_peers.values()) / dur)
+            harness.append(sum(v.get(g.height, 0) for v in run.votes_from_harness.values()) / dur)
+    _no_fault(before, "consensus_gossip")
+    return {
+        "gossip_votes_per_s": float(np.mean(gossip)),
+        "harness_votes_per_s": float(np.mean(harness)),
+        **_p50_p95(ms),
+        "heights": GOSSIP_HEIGHTS,
+        "txs": GOSSIP_TXS,
+        "validators": VALIDATORS,
+        "reps": GOSSIP_REPS,
+    }
+
+
 RUNNERS = {
     "batch_curve": cell_batch_curve,
     "throughput_8192": cell_throughput,
@@ -769,6 +861,7 @@ RUNNERS = {
     "block_exec": cell_block_exec,
     "consensus_height": cell_consensus_height,
     "mempool_proposer": cell_mempool_proposer,
+    "consensus_gossip": cell_consensus_gossip,
 }
 
 

@@ -3,7 +3,7 @@ mempool's settings and the p2p settings the router and peer manager read.
 
 Counterpart: tendermint_tpu/config.py:47 (DEFAULT_BUCKET_SIZES),
 :104-130 (P2PConfig), :132-151 (MempoolConfig), :172-202
-(ConsensusConfig) and :254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
+(ConsensusConfig, its gossip knobs :185-191) and :254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
 10k signatures to 16384 would waste 39% of the device work, 12288 cuts
 that to 18%.
 """
@@ -55,10 +55,13 @@ class GPUConfig:
 @dataclass
 class ConsensusConfig:
     """The step machine's timeouts, in seconds (reference defaults,
-    config/config.go:923-939, milliseconds there). The JAX package's
-    other fields (the WAL's path, empty-block creation, the reactor's
-    gossip knobs, the double-sign check height) serve node start and the
-    reactors (ROADMAP items 17 and 21)."""
+    config/config.go:923-939, milliseconds there), and the consensus
+    reactor's gossip knobs (the JAX package's config.py:185-191): the
+    sleep of a gossip routine with nothing to send, the block parts one
+    data-gossip turn may burst to a peer, and the period of the
+    VoteSetMaj23 queries. The JAX package's other fields (the WAL's
+    path, empty-block creation, the double-sign check height) serve node
+    start (ROADMAP item 21)."""
 
     timeout_propose: float = 3.0
     timeout_propose_delta: float = 0.5
@@ -68,6 +71,11 @@ class ConsensusConfig:
     timeout_precommit_delta: float = 0.5
     timeout_commit: float = 1.0
     skip_timeout_commit: bool = False
+    peer_gossip_sleep_duration: float = 0.1
+    # sends past the first use try_send: a slow peer's full queue sheds
+    # the rest of the window instead of stalling the routine
+    peer_gossip_part_window: int = 16
+    peer_query_maj23_sleep_duration: float = 2.0
 
     def propose_timeout(self, round_: int) -> float:
         return self.timeout_propose + self.timeout_propose_delta * round_

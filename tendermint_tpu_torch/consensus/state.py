@@ -45,12 +45,21 @@ batch re-verified on the native CPU plane), and any other launch or
 CUDA error ends the receive loop and reaches the caller: wait_idle() and
 stop() raise it.
 
-Left out: the flight recorder (consensus/timeline.py), the consensus
-metrics and the trace spans (ROADMAP item 11; the step machine runs as
-the JAX one does with neither fed); the overridable decideProposal and
-doPrevote hooks of the Byzantine tests and the replay console's
-replay_mode (with the reactors, item 17, and consensus/replay.py, item
-21).
+The overridable hooks of the Byzantine plane (consensus/byzantine.py)
+are bound as the JAX constructor binds them (:130-131):
+`cs.decide_proposal` and `cs.do_prevote`, called at propose (:625) and
+prevote (:700), default to `_default_decide_proposal` and
+`_default_do_prevote`; `_sign_add_vote` is looked up on the instance,
+so a harness may wrap it too.
+
+`cs.timeline` is NopTimeline, a flight recorder that records nothing:
+it has every mark_* method the JAX step machine, reactor and Byzantine
+plane call, so the ported reactor's stall resets run as in the JAX
+package with only their recording dropped. Left out: the flight
+recorder itself (consensus/timeline.py), the consensus metrics and the
+trace spans (ROADMAP item 11; the step machine runs as the JAX one does
+with none of them fed), and the replay console's replay_mode
+(consensus/replay.py, item 21).
 """
 
 from __future__ import annotations
@@ -99,6 +108,7 @@ from .wal import WAL, NopWAL
 __all__ = [
     "CHECK_ERRORS",
     "ConsensusState",
+    "NopTimeline",
     "PEER_DRAIN",
     "QUEUE_SIZE",
     "SIGNER_ERRORS",
@@ -123,6 +133,49 @@ _WAIT_POLL_S = 0.01
 
 def _s_to_ns(s: float) -> int:
     return int(round(s * NS_PER_S))
+
+
+class NopTimeline:
+    """A flight recorder that records nothing (the JAX package's
+    consensus/timeline.py TimelineRecorder, disabled): the mark_*
+    methods its step machine (:262-1151), reactor (:613, :654) and
+    Byzantine plane call, each a no-op, until ROADMAP item 11 ports the
+    recorder."""
+
+    enabled = False
+
+    def record(self, *args, **kwargs) -> None:
+        pass
+
+    def mark_new_height(self, height: int, round_: int = 0) -> None:
+        pass
+
+    def mark_proposal(self, height: int, round_: int) -> None:
+        pass
+
+    def mark_block(self, height: int, round_: int) -> None:
+        pass
+
+    def mark_prevote_any(self, height: int, round_: int) -> None:
+        pass
+
+    def mark_polka(self, height: int, round_: int) -> None:
+        pass
+
+    def mark_precommit_quorum(self, height: int, round_: int) -> None:
+        pass
+
+    def mark_commit(self, *args, **kwargs) -> None:
+        pass
+
+    def mark_evidence_seen(self, *args, **kwargs) -> None:
+        pass
+
+    def mark_evidence_committed(self, *args, **kwargs) -> None:
+        pass
+
+    def mark_stall_reset(self, kind: str, height: int, round_: int, peer_id: str) -> None:
+        pass
 
 
 class ConsensusState(Service):
@@ -152,6 +205,7 @@ class ConsensusState(Service):
         self.event_bus = event_bus
         self.wal = wal if wal is not None else NopWAL()
         self.evpool = evidence_pool
+        self.timeline = NopTimeline()
 
         self.rs = RoundState()
         self.state: Optional[State] = None
@@ -169,6 +223,11 @@ class ConsensusState(Service):
         self._in_flight = 0
         self._idle = asyncio.Event()
         self._idle.set()
+
+        # overridable for the Byzantine plane (reference: state.go
+        # decideProposal/doPrevote function fields)
+        self.decide_proposal = self._default_decide_proposal
+        self.do_prevote = self._default_do_prevote
 
         self._update_to_state(state)
         self._reconstruct_last_commit_from_store(state)
@@ -576,12 +635,12 @@ class ConsensusState(Service):
         if addr is not None and rs.validators.has_address(addr):
             if self.is_proposer(addr):
                 self.logger.debug("our turn to propose")
-                await self._decide_proposal(height, round_)
+                await self.decide_proposal(height, round_)
 
         if self._is_proposal_complete():
             await self._enter_prevote(height, round_)
 
-    async def _decide_proposal(self, height: int, round_: int) -> None:
+    async def _default_decide_proposal(self, height: int, round_: int) -> None:
         """reference: state.go:1215-1266 defaultDecideProposal."""
         rs = self.rs
         if rs.valid_block is not None:
@@ -636,9 +695,9 @@ class ConsensusState(Service):
         self.logger.debug("entering prevote step %s", rs.height_round_step())
         rs.step = RoundStep.PREVOTE
         self._new_step()
-        await self._do_prevote(height, round_)
+        await self.do_prevote(height, round_)
 
-    async def _do_prevote(self, height: int, round_: int) -> None:
+    async def _default_do_prevote(self, height: int, round_: int) -> None:
         """reference: state.go:1354-1417 defaultDoPrevote."""
         rs = self.rs
         if rs.locked_block is not None:

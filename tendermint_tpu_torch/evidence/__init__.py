@@ -1,6 +1,6 @@
-"""The evidence pool and evidence verification (counterpart:
-tendermint_tpu/evidence/). The gossip reactor waits for p2p (ROADMAP
-item 17), the metrics for the port's metrics library (item 11)."""
+"""The evidence pool, evidence verification and the evidence reactor
+(counterpart: tendermint_tpu/evidence/). The metrics wait for the port's
+metrics library (ROADMAP item 11)."""
 
 from .pool import EvidenceError, EvidencePool
 from .verify import verify_duplicate_vote, verify_evidence, verify_light_client_attack

@@ -14,6 +14,8 @@ from __future__ import annotations
 import random
 from typing import Iterator, List, Optional
 
+import numpy as np
+
 __all__ = ["BitArray", "MAX_BIT_ARRAY_SIZE"]
 
 # The bound on a wire-decoded size: every op masks with (1 << size) - 1,
@@ -89,6 +91,17 @@ class BitArray:
                 yield i
             bits >>= 1
             i += 1
+
+    def nth_set(self, k: int) -> int:
+        """The index of the k-th set bit, counting from 0 in ascending
+        order: list(self.indices())[k], in one unpack of the bytes
+        rather than a shift a bit (the gossip routines pick from 10,000
+        bits per vote they send)."""
+        if not 0 <= k < self.count():
+            raise IndexError(f"bit {k} of {self.count()} set bits")
+        raw = self._bits.to_bytes((self.size + 7) // 8, "little")
+        bits = np.unpackbits(np.frombuffer(raw, np.uint8), bitorder="little")
+        return int(np.flatnonzero(bits)[k])
 
     def pick_random(self, rnd: random.Random) -> Optional[int]:
         """A uniformly random set index drawn from `rnd`, or None when

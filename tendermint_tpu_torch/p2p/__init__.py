@@ -1,6 +1,7 @@
-"""The p2p stack: router, peer manager, transports and SecretConnection
-(counterpart: tendermint_tpu/p2p/; reference: internal/p2p/). PEX and
-P2PMetrics are not ported yet (ROADMAP items 17 and 11)."""
+"""The p2p stack: router, peer manager, transports, SecretConnection,
+PEX and the in-process test network (counterpart: tendermint_tpu/p2p/;
+reference: internal/p2p/). P2PMetrics is not ported yet (ROADMAP item
+11)."""
 
 from .channel import Channel  # noqa: F401
 from .peermanager import PeerManager, PeerManagerOptions, PeerStatus, PeerUpdate  # noqa: F401

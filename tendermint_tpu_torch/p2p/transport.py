@@ -133,6 +133,16 @@ class _MemoryConnection(Connection):
         await self._send_q.put((channel_id, payload))
 
     async def receive(self) -> Tuple[int, bytes]:
+        if not self._closed.is_set() and not self._recv_q.empty():
+            # a frame is queued: take it without a turn of the loop (the
+            # JAX transport waits a turn a frame, so a link took one
+            # frame a turn while its sender queued many; same frames,
+            # same order)
+            item = self._recv_q.get_nowait()
+            if item == ("_close", None):
+                self._closed.set()
+                raise ConnectionError("connection closed by peer")
+            return item
         get = asyncio.ensure_future(self._recv_q.get())
         closed = asyncio.ensure_future(self._closed.wait())
         try:

@@ -94,6 +94,19 @@ class Subscription:
                 raise SubscriptionError(self._terminated or "terminated")
             return msg
 
+    def next_nowait(self) -> Optional[Message]:
+        """The next queued message, or None when none is queued; raises
+        SubscriptionError once terminated and drained."""
+        try:
+            msg = self._queue.get_nowait()
+        except asyncio.QueueEmpty:
+            if self._terminated:
+                raise SubscriptionError(self._terminated)
+            return None
+        if msg is _SENTINEL:
+            raise SubscriptionError(self._terminated or "terminated")
+        return msg
+
     def __aiter__(self):
         return self
 

@@ -6,8 +6,9 @@ LightClientAttackEvidence (:115-187; the light client's divergence
 detection builds it), the Evidence oneof (:190-213) and a block's
 evidence hash (:216). Reference:
 types/evidence.go. The ABCI form of each, Misbehavior, is built by
-state/execution.py. The evidence pool and its checks
-(evidence/pool.py, evidence/verify.py) are not ported yet.
+state/execution.py. The evidence pool and its checks are in
+evidence/pool.py and evidence/verify.py, its gossip in
+evidence/reactor.py.
 """
 
 from __future__ import annotations

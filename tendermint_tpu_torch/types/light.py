@@ -2,8 +2,10 @@
 
 Counterpart: tendermint_tpu/types/light.py:26-120 (reference:
 types/light.go). LightBlocksRequest and LightBlocksResponse, the bulk
-fetch's p2p and RPC messages, are not ported: the port has neither
-layer.
+fetch's messages, are not ported: the p2p layer that would carry them
+(p2p/, with the consensus, mempool and evidence reactors) has no
+statesync or light-block channel yet, and there is no RPC (ROADMAP
+items 20 and 21).
 """
 
 from __future__ import annotations

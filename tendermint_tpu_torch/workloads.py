@@ -39,7 +39,16 @@ all built with the port's own types from a seed.
   holds a count of txs; drive_mempool_heights, which gossips a stream
   of txs from a full node's pool to a consensus_node's over a
   MemoryNetwork, then feeds the node a chain in which it proposes a
-  height from its pool.
+  height from its pool;
+- the consensus gossip harness: gossip_keys, three real validators'
+  keys of a set (one proposing a given height); seeded_witness, an
+  sr25519 key signing the same bytes for a seed and a message;
+  validator_node, a consensus_node on a router with the consensus,
+  mempool and evidence reactors; HarnessPeer, a peer with the consensus
+  channels and no step machine; drive_gossip_heights, three validator
+  nodes and the harness peer committing heights through the nodes'
+  gossip while the harness signs for every other validator, and
+  run_gossip_network, the same on a fresh network.
 
 Keys, timestamps and signing witnesses come from the seed, so a seed
 gives the same bytes on every host. Signing is native: ed25519's and
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import hashlib
 import os
 import time
@@ -66,16 +76,25 @@ from .config import ConsensusConfig, MempoolConfig, P2PConfig
 from .consensus.msgs import (
     BlockPartMessage,
     EndHeightMessage,
+    HasVoteMessage,
     ProposalMessage,
     VoteMessage,
     decode_msg,
     encode_msg,
+)
+from .consensus.reactor import (
+    DATA_CHANNEL,
+    VOTE_CHANNEL,
+    ConsensusReactor,
+    consensus_channel_descriptors,
 )
 from .consensus.state import PEER_DRAIN, ConsensusState
 from .consensus.types import RoundStep
 from .consensus.wal import WAL
 from .eventbus import EventBus
 from .evidence.pool import EvidencePool
+from .evidence.reactor import EvidenceReactor, evidence_channel_descriptor
+from .libs.service import Service
 from .privval.file import FilePV
 from .abci.client import LocalClient
 from .abci.kvstore import KVStoreApplication
@@ -90,7 +109,7 @@ from .mempool.reactor import MempoolReactor, mempool_channel_descriptor
 from .p2p.peermanager import PeerManager, peer_manager_options
 from .p2p.router import Router, router_options
 from .p2p.transport import MemoryNetwork, MemoryTransport, Transport
-from .p2p.types import NodeInfo, node_id_from_pubkey
+from .p2p.types import Envelope, NodeInfo, node_id_from_pubkey
 from .state.execution import BlockExecutor
 from .state.store import StateStore
 from .state.types import State, state_from_genesis
@@ -119,7 +138,10 @@ __all__ = [
     "ConsensusHeight",
     "ConsensusNode",
     "ExecNode",
+    "GossipHeight",
     "GossipNode",
+    "GossipRun",
+    "HarnessPeer",
     "HeightRun",
     "MempoolRun",
     "VoteTraffic",
@@ -133,11 +155,14 @@ __all__ = [
     "build_vote_traffic",
     "clock_at",
     "consensus_node",
+    "drive_gossip_heights",
     "drive_heights",
     "drive_mempool_heights",
     "end_height_records",
     "first_proposer_height",
+    "gossip_keys",
     "gossip_node",
+    "gossip_node_keys",
     "ingest",
     "kv_genesis",
     "kv_mempool",
@@ -146,10 +171,14 @@ __all__ = [
     "light_sync",
     "node_key",
     "pinned_clock",
+    "run_gossip_network",
     "seeded_keys",
+    "seeded_witness",
     "sign_commit",
+    "validator_node",
     "vote_state",
     "wait_for_pool",
+    "ValidatorNode",
 ]
 
 # the time of height 0 of a built chain, and of a built commit's votes
@@ -1116,15 +1145,16 @@ class MempoolRun:
     inside its check_tx_batch calls, the seconds from its first admission
     to the last tx in the node's pool, the node's heights, its own
     height from _enter_propose to EndHeight (and the clock at its
-    _enter_propose), and the node's pool at the end in arrival order."""
+    _enter_propose; None when the chain stops before it), and the node's
+    pool at the end in arrival order."""
 
     outcomes: list
     admit_s: float
     gossip_s: float
     late_outcomes: list
     runs: List[HeightRun]
-    own_height_s: float
-    enter_propose_at: float
+    own_height_s: Optional[float]
+    enter_propose_at: Optional[float]
     pool_end: List[bytes]
 
 
@@ -1139,9 +1169,12 @@ async def drive_mempool_heights(node: ConsensusNode, pool_b: TxMempool, chain: L
     the height A proposes, A meets the chain (drive_heights, where
     before and after are passed on); at the first message of A's own
     height B admits `late`, and the run ends once A's pool holds as
-    many. Raises what drive_heights raises, and when a pool does not
-    fill within timeout_s."""
-    own = next(ch for ch in chain if ch.node_proposes)
+    many. A chain that stops before A's own height (a reference run cut
+    short) waits for every admitted tx in A's pool and admits no late
+    txs. Raises what drive_heights raises, and when a pool does not fill
+    within timeout_s."""
+    own = next((ch for ch in chain if ch.node_proposes), None)
+    own_height = own.height if own is not None else None
     pool_a, batch = node.mempool, pool_b.cfg.tx_batch_size
     net = MemoryNetwork()
     a = gossip_node(pool_a, node_key(seed, 0), MemoryTransport(net, "node-a.mem:1"),
@@ -1155,17 +1188,17 @@ async def drive_mempool_heights(node: ConsensusNode, pool_b: TxMempool, chain: L
     write_end = node.cs.wal.write_end_height
 
     async def entering_propose(height: int, round_: int) -> None:
-        if height == own.height:
+        if height == own_height:
             marks.setdefault("enter_propose", time.perf_counter())
         await enter_propose(height, round_)
 
     def end_height(height: int) -> None:
         write_end(height)
-        if height == own.height:
+        if height == own_height:
             marks.setdefault("end_height", time.perf_counter())
 
     def first_message(h: int) -> None:
-        if h == own.height:
+        if h == own_height:
             late_admission.append(asyncio.get_running_loop().create_task(admit(pool_b, late, batch)))
         if before is not None:
             before(h)
@@ -1182,14 +1215,18 @@ async def drive_mempool_heights(node: ConsensusNode, pool_b: TxMempool, chain: L
             await asyncio.sleep(0.001)
         t0 = time.perf_counter()
         outcomes, admit_s = await admit(pool_b, stream, batch)
-        gossip_s = await wait_for_pool(pool_a, len(own.block.txs), timeout_s) - t0
+        admitted = sum(1 for r in outcomes if not isinstance(r, Exception) and r.code == 0)
+        want = len(own.block.txs) if own is not None else admitted
+        gossip_s = await wait_for_pool(pool_a, want, timeout_s) - t0
         runs = await drive_heights(node, chain, before=first_message, after=after)
-        late_outcomes, _ = await late_admission[0]
-        await wait_for_pool(pool_a, len(late), timeout_s)
+        late_outcomes = []
+        if late_admission:
+            late_outcomes, _ = await late_admission[0]
+            await wait_for_pool(pool_a, len(late), timeout_s)
         await asyncio.sleep(0.05)  # a second copy would have landed by now
-        return MempoolRun(outcomes, admit_s, gossip_s, late_outcomes, runs,
-                          marks["end_height"] - marks["enter_propose"], marks["enter_propose"],
-                          pool_a.reap_max_txs(-1))
+        own_s = marks["end_height"] - marks["enter_propose"] if own is not None else None
+        return MempoolRun(outcomes, admit_s, gossip_s, late_outcomes, runs, own_s,
+                          marks.get("enter_propose"), pool_a.reap_max_txs(-1))
     finally:
         for t in late_admission:
             t.cancel()
@@ -1197,3 +1234,575 @@ async def drive_mempool_heights(node: ConsensusNode, pool_b: TxMempool, chain: L
         await b.stop()
         node.cs._enter_propose = enter_propose
         node.cs.wal.write_end_height = write_end
+
+
+# -- the consensus gossip harness --
+
+
+def gossip_keys(privs: Sequence, heights: int, proposes_at: int) -> tuple:
+    """The keys of three real validators (A, B, C) of a static set of
+    equal-power validators holding privs: A proposes round 0 of height
+    proposes_at and of no other height in 1..heights; B and C propose
+    none of them, B the first such ed25519 key in the set's seeded order
+    and C the first such sr25519 key (another ed25519 key where the set
+    has none)."""
+    vals = ValidatorSet([Validator(pub_key=p.pub_key(), voting_power=10) for p in privs])
+    proposers = []
+    for _ in range(heights):
+        proposers.append(vals.get_proposer().address)
+        vals = vals.copy_increment_proposer_priority(1)
+    by_addr = {p.pub_key().address(): p for p in privs}
+    a = by_addr[proposers[proposes_at - 1]]
+    if proposers.count(proposers[proposes_at - 1]) != 1:
+        raise ValueError(f"the proposer of height {proposes_at} proposes another height too")
+    idle = [p for p in privs if p.pub_key().address() not in proposers]
+    b = next(p for p in idle if p.type() == "ed25519")
+    c = next((p for p in idle if p.type() == "sr25519"), None)
+    if c is None:
+        c = next(p for p in idle if p.type() == "ed25519" and p is not b)
+    return a, b, c
+
+
+def gossip_node_keys(seed: int) -> tuple:
+    """Node key indexes (node_key) of A, B, C and the harness peer of a
+    gossip network: 20, 21, 22 and the first index from 23 on whose node
+    ID sorts after A's or B's, so that the half of C's three peers a
+    Byzantine C targets (the first in node ID order) is a real node."""
+    first = min(node_id_from_pubkey(node_key(seed, i).pub_key()) for i in (20, 21))
+    h = 23
+    while node_id_from_pubkey(node_key(seed, h).pub_key()) < first:
+        h += 1
+    return (20, 21, 22, h)
+
+
+def seeded_witness(priv, seed: int) -> None:
+    """Make an sr25519 key's signatures a function of the seed and the
+    message: its signing witness takes SHA-256(seed, message) where it
+    would take OS randomness (priv.sign is set on the instance; an
+    ed25519 key, deterministic already, is left alone). Two runs of one
+    seed then sign the same bytes."""
+    if priv.type() != "sr25519":
+        return
+    inner = type(priv).sign
+
+    def sign(msg: bytes, rng=None):
+        fresh = hashlib.sha256(b"witness-%d-" % seed + msg).digest()
+        return inner(priv, msg, rng or (lambda n: fresh[:n]))
+
+    priv.sign = sign
+
+
+@dataclass
+class ValidatorNode:
+    """A validator's node on a p2p network: consensus_node's step
+    machine, pools and stores, its router and peer manager, and the
+    consensus, mempool and evidence reactors on the router's channels."""
+
+    node: ConsensusNode
+    node_id: str
+    moniker: str
+    router: Router
+    peer_manager: PeerManager
+    consensus: ConsensusReactor
+    mempool: MempoolReactor
+    evidence: EvidenceReactor
+
+    async def start(self) -> None:
+        await self.node.event_bus.start()
+        await self.router.start()
+        await self.consensus.start()  # starts the step machine
+        await self.mempool.start()
+        await self.evidence.start()
+
+    async def stop(self) -> None:
+        """Stop every part; raise the first error one of them ended on
+        (the step machine's loop, the evidence reactor's receive loop)."""
+        errors = []
+        for svc in (self.evidence, self.mempool, self.consensus, self.router):
+            try:
+                await svc.stop()
+            except Exception as e:  # raised below, after the rest stopped
+                errors.append(e)
+        await self.node.event_bus.stop()
+        if errors:
+            raise errors[0]
+
+
+def validator_node(node: ConsensusNode, key, transport: Transport, chain_id: str,
+                   listen_addr: str = "", moniker: str = "") -> ValidatorNode:
+    """node (a consensus_node with a TxMempool) on a router with the node
+    key `key` on `transport`, the peer manager and router options from
+    the JAX P2PConfig defaults, and the consensus reactor (channels
+    0x20-0x23), the mempool reactor (0x30) and the evidence reactor
+    (0x38) as node start wires them. Build it inside the running loop
+    (a router spawns a task a channel)."""
+    cfg = P2PConfig()
+    node_id = node_id_from_pubkey(key.pub_key())
+    info = NodeInfo(node_id=node_id, listen_addr=listen_addr, network=chain_id,
+                    version="tendermint_tpu_torch", moniker=moniker)
+    manager = PeerManager(node_id, peer_manager_options(cfg))
+    router = Router(info, key, manager, transport, listen_addr=listen_addr,
+                    options=router_options(cfg))
+    cs_channels = {cid: router.open_channel(d) for cid, d in consensus_channel_descriptors().items()}
+    consensus = ConsensusReactor(node.cs, cs_channels, manager.subscribe(), node.event_bus)
+    pool = node.mempool
+    mempool = MempoolReactor(
+        pool, router.open_channel(mempool_channel_descriptor(pool.cfg.max_tx_bytes)),
+        manager.subscribe(), broadcast=pool.cfg.broadcast,
+    )
+    evidence = EvidenceReactor(node.evpool, router.open_channel(evidence_channel_descriptor()),
+                               manager.subscribe())
+    return ValidatorNode(node, node_id, moniker, router, manager, consensus, mempool, evidence)
+
+
+# a harness peer's channels hold a whole height's sends to one node
+HARNESS_SEND_CAPACITY = 1 << 14
+
+
+class _SendOnlyCodec:
+    """The consensus channels' codec for a peer that reads nothing it
+    receives: frames come in undecoded."""
+
+    encode = staticmethod(encode_msg)
+
+    @staticmethod
+    def decode(data: bytes) -> bytes:
+        return data
+
+
+class HarnessPeer(Service):
+    """A peer with a router and the four consensus channels and no
+    step machine: it sends proposals, parts and votes it is handed, and
+    drains what the nodes send it without decoding it (the nodes
+    broadcast a HasVote a vote to every peer)."""
+
+    def __init__(self, key, transport: Transport, chain_id: str, listen_addr: str = "",
+                 moniker: str = "harness") -> None:
+        super().__init__(name="harness")
+        cfg = P2PConfig()
+        self.node_id = node_id_from_pubkey(key.pub_key())
+        info = NodeInfo(node_id=self.node_id, listen_addr=listen_addr, network=chain_id,
+                        version="tendermint_tpu_torch", moniker=moniker)
+        self.peer_manager = PeerManager(self.node_id, peer_manager_options(cfg))
+        self.router = Router(info, key, self.peer_manager, transport, listen_addr=listen_addr,
+                             options=router_options(cfg))
+        self.channels = {}
+        for cid, d in consensus_channel_descriptors().items():
+            d = dataclasses.replace(d, send_queue_capacity=HARNESS_SEND_CAPACITY,
+                                    message_type=_SendOnlyCodec)
+            self.channels[cid] = self.router.open_channel(d)
+
+    async def on_start(self) -> None:
+        await self.router.start()
+        for cid, ch in self.channels.items():
+            self.spawn(self._drain(ch), f"drain-{cid}")
+
+    async def on_stop(self) -> None:
+        await self.router.stop()
+
+    @staticmethod
+    async def _drain(ch) -> None:
+        async for _env in ch:
+            pass
+
+    async def send(self, channel_id: int, msg, to: str) -> None:
+        await self.channels[channel_id].send(Envelope(message=msg, to=to))
+
+
+async def _connect_mesh(members: Sequence, timeout_s: float) -> None:
+    """Dial every pair of members (anything with peer_manager, node_id
+    and router.listen_addr), the lower index dialing, and wait until each
+    has every other one as a peer."""
+    for i, a in enumerate(members):
+        for b in members[i + 1:]:
+            a.peer_manager.add(f"{b.node_id}@{b.router.listen_addr}")
+    deadline = time.monotonic() + timeout_s
+    while any(len(m.peer_manager.peers()) < len(members) - 1 for m in members):
+        if time.monotonic() > deadline:
+            raise RuntimeError("the gossip mesh did not connect")
+        await asyncio.sleep(0.001)
+
+
+@dataclass
+class GossipHeight:
+    """What drive_gossip_heights saw of one height (host clock,
+    perf_counter seconds): who proposed it (a node's moniker, or
+    "harness") and, for the harness's proposals, the node it went to;
+    when the proposal first existed; by node, when its block was
+    complete, when it wrote EndHeight, the round its seen commit has and
+    the timeouts its loop handled, each (round, step, acted on)."""
+
+    height: int
+    proposer: str = ""
+    sent_to: str = ""
+    block: Optional[Block] = None
+    proposal_at: float = 0.0
+    complete_at: Dict[str, float] = None
+    end_height_at: Dict[str, float] = None
+    rounds: Dict[str, int] = None
+    timeouts: Dict[str, list] = None
+
+
+@dataclass
+class GossipRun:
+    """drive_gossip_heights' result: each height, the seconds from B's
+    first admission until A and C held every tx, and, by node, the vote
+    envelopes its consensus reactor took from the harness and from real
+    peers, the duplicates among them, the messages its step machine's
+    queue dropped, and every envelope its router delivered, by channel
+    and height (HasVote apart, as "has_vote")."""
+
+    heights: List[GossipHeight]
+    tx_gossip_s: float
+    votes_from_harness: Dict[str, Dict[int, int]]
+    votes_from_peers: Dict[str, Dict[int, int]]
+    duplicate_votes: Dict[str, Dict[int, int]]
+    dropped: Dict[str, int]
+    envelopes: Dict[str, Dict[int, Dict[str, int]]]
+
+
+def _vote_of(node: ValidatorNode, height: int, vote_type: int, index: int) -> Optional[Vote]:
+    """Validator `index`'s vote of (height, round 0, vote_type) as node
+    holds it, if it does."""
+    rs = node.node.cs.rs
+    if rs.height == height and rs.votes is not None:
+        vs = rs.votes.prevotes(0) if vote_type == PREVOTE_TYPE else rs.votes.precommits(0)
+    elif rs.height == height + 1 and vote_type == PRECOMMIT_TYPE:
+        vs = rs.last_commit
+    else:
+        vs = None
+    return vs.get_by_index(index) if vs is not None else None
+
+
+async def _poll(cond, timeout_s: float, what: str, alive=None) -> float:
+    """Wait until cond(); raise when it does not hold within timeout_s,
+    and at once when alive() raises."""
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if alive is not None:
+            alive()
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what} within {timeout_s} s")
+        await asyncio.sleep(0.001)
+    return time.perf_counter()
+
+
+def _count_envelopes(vn: ValidatorNode, into: Dict[int, Dict[str, int]]) -> None:
+    """vn's router's channels count what they deliver, by the node's
+    height and channel (HasVote apart)."""
+    names = {ch.id: ch.name for ch in vn.router._channels.values()}
+    for ch in vn.router._channels.values():
+        inner = ch.deliver
+
+        def deliver(envelope, inner=inner, name=names[ch.id]):
+            kind = "has_vote" if isinstance(envelope.message, HasVoteMessage) else name
+            per = into.setdefault(vn.node.cs.rs.height, {})
+            per[kind] = per.get(kind, 0) + 1
+            return inner(envelope)
+
+        ch.deliver = deliver
+
+
+async def drive_gossip_heights(nodes: Sequence[ValidatorNode], harness: HarnessPeer, privs: Sequence,
+                               genesis_json: str, txs: Sequence[list], pool_txs: Sequence[bytes],
+                               seed: int, before=None, after=None, burst: int = PEER_DRAIN,
+                               timeout_s: float = 120.0, before_votes=None) -> GossipRun:
+    """Three validator nodes (A, B, C) and the harness peer on one
+    network, started and connected in a full mesh, commit heights
+    1..len(txs) through each other's gossip; the harness signs for every
+    other validator of privs. Before height 1, B admits pool_txs, which
+    the mempool reactors carry to A and C. At each height the harness
+    takes the block from its proposer: where a validator of its own
+    proposes, it makes block h of txs[h-1] (State.make_block from the
+    state the nodes reached after h - 1, read from A's store; the
+    LastCommit every validator's precommit of h - 1, the nodes' read
+    from their vote sets) and sends the signed proposal and its parts to
+    a node that stands at h, the others getting them by gossip; where a
+    node proposes, it reads the block from that node's round state. Once every node holds the complete
+    block and has signed its prevote, it sends its validators' prevotes
+    and then their precommits, each to one node, validator index mod 3,
+    in bursts of `burst` a node held back while the node's backlog is a
+    burst or more. before(h) runs before height h's first message,
+    `await before_votes(h)` before the harness's first vote of h, and
+    after(h) once every node stands at h + 1. The clock is pinned to the
+    harness's height (pinned_clock) for the whole run. Raises what a
+    node raises (at once when a node's receive loop ends) and when a
+    step does not happen within timeout_s."""
+    chain_id = nodes[0].node.cs.state.chain_id
+    state = state_from_genesis(GenesisDoc.from_json(genesis_json))
+    by_addr = {p.pub_key().address(): p for p in privs}
+    real = {vn.node.privval.key.address: vn for vn in nodes}
+    cur = [0]
+    heights: List[GossipHeight] = []
+    by_h: Dict[int, GossipHeight] = {}
+    names = [vn.moniker for vn in nodes]
+    from_harness = {n: {} for n in names}
+    from_peers = {n: {} for n in names}
+    duplicates = {n: {} for n in names}
+    dropped = {n: 0 for n in names}
+    envelopes = {n: {} for n in names}
+    seen: Dict[str, set] = {n: set() for n in names}
+    sent: Dict[str, int] = {n: 0 for n in names}
+    taken: Dict[str, int] = {n: 0 for n in names}
+
+    def instrument(vn: ValidatorNode) -> None:
+        cs, name = vn.node.cs, vn.moniker
+        handle_vote = vn.consensus._handle_vote_msg
+
+        async def on_vote(envelope):
+            v = envelope.message.vote
+            h = cs.rs.height
+            src = from_harness if envelope.from_peer == harness.node_id else from_peers
+            src[name][h] = src[name].get(h, 0) + 1
+            if envelope.from_peer == harness.node_id:
+                taken[name] += 1
+            key = (v.height, v.round, v.type, v.validator_index)
+            if key in seen[name]:
+                duplicates[name][h] = duplicates[name].get(h, 0) + 1
+            seen[name].add(key)
+            await handle_vote(envelope)
+
+        vn.consensus._handle_vote_msg = on_vote
+        send_peer_msg = cs.send_peer_msg
+
+        def counted_send(msg, peer_id):
+            ok = send_peer_msg(msg, peer_id)
+            if not ok:
+                dropped[name] += 1
+            return ok
+
+        cs.send_peer_msg = counted_send
+        _count_envelopes(vn, envelopes[name])
+        write_end = cs.wal.write_end_height
+        handle_complete = cs._handle_complete_proposal
+        handle_timeout = cs._handle_timeout
+        decide = cs.decide_proposal
+
+        def end_height(height: int) -> None:
+            write_end(height)
+            by_h[height].end_height_at[name] = time.perf_counter()
+
+        async def complete() -> None:
+            g = by_h.get(cs.rs.height)
+            if g is not None and cs.rs.proposal_block is not None:
+                g.complete_at.setdefault(name, time.perf_counter())
+            await handle_complete()
+
+        async def timeout(ti):
+            rs = cs.rs
+            acted = not (ti.height != rs.height or ti.round < rs.round
+                         or (ti.round == rs.round and ti.step < rs.step))
+            g = by_h.get(ti.height)
+            if g is not None:
+                g.timeouts[name].append((ti.round, ti.step, acted))
+            await handle_timeout(ti)
+
+        async def deciding(height: int, round_: int) -> None:
+            g = by_h.get(height)
+            if g is not None and not g.proposal_at:
+                g.proposal_at = time.perf_counter()
+            await decide(height, round_)
+
+        cs.wal.write_end_height = end_height
+        cs._handle_complete_proposal = complete
+        cs._handle_timeout = timeout
+        cs.decide_proposal = deciding
+
+    def height_record(h: int) -> GossipHeight:
+        g = GossipHeight(height=h, complete_at={}, end_height_at={}, rounds={},
+                         timeouts={n: [] for n in names})
+        by_h[h] = g
+        return g
+
+    for h in range(1, len(txs) + 1):
+        height_record(h)
+    for vn in nodes:
+        instrument(vn)
+
+    async def send_votes(votes: List[Vote]) -> None:
+        """Each vote to node index mod 3, a burst a node at a time, the
+        node held back while its backlog is a burst or more."""
+        queues = {vn.moniker: [] for vn in nodes}
+        for v in votes:
+            queues[nodes[v.validator_index % len(nodes)].moniker].append(v)
+        pos = {n: 0 for n in queues}
+        while any(pos[n] < len(q) for n, q in queues.items()):
+            progressed = False
+            for vn in nodes:
+                name, q = vn.moniker, queues[vn.moniker]
+                backlog = sent[name] - taken[name] + vn.node.cs.peer_msg_queue.qsize()
+                if pos[name] >= len(q) or backlog >= burst:
+                    continue
+                for v in q[pos[name]:pos[name] + burst]:
+                    await harness.send(VOTE_CHANNEL, VoteMessage(v), vn.node_id)
+                    sent[name] += 1
+                pos[name] += burst
+                progressed = True
+            if not progressed:
+                await asyncio.sleep(0.001)
+
+    def all_at(h: int) -> bool:
+        return all(vn.node.cs.rs.height >= h for vn in nodes)
+
+    def alive() -> None:
+        for vn in nodes:
+            task = vn.node.cs._task
+            if (task is not None and task.done()) or vn.evidence.failure() is not None:
+                raise RuntimeError(f"{vn.moniker}'s receive loop ended")
+
+    with pinned_clock(lambda: cur[0]):
+        await harness.start()
+        for vn in nodes:
+            await vn.start()
+        try:
+            await _connect_mesh([*nodes, harness], timeout_s)
+            # the pool's txs reach A and C by the mempool reactors
+            t0 = time.perf_counter()
+            b_pool = nodes[1].node.mempool
+            await admit(b_pool, pool_txs, b_pool.cfg.tx_batch_size)
+            for vn in (nodes[0], nodes[2]):
+                await wait_for_pool(vn.node.mempool, len(pool_txs), timeout_s)
+            tx_gossip_s = time.perf_counter() - t0
+            last_commit = Commit(height=0, round=0, block_id=BlockID(), signatures=[])
+            for h, block_txs_ in enumerate(txs, start=state.initial_height):
+                g = by_h[h]
+                cur[0] = h
+                vals = state.validators.validators
+                proposer = state.validators.get_proposer()
+                if before is not None:
+                    before(h)
+                if proposer.address in real:
+                    owner = real[proposer.address]
+                    g.proposer = owner.moniker
+                    cs = owner.node.cs
+                    await _poll(lambda: cs.rs.height > h or (
+                        cs.rs.height == h and cs.rs.proposal_block is not None
+                        and cs.rs.proposal is not None), timeout_s, f"{owner.moniker} proposed no block at {h}", alive)
+                    if cs.rs.height != h:
+                        raise RuntimeError(f"{owner.moniker} left height {h} before the harness read its block")
+                    block = cs.rs.proposal_block
+                    block_id = cs.rs.proposal.block_id
+                else:
+                    g.proposer = "harness"
+                    block, parts = state.make_block(h, list(block_txs_), last_commit, [], proposer.address)
+                    block_id = BlockID(hash=block.hash(), part_set_header=parts.header())
+                    proposal = Proposal(height=h, round=0, pol_round=-1, block_id=block_id,
+                                        timestamp_ns=block.header.time_ns)
+                    proposal.signature = _sign_all(
+                        [by_addr[proposer.address]], [proposal.sign_bytes(chain_id)],
+                        np.random.default_rng([seed, 13, h]),
+                    )[0]
+                    await _poll(lambda: any(vn.node.cs.rs.height == h for vn in nodes), timeout_s,
+                                f"no node entered height {h}", alive)
+                    first = next(vn for vn in nodes if vn.node.cs.rs.height == h)
+                    g.sent_to = first.moniker
+                    g.proposal_at = time.perf_counter()
+                    await harness.send(DATA_CHANNEL, ProposalMessage(proposal), first.node_id)
+                    for i in range(parts.total):
+                        await harness.send(DATA_CHANNEL, BlockPartMessage(height=h, round=0, part=parts.get_part(i)),
+                                           first.node_id)
+                g.block = block
+                # every node holds the block and has signed its prevote
+                await _poll(lambda: all(vn.moniker in g.complete_at for vn in nodes), timeout_s,
+                            f"the block of height {h} did not reach every node", alive)
+                await _poll(lambda: all(
+                    _vote_of(vn, h, PREVOTE_TYPE, vn.node.cs.rs.validators.get_by_address(a)[0]) is not None
+                    for a, vn in real.items()), timeout_s, f"a node did not prevote at {h}", alive)
+                rng = np.random.default_rng([seed, 13, h])
+                order = [i for i in rng.permutation(len(vals)).tolist() if vals[i].address not in real]
+                votes = {}
+                for vote_type in (PREVOTE_TYPE, PRECOMMIT_TYPE):
+                    votes[vote_type] = [
+                        Vote(type=vote_type, height=h, round=0, block_id=block_id,
+                             timestamp_ns=block.header.time_ns + 1 + int(rng.integers(0, 1_000_000_000)),
+                             validator_address=vals[i].address, validator_index=i)
+                        for i in order
+                    ]
+                signed = votes[PREVOTE_TYPE] + votes[PRECOMMIT_TYPE]
+                sigs = _sign_all([by_addr[v.validator_address] for v in signed],
+                                 [v.sign_bytes(chain_id) for v in signed],
+                                 np.random.default_rng([seed, 14, h]))
+                for v, sig in zip(signed, sigs):
+                    v.signature = sig
+                if before_votes is not None:
+                    await before_votes(h)
+                await send_votes(votes[PREVOTE_TYPE])
+                await send_votes(votes[PRECOMMIT_TYPE])
+                await _poll(lambda: all_at(h + 1), timeout_s, f"a node did not commit height {h}", alive)
+                # the nodes' own precommits join the harness's in the commit
+                by_index = {v.validator_index: v for v in votes[PRECOMMIT_TYPE]}
+                for addr in real:
+                    idx, _ = state.validators.get_by_address(addr)
+                    await _poll(lambda: any(_vote_of(vn, h, PRECOMMIT_TYPE, idx) is not None for vn in nodes),
+                                timeout_s, f"no node holds validator {idx}'s precommit at {h}", alive)
+                    by_index[idx] = next(_vote_of(vn, h, PRECOMMIT_TYPE, idx) for vn in nodes
+                                         if _vote_of(vn, h, PRECOMMIT_TYPE, idx) is not None)
+                last_commit = Commit(
+                    height=h, round=0, block_id=block_id,
+                    signatures=[
+                        CommitSig.for_block(by_index[i].signature, vals[i].address, by_index[i].timestamp_ns)
+                        if by_index[i].block_id == block_id
+                        else CommitSig.for_nil(by_index[i].signature, vals[i].address, by_index[i].timestamp_ns)
+                        for i in range(len(vals))
+                    ],
+                )
+                for vn in nodes:
+                    seen_commit = vn.node.block_store.load_seen_commit()
+                    g.rounds[vn.moniker] = seen_commit.round if seen_commit.height == h else -1
+                # the state after h, as every node applied it (they agree,
+                # and the run's caller checks that they do)
+                state = nodes[0].node.state_store.load()
+                if after is not None:
+                    after(h)
+                heights.append(g)
+        finally:
+            errors = []
+            for vn in nodes:
+                try:
+                    await vn.stop()
+                except Exception as e:  # raised below, once every node stopped
+                    errors.append(e)
+            await harness.stop()
+            if errors:
+                raise errors[0]
+    return GossipRun(heights, tx_gossip_s, from_harness, from_peers, duplicates, dropped, envelopes)
+
+
+def run_gossip_network(genesis_json: str, privs: Sequence, keys: Sequence, node_keys: Sequence[int],
+                       txs: Sequence[list], pool_txs: Sequence[bytes], home: str, seed: int,
+                       cfg: Optional[ConsensusConfig] = None, mempool_cfg: Optional[MempoolConfig] = None,
+                       instrument=None, before=None, after=None,
+                       monikers: Sequence[str] = ("node-a", "node-b", "node-c"),
+                       timeout_s: float = 120.0, before_votes=None) -> GossipRun:
+    """drive_gossip_heights on a fresh network: nodes A, B and C, each a
+    consensus_node (cfg, a TxMempool of mempool_cfg; SqliteKV files in
+    home/<moniker>) validating with keys[i], on a validator_node with
+    the node key node_key(seed, node_keys[i]) on one MemoryNetwork, and
+    the harness peer with node_key(seed, node_keys[3]). instrument(nodes,
+    harness), if given, runs once they are built, before anything starts;
+    before, after and before_votes are drive_gossip_heights'. The nodes'
+    stores are closed at the end."""
+    made: List[ValidatorNode] = []
+    chain_id = GenesisDoc.from_json(genesis_json).chain_id
+
+    async def go() -> GossipRun:
+        net = MemoryNetwork()
+        for i, (priv, name) in enumerate(zip(keys, monikers)):
+            cn = consensus_node(genesis_json, priv, os.path.join(home, name), cfg,
+                                mempool_cfg=mempool_cfg or MempoolConfig())
+            addr = f"{name}.mem:{i + 1}"
+            made.append(validator_node(cn, node_key(seed, node_keys[i]), MemoryTransport(net, addr),
+                                       chain_id, listen_addr=addr, moniker=name))
+        harness = HarnessPeer(node_key(seed, node_keys[3]), MemoryTransport(net, "harness.mem:9"),
+                              chain_id, listen_addr="harness.mem:9")
+        if instrument is not None:
+            instrument(made, harness)
+        return await drive_gossip_heights(made, harness, privs, genesis_json, txs, pool_txs, seed,
+                                          before, after, timeout_s=timeout_s,
+                                          before_votes=before_votes)
+
+    try:
+        return asyncio.run(go())
+    finally:
+        for vn in made:
+            vn.node.close()

@@ -130,3 +130,20 @@ def test_bench_mempool_proposer_cell(capsys, monkeypatch):
     assert cell["heights"] == cell["proposer_height"] + 1 >= 3
     for key in ("admission_txs_per_s", "gossip_txs_per_s", "p50_ms", "p95_ms", "chain_build_s"):
         assert math.isfinite(cell[key]) and cell[key] > 0
+
+
+def test_bench_consensus_gossip_cell(capsys, monkeypatch):
+    """The consensus_gossip cell at 8 mixed validators and 40 txs a
+    block, one network of two heights (the native CPU plane below the
+    gate): every key it declares, each height in round 0 with one block
+    at every node, its rates and times positive."""
+    monkeypatch.setattr(bench, "VALIDATORS", 8)
+    monkeypatch.setattr(bench, "GOSSIP_TXS", 40)
+    monkeypatch.setattr(bench, "GOSSIP_REPS", 1)
+    monkeypatch.setattr(bench, "MEMPOOL_TIMEOUT_COMMIT_S", 0.2)
+    assert bench.main(["--device", "cpu", "--cells", "consensus_gossip"]) == 0
+    cell = json.loads(capsys.readouterr().out)["cells"]["consensus_gossip"]
+    assert set(cell) == set(bench.CELL_KEYS["consensus_gossip"]) | {"cell_s"}
+    assert (cell["heights"], cell["txs"], cell["validators"], cell["reps"]) == (2, 40, 8, 1)
+    for key in ("gossip_votes_per_s", "harness_votes_per_s", "p50_ms", "p95_ms"):
+        assert math.isfinite(cell[key]) and cell[key] > 0
