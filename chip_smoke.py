@@ -99,7 +99,7 @@ LastCommit roots, then its own validate_block, on the card) and commits
 it from the other validators' votes; every height in round 0 with the
 launches of a rule, the block exactly the gossiped txs in order, nothing
 sent back, the committed txs gone from the pool, and every byte equal to
-the same run on the native CPU plane (its first two heights); also 256
+the same run on the native CPU plane (its first height); also 256
 txs over TCP through
 SecretConnection (the kernels line's `mempool_proposer`). Phase
 consensus_gossip drives consensus gossip: three validators of the mixed
@@ -112,8 +112,18 @@ proposed by one of the nodes from the txs another's pool gossiped, and
 one node doubling its prevote at height 2 (the Byzantine plane), whose
 DuplicateVoteEvidence that last block carries; round 0 at every node,
 the same blocks, launches a pre-verify burst and a LastCommit check as
-their rules say, and heights 1-2 equal to the CPU plane's (the kernels
-line's `consensus_gossip`). Keys, key types, messages,
+their rules say, and height 1 equal to the CPU plane's (the kernels
+line's `consensus_gossip`). Phases block_sync and state_sync drive a
+fresh node's catch-up from three peers serving a chain of 8 blocks of
+10,000 kvstore txs at the mixed 10k set, on one MemoryNetwork: block
+sync from the genesis (each block checked with the next one's
+LastCommit, a forged one refused and its peers banned), and state sync
+of the app's snapshot at height 4 through the embedded light client,
+the backfill of the headers below it (a forged light block passed over)
+and block sync to the tip; every commit check's launches as its rule
+says, the fresh node's chain equal to the served one and block sync's
+first heights to the CPU plane's (the kernels line's `block_sync` and
+`state_sync`). Keys, key types, messages,
 timestamps, signing witnesses, chains, votes and transactions come from
 --seed (made by tendermint_tpu_torch.workloads).
 
@@ -3602,8 +3612,9 @@ MEMPOOL_GOSSIP_TIMEOUT_S = 120.0
 # Height 1 starts after it, as it starts after 1 s by default.
 MEMPOOL_TIMEOUT_COMMIT_S = 5.0
 # the heights the CPU plane's reference runs (the script's time: PERF.md
-# §4); where the node proposes among them, its height is compared too
-MEMPOOL_CPU_HEIGHTS = 2
+# §4; 2 in PR 16, 3 before); where the node proposes among them, its
+# height is compared too
+MEMPOOL_CPU_HEIGHTS = 1
 DUPLICATE = ("MempoolError", "tx already exists in cache")
 
 
@@ -4136,12 +4147,12 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
 # equivocates on its prevote of GOSSIP_EQUIVOCATE_AT) and the harness
 # peer on one MemoryNetwork; GOSSIP_TXS txs in each harness block and in
 # B's pool, which A reaps; the CPU plane's reference runs
-# GOSSIP_CPU_HEIGHTS heights
+# GOSSIP_CPU_HEIGHTS heights (the script's time: PERF.md §4; 2 in PR 16)
 GOSSIP_HEIGHTS = 3
 GOSSIP_PROPOSES_AT = 3
 GOSSIP_EQUIVOCATE_AT = 2
 GOSSIP_TXS = 2_000
-GOSSIP_CPU_HEIGHTS = 2
+GOSSIP_CPU_HEIGHTS = 1
 GOSSIP_TIMEOUT_S = 120.0
 # at GOSSIP_EQUIVOCATE_AT the harness holds its votes until a node found
 # C's two prevotes, this long at most: the HasVote of the first one can
@@ -4572,7 +4583,8 @@ def phase_consensus_gossip(torch, seed: int) -> dict:
         "equivocation": {"fired": dev["fired"], "targets": dev["targets"], "found_by": detected,
                          "through_evidence_reactor": through_reactor,
                          "harness_held_votes_ms": dev["held_ms"],
-                         "cpu_plane_harness_held_votes_ms": ref["held_ms"]},
+                         # None: the reference ends before that height
+                         "cpu_plane_harness_held_votes_ms": ref.get("held_ms")},
         "queue_drops": run.dropped,
         "launches": {k: n for k, n in dev["launches"].items() if n},
         "launches_per_height": {h: r["launches"] for h, r in by_height.items()},
@@ -4594,6 +4606,528 @@ def phase_consensus_gossip(torch, seed: int) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return {"launches": out["launches_per_height"]}
+
+
+# catch-up: a chain of CATCHUP_HEIGHTS blocks of N_TXS kvstore txs at
+# config 5's mixed set, its app taking a state-sync snapshot every
+# CATCHUP_SNAPSHOT heights, served by three peers to a fresh node
+CATCHUP_HEIGHTS = 8
+CATCHUP_SNAPSHOT = 4
+# block_sync: block CATCHUP_FORGED_AT as the first peer asked for it
+# sends it, its LastCommit with one sr25519 signature flipped (the check
+# of the block below it refuses it)
+CATCHUP_FORGED_AT = 4
+# block_sync: the heights whose apply the CPU plane's reference repeats
+CATCHUP_CPU_HEIGHTS = 3
+# state_sync: the operator's trust root, the discovery sleep, a trusting
+# period that keeps the seeded chain's times (workloads.BASE_TIME_NS)
+# inside it, and the backfill height whose light block the peer first in
+# node ID order sends with a flipped sr25519 signature
+CATCHUP_TRUST_HEIGHT = 1
+CATCHUP_DISCOVERY_S = 1.0
+CATCHUP_TRUST_PERIOD_S = 10 * 365 * 24 * 3600.0
+CATCHUP_BAD_LIGHT_AT = 2
+# node_key indexes: the fresh node's, then the three serving peers'
+CATCHUP_NODE_KEYS = (40, 41, 42, 43)
+CATCHUP_TIMEOUT_S = 300.0
+# the commit checks of the catch-up path: the module whose name each
+# caller reads, the name, and the plan it runs
+CATCHUP_CHECKS = (
+    ("tendermint_tpu_torch.blocksync.reactor", "verify_commit_light", "light"),
+    ("tendermint_tpu_torch.statesync.reactor", "verify_commit_light", "light"),
+    ("tendermint_tpu_torch.light.verifier", "verify_commit_light", "light"),
+    ("tendermint_tpu_torch.light.verifier", "verify_commit_light_trusting", "trusting"),
+    ("tendermint_tpu_torch.state.execution", "verify_commit", "full"),
+)
+SIGNATURE_KERNELS = ("sha512_ram", "ed25519_verify_tile", "sr25519_verify")
+
+
+def commit_rule(kind: str, vals, commit, gate: int, step: int) -> dict:
+    """The launches of one commit check, from the plan
+    types/validation.py _verify_commit_batch_vector runs: "full"
+    (verify_commit) verifies every present signature; "light"
+    (verify_commit_light) the COMMIT votes through the one whose running
+    power first exceeds 2/3 of the set's; "trusting"
+    (verify_commit_light_trusting at light.verifier's default 1/3) the
+    COMMIT votes whose address the trusted set `vals` holds, through the
+    one whose running power first exceeds 1/3 of that set's. Counted by
+    key type, then window_rule. A check that fails on a signature
+    launches the same windows: every group is drained first."""
+    from tendermint_tpu_torch.types.commit import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT
+
+    flags = commit.block_id_flags_array()
+    powers = vals.powers_array()
+    total = int(powers.sum())
+    if kind == "full":
+        picked = [vals.validators[i] for i in np.flatnonzero(flags != BLOCK_ID_FLAG_ABSENT).tolist()]
+    else:
+        at = np.flatnonzero(flags == BLOCK_ID_FLAG_COMMIT).tolist()
+        if kind == "light":
+            by = [vals.validators[i] for i in at]
+            needed = total * 2 // 3
+        else:
+            by = [vals.get_by_address(commit.signatures[i].validator_address)[1] for i in at]
+            needed = total // 3
+        cum = np.cumsum([v.voting_power if v is not None else 0 for v in by])
+        end = int(np.argmax(cum > needed)) + 1 if cum.size and cum[-1] > needed else len(by)
+        picked = [v for v in by[:end] if v is not None]
+    by_type: dict = {}
+    for v in picked:
+        by_type[v.pub_key.type()] = by_type.get(v.pub_key.type(), 0) + 1
+    return window_rule(by_type, gate, step)
+
+
+@contextlib.contextmanager
+def recorded_checks(calls: list):
+    """For the block, each commit check of CATCHUP_CHECKS appends a record
+    to `calls`: its plan, height, set and commit (the rule is computed
+    after the run, off its clock), the launches it made, its host ms and
+    its outcome."""
+    import importlib
+
+    originals = []
+
+    def wrap(fn, kind):
+        def wrapper(*args):
+            if kind == "trusting":
+                _chain_id, vals, commit, _trust = args
+                height = commit.height
+            else:
+                _chain_id, vals, _block_id, height, commit = args
+            before = launches()
+            t0 = time.perf_counter()
+            result = "ok", ""
+            try:
+                return fn(*args)
+            except Exception as e:  # recorded, then raised unchanged
+                result = type(e).__name__, str(e)
+                raise
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                calls.append({
+                    "kind": kind, "height": height, "vals": vals, "commit": commit, "ms": ms,
+                    "got": {k: n - before[k] for k, n in launches().items()}, "outcome": result,
+                })
+
+        return wrapper
+
+    for mod_name, attr, kind in CATCHUP_CHECKS:
+        mod = importlib.import_module(mod_name)
+        originals.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, wrap(getattr(mod, attr), kind))
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
+def check_catchup_launches(calls: list, counts: dict, where: str) -> list:
+    """Each recorded commit check launched its rule's kernels (X1 and K2 a
+    window of ed25519, X3 one of sr25519), the signature kernels launched
+    nowhere else, and no kernel but X4 launched outside the checks.
+    Returns the calls' reports, without their sets and commits."""
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.crypto.gpu_verifier import GpuSr25519BatchVerifier
+
+    gate, step = gpu_verifier.installed(), GpuSr25519BatchVerifier.STREAM_CHUNK
+    reports = []
+    for c in calls:
+        want = commit_rule(c["kind"], c["vals"], c["commit"], gate, step)
+        if not exact(c["got"], want):
+            raise AssertionError(
+                f"{where}: the {c['kind']} check at height {c['height']} launched {c['got']}, not {want}"
+            )
+        reports.append({"kind": c["kind"], "height": c["height"], "ms": c["ms"],
+                        "launches": {k: n for k, n in c["got"].items() if n},
+                        "outcome": list(c["outcome"])})
+    for name, n in counts.items():
+        in_checks = sum(c["got"].get(name, 0) for c in calls)
+        if name in SIGNATURE_KERNELS and n != in_checks:
+            raise AssertionError(f"{where}: {name} launched {n - in_checks} times outside the checks")
+        if name not in SIGNATURE_KERNELS and name != "sha256_tree" and n:
+            raise AssertionError(f"{where}: {name} launched {n} times")
+    return reports
+
+
+def catchup_busy(prof, counts: dict, wall_s: float) -> dict:
+    """Device busy ms by kernel over a profiled run (each kernel's mean
+    time a record times its launches), the records kept, and the idle
+    share of the run's wall time over the kernels measured."""
+    events = prof.key_averages()
+    busy, kept = {}, {}
+    for name, n in counts.items():
+        if not n:
+            continue
+        mine = [e for e in events if KERNEL_NAMES[name] in e.key]
+        kept[name] = sum(e.count for e in mine)
+        if kept[name]:
+            busy[name] = sum(e.self_device_time_total for e in mine) / kept[name] * n / 1e3
+    return {
+        "device_busy_ms": busy,
+        "device_records_kept": kept,
+        "device_kernels_not_measured": sorted(k for k, n in counts.items() if n and k not in busy),
+        "device_idle_share": 1 - sum(busy.values()) / (wall_s * 1e3),
+    }
+
+
+def catchup_chain(seed: int) -> dict:
+    """The chain both catch-up phases serve: CATCHUP_HEIGHTS blocks of
+    N_TXS kvstore txs (TX_LENGTHS bytes) at config 5's mixed genesis,
+    made and applied on the CPU plane by workloads.serve_chain, whose
+    node (MemKV stores, its app snapshotting every CATCHUP_SNAPSHOT
+    heights) the peers serve."""
+    from tendermint_tpu_torch.workloads import kv_genesis, kv_txs, seeded_keys, serve_chain
+
+    t0 = time.perf_counter()
+    privs = seeded_keys(N_VALIDATORS, seed, N_VALIDATORS // 2)
+    genesis = kv_genesis(CHAIN_ID, privs)
+    txs = [kv_txs(seed, h, N_TXS, TX_LENGTHS) for h in range(1, CATCHUP_HEIGHTS + 1)]
+    chain, node, states = serve_chain(genesis, privs, txs, seed, snapshot_interval=CATCHUP_SNAPSHOT)
+    return {"genesis": genesis, "privs": privs, "chain": chain, "node": node, "states": states,
+            "build_s": time.perf_counter() - t0}
+
+
+def sr25519_inside_two_thirds(vals, commit, seed: int, label: int) -> int:
+    """A seeded index of an sr25519 COMMIT vote that verify_commit_light
+    checks (inside the first 2/3 of the set's power)."""
+    n = len(commit.signatures) * 3 // 5
+    at = [i for i in range(n) if vals.validators[i].pub_key.type() == "sr25519"
+          and commit.signatures[i].is_for_block()]
+    return at[int(np.random.default_rng([seed, label]).integers(0, len(at)))]
+
+
+def phase_block_sync(torch, seed: int, served: dict) -> dict:
+    """Block sync with the device plane installed
+    (install_device_plane(GPUConfig()), then settle_probes()): a fresh
+    non-validator node at config 5's mixed genesis catches up from three
+    peers serving `served` (catchup_chain) on one MemoryNetwork
+    (workloads.run_catchup, mode "block"). It verifies block H with the
+    LastCommit of block H+1 (verify_commit_light), saves and applies it,
+    and once its pool is caught up switches its consensus reactor on,
+    leaving the tip to consensus. Block CATCHUP_FORGED_AT, as the first
+    peer asked for it sends it, carries a LastCommit with one sr25519
+    signature inside the first 2/3 of power flipped
+    (workloads.ServingStore with a shared claim). Checks: the forged
+    commit is refused with the JAX package's message; the peers that
+    served that pair are banned, as the JAX rule names them; the pair is
+    fetched again from a peer not banned; the fresh node's stored blocks
+    1..tip-1, its final state's bytes and its app hash equal the
+    chain's; every commit check (verify_commit_light of block sync,
+    verify_commit of apply_block) launched its rule's windows, and only
+    X4 launched outside them; no fault or reroute; and the CPU plane's
+    reference of heights 1..CATCHUP_CPU_HEIGHTS (the same checks, saves
+    and applies on a fresh node) gives equal states, app hashes, ABCI
+    responses and stored blocks. Reports blocks/s, ms a block (verify,
+    apply), the run under the profiler for the device's idle share, and
+    the phase's seconds."""
+    import asyncio
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+    from tendermint_tpu_torch.types.validation import verify_commit_light
+    from tendermint_tpu_torch.workloads import (
+        ServingStore,
+        block_exec_node,
+        forged_block,
+        forged_commit,
+        run_catchup,
+    )
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before block_sync")
+    t_phase = time.perf_counter()
+    genesis, chain, node, states = served["genesis"], served["chain"], served["node"], served["states"]
+    vals = states[0].last_validators
+    at = CATCHUP_FORGED_AT
+    forged_idx = sr25519_inside_two_thirds(vals, chain[at - 1].block.last_commit, seed, 17)
+    forged = forged_block(chain[at - 1].block, forged_commit(chain[at - 1].block.last_commit, forged_idx))
+    claim: dict = {}
+    views = [ServingStore(node.block_store, blocks={at: forged}, claim=claim, name=str(i)) for i in range(3)]
+    calls: list = []
+    pairs: list = []
+    records: dict = {}
+    verify_ms: list = []
+    apply_ms: list = []
+
+    def instrument(fresh, servers):
+        reactor, executor = fresh.blocksync, fresh.exec_node.executor
+        inner_pair, inner_apply = reactor._verify_apply, executor.apply_block
+
+        async def verify_apply(first, second):
+            pool = reactor.pool
+            h = first.header.height
+            peers = (pool.first_block_peer(), pool.second_block_peer())
+            n = len(calls)
+            await inner_pair(first, second)
+            pairs.append({"height": h, "peers": peers, "applied": reactor.state.last_block_height >= h,
+                          "verify_ms": calls[n]["ms"]})
+
+        async def apply(state, block_id, block):
+            t0 = time.perf_counter()
+            out = await inner_apply(state, block_id, block)
+            apply_ms.append((time.perf_counter() - t0) * 1e3)
+            if block.header.height <= CATCHUP_CPU_HEIGHTS:
+                records[block.header.height] = {
+                    "state": out, "app_hash": fresh.exec_node.app.app_hash,
+                }
+            return out
+
+        reactor._verify_apply = verify_apply
+        executor.apply_block = apply
+
+    start = gpu_verifier.stats()
+    install_device_plane(GPUConfig())
+    settle_probes()
+    try:
+        with recorded_checks(calls), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            reset_launches()
+            run = run_catchup(genesis, node, views, CATCHUP_NODE_KEYS, seed, "block",
+                              timeout_s=CATCHUP_TIMEOUT_S, instrument=instrument)
+            torch.cuda.synchronize()
+            counts = launches()
+        assert_no_fault(start, gpu_verifier.stats(), "block_sync")
+        reports = check_catchup_launches(calls, counts, "block_sync")
+    finally:
+        uninstall_device_plane()
+    busy = catchup_busy(prof, counts, run.seconds)
+    fresh = run.fresh.exec_node
+    tip = len(chain)
+    # the forged pair: refused with the JAX message, its two peers banned,
+    # then fetched again from a peer not banned
+    refused = [p for p in pairs if not p["applied"]]
+    forger = run.server_ids[int(claim[at])]
+    if len(refused) != 1 or refused[0]["height"] != at - 1 or refused[0]["peers"][1] != forger:
+        raise AssertionError(f"block_sync: the forged block was not refused once: {refused}")
+    failed = [c for c in reports if c["outcome"][0] != "ok"]
+    want_msg = ("InvalidCommitError", f"wrong signature (#{forged_idx}): "
+                f"{forged.last_commit.signatures[forged_idx].signature.hex()}")
+    if [tuple(c["outcome"]) for c in failed] != [want_msg]:
+        raise AssertionError(f"block_sync: the forged commit's outcome {failed}, not {want_msg}")
+    if set(run.banned) != set(refused[0]["peers"]):
+        raise AssertionError(f"block_sync: banned {run.banned}, the JAX rule names {refused[0]['peers']}")
+    again = next(p for p in pairs if p["height"] == at - 1 and p["applied"])
+    if set(again["peers"]) & set(run.banned):
+        raise AssertionError(f"block_sync: the pair was fetched again from a banned peer: {again}")
+    # the fresh node's chain equals the served one
+    if run.state.last_block_height != tip - 1 or run.applied != tip - 1:
+        raise AssertionError(f"block_sync: applied {run.applied} heights, the state at "
+                             f"{run.state.last_block_height}, not {tip - 1}")
+    for h in range(1, tip):
+        if fresh.block_store.load_block(h).to_proto() != chain[h - 1].block.to_proto():
+            raise AssertionError(f"block_sync: stored block {h} differs from the chain's")
+    if run.state.to_proto() != states[tip - 2].to_proto():
+        raise AssertionError("block_sync: the final state differs from the chain's")
+    if fresh.app.app_hash != chain[tip - 1].block.header.app_hash:
+        raise AssertionError("block_sync: the app hash differs from the chain's")
+    if run.fresh.consensus.cs.rs.height != tip or run.fresh.consensus.wait_sync:
+        raise AssertionError("block_sync: consensus was not switched on at the tip")
+    # the CPU plane's reference of the first heights: the same checks,
+    # saves and applies on a fresh node
+    t_ref = time.perf_counter()
+    ref = block_exec_node(genesis)
+    state = ref.state
+    for h in range(1, CATCHUP_CPU_HEIGHTS + 1):
+        cb, nxt = chain[h - 1], chain[h]
+        verify_commit_light(CHAIN_ID, state.validators, cb.block_id, h, nxt.block.last_commit)
+        ref.block_store.save_block(cb.block, cb.parts, nxt.block.last_commit)
+        state = asyncio.run(ref.executor.apply_block(state, cb.block_id, cb.block))
+        got = records[h]
+        if got["state"].to_proto() != state.to_proto() or got["app_hash"] != ref.app.app_hash:
+            raise AssertionError(f"block_sync: height {h} differs from the CPU plane's")
+        if fresh.state_store.load_abci_responses(h).to_proto() != ref.state_store.load_abci_responses(h).to_proto():
+            raise AssertionError(f"block_sync: height {h}'s ABCI responses differ from the CPU plane's")
+        if fresh.block_store.load_block(h).to_proto() != ref.block_store.load_block(h).to_proto():
+            raise AssertionError(f"block_sync: stored block {h} differs from the CPU plane's")
+    ref_s = time.perf_counter() - t_ref
+    launched = {k: n for k, n in counts.items() if n}
+    verify_ok = [p["verify_ms"] for p in pairs if p["applied"]]
+    out = {
+        "phase": "block_sync",
+        "validators": {"ed25519": N_VALIDATORS - N_VALIDATORS // 2, "sr25519": N_VALIDATORS // 2},
+        "chain_heights": tip,
+        "txs_per_block": N_TXS,
+        "build_s": served["build_s"],
+        "run_s": run.seconds,
+        "blocks_applied": run.applied,
+        "blocks_per_s": run.applied / run.seconds,
+        "ms_per_block": {"verify_commit_light": float(np.mean(verify_ok)), "apply_block": float(np.mean(apply_ms)),
+                         "verify_samples": verify_ok, "apply_samples": apply_ms},
+        "forged": {"height": at, "index": forged_idx, "served_by": forger, "outcome": list(want_msg),
+                   "banned": run.banned, "fetched_again_from": list(again["peers"])},
+        "checks": reports,
+        "launches": launched,
+        **busy,
+        "cpu_plane": {"heights": CATCHUP_CPU_HEIGHTS, "s": ref_s},
+        "equal_to_chain": ["blocks", "state", "app_hash"],
+        "equal_to_cpu_plane": ["state", "app_hash", "abci_responses", "blocks"],
+        "ok": True,
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"launches": launched}
+
+
+def phase_state_sync(torch, seed: int, served: dict) -> dict:
+    """State sync with the device plane installed
+    (install_device_plane(GPUConfig()), then settle_probes()): three
+    peers serve `served` (catchup_chain), whose app took a snapshot at
+    CATCHUP_SNAPSHOT (a peer lists it once the two heights above it are
+    stored: workloads.ServingClient), and a fresh node at the genesis,
+    given the trust root CATCHUP_TRUST_HEIGHT and its header's hash,
+    state-syncs, backfills and block-syncs (workloads.run_catchup, mode
+    "state"; discovery CATCHUP_DISCOVERY_S): its embedded light client
+    pins the root and verifies the light blocks at S, S+1 and S+2 from
+    it (a trusting and a light check of S, skipping from the root, then
+    a light check each), the chunks are fetched, spooled and applied,
+    the state bootstrapped, the headers below S fetched and verified one
+    at a time (the peer first in node ID order sends its light block at
+    CATCHUP_BAD_LIGHT_AT with one sr25519 signature flipped: the node
+    moves on to the next peer), then block sync runs to the tip. Checks:
+    the restored app hash, the bootstrapped state's bytes (its
+    validators' and params' last-changed heights are S+1, as the
+    reference's state provider sets them), the stored signed headers and
+    the validator sets of heights 1..S equal the serving node's; the
+    light client's checks are the ones light/client.py makes (initialize
+    none; verify_light_block_at_height skips from the root to S, then
+    steps), the backfill's one a height and one more at the bad one,
+    block sync's and apply_block's one a block; each launched its rule's
+    windows and only X4 launched outside them; no fault or reroute; the
+    final state (last-changed heights as above), app hash and blocks
+    equal the chain's. Reports the restore's seconds, chunks and
+    chunks/s beside the discovery sleep, ms a light-block verify,
+    backfill headers/s, the device's idle share and the phase's
+    seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tendermint_tpu_torch.config import GPUConfig, StateSyncConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+    from tendermint_tpu_torch.p2p.types import node_id_from_pubkey
+    from tendermint_tpu_torch.workloads import ServingStore, forged_commit, node_key, run_catchup
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before state_sync")
+    t_phase = time.perf_counter()
+    genesis, chain, node, states = served["genesis"], served["chain"], served["node"], served["states"]
+    S, tip = CATCHUP_SNAPSHOT, len(chain)
+    bad_at = CATCHUP_BAD_LIGHT_AT
+    bad_commit = node.block_store.load_block_commit(bad_at)
+    bad_idx = sr25519_inside_two_thirds(states[bad_at - 1].validators, bad_commit, seed, 19)
+    ids = [node_id_from_pubkey(node_key(seed, k).pub_key()) for k in CATCHUP_NODE_KEYS[1:]]
+    bad_peer = min(ids)
+    views = [ServingStore(node.block_store, commits={bad_at: forged_commit(bad_commit, bad_idx)})
+             if i == bad_peer else node.block_store for i in ids]
+    snapshot = next(s for s in node.app.list_snapshots(None).snapshots if s.height == S)
+    cfg = StateSyncConfig(
+        trust_height=CATCHUP_TRUST_HEIGHT,
+        trust_hash=node.block_store.load_block_meta(CATCHUP_TRUST_HEIGHT).header.hash().hex(),
+        trust_period=CATCHUP_TRUST_PERIOD_S,
+        discovery_time=CATCHUP_DISCOVERY_S,
+    )
+    calls: list = []
+    spans: dict = {"fetch_chunks": [], "apply_chunks": []}
+
+    def instrument(fresh, servers):
+        for attr in spans:
+            clock_async(fresh.statesync, f"_{attr}", spans[attr])
+
+    start = gpu_verifier.stats()
+    install_device_plane(GPUConfig())
+    settle_probes()
+    try:
+        with recorded_checks(calls), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            reset_launches()
+            run = run_catchup(genesis, node, views, CATCHUP_NODE_KEYS, seed, "state", ss_cfg=cfg,
+                              timeout_s=CATCHUP_TIMEOUT_S, instrument=instrument)
+            torch.cuda.synchronize()
+            counts = launches()
+        assert_no_fault(start, gpu_verifier.stats(), "state_sync")
+        reports = check_catchup_launches(calls, counts, "state_sync")
+    finally:
+        uninstall_device_plane()
+    busy = catchup_busy(prof, counts, run.seconds)
+    fresh = run.fresh.exec_node
+    # the checks in order, as the code makes them
+    want = [("trusting", S), ("light", S), ("light", S + 1), ("light", S + 2)]
+    want += [("light", h) for h in range(S - 1, 0, -1) for _ in range(2 if h == bad_at else 1)]
+    for h in range(S + 1, tip):
+        want += [("light", h), ("full", h - 1)]
+    got = [(c["kind"], c["height"]) for c in reports]
+    if got != want:
+        raise AssertionError(f"state_sync: the commit checks {got}, not {want}")
+    bad = [c for c in reports if c["outcome"][0] != "ok"]
+    want_bad = ["InvalidCommitError", f"wrong signature (#{bad_idx}): "
+                f"{forged_commit(bad_commit, bad_idx).signatures[bad_idx].signature.hex()}"]
+    if len(bad) != 1 or bad[0]["height"] != bad_at or bad[0]["outcome"] != want_bad:
+        raise AssertionError(f"state_sync: the bad light block's checks {bad}")
+    # the restore: app hash, bootstrapped state, signed headers, sets
+    if run.restored_height != S or run.backfilled != S - 1:
+        raise AssertionError(f"state_sync: restored {run.restored_height}, backfilled {run.backfilled}")
+
+    def as_bootstrapped(state):
+        out = state.copy()
+        out.last_height_validators_changed = S + 1
+        out.last_height_consensus_params_changed = S + 1
+        return out.to_proto()
+
+    if run.bootstrapped != as_bootstrapped(states[S - 1]):
+        raise AssertionError("state_sync: the bootstrapped state differs from the chain's")
+    for h in range(1, S + 1):
+        meta = fresh.block_store.load_block_meta(h)
+        if meta is None or meta.header.to_proto() != chain[h - 1].block.header.to_proto():
+            raise AssertionError(f"state_sync: the stored header {h} differs from the serving node's")
+        # a signed header's commit is kept under the height below it
+        if h > 1 and fresh.block_store.load_block_commit(h - 1).to_proto() != \
+                node.block_store.load_block_commit(h).to_proto():
+            raise AssertionError(f"state_sync: the stored commit of {h} differs from the serving node's")
+        if fresh.state_store.load_validators(h).to_proto() != node.state_store.load_validators(h).to_proto():
+            raise AssertionError(f"state_sync: the validator set of {h} differs from the serving node's")
+    for h in range(S + 1, tip):
+        if fresh.block_store.load_block(h).to_proto() != chain[h - 1].block.to_proto():
+            raise AssertionError(f"state_sync: stored block {h} differs from the chain's")
+    if run.state.to_proto() != as_bootstrapped(states[tip - 2]):
+        raise AssertionError("state_sync: the final state differs from the chain's")
+    if fresh.app.app_hash != chain[tip - 1].block.header.app_hash:
+        raise AssertionError("state_sync: the app hash differs from the chain's")
+    if run.fresh.consensus.cs.rs.height != tip or run.fresh.consensus.wait_sync:
+        raise AssertionError("state_sync: consensus was not switched on at the tip")
+    chunk_s = (sum(spans["fetch_chunks"]) + sum(spans["apply_chunks"])) / 1e3
+    light = [c["ms"] for c in reports[:4]]
+    backfill = [c for c in reports[4:4 + S]]
+    out = {
+        "phase": "state_sync",
+        "validators": {"ed25519": N_VALIDATORS - N_VALIDATORS // 2, "sr25519": N_VALIDATORS // 2},
+        "chain_heights": tip,
+        "snapshot": {"height": S, "chunks": snapshot.chunks, "bytes": len(node.app._snapshots[(S, 1)]),
+                     "app_entries": len(json.loads(node.app._snapshots[(S, 1)])["state"])},
+        "run_s": run.seconds,
+        "discovery_s": run.discovery_s,
+        "restore_s": run.restore_s,
+        "chunks_s": chunk_s,
+        "chunks_per_s": snapshot.chunks / chunk_s,
+        "fetch_chunks_ms": spans["fetch_chunks"],
+        "apply_chunks_ms": spans["apply_chunks"],
+        "light_verify_ms": {"mean": float(np.mean(light)), "samples": light},
+        "backfill": {"headers": run.backfilled, "s": run.backfill_s,
+                     "headers_per_s": run.backfilled / run.backfill_s,
+                     "verify_ms": [c["ms"] for c in backfill],
+                     "bad_light_block": {"height": bad_at, "index": bad_idx, "peer": bad_peer,
+                                         "outcome": want_bad}},
+        "block_sync": {"s": run.block_sync_s, "blocks_applied": run.applied},
+        "checks": reports,
+        "launches": {k: n for k, n in counts.items() if n},
+        **busy,
+        "equal_to_serving_node": ["app_hash", "bootstrapped_state", "signed_headers", "validator_sets",
+                                  "blocks", "final_state"],
+        "ok": True,
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"launches": out["launches"]}
 
 
 def phase_kernels(
@@ -5209,6 +5743,10 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     heights = phase_consensus_heights(torch, args.seed)
     mempool = phase_mempool_proposer(torch, args.seed)
     gossip = phase_consensus_gossip(torch, args.seed)
+    served = catchup_chain(args.seed)
+    block_sync = phase_block_sync(torch, args.seed, served)
+    state_sync = phase_state_sync(torch, args.seed, served)
+    del served
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
     )
@@ -5243,6 +5781,10 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
                 str(h): c.get(r["name"], 0) for h, c in gossip["launches"].items()
             },
         }
+    # every kernel's launches in the catch-up phases' runs
+    for r in kernels["kernels"]:
+        r["block_sync"] = {"launches": block_sync["launches"].get(r["name"], 0)}
+        r["state_sync"] = {"launches": state_sync["launches"].get(r["name"], 0)}
     # the vote path's launches per height at each size, and each kernel
     # against its plain version on the path's windows at VOTE_WIDTHS
     for r in kernels["kernels"]:

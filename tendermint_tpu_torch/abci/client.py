@@ -1,13 +1,14 @@
 """ABCI clients: the async interface and the in-process local client.
 
 Counterpart: tendermint_tpu/abci/client.py: ABCIClient (:31-93, with
-check_tx_batch :50), LocalClient (:157-216, its batch in one lock hold
-:185), ClientCreator and local_creator (:349-354);
+check_tx_batch :50 and the state-sync methods :75-90), LocalClient
+(:157-216, its batch in one lock hold :185, its state-sync methods
+:207-217), ClientCreator and local_creator (:349-354);
 reference: abci/client/client.go, local_client.go, creators.go:12-36.
 Every method is a coroutine; the local client runs the synchronous
 application inline under one lock, as the reference's mutex-serialized
 local client does. The socket and gRPC clients wait for the servers
-(a later item), and with them the state-sync methods.
+(a later item).
 """
 
 from __future__ import annotations
@@ -60,6 +61,26 @@ class ABCIClient(Service):
     async def commit(self) -> T.ResponseCommit:
         raise NotImplementedError
 
+    async def list_snapshots(
+        self, req: T.RequestListSnapshots
+    ) -> T.ResponseListSnapshots:
+        raise NotImplementedError
+
+    async def offer_snapshot(
+        self, req: T.RequestOfferSnapshot
+    ) -> T.ResponseOfferSnapshot:
+        raise NotImplementedError
+
+    async def load_snapshot_chunk(
+        self, req: T.RequestLoadSnapshotChunk
+    ) -> T.ResponseLoadSnapshotChunk:
+        raise NotImplementedError
+
+    async def apply_snapshot_chunk(
+        self, req: T.RequestApplySnapshotChunk
+    ) -> T.ResponseApplySnapshotChunk:
+        raise NotImplementedError
+
 
 class LocalClient(ABCIClient):
     """In-process client: direct calls serialized by one lock
@@ -108,6 +129,18 @@ class LocalClient(ABCIClient):
 
     async def commit(self):
         return await self._call(self.app.commit)
+
+    async def list_snapshots(self, req):
+        return await self._call(self.app.list_snapshots, req)
+
+    async def offer_snapshot(self, req):
+        return await self._call(self.app.offer_snapshot, req)
+
+    async def load_snapshot_chunk(self, req):
+        return await self._call(self.app.load_snapshot_chunk, req)
+
+    async def apply_snapshot_chunk(self, req):
+        return await self._call(self.app.apply_snapshot_chunk, req)
 
 
 # reference: abci/client/creators.go:12-36

@@ -1,12 +1,12 @@
 """ABCI: the application boundary's payloads and interface.
 
 Counterpart: tendermint_tpu/abci/types.py:1-508 (the request and
-response dataclasses and Application / BaseApplication; reference:
-abci/types/application.go:11-31, abci/types/types.pb.go). The state-sync
-payloads (Snapshot, the four snapshot requests and responses) and the
-four state-sync methods, and ResponseException, which only the socket
-transport carries, are not ported yet: statesync and the socket server
-are later items. Nothing here touches the device.
+response dataclasses, the state-sync payloads :165, :246-269, :375-410,
+and Application / BaseApplication with the four state-sync methods;
+reference: abci/types/application.go:11-31, abci/types/types.pb.go).
+ResponseException, which only the socket transport carries, is not
+ported yet: the socket server is a later item. Nothing here touches the
+device.
 """
 
 from __future__ import annotations
@@ -39,6 +39,10 @@ __all__ = [
     "RequestDeliverTx",
     "RequestEndBlock",
     "RequestCommit",
+    "RequestListSnapshots",
+    "RequestOfferSnapshot",
+    "RequestLoadSnapshotChunk",
+    "RequestApplySnapshotChunk",
     "ResponseEcho",
     "ResponseFlush",
     "ResponseInfo",
@@ -49,6 +53,21 @@ __all__ = [
     "ResponseDeliverTx",
     "ResponseEndBlock",
     "ResponseCommit",
+    "ResponseListSnapshots",
+    "ResponseOfferSnapshot",
+    "ResponseLoadSnapshotChunk",
+    "ResponseApplySnapshotChunk",
+    "OFFER_SNAPSHOT_ACCEPT",
+    "OFFER_SNAPSHOT_ABORT",
+    "OFFER_SNAPSHOT_REJECT",
+    "OFFER_SNAPSHOT_REJECT_FORMAT",
+    "OFFER_SNAPSHOT_REJECT_SENDER",
+    "APPLY_CHUNK_ACCEPT",
+    "APPLY_CHUNK_ABORT",
+    "APPLY_CHUNK_RETRY",
+    "APPLY_CHUNK_RETRY_SNAPSHOT",
+    "APPLY_CHUNK_REJECT_SNAPSHOT",
+    "Snapshot",
     "Application",
     "BaseApplication",
 ]
@@ -143,6 +162,22 @@ class Misbehavior:
 
 
 @dataclass(frozen=True)
+class Snapshot:
+    """State-sync snapshot advertisement
+    (reference: abci/types/types.pb.go Snapshot)."""
+
+    height: int
+    format: int
+    chunks: int
+    hash: bytes
+    metadata: bytes = b""
+
+
+# ---------------------------------------------------------------------------
+# Requests
+
+
+@dataclass(frozen=True)
 class RequestEcho:
     message: str = ""
 
@@ -205,6 +240,35 @@ class RequestEndBlock:
 @dataclass(frozen=True)
 class RequestCommit:
     pass
+
+
+# ---------------------------------------------------------------------------
+# Responses
+
+
+@dataclass(frozen=True)
+class RequestListSnapshots:
+    pass
+
+
+@dataclass(frozen=True)
+class RequestOfferSnapshot:
+    snapshot: Optional[Snapshot] = None
+    app_hash: bytes = b""
+
+
+@dataclass(frozen=True)
+class RequestLoadSnapshotChunk:
+    height: int = 0
+    format: int = 0
+    chunk: int = 0
+
+
+@dataclass(frozen=True)
+class RequestApplySnapshotChunk:
+    index: int = 0
+    chunk: bytes = b""
+    sender: str = ""
 
 
 # ---------------------------------------------------------------------------
@@ -311,10 +375,46 @@ class ResponseCommit:
 # Application interface
 
 
+@dataclass(frozen=True)
+class ResponseListSnapshots:
+    snapshots: tuple[Snapshot, ...] = ()
+
+
+OFFER_SNAPSHOT_ACCEPT = 1
+OFFER_SNAPSHOT_ABORT = 2
+OFFER_SNAPSHOT_REJECT = 3
+OFFER_SNAPSHOT_REJECT_FORMAT = 4
+OFFER_SNAPSHOT_REJECT_SENDER = 5
+
+
+@dataclass(frozen=True)
+class ResponseOfferSnapshot:
+    result: int = 0
+
+
+@dataclass(frozen=True)
+class ResponseLoadSnapshotChunk:
+    chunk: bytes = b""
+
+
+APPLY_CHUNK_ACCEPT = 1
+APPLY_CHUNK_ABORT = 2
+APPLY_CHUNK_RETRY = 3
+APPLY_CHUNK_RETRY_SNAPSHOT = 4
+APPLY_CHUNK_REJECT_SNAPSHOT = 5
+
+
+@dataclass(frozen=True)
+class ResponseApplySnapshotChunk:
+    result: int = 0
+    refetch_chunks: tuple[int, ...] = ()
+    reject_senders: tuple[str, ...] = ()
+
+
 class Application:
-    """The deterministic state machine interface, less its four state-sync
-    methods (reference: abci/types/application.go:11-31). Synchronous:
-    the client serializes the calls."""
+    """The deterministic state machine interface (reference:
+    abci/types/application.go:11-31). Synchronous: the client serializes
+    the calls."""
 
     # Info/Query connection
     def info(self, req: RequestInfo) -> ResponseInfo:
@@ -341,6 +441,23 @@ class Application:
         raise NotImplementedError
 
     def commit(self) -> ResponseCommit:
+        raise NotImplementedError
+
+    # State-sync connection
+    def list_snapshots(self, req: RequestListSnapshots) -> ResponseListSnapshots:
+        raise NotImplementedError
+
+    def offer_snapshot(self, req: RequestOfferSnapshot) -> ResponseOfferSnapshot:
+        raise NotImplementedError
+
+    def load_snapshot_chunk(
+        self, req: RequestLoadSnapshotChunk
+    ) -> ResponseLoadSnapshotChunk:
+        raise NotImplementedError
+
+    def apply_snapshot_chunk(
+        self, req: RequestApplySnapshotChunk
+    ) -> ResponseApplySnapshotChunk:
         raise NotImplementedError
 
 
@@ -371,3 +488,19 @@ class BaseApplication(Application):
 
     def commit(self) -> ResponseCommit:
         return ResponseCommit()
+
+    def list_snapshots(self, req: RequestListSnapshots) -> ResponseListSnapshots:
+        return ResponseListSnapshots()
+
+    def offer_snapshot(self, req: RequestOfferSnapshot) -> ResponseOfferSnapshot:
+        return ResponseOfferSnapshot()
+
+    def load_snapshot_chunk(
+        self, req: RequestLoadSnapshotChunk
+    ) -> ResponseLoadSnapshotChunk:
+        return ResponseLoadSnapshotChunk()
+
+    def apply_snapshot_chunk(
+        self, req: RequestApplySnapshotChunk
+    ) -> ResponseApplySnapshotChunk:
+        return ResponseApplySnapshotChunk()

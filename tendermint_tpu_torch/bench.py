@@ -100,6 +100,23 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   votes/s the nodes took from real peers and from the harness (the
   mean). Every node must commit every height in round 0, all the same
   block.
+- block_sync: a fresh non-validator node catching up from three peers
+  that serve a chain of CATCHUP_HEIGHTS blocks of 10,000 kvstore txs at
+  the mixed 10k set (workloads.serve_chain, run_catchup mode "block",
+  one MemoryNetwork): each block verified with the next one's
+  LastCommit (verify_commit_light), saved and applied, until block sync
+  switches the node's consensus on, over CATCHUP_REPS fresh nodes; the
+  blocks/s of each run (the mean), and the p50 and p95 of a block's
+  verify, save and apply. The node's app hash must be the chain's.
+- state_sync: over CATCHUP_REPS fresh nodes, the same peers (the app
+  snapshotting every CATCHUP_SNAPSHOT heights) and a trust root at
+  height 1: the node state-syncs the snapshot (its light client
+  verifying the light blocks above it), backfills the headers below it
+  (each verified) and block-syncs to the tip (run_catchup mode
+  "state"); the restore's seconds without its discovery sleep
+  (CATCHUP_DISCOVERY_S), the snapshot's chunks, and backfill headers/s
+  (the means). The restored height and the final app hash must be the
+  chain's.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -148,6 +165,12 @@ MEMPOOL_TIMEOUT_COMMIT_S = 5.0
 # consensus_gossip's heights, txs a block, networks, and the height whose
 # prevote the Byzantine node doubles
 GOSSIP_HEIGHTS, GOSSIP_TXS, GOSSIP_REPS, GOSSIP_EQUIVOCATE_AT = 2, 2_000, 2, 2
+# block_sync's and state_sync's chain, its snapshots, fresh nodes, the
+# state-sync discovery sleep (seconds) and a trusting period (seconds)
+# that keeps the seeded chain's times inside it
+CATCHUP_HEIGHTS, CATCHUP_SNAPSHOT, CATCHUP_REPS = 8, 4, 2
+CATCHUP_DISCOVERY_S = 1.0
+CATCHUP_TRUST_PERIOD_S = 10 * 365 * 24 * 3600.0
 # the most light_sync may spend building its chain before it cuts it
 CHAIN_BUDGET_S = 240.0
 
@@ -213,6 +236,27 @@ CELL_KEYS = {
         "txs",
         "validators",
         "reps",
+    ),
+    "block_sync": (
+        "blocks_per_s",
+        "p50_ms",
+        "p95_ms",
+        "heights",
+        "txs",
+        "validators",
+        "reps",
+        "chain_build_s",
+    ),
+    "state_sync": (
+        "restore_s",
+        "chunks",
+        "backfill_headers_per_s",
+        "discovery_s",
+        "heights",
+        "txs",
+        "validators",
+        "reps",
+        "chain_build_s",
     ),
     # last: it leaves both breakers open
     "commit10k_mixed_cpu_plane": ("validators", "p50_ms", "p95_ms", "reps"),
@@ -846,6 +890,95 @@ def cell_consensus_gossip(ctx: Ctx) -> dict:
     }
 
 
+def _served_chain(ctx: Ctx) -> dict:
+    """The catch-up cells' chain and the node serving it, built once."""
+    from .workloads import kv_genesis, kv_txs, seeded_keys, serve_chain
+
+    if "served" not in ctx.cache:
+        seed = ctx.args.seed + 50
+        privs = seeded_keys(VALIDATORS, seed, VALIDATORS // 2)
+        genesis = kv_genesis(CHAIN_ID, privs)
+        t0 = time.perf_counter()
+        txs = [kv_txs(seed, h, TXS, (100, 300)) for h in range(1, CATCHUP_HEIGHTS + 1)]
+        chain, node, _states = serve_chain(genesis, privs, txs, seed, CATCHUP_SNAPSHOT)
+        ctx.cache["served"] = {"seed": seed, "genesis": genesis, "chain": chain, "node": node,
+                               "build_s": time.perf_counter() - t0}
+    return ctx.cache["served"]
+
+
+def cell_block_sync(ctx: Ctx) -> dict:
+    from .workloads import run_catchup
+
+    served = _served_chain(ctx)
+    node, chain = served["node"], served["chain"]
+    before = _stats()
+    rates, blocks = [], []
+
+    def instrument(fresh, _servers):
+        inner = fresh.blocksync._verify_apply
+
+        async def timed(first, second):
+            t0 = time.perf_counter()
+            await inner(first, second)
+            blocks.append((time.perf_counter() - t0) * 1e3)
+
+        fresh.blocksync._verify_apply = timed
+
+    for _rep in range(CATCHUP_REPS):
+        run = run_catchup(served["genesis"], node, [node.block_store] * 3, (50, 51, 52, 53),
+                          served["seed"], "block", instrument=instrument)
+        if run.fresh.exec_node.app.app_hash != chain[-1].block.header.app_hash:
+            raise AssertionError("block_sync: the app hash differs from the chain's")
+        rates.append(run.applied / run.seconds)
+    _no_fault(before, "block_sync")
+    return {
+        "blocks_per_s": float(np.mean(rates)),
+        **_p50_p95(blocks),
+        "heights": len(chain),
+        "txs": TXS,
+        "validators": VALIDATORS,
+        "reps": CATCHUP_REPS,
+        "chain_build_s": served["build_s"],
+    }
+
+
+def cell_state_sync(ctx: Ctx) -> dict:
+    from .config import StateSyncConfig
+    from .workloads import run_catchup
+
+    served = _served_chain(ctx)
+    node, chain = served["node"], served["chain"]
+    cfg = StateSyncConfig(
+        trust_height=1, trust_hash=node.block_store.load_block_meta(1).header.hash().hex(),
+        trust_period=CATCHUP_TRUST_PERIOD_S, discovery_time=CATCHUP_DISCOVERY_S,
+    )
+    snapshot = next(s for s in node.app.list_snapshots(None).snapshots if s.height == CATCHUP_SNAPSHOT)
+    before = _stats()
+    restores, rates = [], []
+    for _rep in range(CATCHUP_REPS):
+        run = run_catchup(served["genesis"], node, [node.block_store] * 3, (60, 61, 62, 63),
+                          served["seed"], "state", ss_cfg=cfg)
+        if run.restored_height != CATCHUP_SNAPSHOT or run.backfilled != CATCHUP_SNAPSHOT - 1:
+            raise AssertionError(f"state_sync: restored {run.restored_height}, "
+                                 f"backfilled {run.backfilled}")
+        if run.fresh.exec_node.app.app_hash != chain[-1].block.header.app_hash:
+            raise AssertionError("state_sync: the app hash differs from the chain's")
+        restores.append(run.restore_s)
+        rates.append(run.backfilled / run.backfill_s)
+    _no_fault(before, "state_sync")
+    return {
+        "restore_s": float(np.mean(restores)),
+        "chunks": snapshot.chunks,
+        "backfill_headers_per_s": float(np.mean(rates)),
+        "discovery_s": CATCHUP_DISCOVERY_S,
+        "heights": len(chain),
+        "txs": TXS,
+        "validators": VALIDATORS,
+        "reps": CATCHUP_REPS,
+        "chain_build_s": served["build_s"],
+    }
+
+
 RUNNERS = {
     "batch_curve": cell_batch_curve,
     "throughput_8192": cell_throughput,
@@ -862,6 +995,8 @@ RUNNERS = {
     "consensus_height": cell_consensus_height,
     "mempool_proposer": cell_mempool_proposer,
     "consensus_gossip": cell_consensus_gossip,
+    "block_sync": cell_block_sync,
+    "state_sync": cell_state_sync,
 }
 
 

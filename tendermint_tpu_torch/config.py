@@ -1,8 +1,10 @@
 """The device plane's configuration, the step machine's timeouts, the
-mempool's settings and the p2p settings the router and peer manager read.
+mempool's settings, the p2p settings the router and peer manager read,
+and the block and state sync settings.
 
 Counterpart: tendermint_tpu/config.py:47 (DEFAULT_BUCKET_SIZES),
-:104-130 (P2PConfig), :132-151 (MempoolConfig), :172-202
+:104-130 (P2PConfig), :132-151 (MempoolConfig), :155-169
+(StateSyncConfig, BlockSyncConfig), :172-202
 (ConsensusConfig, its gossip knobs :185-191) and :254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
 10k signatures to 16384 would waste 39% of the device work, 12288 cuts
 that to 18%.
@@ -13,12 +15,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 __all__ = [
+    "BlockSyncConfig",
     "ConsensusConfig",
     "DEFAULT_BUCKET_SIZES",
     "DEFAULT_MIN_BATCH",
     "GPUConfig",
     "MempoolConfig",
     "P2PConfig",
+    "StateSyncConfig",
 ]
 
 DEFAULT_BUCKET_SIZES = (8, 32, 128, 512, 2048, 8192, 12288, 16384)
@@ -132,3 +136,20 @@ class MempoolConfig:
     # the most txs in one gossip envelope or one batched admission call
     # (the recheck's ABCI grain too)
     tx_batch_size: int = 64
+
+
+@dataclass
+class StateSyncConfig:
+    enable: bool = False
+    rpc_servers: list[str] = field(default_factory=list)
+    trust_height: int = 0
+    trust_hash: str = ""
+    trust_period: float = 168 * 3600.0
+    discovery_time: float = 15.0
+    chunk_request_timeout: float = 15.0
+    fetchers: int = 4
+
+
+@dataclass
+class BlockSyncConfig:
+    enable: bool = True

@@ -4,9 +4,8 @@ Counterpart: tendermint_tpu/eventbus/__init__.py:83-206 (reference:
 internal/eventbus/event_bus.go: EventBus :24, publish with flattened
 ABCI events :87, the typed helpers :113-176), on its `metrics=None`
 path: `EventBusMetrics` (published, deliveries, fanout lag, dropped
-subscriptions) waits for the port's metrics library (ROADMAP item 11),
-the block-sync and state-sync statuses for items 19 and 20. The step
-machine and BlockExecutor publish here.
+subscriptions) waits for the port's metrics library (ROADMAP item 11).
+The step machine, BlockExecutor and block sync publish here.
 """
 
 from __future__ import annotations
@@ -121,3 +120,6 @@ class EventBus(Service):
 
     def publish_timeout_wait(self, data: E.EventDataRoundState) -> None:
         self._publish(E.EventValue.TIMEOUT_WAIT, data)
+
+    def publish_block_sync_status(self, data: E.EventDataBlockSyncStatus) -> None:
+        self._publish(E.EventValue.BLOCK_SYNC_STATUS, data)

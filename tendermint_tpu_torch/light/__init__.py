@@ -12,7 +12,7 @@ from .errors import (
     OldHeaderExpiredError,
     VerificationError,
 )
-from .provider import LocalProvider, Provider
+from .provider import LocalProvider, P2PProvider, Provider
 from .store import LightStore
 from .verifier import (
     DEFAULT_TRUST_LEVEL,
@@ -38,6 +38,7 @@ __all__ = [
     "NewValSetCantBeTrustedError",
     "NoWitnessesError",
     "OldHeaderExpiredError",
+    "P2PProvider",
     "Provider",
     "SEQUENTIAL_BATCH_HOPS",
     "TrustOptions",

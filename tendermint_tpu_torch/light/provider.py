@@ -1,22 +1,24 @@
 """Light-block providers.
 
-Counterpart: tendermint_tpu/light/provider.py:26-97 (reference:
-light/provider/provider.go): the Provider interface, with its default
-bulk fetch, and LocalProvider, which serves light blocks from a node's
-block and state stores (any objects with their load methods).
-HTTPProvider and P2PProvider are not ported: they need the RPC and p2p
-layers, which the port does not have.
+Counterpart: tendermint_tpu/light/provider.py:26-97 and :172-196
+(reference: light/provider/provider.go): the Provider interface, with
+its default bulk fetch; LocalProvider, which serves light blocks from a
+node's block and state stores (any objects with their load methods); and
+P2PProvider, which fetches them from a peer through a fetch callable
+(state sync's light-block channel). HTTPProvider is not ported: it needs
+the RPC layer, which the port does not have yet.
 """
 
 from __future__ import annotations
 
 import asyncio
 from abc import ABC, abstractmethod
+from typing import Optional
 
 from ..types.light import LightBlock, SignedHeader
 from .errors import LightBlockNotFoundError
 
-__all__ = ["LocalProvider", "Provider"]
+__all__ = ["LocalProvider", "P2PProvider", "Provider"]
 
 
 class Provider(ABC):
@@ -81,3 +83,30 @@ class LocalProvider(Provider):
 
     async def report_evidence(self, ev) -> None:
         self.reported_evidence.append(ev)
+
+
+class P2PProvider(Provider):
+    """Fetch light blocks from a peer via an async fetch callable
+    (statesync reactor's light-block channel machinery)."""
+
+    def __init__(self, peer_id: str, fetch, report=None) -> None:
+        """`fetch(height, peer_id) -> Optional[LightBlock]`;
+        `report(ev)` forwards evidence to the evidence reactor."""
+        self.peer_id = peer_id
+        self._fetch = fetch
+        self._report = report
+
+    def id(self) -> str:
+        return self.peer_id
+
+    async def light_block(self, height: int) -> LightBlock:
+        lb: Optional[LightBlock] = await self._fetch(height, self.peer_id)
+        if lb is None:
+            raise LightBlockNotFoundError(
+                f"peer {self.peer_id[:12]} has no light block at {height}"
+            )
+        return lb
+
+    async def report_evidence(self, ev) -> None:
+        if self._report is not None:
+            await self._report(ev)

@@ -4,9 +4,9 @@ each height.
 Counterpart: tendermint_tpu/state/store.py: ABCIResponses (:44-119),
 StateStore's load and save (:153-182), the sparse validator sets
 (:209-250), consensus params (:252-276) and ABCI responses (:278-288);
-reference: internal/state/store.go. Left out: bootstrap and
-save_validators (state sync's), prune (the node's pruning of old
-heights) and rollback (the CLI's), which wait for those items.
+bootstrap (:184) and save_validators (:204), which state sync calls;
+reference: internal/state/store.go. Left out: prune (the node's pruning
+of old heights) and rollback (the CLI's), which wait for those items.
 """
 
 from __future__ import annotations
@@ -184,6 +184,24 @@ class StateStore:
         )
         self._db.set(_STATE, state.to_proto())
 
+    def bootstrap(self, state: State) -> None:
+        """Used by state sync to install a trusted state
+        (reference: internal/state/store.go Bootstrap)."""
+        height = state.last_block_height + 1
+        if height == 1:
+            height = state.initial_height
+        if state.last_validators is not None and height > 1:
+            self._save_validators(
+                height - 1, state.last_validators, height - 1
+            )
+        self._save_validators(height, state.validators, height)
+        self._save_validators(height + 1, state.next_validators, height + 1)
+        self._save_params(
+            height, state.consensus_params,
+            state.last_height_consensus_params_changed,
+        )
+        self._db.set(_STATE, state.to_proto())
+
     # -- validator sets per height --
 
     def _save_validators(
@@ -202,6 +220,11 @@ class StateStore:
         else:
             info = _ValInfo(val_set=None, last_height_changed=last_changed)
         self._db.set(_vals_key(height), info.to_proto())
+
+    def save_validators(self, height: int, vals: ValidatorSet) -> None:
+        """Store a historically-verified validator set (statesync
+        backfill; reference: internal/state/store.go SaveValidatorSets)."""
+        self._save_validators(height, vals, height)
 
     def load_validators(self, height: int) -> Optional[ValidatorSet]:
         """Sparse lookup: follow the pointer when the stored record has

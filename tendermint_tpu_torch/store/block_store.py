@@ -1,11 +1,11 @@
 """BlockStore: blocks stored as meta, parts and commits by height.
 
 Counterpart: tendermint_tpu/store/block_store.py:52-219 (loads, save_block
-:125, prune_blocks :194; reference: internal/store/store.go, key scheme
-:584-640). Keys are a prefix byte and the big-endian height, so
-iteration goes by height. Left out: save_signed_header, the header-only
-backfill of blocksync and statesync, and save_seen_commit, consensus's;
-both wait for those items.
+:125, save_signed_header :168, prune_blocks :194; reference:
+internal/store/store.go, key scheme :584-640). Keys are a prefix byte and
+the big-endian height, so iteration goes by height. save_signed_header
+is the header-only store of state sync's base and backfill. Left out:
+save_seen_commit (:188), which no port module calls.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from ..types.block import Block
 from ..types.block_id import BlockID
 from ..types.block_meta import BlockMeta
 from ..types.commit import Commit
+from ..types.light import SignedHeader
 from ..types.part_set import Part, PartSet
 from .kv import Batch, KVStore
 
@@ -164,6 +165,26 @@ class BlockStore:
                     block.last_commit.to_proto(),
                 )
             batch.set(_seen_commit_key(), seen_commit.to_proto())
+            self._db.write_batch(batch)
+
+    def save_signed_header(
+        self, sh: SignedHeader, block_id: BlockID
+    ) -> None:
+        """Backfill (reverse-sync) storage of header+commit without the
+        full block (reference: internal/store/store.go:533-570)."""
+        height = sh.header.height
+        with self._lock:
+            if self.load_block_meta(height) is not None:
+                raise ValueError(
+                    f"block meta already exists at height {height}"
+                )
+            batch = Batch()
+            meta = BlockMeta(
+                block_id=block_id, block_size=-1, header=sh.header, num_txs=-1
+            )
+            batch.set(_meta_key(height), meta.to_proto())
+            batch.set(_commit_key(height - 1), sh.commit.to_proto())
+            batch.set(_hash_key(sh.header.hash()), struct.pack(">q", height))
             self._db.write_batch(batch)
 
     # -- pruning --

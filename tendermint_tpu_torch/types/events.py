@@ -3,8 +3,9 @@
 Counterpart: tendermint_tpu/types/events.py:1-137 (reference:
 types/events.go: event values :15-47, reserved composite keys :197-208,
 payloads :100-190). Payloads are light frozen dataclasses; the tag
-flattening that makes them queryable lives in eventbus/. The block-sync
-and state-sync status payloads come with items 19 and 20.
+flattening that makes them queryable lives in eventbus/. The state-sync
+status payload comes with node start (ROADMAP item 21), which publishes
+it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ __all__ = [
     "EVENT_TYPE_KEY",
     "TX_HASH_KEY",
     "TX_HEIGHT_KEY",
+    "EventDataBlockSyncStatus",
     "EventDataCompleteProposal",
     "EventDataNewBlock",
     "EventDataNewBlockHeader",
@@ -122,3 +124,8 @@ class EventDataVote:
 class EventDataValidatorSetUpdates:
     validator_updates: tuple = ()
 
+
+@dataclass(frozen=True)
+class EventDataBlockSyncStatus:
+    complete: bool
+    height: int

@@ -48,7 +48,17 @@ all built with the port's own types from a seed.
   channels and no step machine; drive_gossip_heights, three validator
   nodes and the harness peer committing heights through the nodes'
   gossip while the harness signs for every other validator, and
-  run_gossip_network, the same on a fresh network.
+  run_gossip_network, the same on a fresh network;
+- the catch-up harness: serve_chain, a built chain with the node that
+  applied it (its app snapshotting); ServingStore and ServingClient, a
+  serving peer's view of that node's block store (some blocks or
+  commits replaced, a forged one among them) and app connection;
+  forged_commit, a commit with one signature flipped, and forged_block,
+  a block carrying one; serving_node and
+  fresh_node, peers with the block sync and state sync reactors (the
+  fresh one with a consensus reactor waiting for block sync); and
+  run_catchup, a fresh node block-syncing, or state-syncing, backfilling
+  and block-syncing, from serving peers on one MemoryNetwork.
 
 Keys, timestamps and signing witnesses come from the seed, so a seed
 gives the same bytes on every host. Signing is native: ed25519's and
@@ -70,9 +80,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .abci import types as abci_types
+from .blocksync import BlocksyncReactor, blocksync_channel_descriptor
 from .crypto.ed25519 import PrivKeyEd25519
 from .crypto.sr25519 import PrivKeySr25519, sign_batch
-from .config import ConsensusConfig, MempoolConfig, P2PConfig
+from .config import ConsensusConfig, MempoolConfig, P2PConfig, StateSyncConfig
 from .consensus.msgs import (
     BlockPartMessage,
     EndHeightMessage,
@@ -113,6 +125,7 @@ from .p2p.types import Envelope, NodeInfo, node_id_from_pubkey
 from .state.execution import BlockExecutor
 from .state.store import StateStore
 from .state.types import State, state_from_genesis
+from .statesync import StatesyncReactor, statesync_channel_descriptors
 from .store.block_store import BlockStore
 from .store.kv import MemKV, SqliteKV
 from .types.block import Block
@@ -611,10 +624,12 @@ class ExecNode:
             db.close()
 
 
-def block_exec_node(genesis_json: str, db_dir: Optional[str] = None) -> ExecNode:
+def block_exec_node(genesis_json: str, db_dir: Optional[str] = None,
+                    snapshot_interval: int = 0) -> ExecNode:
     """A fresh node at the genesis: the stores on MemKV, or on SqliteKV
     files `state.sqlite` and `blockstore.sqlite` in db_dir (made if
-    missing; ExecNode.close closes them)."""
+    missing; ExecNode.close closes them); its kvstore app takes a
+    state-sync snapshot every snapshot_interval heights (0: never)."""
     if db_dir is None:
         state_db, block_db = MemKV(), MemKV()
     else:
@@ -624,25 +639,24 @@ def block_exec_node(genesis_json: str, db_dir: Optional[str] = None) -> ExecNode
     state = state_from_genesis(GenesisDoc.from_json(genesis_json))
     state_store, block_store = StateStore(state_db), BlockStore(block_db)
     state_store.save(state)
-    app = KVStoreApplication()
+    app = KVStoreApplication(snapshot_interval=snapshot_interval)
     executor = BlockExecutor(
         state_store, LocalClient(app), NopMempool(), block_store=block_store
     )
     return ExecNode(state, app, executor, state_store, block_store, (state_db, block_db))
 
 
-def build_block_chain(genesis_json: str, privs: Sequence, txs: Sequence[list],
-                      seed: int) -> List[ChainBlock]:
-    """Blocks 1..len(txs) of the genesis's chain, block h holding txs[h-1]:
-    each made by State.make_block from the state after the height before
-    (its proposer the set's, its LastCommit that height's commit, signed
-    by sign_commit), then applied on a node of block_exec_node so that the
-    next block carries its app and results hashes."""
-    node = block_exec_node(genesis_json)
+def serve_chain(genesis_json: str, privs: Sequence, txs: Sequence[list], seed: int,
+                snapshot_interval: int = 0) -> tuple:
+    """(build_block_chain's chain, the node that applied it, the State
+    after each height): the node's stores hold every block, its commits
+    and validator sets, and its app the snapshots of every
+    snapshot_interval heights, as a peer serving the chain holds them."""
+    node = block_exec_node(genesis_json, snapshot_interval=snapshot_interval)
     chain_id = node.state.chain_id
     state = node.state
     last_commit = Commit(height=0)
-    out = []
+    out, states = [], []
     for h, block_txs_ in enumerate(txs, start=state.initial_height):
         proposer = state.validators.get_proposer().address
         block, parts = state.make_block(h, list(block_txs_), last_commit, [], proposer)
@@ -652,8 +666,19 @@ def build_block_chain(genesis_json: str, privs: Sequence, txs: Sequence[list],
         node.block_store.save_block(block, parts, seen)
         state = asyncio.run(node.executor.apply_block(state, block_id, block))
         out.append(ChainBlock(block, block_id, parts, seen))
+        states.append(state)
         last_commit = seen
-    return out
+    return out, node, states
+
+
+def build_block_chain(genesis_json: str, privs: Sequence, txs: Sequence[list],
+                      seed: int) -> List[ChainBlock]:
+    """Blocks 1..len(txs) of the genesis's chain, block h holding txs[h-1]:
+    each made by State.make_block from the state after the height before
+    (its proposer the set's, its LastCommit that height's commit, signed
+    by sign_commit), then applied on a node of block_exec_node so that the
+    next block carries its app and results hashes."""
+    return serve_chain(genesis_json, privs, txs, seed)[0]
 
 
 # -- the step machine's harness --
@@ -1806,3 +1831,306 @@ def run_gossip_network(genesis_json: str, privs: Sequence, keys: Sequence, node_
     finally:
         for vn in made:
             vn.node.close()
+
+
+# -- catch-up: block sync and state sync --
+
+
+def forged_commit(commit: Commit, index: int) -> Commit:
+    """A copy of commit with the first byte of its signature at index
+    flipped."""
+    out = Commit.from_proto(commit.to_proto())
+    sig = bytearray(out.signatures[index].signature)
+    sig[0] ^= 0x01
+    out.signatures[index].signature = bytes(sig)
+    return out
+
+
+def forged_block(block: Block, last_commit: Commit) -> Block:
+    """A copy of block carrying last_commit (its header's
+    last_commit_hash re-hashed), as a peer serving a forged block would
+    send it."""
+    out = Block.from_proto(block.to_proto())
+    out.last_commit = last_commit
+    out.header.last_commit_hash = last_commit.hash()
+    return out
+
+
+class ServingStore:
+    """A serving peer's read view of a BlockStore: `blocks` and `commits`
+    ({height: Block or Commit}) are served in place of the stored ones;
+    every other read goes to the store. With `claim`, a dict shared by
+    the views of several peers, a replaced block is served only by the
+    view first asked for its height (claim[height] is that view's
+    `name`); the others serve the stored block. So exactly one of them
+    sends it, whichever the fresh node's pool picks first."""
+
+    def __init__(self, store: BlockStore, blocks: Optional[dict] = None,
+                 commits: Optional[dict] = None, claim: Optional[dict] = None,
+                 name: str = "") -> None:
+        self._store = store
+        self._blocks = dict(blocks or {})
+        self._commits = dict(commits or {})
+        self._claim = claim
+        self.name = name
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+    def load_block(self, height: int) -> Optional[Block]:
+        if height in self._blocks:
+            if self._claim is None or self._claim.setdefault(height, self.name) == self.name:
+                return self._blocks[height]
+        return self._store.load_block(height)
+
+    def load_block_commit(self, height: int) -> Optional[Commit]:
+        if height in self._commits:
+            return self._commits[height]
+        return self._store.load_block_commit(height)
+
+
+class ServingClient(LocalClient):
+    """A serving peer's connection to the app: it lists a snapshot only
+    once the block store holds the two heights above it, whose light
+    blocks a restore verifies (the JAX reactor rejects the snapshot
+    otherwise, after a light-block timeout a provider)."""
+
+    def __init__(self, app: KVStoreApplication, block_store) -> None:
+        super().__init__(app)
+        self._block_store = block_store
+
+    async def list_snapshots(self, req):
+        res = await super().list_snapshots(req)
+        tip = self._block_store.height()
+        return abci_types.ResponseListSnapshots(
+            snapshots=tuple(s for s in res.snapshots if s.height + 2 <= tip)
+        )
+
+
+@dataclass
+class CatchupNode:
+    """A peer of the catch-up harness: its router and peer manager, the
+    block sync and state sync reactors on the router's channels, and for
+    a fresh node its stores and app (`exec_node`), event bus and a
+    consensus reactor that waits for block sync."""
+
+    node_id: str
+    router: Router
+    peer_manager: PeerManager
+    blocksync: BlocksyncReactor
+    statesync: StatesyncReactor
+    exec_node: Optional[ExecNode] = None
+    consensus: Optional[ConsensusReactor] = None
+    event_bus: Optional[EventBus] = None
+
+    async def start(self) -> None:
+        if self.event_bus is not None:
+            await self.event_bus.start()
+        await self.router.start()
+        if self.consensus is not None:
+            await self.consensus.start()
+        await self.blocksync.start()
+        await self.statesync.start()
+
+    async def stop(self) -> None:
+        """Stop every part; raise the first error one of them ended on
+        (block sync's pool routine, the step machine's loop)."""
+        errors = []
+        for svc in (self.statesync, self.blocksync, self.consensus, self.router):
+            if svc is None:
+                continue
+            try:
+                await svc.stop()
+            except Exception as e:  # raised below, after the rest stopped
+                errors.append(e)
+        if self.event_bus is not None:
+            await self.event_bus.stop()
+        if errors:
+            raise errors[0]
+
+
+def _catchup_router(key, transport: Transport, chain_id: str, listen_addr: str) -> tuple:
+    cfg = P2PConfig()
+    node_id = node_id_from_pubkey(key.pub_key())
+    info = NodeInfo(node_id=node_id, listen_addr=listen_addr, network=chain_id,
+                    version="tendermint_tpu_torch")
+    manager = PeerManager(node_id, peer_manager_options(cfg))
+    router = Router(info, key, manager, transport, listen_addr=listen_addr,
+                    options=router_options(cfg))
+    return node_id, router, manager
+
+
+def serving_node(node: ExecNode, key, transport: Transport, chain_id: str, listen_addr: str,
+                 block_store=None) -> CatchupNode:
+    """A peer serving node's chain: block sync in serve mode over
+    block_store (node's, or a ServingStore of it), and state sync serving
+    node's app snapshots (through a ServingClient), light blocks and
+    params. Build it inside the running loop."""
+    block_store = block_store if block_store is not None else node.block_store
+    node_id, router, manager = _catchup_router(key, transport, chain_id, listen_addr)
+    blocksync = BlocksyncReactor(
+        node.state, node.executor, block_store, router.open_channel(blocksync_channel_descriptor()),
+        manager.subscribe(), block_sync=False,
+    )
+    statesync = StatesyncReactor(
+        chain_id, node.state, ServingClient(node.app, block_store), node.state_store, block_store,
+        {cid: router.open_channel(d) for cid, d in statesync_channel_descriptors().items()},
+        manager.subscribe(),
+    )
+    return CatchupNode(node_id, router, manager, blocksync, statesync)
+
+
+def fresh_node(genesis_json: str, key, transport: Transport, listen_addr: str,
+               block_sync: bool, ss_cfg: Optional[StateSyncConfig] = None) -> CatchupNode:
+    """A node at the genesis (block_exec_node's stores on MemKV and app;
+    no validator key): block sync in sync mode when block_sync, state
+    sync with ss_cfg, and a consensus reactor (a ConsensusState of the
+    ConsensusConfig defaults, no WAL) that block sync switches on. Build
+    it inside the running loop."""
+    node = block_exec_node(genesis_json)
+    chain_id = node.state.chain_id
+    node_id, router, manager = _catchup_router(key, transport, chain_id, listen_addr)
+    bus = EventBus()
+    cs = ConsensusState(ConsensusConfig(), node.state, node.executor, node.block_store,
+                        event_bus=bus)
+    consensus = ConsensusReactor(
+        cs, {cid: router.open_channel(d) for cid, d in consensus_channel_descriptors().items()},
+        manager.subscribe(), bus, wait_sync=True,
+    )
+    blocksync = BlocksyncReactor(
+        node.state, node.executor, node.block_store,
+        router.open_channel(blocksync_channel_descriptor()), manager.subscribe(),
+        block_sync=block_sync, consensus_reactor=consensus, event_bus=bus,
+    )
+    statesync = StatesyncReactor(
+        chain_id, node.state, LocalClient(node.app), node.state_store, node.block_store,
+        {cid: router.open_channel(d) for cid, d in statesync_channel_descriptors().items()},
+        manager.subscribe(), cfg=ss_cfg,
+    )
+    return CatchupNode(node_id, router, manager, blocksync, statesync, node, consensus, bus)
+
+
+@dataclass
+class CatchupRun:
+    """What run_catchup saw (host clock, perf_counter seconds): the run
+    from the fresh node's start to its switch to consensus; for a state
+    sync, sync() (its discovery sleep apart), the backfill and the block
+    sync after it; the heights block sync applied, the peers its pool
+    banned (in order), and the fresh node (its stores and app in `fresh.exec_node`)
+    and its final state; for a state sync, the stored state's bytes right
+    after the bootstrap."""
+
+    mode: str
+    seconds: float
+    block_sync_s: float
+    applied: int
+    banned: List[str]
+    fresh: CatchupNode
+    state: State
+    discovery_s: float = 0.0
+    restore_s: float = 0.0
+    backfill_s: float = 0.0
+    backfilled: int = 0
+    restored_height: int = 0
+    bootstrapped: bytes = b""
+    server_ids: List[str] = dataclasses.field(default_factory=list)
+
+
+async def _wait_synced(fresh: CatchupNode, timeout_s: float) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not fresh.blocksync.synced:
+        err = fresh.blocksync.failure()
+        if err is not None:
+            raise err
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"block sync did not catch up (at {fresh.blocksync.pool.height})")
+        await asyncio.sleep(0.01)
+    # the switch runs at the end of the pool routine
+    while fresh.consensus.wait_sync:
+        await asyncio.sleep(0.01)
+
+
+def run_catchup(genesis_json: str, node: ExecNode, views: Sequence, node_keys: Sequence[int],
+                seed: int, mode: str, ss_cfg: Optional[StateSyncConfig] = None,
+                timeout_s: float = 300.0, instrument=None) -> CatchupRun:
+    """A fresh node catching up from len(views) peers serving node's
+    chain, all on one MemoryNetwork: mode "block" block-syncs from the
+    genesis; mode "state" state-syncs a snapshot (ss_cfg's trust root;
+    fresh.statesync.sync()), backfills the headers below it and
+    block-syncs from there. Either ends when block sync switches the
+    node's consensus on. views[i] is peer i's block store (node's, or a
+    ServingStore); the fresh node's key is node_key(seed, node_keys[0]),
+    peer i's node_key(seed, node_keys[i + 1]). instrument(fresh, servers),
+    if given, runs once they are built, before anything starts. Every
+    peer is stopped at the end; an error a peer ended on is raised."""
+    chain_id = node.state.chain_id
+
+    async def go() -> CatchupRun:
+        net = MemoryNetwork()
+        servers = [
+            serving_node(node, node_key(seed, k), MemoryTransport(net, f"server{i}.mem:{i + 1}"),
+                         chain_id, f"server{i}.mem:{i + 1}", block_store=view)
+            for i, (k, view) in enumerate(zip(node_keys[1:], views))
+        ]
+        fresh = fresh_node(genesis_json, node_key(seed, node_keys[0]),
+                           MemoryTransport(net, "fresh.mem:9"), "fresh.mem:9",
+                           block_sync=mode == "block", ss_cfg=ss_cfg)
+        # the bans in order: a banned peer the router then drops leaves
+        # the pool's peer list
+        banned: List[str] = []
+        ban = fresh.blocksync.pool.ban_peer
+        fresh.blocksync.pool.ban_peer = lambda peer_id: (banned.append(peer_id), ban(peer_id))[1]
+        if instrument is not None:
+            instrument(fresh, servers)
+        out = {}
+        try:
+            for peer in servers:
+                await peer.start()
+            t0 = time.perf_counter()
+            await fresh.start()
+            await _connect_mesh(servers + [fresh], 30.0)
+            if mode == "state":
+                state = await fresh.statesync.sync()
+                out["sync_s"] = time.perf_counter() - t0
+                out["restored_height"] = state.last_block_height
+                out["bootstrapped"] = fresh.exec_node.state_store.load().to_proto()
+                t1 = time.perf_counter()
+                out["backfilled"] = await fresh.statesync.backfill(state)
+                out["backfill_s"] = time.perf_counter() - t1
+                start_height = state.last_block_height
+                t_bs = time.perf_counter()
+                await fresh.blocksync.start_sync(state)
+            else:
+                start_height = fresh.exec_node.state.last_block_height
+                t_bs = t0
+            await _wait_synced(fresh, timeout_s)
+            t_end = time.perf_counter()
+        finally:
+            errors = []
+            for peer in [fresh] + servers:
+                try:
+                    await peer.stop()
+                except Exception as e:  # raised below, once every peer stopped
+                    errors.append(e)
+            if errors:
+                raise errors[0]
+        state = fresh.blocksync.state
+        discovery = ss_cfg.discovery_time if mode == "state" else 0.0
+        return CatchupRun(
+            mode=mode,
+            seconds=t_end - t0,
+            block_sync_s=t_end - t_bs,
+            applied=state.last_block_height - start_height,
+            banned=banned,
+            fresh=fresh,
+            state=state,
+            discovery_s=discovery,
+            restore_s=out.get("sync_s", 0.0) - discovery,
+            backfill_s=out.get("backfill_s", 0.0),
+            backfilled=out.get("backfilled", 0),
+            restored_height=out.get("restored_height", 0),
+            bootstrapped=out.get("bootstrapped", b""),
+            server_ids=[p.node_id for p in servers],
+        )
+
+    return asyncio.run(go())

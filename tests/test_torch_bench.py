@@ -147,3 +147,25 @@ def test_bench_consensus_gossip_cell(capsys, monkeypatch):
     assert (cell["heights"], cell["txs"], cell["validators"], cell["reps"]) == (2, 40, 8, 1)
     for key in ("gossip_votes_per_s", "harness_votes_per_s", "p50_ms", "p95_ms"):
         assert math.isfinite(cell[key]) and cell[key] > 0
+
+
+def test_bench_block_sync_and_state_sync_cells(capsys, monkeypatch):
+    """The block_sync and state_sync cells at 8 mixed validators and 40
+    txs a block, one fresh node each (the native CPU plane below the
+    gate): every key they declare, one chain built for both, their rates
+    and times positive, the restore's chunks the snapshot's."""
+    monkeypatch.setattr(bench, "VALIDATORS", 8)
+    monkeypatch.setattr(bench, "TXS", 40)
+    monkeypatch.setattr(bench, "CATCHUP_REPS", 1)
+    monkeypatch.setattr(bench, "CATCHUP_DISCOVERY_S", 0.2)
+    assert bench.main(["--device", "cpu", "--cells", "block_sync,state_sync"]) == 0
+    cells = json.loads(capsys.readouterr().out)["cells"]
+    for name in ("block_sync", "state_sync"):
+        assert set(cells[name]) == set(bench.CELL_KEYS[name]) | {"cell_s"}
+        assert (cells[name]["heights"], cells[name]["txs"], cells[name]["validators"]) == (8, 40, 8)
+    assert cells["block_sync"]["chain_build_s"] == cells["state_sync"]["chain_build_s"]
+    assert cells["state_sync"]["chunks"] == 1 and cells["state_sync"]["discovery_s"] == 0.2
+    for key in ("blocks_per_s", "p50_ms", "p95_ms"):
+        assert math.isfinite(cells["block_sync"][key]) and cells["block_sync"][key] > 0
+    for key in ("restore_s", "backfill_headers_per_s"):
+        assert math.isfinite(cells["state_sync"][key]) and cells["state_sync"][key] > 0

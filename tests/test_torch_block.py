@@ -62,6 +62,8 @@ from tendermint_tpu_torch.types.part_set import Part, PartSet
 from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
 from tendermint_tpu_torch.types.vote import Vote
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-block-chain"
 SEED = 13
 

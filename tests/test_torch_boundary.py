@@ -125,6 +125,14 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         "tendermint_tpu_torch.p2p.transport",
         "tendermint_tpu_torch.p2p.types",
         "tendermint_tpu_torch.crypto.symmetric",
+        "tendermint_tpu_torch.blocksync",
+        "tendermint_tpu_torch.blocksync.msgs",
+        "tendermint_tpu_torch.blocksync.pool",
+        "tendermint_tpu_torch.blocksync.reactor",
+        "tendermint_tpu_torch.statesync",
+        "tendermint_tpu_torch.statesync.chunks",
+        "tendermint_tpu_torch.statesync.msgs",
+        "tendermint_tpu_torch.statesync.reactor",
     ):
         assert m in added
     assert [m for m in added if _forbidden(m)] == []
@@ -133,15 +141,16 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
 def test_importing_the_device_plane_builds_and_starts_nothing():
     """Importing native/, node/, faults and breaker, the light client,
     the step machine with its WAL, ticker, signer, evidence pool and
-    event bus, the mempool, the p2p stack, the workloads and the bench
-    compiles no library and starts no thread: the native plane builds at
-    first use."""
+    event bus, the mempool, the p2p stack, block sync and state sync, the
+    workloads and the bench compiles no library and starts no thread:
+    the native plane builds at first use."""
     code = (
         "import json, threading\n"
         "from tendermint_tpu_torch import bench, consensus, light, mempool, native, p2p, workloads\n"
         "from tendermint_tpu_torch.mempool import reactor\n"
         "from tendermint_tpu_torch.consensus import msgs, state, ticker, types, wal\n"
         "from tendermint_tpu_torch import eventbus, evidence, privval, pubsub\n"
+        "from tendermint_tpu_torch import blocksync, statesync\n"
         "from tendermint_tpu_torch.node import device\n"
         "from tendermint_tpu_torch.crypto import breaker, faults, gpu_verifier\n"
         "print(json.dumps([native._LIB is None, threading.active_count(),\n"

@@ -27,6 +27,7 @@ from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
 
 from .test_torch_consensus_reactor import _localnet
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
 
 SPECS = [
     "equivocate:h=4..7:seed=9:step=precommit;withhold:h=5:p=0.5:times=2:victim=load2",

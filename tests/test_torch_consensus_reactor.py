@@ -109,6 +109,8 @@ from tendermint_tpu_torch.types.genesis import GenesisDoc
 from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
 from tendermint_tpu_torch.types.vote import Vote
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-reactor-chain"
 SEED = 61
 PINNED_NS = 1_760_000_000 * 1_000_000_000

@@ -71,6 +71,8 @@ from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from tendermint_tpu_torch.types.proposal import Proposal
 from tendermint_tpu_torch.types.vote import Vote
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-cs-chain"
 SEED = 41
 TXS = 6

@@ -49,6 +49,8 @@ from tendermint_tpu_torch.types.validation import verify_commit
 from tendermint_tpu_torch.types.vote import Vote
 from tendermint_tpu_torch.types.vote_set import VoteSet, commit_to_vote_set
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-votes-chain"
 HEIGHT = 17
 

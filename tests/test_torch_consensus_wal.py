@@ -39,6 +39,8 @@ from tendermint_tpu_torch.types.part_set import Part
 from tendermint_tpu_torch.types.proposal import Proposal
 from tendermint_tpu_torch.types.vote import Vote
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 SEED = 17
 PKGS = {"port": (port_msgs, port_wal, port_faults), "jax": (jax_msgs, jax_wal, jax_faults)}
 

@@ -43,6 +43,8 @@ from tendermint_tpu_torch.pubsub import Server, SubscriptionError
 from tendermint_tpu_torch.pubsub.query import compile_query, query_for_event
 from tendermint_tpu_torch.types import events as E
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-bus-chain"
 SEED = 61
 TAGS = ("tm.event", "tx.height", "tx.hash", "app.key", "app.creator", "block.height")

@@ -51,6 +51,8 @@ from tendermint_tpu_torch.state.execution import validate_block
 from tendermint_tpu_torch.types.block_id import BlockID
 from tendermint_tpu_torch.types.commit import Commit
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-exec-chain"
 SEED = 29
 HEIGHTS = 5

@@ -50,6 +50,8 @@ from tendermint_tpu_torch.types.block_id import PartSetHeader as PortPSH
 from tendermint_tpu_torch.types.canonical import VoteSignTemplate as PortTemplate
 from tendermint_tpu_torch.types.commit import Commit as PortCommit
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-hostpath-chain"
 HEIGHT = 21
 BID = BlockID(

@@ -44,6 +44,7 @@ from tendermint_tpu_torch.workloads import ChainProvider
 
 from .test_light import CHAIN, HOUR_NS, DictProvider, build_chain
 from .test_torch_validation import CHAIN_ID, HEIGHT, N_VALS, _carry, _jax_commit
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
 
 BASE_NS = 1_700_000_000 * 1_000_000_000
 PERIOD_NS = 200 * HOUR_NS

@@ -68,6 +68,8 @@ from tendermint_tpu_torch.crypto import sigcache
 from tendermint_tpu_torch.mempool import reactor as port_reactor
 from tendermint_tpu_torch.p2p import transport as port_transport
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-mempool-chain"
 SEED = 43
 SLOW = dict(

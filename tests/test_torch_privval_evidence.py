@@ -70,6 +70,8 @@ from tendermint_tpu_torch.types.light import LightBlock, SignedHeader
 from tendermint_tpu_torch.types.proposal import Proposal
 from tendermint_tpu_torch.types.vote import Vote
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-pv-chain"
 SEED = 53
 

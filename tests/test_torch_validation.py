@@ -33,6 +33,8 @@ from tendermint_tpu_torch.types import validation as port_validation
 from tendermint_tpu_torch.types.block_id import BlockID as PortBlockID
 from tendermint_tpu_torch.types.block_id import PartSetHeader as PortPSH
 
+from .test_torch_isolation import jax_device_plane_paused  # noqa: F401 (autouse)
+
 CHAIN_ID = "torch-port-chain"
 HEIGHT = 7
 N_VALS = 6
