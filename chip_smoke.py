@@ -123,7 +123,13 @@ the backfill of the headers below it (a forged light block passed over)
 and block sync to the tip; every commit check's launches as its rule
 says, the fresh node's chain equal to the served one and block sync's
 first heights to the CPU plane's (the kernels line's `block_sync` and
-`state_sync`). Keys, key types, messages,
+`state_sync`). Phase rpc serves config 4's chain (150 ed25519
+validators, 256 hops) over JSON-RPC on 127.0.0.1: a light client syncs
+it over HTTP with the launches of the same client in process, and a
+lying witness's conflicting header is reported as evidence the primary
+accepts; then the catch-up chain's routes: 10k light blocks checked on
+the card, tx proofs, searches on a KV and an SQL sink, and broadcasts
+(the kernels line's `rpc`). Keys, key types, messages,
 timestamps, signing witnesses, chains, votes and transactions come from
 --seed (made by tendermint_tpu_torch.workloads).
 
@@ -4652,9 +4658,24 @@ def commit_rule(kind: str, vals, commit, gate: int, step: int) -> dict:
     COMMIT votes whose address the trusted set `vals` holds, through the
     one whose running power first exceeds 1/3 of that set's. Counted by
     key type, then window_rule. A check that fails on a signature
-    launches the same windows: every group is drained first."""
+    launches the same windows: every group is drained first. "bulk"
+    (commit_signers) is a merged window of light checks."""
+    return window_rule(commit_signers(kind, vals, commit), gate, step)
+
+
+def commit_signers(kind: str, vals, commit) -> dict:
+    """The signatures of each key type commit_rule's plan verifies; for
+    "bulk" (light.verifier's verify_commit_light_bulk, a merged window of
+    light checks) `vals` is its rows (set, block ID, height, commit), each
+    row a light plan, and `commit` is None."""
     from tendermint_tpu_torch.types.commit import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT
 
+    if kind == "bulk":
+        by_type: dict = {}
+        for row_vals, _block_id, _height, row_commit in vals:
+            for key_type, n in commit_signers("light", row_vals, row_commit).items():
+                by_type[key_type] = by_type.get(key_type, 0) + n
+        return by_type
     flags = commit.block_id_flags_array()
     powers = vals.powers_array()
     total = int(powers.sum())
@@ -4674,15 +4695,16 @@ def commit_rule(kind: str, vals, commit, gate: int, step: int) -> dict:
     by_type: dict = {}
     for v in picked:
         by_type[v.pub_key.type()] = by_type.get(v.pub_key.type(), 0) + 1
-    return window_rule(by_type, gate, step)
+    return by_type
 
 
 @contextlib.contextmanager
-def recorded_checks(calls: list):
-    """For the block, each commit check of CATCHUP_CHECKS appends a record
-    to `calls`: its plan, height, set and commit (the rule is computed
-    after the run, off its clock), the launches it made, its host ms and
-    its outcome."""
+def recorded_checks(calls: list, checks: tuple = CATCHUP_CHECKS):
+    """For the block, each commit check of `checks` appends a record to
+    `calls`: its plan, height, set and commit (the rule is computed after
+    the run, off its clock), the launches it made, its host ms and its
+    outcome. A "bulk" check records its rows as the set (commit_signers)
+    and its last row's height."""
     import importlib
 
     originals = []
@@ -4692,6 +4714,9 @@ def recorded_checks(calls: list):
             if kind == "trusting":
                 _chain_id, vals, commit, _trust = args
                 height = commit.height
+            elif kind == "bulk":
+                _chain_id, vals = args
+                commit, height = None, vals[-1][2]
             else:
                 _chain_id, vals, _block_id, height, commit = args
             before = launches()
@@ -4711,7 +4736,7 @@ def recorded_checks(calls: list):
 
         return wrapper
 
-    for mod_name, attr, kind in CATCHUP_CHECKS:
+    for mod_name, attr, kind in checks:
         mod = importlib.import_module(mod_name)
         originals.append((mod, attr, getattr(mod, attr)))
         setattr(mod, attr, wrap(getattr(mod, attr), kind))
@@ -5128,6 +5153,451 @@ def phase_state_sync(torch, seed: int, served: dict) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return {"launches": out["launches"]}
+
+
+# the rpc phase. (a) config 4 over HTTP: CONFIG4_MIXED_HEADERS hops (the
+# depth cut for the script's time) of LIGHT_VALIDATORS ed25519
+# validators, applied by workloads.serve_chain; a lying witness serves a
+# conflicting header at the tip. (b) config 5's routes on the catch-up
+# chain: the light blocks of RPC_LIGHT_HEIGHTS, the indexed heights, the
+# proofs of one block, and RPC_BROADCAST txs through broadcast_tx_sync
+RPC_HEADERS = CONFIG4_MIXED_HEADERS
+RPC_LIGHT_HEIGHTS = tuple(range(2, 8))
+RPC_INDEX_HEIGHTS = (4, 5)
+RPC_PROOF_HEIGHT = 5
+RPC_PROOFS = 100
+RPC_BROADCAST = 1_000
+RPC_DUPLICATES = 50
+RPC_MALFORMED = 10
+RPC_CLIENTS = 8
+RPC_TIMEOUT_S = 120.0
+# the attack's checks: the client's merged window, the witness header's
+# cross-check, and the evidence pool's check of the reported evidence
+RPC_ATTACK_CHECKS = (
+    ("tendermint_tpu_torch.light.verifier", "verify_commit_light_bulk", "bulk"),
+    ("tendermint_tpu_torch.light.verifier", "verify_commit_light", "light"),
+    ("tendermint_tpu_torch.evidence.verify", "verify_commit_light_trusting", "trusting"),
+)
+
+
+def rpc_chain(seed: int) -> dict:
+    """Config 4's chain for the rpc phase: RPC_HEADERS + 1 applied blocks
+    (no txs) of LIGHT_VALIDATORS ed25519 validators from the seed, built
+    and applied on the CPU plane by workloads.serve_chain."""
+    from tendermint_tpu_torch.workloads import kv_genesis, seeded_keys, serve_chain
+
+    t0 = time.perf_counter()
+    privs = seeded_keys(LIGHT_VALIDATORS, seed)
+    _chain, node, _states = serve_chain(
+        kv_genesis(CONFIG4_CHAIN_ID, privs), privs, [[] for _ in range(RPC_HEADERS + 1)], seed
+    )
+    return {"privs": privs, "node": node, "build_s": time.perf_counter() - t0}
+
+
+def rpc_http_sync(torch, seed: int, chain: dict) -> dict:
+    """(a): the HTTP light sync of config 4 beside the in-process one, and
+    the lying witness. Runs with the device plane installed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.evidence.pool import EvidencePool
+    from tendermint_tpu_torch.light import verifier
+    from tendermint_tpu_torch.light.client import SEQUENTIAL_BATCH_HOPS
+    from tendermint_tpu_torch.light.errors import DivergenceError
+    from tendermint_tpu_torch.light.store import LightStore
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.rpc.core import Environment
+    from tendermint_tpu_torch.rpc.servingcache import ServingCache
+    from tendermint_tpu_torch.store.kv import MemKV
+    from tendermint_tpu_torch.types import validation
+    from tendermint_tpu_torch.types.light import LightBlock, LightBlocksResponse
+    from tendermint_tpu_torch.workloads import (
+        ServingStore,
+        conflicting_light_block,
+        http_light_client,
+        http_light_sync,
+        light_client,
+        light_sync,
+        rpc_light_sync,
+        rpc_serving,
+        stored_light_blocks,
+    )
+
+    node = chain["node"]
+    bs, ss = node.block_store, node.state_store
+    tip = bs.height()
+    hops = tip - 1
+    blocks = stored_light_blocks(bs, ss, range(1, tip + 1))
+    gate = gpu_verifier.installed()
+    per_commit = 2 * LIGHT_VALIDATORS // 3 + 1
+    w = light_windows(hops, per_commit, SEQUENTIAL_BATCH_HOPS, gate)
+    expect = {"ed25519": (w, {"sha512_ram": w, "ed25519_verify_tile": w})}
+    runs = {}
+
+    def http():
+        runs["http"] = rpc_light_sync(bs, ss, CONFIG4_CHAIN_ID, SEQUENTIAL_BATCH_HOPS,
+                                      pruning_size=tip)
+
+    def in_process():
+        runs["in_process"] = light_client(blocks, CONFIG4_CHAIN_ID, tip)
+        light_sync(runs["in_process"], SEQUENTIAL_BATCH_HOPS)
+
+    out = {"launches_http_sync": count_one_call(http, expect),
+           "launches_in_process_sync": count_one_call(in_process, expect)}
+    got = {k: v for k, v in out["launches_http_sync"].items() if k != "by_key_type"}
+    want = {k: v for k, v in out["launches_in_process_sync"].items() if k != "by_key_type"}
+    if got != want:
+        raise AssertionError(f"rpc: the HTTP sync launched {got}, the in-process one {want}")
+    for name, run in (("http", runs["http"].client), ("in_process", runs["in_process"])):
+        for h in range(1, tip + 1):
+            lb = run.store.light_block(h)
+            if lb is None or lb.to_proto() != blocks[h].to_proto():
+                raise AssertionError(f"rpc: the {name} sync stored another header {h} than the chain's")
+    # headers/s in turns, then in reverse order; ms a page over every
+    # HTTP sync's bulk fetches
+    readings = {"http": [], "in_process": []}
+    fetch_s, pages = list(runs["http"].fetch_s), runs["http"].pages
+    for name in ("http", "in_process", "in_process", "http"):
+        if name == "http":
+            run = rpc_light_sync(bs, ss, CONFIG4_CHAIN_ID, SEQUENTIAL_BATCH_HOPS)
+            seconds = run.seconds
+            fetch_s += run.fetch_s
+            pages += run.pages
+        else:
+            seconds = light_sync(light_client(blocks, CONFIG4_CHAIN_ID), SEQUENTIAL_BATCH_HOPS)
+        readings[name].append(hops / seconds)
+    out["headers_per_s"] = {k: float(np.mean(v)) for k, v in readings.items()}
+    out["headers_per_s_readings"] = readings
+    out["ms_per_page"] = sum(fetch_s) * 1e3 / pages
+    out["pages"] = pages
+    # the card's busy share over one more HTTP sync, and where its host
+    # time goes: the server's assembly and encode of each light block
+    # (store loads, to_proto), the client's page decode, then the
+    # client's stages as config4 times them
+    stages = {
+        "server_encode": (ServingCache, "encoded_light_block"),
+        "client_decode": (LightBlocksResponse, "from_proto"),
+        "validate_basic": (LightBlock, "validate_basic"),
+        "header_checks": (verifier, "adjacent_header_checks"),
+        "collect": (validation, "collect_commit_light"),
+        "verify": (validation, "verify_triples_grouped"),
+        "store": (LightStore, "save_light_block"),
+    }
+    spent = {name: [] for name in stages}
+    with contextlib.ExitStack() as stack, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name, (owner, attr) in stages.items():
+            stack.enter_context(timed(owner, attr, spent[name]))
+        reset_launches()
+        run = rpc_light_sync(bs, ss, CONFIG4_CHAIN_ID, SEQUENTIAL_BATCH_HOPS)
+        torch.cuda.synchronize()
+        counts = launches()
+    out["http_sync_profiled"] = {"s": run.seconds, **catchup_busy(prof, counts, run.seconds)}
+    ms = {name: sum(v) / hops for name, v in spent.items()}
+    out["http_ms_per_header"] = {"total": run.seconds * 1e3 / hops, **ms,
+                                 "rest": run.seconds * 1e3 / hops - sum(ms.values())}
+
+    # the lying witness: the tip with another app hash, signed by all
+    meta, commit = conflicting_light_block(bs, ss, tip, chain["privs"], seed)
+    primary = Environment(chain_id=CONFIG4_CHAIN_ID, block_store=bs, state_store=ss,
+                          evidence_pool=EvidencePool(MemKV(), ss, bs))
+    liar = Environment(chain_id=CONFIG4_CHAIN_ID, state_store=ss,
+                       block_store=ServingStore(bs, metas={tip: meta}, commits={tip: commit}))
+    calls, reports = [], []
+    now = meta.header.time_ns + 1_000_000_000
+    call = HTTPClient.call
+
+    async def recorded_call(self, method, **params):
+        try:
+            res = await call(self, method, **params)
+        except Exception as e:  # recorded, then raised unchanged
+            if method == "broadcast_evidence":
+                reports.append((self.port, type(e).__name__, str(e)))
+            raise
+        if method == "broadcast_evidence":
+            reports.append((self.port, "ok", res))
+        return res
+
+    async def attack():
+        async with rpc_serving([primary, liar]) as addrs:
+            client = http_light_client(addrs[0], addrs[1:], CONFIG4_CHAIN_ID, blocks[tip - 1])
+            try:
+                await http_light_sync(client, tip, now, SEQUENTIAL_BATCH_HOPS)
+            except DivergenceError as e:
+                return e, addrs
+        raise AssertionError("rpc: the lying witness's header raised no DivergenceError")
+
+    before = gpu_verifier.stats()
+    HTTPClient.call = recorded_call
+    try:
+        with recorded_checks(calls, RPC_ATTACK_CHECKS):
+            reset_launches()
+            err, addrs = asyncio_run(attack())
+            counts = launches()
+    finally:
+        HTTPClient.call = call
+    assert_no_fault(before, gpu_verifier.stats(), "rpc attack")
+    checks = check_catchup_launches(calls, counts, "rpc attack")
+    got = [(c["kind"], c["height"]) for c in checks]
+    if got != [("bulk", tip), ("light", tip), ("trusting", tip)]:
+        raise AssertionError(f"rpc attack: the commit checks {got}")
+    (ev,) = err.evidence
+    pending = [e.hash() for e in primary.evidence_pool.pending_evidence(10**6)[0]]
+    primary_port = int(addrs[0].rsplit(":", 1)[1])
+    answer = [r for r in reports if r[0] == primary_port]
+    if answer != [(primary_port, "ok", {"hash": ev.hash().hex()})] or pending != [ev.hash()]:
+        raise AssertionError(f"rpc attack: the primary answered {answer}, holds {pending}")
+    if ev.total_voting_power != ss.load_validators(tip - 1).total_voting_power():
+        raise AssertionError("rpc attack: the evidence's total power is not the common set's")
+    out["attack"] = {
+        "height": tip,
+        "common_height": ev.common_height,
+        "error": str(err),
+        "evidence_hash": ev.hash().hex(),
+        "primary_answer": answer[0][2],
+        "witness_answer": [list(r[1:]) for r in reports if r[0] != primary_port],
+        "checks": checks,
+        "launches": {k: n for k, n in counts.items() if n},
+    }
+    return out
+
+
+def asyncio_run(coro):
+    """asyncio.run under RPC_TIMEOUT_S, so that a hang fails the phase."""
+    import asyncio
+
+    return asyncio.run(asyncio.wait_for(coro, RPC_TIMEOUT_S))
+
+
+def rpc_config5_routes(torch, seed: int, served: dict) -> dict:
+    """(b): config 5's routes on the catch-up chain over HTTP. Runs with
+    the device plane installed."""
+    import asyncio
+    import base64
+
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.crypto.merkle import Proof, verify_multiproofs_batch
+    from tendermint_tpu_torch.encoding.proto import ProtoWriter
+    from tendermint_tpu_torch.eventbus import EventBus
+    from tendermint_tpu_torch.light.verifier import MAX_CLOCK_DRIFT_NS, verify_adjacent
+    from tendermint_tpu_torch.mempool.types import MempoolError
+    from tendermint_tpu_torch.rpc.client import HTTPClient, RPCClientError
+    from tendermint_tpu_torch.rpc.core import Environment
+    from tendermint_tpu_torch.state.indexer import IndexerService, KVSink
+    from tendermint_tpu_torch.state.sink_sql import SQLSink
+    from tendermint_tpu_torch.store.kv import MemKV
+    from tendermint_tpu_torch.types.light import LightBlock
+    from tendermint_tpu_torch.types.tx import tx_hash
+    from tendermint_tpu_torch.workloads import kv_mempool, kv_txs, publish_stored_height, rpc_serving
+
+    node, chain = served["node"], served["chain"]
+    bs, ss = node.block_store, node.state_store
+    rng = np.random.default_rng([seed, 18])
+    kv, sql = KVSink(MemKV()), SQLSink("sqlite::memory:", CHAIN_ID)
+    bus = EventBus()
+    pool, twin = kv_mempool(KVStoreApplication()), kv_mempool(KVStoreApplication())
+    env = Environment(chain_id=CHAIN_ID, block_store=bs, state_store=ss, mempool=pool,
+                      event_bus=bus, event_sinks=[kv, sql])
+    env_sql = Environment(chain_id=CHAIN_ID, block_store=bs, state_store=ss, event_sinks=[sql])
+    # the txs sent: unique kvstore txs and malformed validator txs in a
+    # seeded order, then duplicates of some of the unique ones
+    n_unique = RPC_BROADCAST - RPC_DUPLICATES - RPC_MALFORMED
+    unique = kv_txs(seed, 1_000_018, n_unique, TX_LENGTHS)
+    malformed = [malformed_val_tx(i, rng)[0] for i in range(RPC_MALFORMED)]
+    wave1 = [(unique + malformed)[i] for i in rng.permutation(n_unique + RPC_MALFORMED).tolist()]
+    wave2 = [unique[i] for i in rng.choice(n_unique, RPC_DUPLICATES, replace=False).tolist()]
+    calls: list = []
+    out: dict = {}
+
+    async def run():
+        await bus.start()
+        indexer = IndexerService([kv, sql], bus)
+        await indexer.start()
+        t0 = time.perf_counter()
+        published = 0
+        for h in RPC_INDEX_HEIGHTS:
+            last = bs.load_block(h).txs[-1]
+            published += publish_stored_height(bus, bs, ss, h)
+            while not (kv.get_tx_by_hash(tx_hash(last)) and sql.get_tx_by_hash(tx_hash(last))):
+                await asyncio.sleep(0.005)
+        out["indexed"] = {"txs": published, "s": time.perf_counter() - t0,
+                          "txs_per_s": published / (time.perf_counter() - t0)}
+        await indexer.stop()
+        async with rpc_serving([env, env_sql]) as addrs:
+            c, c_sql = HTTPClient(addrs[0], RPC_TIMEOUT_S), HTTPClient(addrs[1], RPC_TIMEOUT_S)
+            # light blocks, each adjacent pair checked on the card
+            t0 = time.perf_counter()
+            raw = {h: (await c.call("light_block", height=h))["light_block"] for h in RPC_LIGHT_HEIGHTS}
+            out["light_block_fetch_ms"] = (time.perf_counter() - t0) * 1e3 / len(raw)
+            lbs = {h: LightBlock.from_proto(bytes.fromhex(b)) for h, b in raw.items()}
+            now = lbs[RPC_LIGHT_HEIGHTS[-1]].signed_header.header.time_ns + 1_000_000_000
+            with recorded_checks(calls, (CATCHUP_CHECKS[2],)):
+                reset_launches()
+                ms = []
+                for h in RPC_LIGHT_HEIGHTS:
+                    t1 = time.perf_counter()
+                    lbs[h].validate_basic(CHAIN_ID)
+                    if h > RPC_LIGHT_HEIGHTS[0]:
+                        verify_adjacent(CHAIN_ID, lbs[h - 1].signed_header, lbs[h].signed_header,
+                                        lbs[h].validator_set, 10**18, now, MAX_CLOCK_DRIFT_NS)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t1) * 1e3)
+                counts = launches()
+            out["light_check_ms"] = {"mean": float(np.mean(ms)), "samples": ms}
+            out["light_checks"] = check_catchup_launches(calls, counts, "rpc config5")
+            roots = counts.get("sha256_tree", 0)
+            if roots != len(RPC_LIGHT_HEIGHTS):
+                raise AssertionError(f"rpc config5: X4 launched {roots} times, "
+                                     f"not one a validator set ({len(RPC_LIGHT_HEIGHTS)})")
+            out["light_launches"] = {k: n for k, n in counts.items() if n}
+            # the bulk page, byte-equal to the single blobs
+            lo, hi = RPC_LIGHT_HEIGHTS[0], RPC_LIGHT_HEIGHTS[-1]
+            page = await c.call("light_blocks", min_height=lo, max_height=hi)
+            w = ProtoWriter()
+            for h in RPC_LIGHT_HEIGHTS:
+                w.message(1, bytes.fromhex(raw[h]))
+            w.int(2, bs.height())
+            if page["light_blocks"] != w.finish().hex() or page["count"] != len(RPC_LIGHT_HEIGHTS):
+                raise AssertionError("rpc config5: the light_blocks page differs from the single blobs")
+            # proofs of RPC_PROOFS txs of one block, against the checked
+            # header's data_hash, on the host
+            block = chain[RPC_PROOF_HEIGHT - 1].block
+            idx = sorted(rng.choice(len(block.txs), RPC_PROOFS, replace=False).tolist())
+            t0 = time.perf_counter()
+            res = await c.call("tx_proofs", height=RPC_PROOF_HEIGHT, indices=idx)
+            out["tx_proofs_ms"] = (time.perf_counter() - t0) * 1e3
+            proofs = [Proof.from_proto_bytes(bytes.fromhex(p)) for p in res["proofs"]]
+            data_hash = lbs[RPC_PROOF_HEIGHT].signed_header.header.data_hash
+            ok = verify_multiproofs_batch(proofs, data_hash, [tx_hash(block.txs[i]) for i in idx])
+            if not ok.all() or [p.index for p in proofs] != idx or res["root"] != data_hash.hex():
+                raise AssertionError("rpc config5: a tx proof did not verify against data_hash")
+            # searches on both sinks
+            t0 = time.perf_counter()
+            found = await c.call("tx_search", query=f"tx.height={RPC_PROOF_HEIGHT}")
+            out["tx_search_kv_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            found_sql = await c_sql.call("tx_search", query=f"tx.height={RPC_PROOF_HEIGHT}")
+            out["tx_search_sql_ms"] = (time.perf_counter() - t0) * 1e3
+            if found["total_count"] != N_TXS or found_sql != found:
+                raise AssertionError(f"rpc config5: tx_search found {found['total_count']} and "
+                                     f"{found_sql['total_count']}, pages equal {found_sql == found}")
+            one = block.txs[idx[0]]
+            tx = await c.call("tx", hash=tx_hash(one).hex())
+            results = await c.call("block_results", height=RPC_PROOF_HEIGHT)
+            if (tx["height"], tx["index"], base64.b64decode(tx["tx"])) != (RPC_PROOF_HEIGHT, idx[0], one) \
+                    or results["txs_results"][idx[0]] != tx["tx_result"]:
+                raise AssertionError("rpc config5: tx and block_results disagree")
+            vals = await c.call("validators", height=RPC_PROOF_HEIGHT, page=1, per_page=100)
+            if (vals["count"], vals["total"]) != (100, N_VALIDATORS):
+                raise AssertionError(f"rpc config5: validators page {vals['count']} of {vals['total']}")
+            # broadcast_tx_sync from RPC_CLIENTS connections, each wave
+            # against the twin pool's own check_tx in order
+            clients = [HTTPClient(addrs[0], RPC_TIMEOUT_S) for _ in range(RPC_CLIENTS)]
+
+            async def send(k, tx):
+                try:
+                    return "ok", await clients[k % RPC_CLIENTS].call(
+                        "broadcast_tx_sync", tx=base64.b64encode(tx).decode())
+                except RPCClientError as e:
+                    return "err", e.code, str(e)
+
+            got, t0 = [], time.perf_counter()
+            for wave in (wave1, wave2):
+                got += await asyncio.gather(*(send(k, tx) for k, tx in enumerate(wave)))
+            out["broadcast_s"] = time.perf_counter() - t0
+            for cl in (c, c_sql, *clients):
+                await cl.close()
+        want = []
+        for tx in wave1 + wave2:
+            try:
+                r = await twin.check_tx(tx)
+                want.append(("ok", {"code": r.code, "data": base64.b64encode(r.data).decode(),
+                                    "log": r.log, "codespace": r.codespace, "hash": tx_hash(tx).hex()}))
+            except MempoolError as e:
+                want.append(("err", -32603, f"tx rejected: {e} ()"))
+        if got != want:
+            bad = next(i for i, (g, x) in enumerate(zip(got, want)) if g != x)
+            raise AssertionError(f"rpc config5: broadcast {bad}: {got[bad]}, the twin pool's {want[bad]}")
+        out["broadcast"] = {
+            "txs": len(got), "txs_per_s": len(got) / out["broadcast_s"], "clients": RPC_CLIENTS,
+            "accepted": sum(g[0] == "ok" and g[1]["code"] == 0 for g in got),
+            "refused_by_app": sum(g[0] == "ok" and g[1]["code"] != 0 for g in got),
+            "duplicates": sum(g[0] == "err" for g in got),
+        }
+        await bus.stop()
+
+    before = gpu_verifier.stats()
+    asyncio_run(run())
+    assert_no_fault(before, gpu_verifier.stats(), "rpc config5")
+    sql.close()
+    if out["broadcast"]["duplicates"] != RPC_DUPLICATES or out["broadcast"]["refused_by_app"] != RPC_MALFORMED:
+        raise AssertionError(f"rpc config5: broadcast outcomes {out['broadcast']}")
+    return out
+
+
+def phase_rpc(torch, seed: int, served: dict) -> dict:
+    """RPC with the device plane installed (install_device_plane(
+    GPUConfig()), then settle_probes()); every server on 127.0.0.1:0.
+    (a) Config 4 over HTTP (rpc_chain): a fresh sequential light client
+    of an RPC server over the chain's node (primary) and an honest
+    witness syncs from height 1 to the tip through light_blocks pages of
+    20; its X1 and K2 launches equal those of the same client code
+    syncing in process (workloads.ChainProvider), every stored light
+    block equals the chain's; headers/s of both in turns, ms a page and
+    the card's idle share over an HTTP sync. A client trusting the
+    height below the tip, with a lying witness (the tip's header with
+    another app hash, signed by all), raises DivergenceError and reports
+    the evidence over HTTP; the primary answers its hash and holds it as
+    pending; the client's window, the cross-check and the pool's
+    trusting check each launch their rule's windows. (b) Config 5's
+    routes on the catch-up chain `served`, with a TxMempool and an
+    IndexerService on a KV and an SQL sink fed heights
+    RPC_INDEX_HEIGHTS' stored results through the event bus (txs/s
+    indexed): light_block at RPC_LIGHT_HEIGHTS, each adjacent pair
+    checked on the card (X1, K2, X3 by the light plan, X4 once a set);
+    the light_blocks page byte-equal to those blobs; RPC_PROOFS tx proofs
+    of one block verified against the checked header's data_hash on the
+    host; tx_search totals of N_TXS and equal pages on both sinks; tx,
+    block_results and validators; RPC_BROADCAST txs through
+    broadcast_tx_sync, each outcome the twin pool's (txs/s). No fault or
+    reroute."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before rpc")
+    t_phase = time.perf_counter()
+    chain = rpc_chain(seed)
+    start = gpu_verifier.stats()
+    install_device_plane(GPUConfig())
+    settle_probes()
+    try:
+        t0 = time.perf_counter()
+        config4 = rpc_http_sync(torch, seed, chain)
+        config4["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        config5 = rpc_config5_routes(torch, seed, served)
+        config5["s"] = time.perf_counter() - t0
+        assert_no_fault(start, gpu_verifier.stats(), "rpc")
+    finally:
+        uninstall_device_plane()
+    out = {
+        "phase": "rpc",
+        "config4": {"validators": LIGHT_VALIDATORS, "headers": RPC_HEADERS,
+                    "chain_build_s": chain["build_s"], **config4},
+        "config5": {"validators": {"ed25519": N_VALIDATORS - N_VALIDATORS // 2,
+                                   "sr25519": N_VALIDATORS // 2},
+                    "light_heights": list(RPC_LIGHT_HEIGHTS), **config5},
+        "ok": True,
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    strip = lambda d: {k: n for k, n in d.items() if k != "by_key_type"}  # noqa: E731
+    return {"launches": {"http_sync": strip(config4["launches_http_sync"]),
+                         "in_process_sync": strip(config4["launches_in_process_sync"]),
+                         "attack": config4["attack"]["launches"],
+                         "config5_light_checks": config5["light_launches"]}}
 
 
 def phase_kernels(
@@ -5746,6 +6216,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     served = catchup_chain(args.seed)
     block_sync = phase_block_sync(torch, args.seed, served)
     state_sync = phase_state_sync(torch, args.seed, served)
+    rpc = phase_rpc(torch, args.seed, served)
     del served
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
@@ -5785,6 +6256,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     for r in kernels["kernels"]:
         r["block_sync"] = {"launches": block_sync["launches"].get(r["name"], 0)}
         r["state_sync"] = {"launches": state_sync["launches"].get(r["name"], 0)}
+        r["rpc"] = {run: c.get(r["name"], 0) for run, c in rpc["launches"].items()}
     # the vote path's launches per height at each size, and each kernel
     # against its plain version on the path's windows at VOTE_WIDTHS
     for r in kernels["kernels"]:

@@ -116,7 +116,15 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   "state"); the restore's seconds without its discovery sleep
   (CATCHUP_DISCOVERY_S), the snapshot's chunks, and backfill headers/s
   (the means). The restored height and the final app hash must be the
-  chain's.
+  chain's;
+- rpc_light: config 4's light sync over HTTP beside the same client in
+  process: RPC_HEADERS + 1 applied blocks of 150 ed25519 validators
+  (workloads.serve_chain), synced from height 1 by a sequential client
+  of an RPC server and an honest witness (HTTPProvider, light_blocks
+  pages of 20) and by one of a ChainProvider over the same light
+  blocks, RPC_REPS of each in turns; headers/s of each and ms a page of
+  the bulk fetch (its HTTP call, JSON and proto decode). The HTTP sync
+  must end at the tip's header.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -173,6 +181,9 @@ CATCHUP_DISCOVERY_S = 1.0
 CATCHUP_TRUST_PERIOD_S = 10 * 365 * 24 * 3600.0
 # the most light_sync may spend building its chain before it cuts it
 CHAIN_BUDGET_S = 240.0
+# rpc_light's chain (config 4's validators, its depth cut to 256 hops for
+# the cell's time) and its syncs of each kind
+RPC_HEADERS, RPC_REPS = 256, 2
 
 # each cell and the keys of its object
 CELL_KEYS = {
@@ -257,6 +268,17 @@ CELL_KEYS = {
         "validators",
         "reps",
         "chain_build_s",
+    ),
+    "rpc_light": (
+        "headers_per_s",
+        "headers_per_s_readings",
+        "ms_per_page",
+        "pages",
+        "headers",
+        "validators",
+        "window",
+        "chain_build_s",
+        "reduced",
     ),
     # last: it leaves both breakers open
     "commit10k_mixed_cpu_plane": ("validators", "p50_ms", "p95_ms", "reps"),
@@ -979,6 +1001,55 @@ def cell_state_sync(ctx: Ctx) -> dict:
     }
 
 
+def cell_rpc_light(ctx: Ctx) -> dict:
+    """Config 4's light sync over HTTP beside the same client in process:
+    a chain of RPC_HEADERS + 1 applied blocks of LIGHT_VALIDATORS
+    ed25519 validators (workloads.serve_chain, no txs), synced from
+    height 1 by a fresh sequential client of an RPC server on 127.0.0.1
+    and an honest witness (HTTPProvider, light_blocks pages of 20), and
+    by one of workloads.ChainProvider over the same light blocks, in
+    turns; headers/s of each, and ms a page of the bulk fetch."""
+    from .light.client import SEQUENTIAL_BATCH_HOPS
+    from .workloads import (kv_genesis, light_client, light_sync, rpc_light_sync, seeded_keys,
+                            serve_chain, stored_light_blocks)
+
+    seed = ctx.args.seed + 70
+    privs = seeded_keys(LIGHT_VALIDATORS, seed)
+    t0 = time.perf_counter()
+    _chain, node, _states = serve_chain(
+        kv_genesis(CHAIN_ID, privs), privs, [[] for _ in range(RPC_HEADERS + 1)], seed
+    )
+    build_s = time.perf_counter() - t0
+    bs, ss = node.block_store, node.state_store
+    blocks = stored_light_blocks(bs, ss, range(1, bs.height() + 1))
+    before = _stats()
+    readings = {"http": [], "in_process": []}
+    fetch_s, pages = [], 0
+    # in turns, then in reverse order, so drift of the host hits both alike
+    for name in (["http", "in_process", "in_process", "http"] * RPC_REPS)[: 2 * RPC_REPS]:
+        if name == "http":
+            run = rpc_light_sync(bs, ss, CHAIN_ID, SEQUENTIAL_BATCH_HOPS)
+            seconds = run.seconds
+            fetch_s += run.fetch_s
+            pages += run.pages
+        else:
+            seconds = light_sync(light_client(blocks, CHAIN_ID), SEQUENTIAL_BATCH_HOPS)
+        readings[name].append(RPC_HEADERS / seconds)
+    _no_fault(before, "rpc_light")
+    return {
+        "headers_per_s": {k: float(np.mean(v)) for k, v in readings.items()},
+        "headers_per_s_readings": readings,
+        "ms_per_page": sum(fetch_s) * 1e3 / pages,
+        "pages": pages,
+        "headers": RPC_HEADERS,
+        "validators": LIGHT_VALIDATORS,
+        "window": SEQUENTIAL_BATCH_HOPS,
+        "chain_build_s": build_s,
+        "reduced": {"headers": [HEADERS, RPC_HEADERS],
+                    "reason": "config 4's depth cut to 256 hops for the cell's time"},
+    }
+
+
 RUNNERS = {
     "batch_curve": cell_batch_curve,
     "throughput_8192": cell_throughput,
@@ -997,6 +1068,7 @@ RUNNERS = {
     "consensus_gossip": cell_consensus_gossip,
     "block_sync": cell_block_sync,
     "state_sync": cell_state_sync,
+    "rpc_light": cell_rpc_light,
 }
 
 

@@ -1,11 +1,13 @@
 """The device plane's configuration, the step machine's timeouts, the
 mempool's settings, the p2p settings the router and peer manager read,
-and the block and state sync settings.
+the block and state sync settings, and the RPC server's and the tx
+indexer's settings.
 
 Counterpart: tendermint_tpu/config.py:47 (DEFAULT_BUCKET_SIZES),
 :104-130 (P2PConfig), :132-151 (MempoolConfig), :155-169
 (StateSyncConfig, BlockSyncConfig), :172-202
-(ConsensusConfig, its gossip knobs :185-191) and :254-268 (TPUConfig). 12288 exists for the 10k-validator commit: padding
+(ConsensusConfig, its gossip knobs :185-191), :254-268 (TPUConfig),
+:90-103 (RPCConfig) and :205-214 (TxIndexConfig). 12288 exists for the 10k-validator commit: padding
 10k signatures to 16384 would waste 39% of the device work, 12288 cuts
 that to 18%.
 """
@@ -22,7 +24,9 @@ __all__ = [
     "GPUConfig",
     "MempoolConfig",
     "P2PConfig",
+    "RPCConfig",
     "StateSyncConfig",
+    "TxIndexConfig",
 ]
 
 DEFAULT_BUCKET_SIZES = (8, 32, 128, 512, 2048, 8192, 12288, 16384)
@@ -153,3 +157,27 @@ class StateSyncConfig:
 @dataclass
 class BlockSyncConfig:
     enable: bool = True
+
+
+@dataclass
+class RPCConfig:
+    laddr: str = "tcp://127.0.0.1:26657"
+    max_open_connections: int = 900
+    max_subscription_clients: int = 100
+    max_subscriptions_per_client: int = 5
+    timeout_broadcast_tx_commit: float = 10.0
+    max_body_bytes: int = 1_000_000
+    # per-block serving cache (rpc/servingcache.py): LRU capacity in
+    # blocks for each artifact family (encoded LightBlock blobs, held
+    # tx-proof merkle trees); 0 disables the cache for this node
+    serving_cache_blocks: int = 64
+
+
+@dataclass
+class TxIndexConfig:
+    # kv | null | psql (the psql sink runs on sqlite3 here:
+    # state/sink_sql.py)
+    indexer: list[str] = field(default_factory=lambda: ["kv"])
+    # DSN for the "psql" sink: sqlite:<path> or sqlite::memory:. Empty:
+    # a sqlite file in the data dir.
+    psql_conn: str = ""

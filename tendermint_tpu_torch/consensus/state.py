@@ -274,6 +274,10 @@ class ConsensusState(Service):
 
     # -- public API --
 
+    def get_round_state(self) -> RoundState:
+        """The live round state (the RPC consensus routes read it)."""
+        return self.rs
+
     def send_peer_msg(self, msg, peer_id: str) -> bool:
         """Enqueue a message from a peer; False when the queue is full
         and it was dropped (gossip is redundant and resent, and a slow

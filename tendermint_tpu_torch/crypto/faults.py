@@ -1,8 +1,8 @@
 """Injectable device faults: seeded, scoped chaos at the device seam.
 
 Counterpart: tendermint_tpu/crypto/faults.py, trimmed to what the port's
-device verifier, WAL, signer, p2p router and transports and their tests
-use: `DeviceFault` and `DeviceTimeout` (:120-130), `Rule` (:139-215,
+device verifier, WAL, signer, p2p router and transports, RPC dispatch
+and their tests use: `DeviceFault` and `DeviceTimeout` (:120-130), `Rule` (:139-215,
 the point, mode, probability, seed, budget, hang length and key filter,
 and the network filters src, dst and ch), the label match and `NetPlan`
 (:221-270), `armed` (:273) and `net_armed` (:288), `inject` and
@@ -28,6 +28,8 @@ fail:
     p2p.recv       p2p/router.py _recv_peer, (src, dst, ch): inbound
                    link faults (src is the remote peer)
     p2p.dial       p2p/transport.py dial(), (src, dst)
+    rpc.route      rpc/jsonrpc.py, before every route's handler, keyed
+                   by the method
 
 Modes:
 

@@ -12,7 +12,7 @@ from .errors import (
     OldHeaderExpiredError,
     VerificationError,
 )
-from .provider import LocalProvider, P2PProvider, Provider
+from .provider import HTTPProvider, LocalProvider, P2PProvider, Provider
 from .store import LightStore
 from .verifier import (
     DEFAULT_TRUST_LEVEL,
@@ -33,6 +33,7 @@ __all__ = [
     "LightBlockNotFoundError",
     "LightClientError",
     "LightStore",
+    "HTTPProvider",
     "LocalProvider",
     "MAX_CLOCK_DRIFT_NS",
     "NewValSetCantBeTrustedError",

@@ -412,10 +412,17 @@ class Client:
                     witness.id(),
                 )
                 continue
+            # the total power of the set trusted at the common height, as
+            # the reference's detector sets it (light/detector.go
+            # newLightClientAttackEvidence); the JAX package leaves it 0,
+            # and every evidence pool refuses such evidence
             evidence.append(
                 LightClientAttackEvidence(
                     conflicting_block=w_lb,
                     common_height=common.height if common else 0,
+                    total_voting_power=(
+                        common.validator_set.total_voting_power() if common else 0
+                    ),
                     timestamp_ns=w_lb.signed_header.header.time_ns,
                 )
             )

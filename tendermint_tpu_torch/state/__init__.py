@@ -1,6 +1,6 @@
-"""Replicated state, its store, and block execution (counterpart:
-tendermint_tpu/state/). The indexer, the SQL sink and the state metrics
-are not ported yet."""
+"""Replicated state, its store, block execution, and the tx indexer with
+its KV and SQL sinks (counterpart: tendermint_tpu/state/). The state
+metrics wait for ROADMAP item 11."""
 
 from .execution import (  # noqa: F401
     BlockExecutor,

@@ -1,24 +1,22 @@
 """SignedHeader and LightBlock.
 
-Counterpart: tendermint_tpu/types/light.py:26-120 (reference:
-types/light.go). LightBlocksRequest and LightBlocksResponse, the bulk
-fetch's messages, are not ported: the p2p layer that would carry them
-(p2p/, with the consensus, mempool and evidence reactors) has no
-statesync or light-block channel yet, and there is no RPC (ROADMAP
-items 20 and 21).
+Counterpart: tendermint_tpu/types/light.py:26-175 (reference:
+types/light.go): SignedHeader and LightBlock, and the bulk fetch's
+messages LightBlocksRequest and LightBlocksResponse, which the RPC
+route `light_blocks` and light/provider.py's HTTPProvider carry.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 from ..encoding.proto import FieldReader, ProtoWriter
 from .commit import Commit
 from .header import Header
 from .validator import ValidatorSet
 
-__all__ = ["LightBlock", "SignedHeader"]
+__all__ = ["LightBlock", "LightBlocksRequest", "LightBlocksResponse", "SignedHeader"]
 
 
 @dataclass
@@ -112,4 +110,57 @@ class LightBlock:
             validator_set=(
                 ValidatorSet.from_proto(vs) if vs is not None else None
             ),
+        )
+
+
+@dataclass
+class LightBlocksRequest:
+    """Bulk light-block fetch: an ascending height range plus the
+    client's own page bound (the JSON-RPC `light_blocks` route carries
+    the same fields as params, and the server clamps the page whatever
+    the request asks for)."""
+
+    min_height: int = 0
+    max_height: int = 0
+    max_blocks: int = 0
+
+    def to_proto(self) -> bytes:
+        w = ProtoWriter()
+        w.int(1, self.min_height)
+        w.int(2, self.max_height)
+        w.int(3, self.max_blocks)
+        return w.finish()
+
+    @classmethod
+    def from_proto(cls, data: bytes) -> "LightBlocksRequest":
+        r = FieldReader(data)
+        return cls(
+            min_height=r.int64(1),
+            max_height=r.int64(2),
+            max_blocks=r.int64(3),
+        )
+
+
+@dataclass
+class LightBlocksResponse:
+    """One served page of the bulk fetch: consecutive LightBlocks in
+    ascending height order plus the serving store's tip, so a clamped
+    client knows whether another page exists."""
+
+    light_blocks: List[LightBlock] = field(default_factory=list)
+    last_height: int = 0
+
+    def to_proto(self) -> bytes:
+        w = ProtoWriter()
+        for lb in self.light_blocks:
+            w.message(1, lb.to_proto())
+        w.int(2, self.last_height)
+        return w.finish()
+
+    @classmethod
+    def from_proto(cls, data: bytes) -> "LightBlocksResponse":
+        r = FieldReader(data)
+        return cls(
+            light_blocks=[LightBlock.from_proto(b) for b in r.get_all(1)],
+            last_height=r.int64(2),
         )

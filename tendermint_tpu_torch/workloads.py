@@ -58,7 +58,17 @@ all built with the port's own types from a seed.
   fresh_node, peers with the block sync and state sync reactors (the
   fresh one with a consensus reactor waiting for block sync); and
   run_catchup, a fresh node block-syncing, or state-syncing, backfilling
-  and block-syncing, from serving peers on one MemoryNetwork.
+  and block-syncing, from serving peers on one MemoryNetwork;
+- the RPC harness: rpc_serving, RPCServers for Environments on
+  127.0.0.1:0; stored_light_blocks, a node's light blocks as its stores
+  hold them; conflicting_light_block, a header of the chain with another
+  app hash and the commit of the set signing it (a lying witness serves
+  it through a ServingStore); http_light_client and http_light_sync, a
+  sequential light client of RPC servers through HTTPProviders;
+  rpc_light_sync, a node's chain synced from height 1 over HTTP from it
+  and honest witnesses, its light_blocks pages timed; and
+  publish_stored_height, a stored height's events on an event bus as
+  BlockExecutor publishes them (the indexer's feed).
 
 Keys, timestamps and signing witnesses come from the seed, so a seed
 gives the same bytes on every host. Signing is native: ed25519's and
@@ -113,7 +123,7 @@ from .abci.kvstore import KVStoreApplication
 from .crypto import batch
 from .light.client import Client, TrustOptions
 from .light.errors import LightBlockNotFoundError
-from .light.provider import Provider
+from .light.provider import HTTPProvider, Provider
 from .light.store import LightStore
 from .mempool.mempool import TxMempool
 from .mempool.nop import NopMempool
@@ -130,6 +140,7 @@ from .store.block_store import BlockStore
 from .store.kv import MemKV, SqliteKV
 from .types.block import Block
 from .types.block_id import BlockID, PartSetHeader
+from .types.block_meta import BlockMeta
 from .types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from .types.commit import Commit, CommitSig
 from .types.evidence import DuplicateVoteEvidence
@@ -158,6 +169,13 @@ __all__ = [
     "HeightRun",
     "MempoolRun",
     "VoteTraffic",
+    "conflicting_light_block",
+    "http_light_client",
+    "http_light_sync",
+    "publish_stored_height",
+    "rpc_light_sync",
+    "rpc_serving",
+    "stored_light_blocks",
     "block_exec_node",
     "block_txs",
     "build_block_chain",
@@ -1857,9 +1875,9 @@ def forged_block(block: Block, last_commit: Commit) -> Block:
 
 
 class ServingStore:
-    """A serving peer's read view of a BlockStore: `blocks` and `commits`
-    ({height: Block or Commit}) are served in place of the stored ones;
-    every other read goes to the store. With `claim`, a dict shared by
+    """A serving peer's read view of a BlockStore: `blocks`, `commits` and
+    `metas` ({height: Block, Commit or BlockMeta}) are served in place of
+    the stored ones; every other read goes to the store. With `claim`, a dict shared by
     the views of several peers, a replaced block is served only by the
     view first asked for its height (claim[height] is that view's
     `name`); the others serve the stored block. So exactly one of them
@@ -1867,10 +1885,11 @@ class ServingStore:
 
     def __init__(self, store: BlockStore, blocks: Optional[dict] = None,
                  commits: Optional[dict] = None, claim: Optional[dict] = None,
-                 name: str = "") -> None:
+                 name: str = "", metas: Optional[dict] = None) -> None:
         self._store = store
         self._blocks = dict(blocks or {})
         self._commits = dict(commits or {})
+        self._metas = dict(metas or {})
         self._claim = claim
         self.name = name
 
@@ -1887,6 +1906,11 @@ class ServingStore:
         if height in self._commits:
             return self._commits[height]
         return self._store.load_block_commit(height)
+
+    def load_block_meta(self, height: int) -> Optional[BlockMeta]:
+        if height in self._metas:
+            return self._metas[height]
+        return self._store.load_block_meta(height)
 
 
 class ServingClient(LocalClient):
@@ -2134,3 +2158,153 @@ def run_catchup(genesis_json: str, node: ExecNode, views: Sequence, node_keys: S
         )
 
     return asyncio.run(go())
+
+
+# -- the RPC harness --
+
+
+@contextlib.asynccontextmanager
+async def rpc_serving(envs: Sequence, max_body_bytes: int = 1_000_000):
+    """RPCServers for the Environments, on 127.0.0.1:0, started in the
+    running loop; yields their addresses. On exit each is stopped, which
+    raises an error its routes kept (rpc/server.py)."""
+    from .rpc.server import RPCServer
+
+    servers = [RPCServer(env, "tcp://127.0.0.1:0", max_body_bytes) for env in envs]
+    started = []
+    try:
+        for srv in servers:
+            await srv.start()
+            started.append(srv)
+        yield [f"127.0.0.1:{srv.bound_port}" for srv in servers]
+    finally:
+        for srv in started:
+            await srv.stop()
+
+
+def stored_light_blocks(block_store, state_store, heights) -> Dict[int, LightBlock]:
+    """The light blocks of `heights` as a node's stores hold them (the tip
+    with its seen commit), as the RPC routes assemble them."""
+    from .rpc.servingcache import ServingCache
+
+    cache = ServingCache(block_store, state_store, capacity=0)
+    out = {h: cache.light_block_at(h) for h in heights}
+    missing = [h for h, lb in out.items() if lb is None]
+    if missing:
+        raise ValueError(f"no light block at {missing}")
+    return out
+
+
+def conflicting_light_block(block_store, state_store, height: int, privs: Sequence,
+                            seed: int, app_hash: bytes = b"\x5a" * 32) -> tuple:
+    """(BlockMeta, Commit) of a header that conflicts with the stored one
+    at height: the same header with another app hash, signed by every
+    validator of the height's set whose key is in privs (sign_commit)."""
+    meta = block_store.load_block_meta(height)
+    vals = state_store.load_validators(height)
+    header = meta.header
+    header.app_hash = app_hash
+    block_id = BlockID(hash=header.hash(), part_set_header=meta.block_id.part_set_header)
+    commit = sign_commit(header.chain_id, vals, block_id, height, header.time_ns, privs, seed)
+    return BlockMeta(block_id=block_id, block_size=meta.block_size, header=header,
+                     num_txs=meta.num_txs), commit
+
+
+def http_light_client(primary: str, witnesses: Sequence[str], chain_id: str, trusted: LightBlock,
+                      pruning_size: int = 1000, timeout_s: float = 60.0) -> Client:
+    """A fresh sequential light client of RPC servers (HTTPProviders of
+    their addresses), trusting `trusted`, with a trusting period longer
+    than any chain here."""
+    return Client(
+        chain_id,
+        TrustOptions(period_ns=10**18, height=trusted.height, hash=trusted.signed_header.hash()),
+        HTTPProvider(primary, timeout=timeout_s),
+        [HTTPProvider(a, timeout=timeout_s) for a in witnesses],
+        LightStore(MemKV()),
+        sequential=True,
+        pruning_size=pruning_size,
+    )
+
+
+async def http_light_sync(client: Client, height: int, now_ns: int, affinity: int) -> float:
+    """Seconds of `client` verifying `height` at now_ns, the group
+    affinity pinned to `affinity` (and restored after); its providers'
+    connections closed after."""
+    saved = batch.group_affinity_state()
+    batch.set_group_affinity(affinity)
+    try:
+        t0 = time.perf_counter()
+        await client.verify_light_block_at_height(height, now_ns)
+        return time.perf_counter() - t0
+    finally:
+        batch.restore_group_affinity(saved)
+        for p in [client.primary, *client.witnesses]:
+            if isinstance(p, HTTPProvider):
+                await p.close()
+
+
+@dataclass
+class RPCLightSync:
+    """One light sync over HTTP (rpc_light_sync): its seconds, the client
+    (its store holds what it verified), and each bulk fetch's seconds
+    and pages (the fetch, the JSON and the proto decode)."""
+
+    seconds: float
+    client: Client
+    fetch_s: List[float]
+    pages: int
+
+
+def rpc_light_sync(block_store, state_store, chain_id: str, affinity: int,
+                   witnesses: int = 1, pruning_size: int = 1000) -> RPCLightSync:
+    """A fresh sequential light client of an RPC server over the node's
+    stores (and `witnesses` more, honest), trusting height 1, syncing the
+    tip one second after its time, with the group affinity pinned."""
+    from .rpc.core import LIGHT_BLOCKS_PAGE_CAP, Environment
+
+    tip = block_store.height()
+    trusted = stored_light_blocks(block_store, state_store, [1])[1]
+    now = block_store.load_block_meta(tip).header.time_ns + 1_000_000_000
+    envs = [Environment(chain_id=chain_id, block_store=block_store, state_store=state_store)
+            for _ in range(1 + witnesses)]
+    fetch_s: List[float] = []
+    pages = [0]
+
+    async def run() -> RPCLightSync:
+        async with rpc_serving(envs) as addrs:
+            client = http_light_client(addrs[0], addrs[1:], chain_id, trusted, pruning_size)
+            inner = client.primary.light_blocks
+
+            async def timed(first: int, last: int) -> list:
+                t0 = time.perf_counter()
+                out = await inner(first, last)
+                fetch_s.append(time.perf_counter() - t0)
+                pages[0] += -(-(last - first + 1) // LIGHT_BLOCKS_PAGE_CAP)
+                return out
+
+            client.primary.light_blocks = timed
+            seconds = await http_light_sync(client, tip, now, affinity)
+        lb = client.store.light_block(tip)
+        if lb is None or lb.signed_header.hash() != block_store.load_block_meta(tip).header.hash():
+            raise AssertionError(f"the HTTP light sync did not end at {tip}")
+        return RPCLightSync(seconds, client, fetch_s, pages[0])
+
+    return asyncio.run(run())
+
+
+def publish_stored_height(bus: EventBus, block_store, state_store, height: int) -> int:
+    """Publish a stored height's NewBlock, NewBlockHeader and Tx events on
+    `bus`, as BlockExecutor._fire_events does after applying it; returns
+    the txs published."""
+    meta = block_store.load_block_meta(height)
+    block = block_store.load_block(height)
+    responses = state_store.load_abci_responses(height)
+    # the executor's own publishing code, on a stand-in holding the bus
+    BlockExecutor._fire_events(_BusHolder(bus), block, meta.block_id, responses, [])
+    return len(block.txs)
+
+
+@dataclass
+class _BusHolder:
+    event_bus: EventBus
+

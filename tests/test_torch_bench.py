@@ -169,3 +169,20 @@ def test_bench_block_sync_and_state_sync_cells(capsys, monkeypatch):
         assert math.isfinite(cells["block_sync"][key]) and cells["block_sync"][key] > 0
     for key in ("restore_s", "backfill_headers_per_s"):
         assert math.isfinite(cells["state_sync"][key]) and cells["state_sync"][key] > 0
+
+
+def test_bench_rpc_light_cell(capsys, monkeypatch):
+    """The rpc_light cell at 4 validators and 24 hops on the CPU, one
+    sync of each kind: the HTTP sync pages the bulk route (heights 2-24
+    in two pages), and both kinds are reported."""
+    monkeypatch.setattr(bench, "LIGHT_VALIDATORS", 4)
+    monkeypatch.setattr(bench, "RPC_HEADERS", 24)
+    monkeypatch.setattr(bench, "RPC_REPS", 1)
+    assert bench.main(["--device", "cpu", "--cells", "rpc_light"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cell = line["cells"]["rpc_light"]
+    assert sorted(cell) == sorted([*bench.CELL_KEYS["rpc_light"], "cell_s"])
+    assert sorted(cell["headers_per_s"]) == ["http", "in_process"]
+    assert cell["headers"] == 24 and cell["validators"] == 4
+    assert cell["pages"] == 2 and cell["ms_per_page"] > 0
+    assert [len(v) for v in cell["headers_per_s_readings"].values()] == [1, 1]

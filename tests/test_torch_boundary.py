@@ -133,6 +133,16 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         "tendermint_tpu_torch.statesync.chunks",
         "tendermint_tpu_torch.statesync.msgs",
         "tendermint_tpu_torch.statesync.reactor",
+        "tendermint_tpu_torch.rpc",
+        "tendermint_tpu_torch.rpc.client",
+        "tendermint_tpu_torch.rpc.core",
+        "tendermint_tpu_torch.rpc.jsonrpc",
+        "tendermint_tpu_torch.rpc.server",
+        "tendermint_tpu_torch.rpc.servingcache",
+        "tendermint_tpu_torch.state.indexer",
+        "tendermint_tpu_torch.state.sink_sql",
+        "tendermint_tpu_torch.store.keymigrate",
+        "tendermint_tpu_torch.config",
     ):
         assert m in added
     assert [m for m in added if _forbidden(m)] == []
@@ -142,6 +152,7 @@ def test_importing_the_device_plane_builds_and_starts_nothing():
     """Importing native/, node/, faults and breaker, the light client,
     the step machine with its WAL, ticker, signer, evidence pool and
     event bus, the mempool, the p2p stack, block sync and state sync, the
+    RPC layer, the indexer and its sinks, the key migration, the
     workloads and the bench compiles no library and starts no thread:
     the native plane builds at first use."""
     code = (
@@ -150,7 +161,9 @@ def test_importing_the_device_plane_builds_and_starts_nothing():
         "from tendermint_tpu_torch.mempool import reactor\n"
         "from tendermint_tpu_torch.consensus import msgs, state, ticker, types, wal\n"
         "from tendermint_tpu_torch import eventbus, evidence, privval, pubsub\n"
-        "from tendermint_tpu_torch import blocksync, statesync\n"
+        "from tendermint_tpu_torch import blocksync, statesync, rpc\n"
+        "from tendermint_tpu_torch.state import indexer, sink_sql\n"
+        "from tendermint_tpu_torch.store import keymigrate\n"
         "from tendermint_tpu_torch.node import device\n"
         "from tendermint_tpu_torch.crypto import breaker, faults, gpu_verifier\n"
         "print(json.dumps([native._LIB is None, threading.active_count(),\n"

@@ -244,7 +244,8 @@ def test_wrong_trust_hash_and_expired_root():
 
 def test_divergence_and_failover():
     """A witness with a verifiable fork: DivergenceError, and the same
-    evidence bytes reported; a witness of another chain is dropped; a
+    evidence bytes reported (but for the total power the port fills
+    in); a witness of another chain is dropped; a
     primary that cannot serve is replaced by a witness."""
     blocks = _chain(8)
     fork = _chain(8, app_hash=b"\x66" * 32)
@@ -253,6 +254,12 @@ def test_divergence_and_failover():
         blocks, 8, sequential=False, jax_witnesses=[jw], port_witnesses=[pw]
     )
     assert outcome[0] == "DivergenceError"
+    # the port's evidence carries the common set's total power, as the
+    # reference's detector sets it; the JAX client leaves it 0 (which
+    # its own evidence pool refuses), the rest is byte-equal
+    assert [e.total_voting_power for e in jw.reported] == [0]
+    for e in jw.reported:
+        e.total_voting_power = blocks[e.common_height].validator_set.total_voting_power()
     assert [e.to_proto() for e in pw.reported] == [e.to_proto() for e in jw.reported]
     assert [e.hash() for e in pw.reported] == [e.hash() for e in jw.reported]
 
