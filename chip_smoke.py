@@ -129,7 +129,15 @@ it over HTTP with the launches of the same client in process, and a
 lying witness's conflicting header is reported as evidence the primary
 accepts; then the catch-up chain's routes: 10k light blocks checked on
 the card, tx proofs, searches on a KV and an SQL sink, and broadcasts
-(the kernels line's `rpc`). Keys, key types, messages,
+(the kernels line's `rpc`). Phase node_start starts a node as an
+operator does: a home written by the CLI's `init` with the catch-up
+chain's genesis, make_node from its config.toml (the device plane from
+its [gpu]), block sync from the three peers with block_sync's launches
+block by block; then a staged crash before apply and a restart whose
+ABCI handshake replays the chain into a fresh app and applies the last
+block on the card at block_exec's rule; then four `start` processes of
+a `testnet` over TCP to height 3, each exiting 0 on SIGTERM (the kernels
+line's `node_start`). Keys, key types, messages,
 timestamps, signing witnesses, chains, votes and transactions come from
 --seed (made by tendermint_tpu_torch.workloads).
 
@@ -282,8 +290,17 @@ TX_LENGTHS = (100, 300)
 HOST_REPS = 5
 
 
+# the script's start, for the timeline emit() writes to stderr
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    if isinstance(obj, dict) and "phase" in obj:
+        # where the script's time limit goes: each phase's end, in
+        # seconds from the start
+        print(f"chip_smoke: phase {obj['phase']} ended at {time.perf_counter() - _T0:.1f} s",
+              file=sys.stderr, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -4624,7 +4641,8 @@ CATCHUP_SNAPSHOT = 4
 # of the block below it refuses it)
 CATCHUP_FORGED_AT = 4
 # block_sync: the heights whose apply the CPU plane's reference repeats
-CATCHUP_CPU_HEIGHTS = 3
+# (cut from 3, then 2, for the script's time)
+CATCHUP_CPU_HEIGHTS = 1
 # state_sync: the operator's trust root, the discovery sleep, a trusting
 # period that keeps the seeded chain's times (workloads.BASE_TIME_NS)
 # inside it, and the backfill height whose light block the peer first in
@@ -4797,18 +4815,21 @@ def catchup_busy(prof, counts: dict, wall_s: float) -> dict:
 
 
 def catchup_chain(seed: int) -> dict:
-    """The chain both catch-up phases serve: CATCHUP_HEIGHTS blocks of
-    N_TXS kvstore txs (TX_LENGTHS bytes) at config 5's mixed genesis,
-    made and applied on the CPU plane by workloads.serve_chain, whose
-    node (MemKV stores, its app snapshotting every CATCHUP_SNAPSHOT
-    heights) the peers serve."""
+    """The chain the catch-up phases and node_start serve: CATCHUP_HEIGHTS
+    blocks of N_TXS kvstore txs (TX_LENGTHS bytes) at config 5's mixed
+    genesis, made and applied on the CPU plane by workloads.serve_chain
+    from the app's InitChain (as a node started from a home begins),
+    whose node (MemKV stores, its app snapshotting every
+    CATCHUP_SNAPSHOT heights) the peers serve. Every fresh node of these
+    phases takes the InitChain too (run_catchup's init_chain)."""
     from tendermint_tpu_torch.workloads import kv_genesis, kv_txs, seeded_keys, serve_chain
 
     t0 = time.perf_counter()
     privs = seeded_keys(N_VALIDATORS, seed, N_VALIDATORS // 2)
     genesis = kv_genesis(CHAIN_ID, privs)
     txs = [kv_txs(seed, h, N_TXS, TX_LENGTHS) for h in range(1, CATCHUP_HEIGHTS + 1)]
-    chain, node, states = serve_chain(genesis, privs, txs, seed, snapshot_interval=CATCHUP_SNAPSHOT)
+    chain, node, states = serve_chain(genesis, privs, txs, seed, snapshot_interval=CATCHUP_SNAPSHOT,
+                                      init_chain=True)
     return {"genesis": genesis, "privs": privs, "chain": chain, "node": node, "states": states,
             "build_s": time.perf_counter() - t0}
 
@@ -4887,9 +4908,11 @@ def phase_block_sync(torch, seed: int, served: dict) -> dict:
             h = first.header.height
             peers = (pool.first_block_peer(), pool.second_block_peer())
             n = len(calls)
+            before = launches()
             await inner_pair(first, second)
             pairs.append({"height": h, "peers": peers, "applied": reactor.state.last_block_height >= h,
-                          "verify_ms": calls[n]["ms"]})
+                          "verify_ms": calls[n]["ms"],
+                          "launches": {k: v - before[k] for k, v in launches().items()}})
 
         async def apply(state, block_id, block):
             t0 = time.perf_counter()
@@ -4911,7 +4934,7 @@ def phase_block_sync(torch, seed: int, served: dict) -> dict:
         with recorded_checks(calls), profile(activities=[ProfilerActivity.CUDA]) as prof:
             reset_launches()
             run = run_catchup(genesis, node, views, CATCHUP_NODE_KEYS, seed, "block",
-                              timeout_s=CATCHUP_TIMEOUT_S, instrument=instrument)
+                              timeout_s=CATCHUP_TIMEOUT_S, instrument=instrument, init_chain=True)
             torch.cuda.synchronize()
             counts = launches()
         assert_no_fault(start, gpu_verifier.stats(), "block_sync")
@@ -4953,7 +4976,7 @@ def phase_block_sync(torch, seed: int, served: dict) -> dict:
     # the CPU plane's reference of the first heights: the same checks,
     # saves and applies on a fresh node
     t_ref = time.perf_counter()
-    ref = block_exec_node(genesis)
+    ref = block_exec_node(genesis, init_chain=True)
     state = ref.state
     for h in range(1, CATCHUP_CPU_HEIGHTS + 1):
         cb, nxt = chain[h - 1], chain[h]
@@ -4993,7 +5016,9 @@ def phase_block_sync(torch, seed: int, served: dict) -> dict:
     }
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
-    return {"launches": launched}
+    return {"launches": launched, "blocks_per_s": out["blocks_per_s"],
+            "pair_launches": {p["height"]: p["launches"] for p in pairs if p["applied"]},
+            "refused_pair_launches": [p["launches"] for p in pairs if not p["applied"]]}
 
 
 def phase_state_sync(torch, seed: int, served: dict) -> dict:
@@ -5067,7 +5092,7 @@ def phase_state_sync(torch, seed: int, served: dict) -> dict:
         with recorded_checks(calls), profile(activities=[ProfilerActivity.CUDA]) as prof:
             reset_launches()
             run = run_catchup(genesis, node, views, CATCHUP_NODE_KEYS, seed, "state", ss_cfg=cfg,
-                              timeout_s=CATCHUP_TIMEOUT_S, instrument=instrument)
+                              timeout_s=CATCHUP_TIMEOUT_S, instrument=instrument, init_chain=True)
             torch.cuda.synchronize()
             counts = launches()
         assert_no_fault(start, gpu_verifier.stats(), "state_sync")
@@ -5598,6 +5623,295 @@ def phase_rpc(torch, seed: int, served: dict) -> dict:
                          "in_process_sync": strip(config4["launches_in_process_sync"]),
                          "attack": config4["attack"]["launches"],
                          "config5_light_checks": config5["light_launches"]}}
+
+
+# node_start: a node of config 5's mixed set started by make_node from a
+# home the CLI's `init` wrote, on a MemoryNetwork with three peers serving
+# the catch-up chain (their node_key indexes); then a `testnet` of
+# NODE_START_CLI_NODES validators (BASELINE config 1) run as `start`
+# processes over TCP until each reaches NODE_START_CLI_HEIGHT
+NODE_START_SERVER_KEYS = (44, 45, 46)
+NODE_START_CLI_NODES = 4
+NODE_START_CLI_HEIGHT = 3
+NODE_START_CLI_TIMEOUT_S = 120.0
+# where the node and the processes install their device plane
+NODE_START_DEVICE = "cuda"
+NODE_START_KERNELS = ("sha512_ram", "ed25519_verify_tile", "sr25519_verify", "sha256_tree")
+
+
+@contextlib.contextmanager
+def pair_launches(into: dict):
+    """For the block, every BlocksyncReactor._verify_apply that applies
+    its first block records the launches it made under that height."""
+    from tendermint_tpu_torch.blocksync.reactor import BlocksyncReactor
+
+    inner = BlocksyncReactor._verify_apply
+
+    async def wrapper(self, first, second):
+        before = launches()
+        await inner(self, first, second)
+        if self.state.last_block_height >= first.header.height:
+            into[first.header.height] = {k: n - before[k] for k, n in launches().items()}
+
+    BlocksyncReactor._verify_apply = wrapper
+    try:
+        yield into
+    finally:
+        BlocksyncReactor._verify_apply = inner
+
+
+@contextlib.contextmanager
+def handshake_launches(into: list):
+    """For the block, every Handshaker.handshake appends the launches it
+    made."""
+    from tendermint_tpu_torch.consensus.replay import Handshaker
+
+    inner = Handshaker.handshake
+
+    async def wrapper(self, app_client):
+        before = launches()
+        try:
+            return await inner(self, app_client)
+        finally:
+            into.append({k: n - before[k] for k, n in launches().items()})
+
+    Handshaker.handshake = wrapper
+    try:
+        yield into
+    finally:
+        Handshaker.handshake = inner
+
+
+def _four(counts: dict) -> dict:
+    return {k: counts.get(k, 0) for k in NODE_START_KERNELS}
+
+
+def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
+    """Node start, as an operator runs it. First, on an earlier line,
+    whether `import grpc` works on this host (item 21b's gRPC modules).
+    (1) A home written by the CLI's `init` (workloads.init_home: the
+    catch-up chain's genesis through GenesisDoc.save_as, block sync on,
+    state sync off, its three peers, [gpu] as init writes it) started by
+    make_node(load_config(home), transport=<the peers' MemoryNetwork>)
+    (workloads.run_node_start): the node installs the device plane from
+    its [gpu] (settle_probes() right after), runs the ABCI handshake
+    (InitChain), block-syncs blocks 1..tip-1 and switches to consensus.
+    Checks: every commit check launched its rule's windows and only X4
+    launched outside them (check_catchup_launches); each applied block's
+    X1, K2, X3 and X4 launches equal block_sync's for the same block, and
+    the node's totals equal block_sync's less its refused pair; the
+    stored blocks, the state and the app hash equal the chain's; after
+    stop() the data lock is free and every DB closed. (2) The chain's
+    last block and its seen commit saved into the home's block store (the
+    "crash before apply" of tests/test_consensus_replay.py) and the node
+    started again from the home with a fresh kvstore app (stopped once
+    its start returns: nothing is left to sync): the same [gpu]
+    reuses the install; the handshake replays blocks 1..tip-1 into the
+    app (no check) and applies the last through apply_block, whose
+    LastCommit is verified on the card: its launches are block_exec's
+    rule for that block (block_exec_rule) plus one X4 root for the
+    InitChain and one for each replayed block's app hash; the state and
+    the app hash equal the chain's at the tip. (3) `testnet` homes of
+    NODE_START_CLI_NODES validators on 127.0.0.1 ports taken free,
+    [gpu] enable = true, run as `python3 -m tendermint_tpu_torch.cmd
+    start` processes over TCP (workloads.cli_localnet) until the HTTP
+    client's `status` reads NODE_START_CLI_HEIGHT on each; each installs
+    its plane in its own process, and exits 0 on SIGTERM. Under the gate
+    of 32 their commits verify on the CPU plane, so they launch nothing
+    by rule. Reports each part's seconds, blocks/s through the node
+    beside block_sync's, the handshake's replay seconds, the card's idle
+    share of parts 1 and 2, and each process's install line and height."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.crypto.gpu_verifier import GpuSr25519BatchVerifier
+    from tendermint_tpu_torch.node import device as device_plane
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.state.types import State
+    from tendermint_tpu_torch.store.block_store import BlockStore
+    from tendermint_tpu_torch.store.kv import SqliteKV
+    from tendermint_tpu_torch.workloads import (
+        NODE_MEM_ADDR,
+        catchup_peers,
+        cli_localnet,
+        init_home,
+        run_node_start,
+        stage_crash,
+    )
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before node_start")
+    t_phase = time.perf_counter()
+    try:
+        import grpc
+
+        probe = {"import_grpc": True, "grpc_version": grpc.__version__}
+    except ImportError as e:
+        probe = {"import_grpc": False, "error": str(e)}
+    emit({"phase": "node_start_probe", **probe})
+    genesis, chain, node, states = served["genesis"], served["chain"], served["node"], served["states"]
+    tip = len(chain)
+    keys = NODE_START_SERVER_KEYS
+    settings = {
+        "blocksync": {"enable": True},
+        "statesync": {"enable": False},
+        "p2p": {"laddr": "tcp://" + NODE_MEM_ADDR, "persistent_peers": catchup_peers(keys, seed)},
+        "rpc": {"laddr": "tcp://127.0.0.1:0"},
+    }
+    with tempfile.TemporaryDirectory(prefix="node_start_") as tmp:
+        home = os.path.join(tmp, "home")
+        t0 = time.perf_counter()
+        init_home(home, genesis, settings)
+        init_s = time.perf_counter() - t0
+        calls, pairs, shakes, assembled = [], {}, [], {}
+
+        def instrument(n):
+            # the node installed its plane in make_node: let the probes
+            # report, and count from its start
+            settle_probes()
+            assembled.update({k: v for k, v in launches().items() if v})
+            reset_launches()
+
+        start = gpu_verifier.stats()
+        try:
+            # (1) block sync from the home
+            t1 = time.perf_counter()
+            with recorded_checks(calls), pair_launches(pairs), handshake_launches(shakes), \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof1:
+                reset_launches()
+                run1 = run_node_start(home, node, keys, seed, device=NODE_START_DEVICE,
+                                      timeout_s=CATCHUP_TIMEOUT_S, instrument=instrument)
+                torch.cuda.synchronize()
+                counts1 = launches()
+            part1_s = time.perf_counter() - t1
+            plane = device_plane.installed_plane()
+            if plane != (GPUConfig(), NODE_START_DEVICE):
+                raise AssertionError(f"node_start: the node installed {plane}, not its [gpu]")
+            reports1 = check_catchup_launches(calls, counts1, "node_start")
+            verifier = gpu_verifier._VERIFIERS["ed25519"]
+            # (2) the staged crash, and the restart's handshake
+            stage_crash(home, chain[tip - 1])
+            calls2, shakes2 = [], []
+            app2 = KVStoreApplication()
+            t2 = time.perf_counter()
+            with recorded_checks(calls2), handshake_launches(shakes2), \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof2:
+                reset_launches()
+                run2 = run_node_start(home, node, keys, seed, device=NODE_START_DEVICE, app=app2,
+                                      timeout_s=CATCHUP_TIMEOUT_S, wait_synced=False)
+                torch.cuda.synchronize()
+                counts2 = launches()
+            part2_s = time.perf_counter() - t2
+            if gpu_verifier._VERIFIERS["ed25519"] is not verifier:
+                raise AssertionError("node_start: the restart installed the plane again")
+            assert_no_fault(start, gpu_verifier.stats(), "node_start")
+            reports2 = check_catchup_launches(calls2, shakes2[0], "node_start handshake")
+            gate, step, min_batch = MK.installed(), GpuSr25519BatchVerifier.STREAM_CHUNK, gpu_verifier.installed()
+        finally:
+            device_plane.uninstall_device_plane()
+        # (1)'s checks: the launches block by block against block_sync's
+        for h in range(1, tip):
+            if h not in pairs or _four(pairs[h]) != _four(block_sync["pair_launches"][h]):
+                raise AssertionError(f"node_start: block {h} launched {pairs.get(h)}, block_sync "
+                                     f"{block_sync['pair_launches'].get(h)}")
+        want1 = _four(block_sync["launches"])
+        for refused in block_sync["refused_pair_launches"]:
+            want1 = {k: n - refused.get(k, 0) for k, n in want1.items()}
+        if _four(counts1) != want1:
+            raise AssertionError(f"node_start: launched {_four(counts1)}, block_sync less its refused "
+                                 f"pair {want1}")
+        if run1.applied != tip - 1 or run1.state.to_proto() != states[tip - 2].to_proto():
+            raise AssertionError(f"node_start: applied {run1.applied}, the state differs from the chain's")
+        if run1.app_hash != chain[tip - 1].block.header.app_hash:
+            raise AssertionError("node_start: the app hash differs from the chain's")
+        if run1.node.consensus.rs.height != tip or run1.node.consensus_reactor.wait_sync:
+            raise AssertionError("node_start: consensus was not switched on at the tip")
+        for run in (run1, run2):
+            if not run.lock_released or run.dbs_closed != run.dbs:
+                raise AssertionError(f"node_start: after stop the lock is held ({not run.lock_released}) "
+                                     f"or {run.dbs - run.dbs_closed} of {run.dbs} DBs are open")
+        db = SqliteKV(os.path.join(home, "data", "blockstore.sqlite"))
+        try:
+            stored = BlockStore(db)
+            for h in range(1, tip + 1):
+                if stored.load_block(h).to_proto() != chain[h - 1].block.to_proto():
+                    raise AssertionError(f"node_start: stored block {h} differs from the chain's")
+        finally:
+            db.close()
+        # (2)'s checks: one full check, block exec's rule, the tip's state
+        # block tip's LastCommit, the commit of height tip - 1
+        if [(c["kind"], c["height"]) for c in calls2] != [("full", tip - 1)]:
+            raise AssertionError(f"node_start: the handshake's checks {[(c['kind'], c['height']) for c in calls2]}")
+        expect, outside = block_exec_rule(State.from_proto(states[tip - 2].to_proto()), chain[tip - 1].block,
+                                          len(app2.state), gate, step, min_batch)
+        want2 = {
+            "sha512_ram": expect["ed25519"][1].get("sha512_ram", 0),
+            "ed25519_verify_tile": expect["ed25519"][1].get("ed25519_verify_tile", 0),
+            "sr25519_verify": expect["sr25519"][1].get("sr25519_verify", 0),
+            "sha256_tree": outside["sha256_tree"] + 1 + (tip - 1),
+        }
+        if _four(shakes2[0]) != want2:
+            raise AssertionError(f"node_start: the handshake launched {_four(shakes2[0])}, not {want2}")
+        if (run2.replayed, run2.applied) != (tip, 0):
+            raise AssertionError(f"node_start: the handshake replayed {run2.replayed}, block sync applied "
+                                 f"{run2.applied}")
+        if run2.state.to_proto() != states[tip - 1].to_proto() or run2.app_hash != states[tip - 1].app_hash:
+            raise AssertionError("node_start: the restart's state or app hash differs from the chain's")
+        # (3) the CLI's processes
+        t3 = time.perf_counter()
+        procs = cli_localnet(os.path.join(tmp, "net"), NODE_START_CLI_NODES, NODE_START_CLI_HEIGHT, gpu=True,
+                             device=NODE_START_DEVICE, timeout_s=NODE_START_CLI_TIMEOUT_S)
+        part3_s = time.perf_counter() - t3
+    processes = []
+    for nd in procs:
+        installed = [line for line in nd.log if "device plane installed" in line]
+        if nd.rc != 0 or nd.height < NODE_START_CLI_HEIGHT or len(installed) != 1:
+            raise AssertionError(f"node_start: {os.path.basename(nd.home)} exited {nd.rc} at height "
+                                 f"{nd.height}, install lines {installed}; log tail {nd.log[-5:]}")
+        processes.append({"home": os.path.basename(nd.home), "height": nd.height, "rc": nd.rc,
+                          "install_line": installed[0]})
+    launched1 = {k: n for k, n in counts1.items() if n}
+    out = {
+        "phase": "node_start",
+        "validators": {"ed25519": N_VALIDATORS - N_VALIDATORS // 2, "sr25519": N_VALIDATORS // 2},
+        "chain_heights": tip,
+        "txs_per_block": N_TXS,
+        "init_s": init_s,
+        "block_sync_from_home": {
+            "s": part1_s, "make_node_s": run1.make_s, "start_s": run1.start_s,
+            "handshake_s": run1.handshake_s, "start_to_caught_up_s": run1.start_s + run1.sync_s,
+            "blocks_applied": run1.applied,
+            "blocks_per_s": run1.applied / (run1.start_s + run1.sync_s),
+            "block_sync_phase_blocks_per_s": block_sync["blocks_per_s"],
+            "launches_at_make_node": assembled,
+            "launches": launched1,
+            "launches_per_block": {h: {k: n for k, n in pairs[h].items() if n} for h in sorted(pairs)},
+            "checks": reports1,
+            **{f"{k}_parts_1": v for k, v in catchup_busy(prof1, counts1, run1.seconds).items()},
+        },
+        "crash_replay": {
+            "s": part2_s, "handshake_replay_s": run2.handshake_s, "blocks_replayed": run2.replayed,
+            "start_s": run2.start_s,
+            "handshake_launches": {k: n for k, n in shakes2[0].items() if n},
+            "rule": want2,
+            "checks": reports2,
+            **{f"{k}_part_2": v for k, v in catchup_busy(prof2, counts2, run2.seconds).items()},
+        },
+        "cli_processes": {"s": part3_s, "nodes": NODE_START_CLI_NODES, "processes": processes,
+                          "launches": 0},
+        "equal_to_block_sync": ["launches_per_block", "launches_less_refused_pair"],
+        "equal_to_chain": ["blocks", "state", "app_hash", "state_at_tip_after_replay"],
+        **probe,
+        "ok": True,
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"launches": {"block_sync_from_home": launched1,
+                         "crash_replay_handshake": {k: n for k, n in shakes2[0].items() if n}}}
 
 
 def phase_kernels(
@@ -6217,6 +6531,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     block_sync = phase_block_sync(torch, args.seed, served)
     state_sync = phase_state_sync(torch, args.seed, served)
     rpc = phase_rpc(torch, args.seed, served)
+    node_start = phase_node_start(torch, args.seed, served, block_sync)
     del served
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
@@ -6257,6 +6572,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
         r["block_sync"] = {"launches": block_sync["launches"].get(r["name"], 0)}
         r["state_sync"] = {"launches": state_sync["launches"].get(r["name"], 0)}
         r["rpc"] = {run: c.get(r["name"], 0) for run, c in rpc["launches"].items()}
+        r["node_start"] = {run: c.get(r["name"], 0) for run, c in node_start["launches"].items()}
     # the vote path's launches per height at each size, and each kernel
     # against its plain version on the path's windows at VOTE_WIDTHS
     for r in kernels["kernels"]:

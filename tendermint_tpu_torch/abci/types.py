@@ -3,10 +3,9 @@
 Counterpart: tendermint_tpu/abci/types.py:1-508 (the request and
 response dataclasses, the state-sync payloads :165, :246-269, :375-410,
 and Application / BaseApplication with the four state-sync methods;
-reference: abci/types/application.go:11-31, abci/types/types.pb.go).
-ResponseException, which only the socket transport carries, is not
-ported yet: the socket server is a later item. Nothing here touches the
-device.
+reference: abci/types/application.go:11-31, abci/types/types.pb.go),
+with ResponseException (:275), which only the socket transport carries.
+Nothing here touches the device.
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ __all__ = [
     "RequestLoadSnapshotChunk",
     "RequestApplySnapshotChunk",
     "ResponseEcho",
+    "ResponseException",
     "ResponseFlush",
     "ResponseInfo",
     "ResponseInitChain",
@@ -273,6 +273,11 @@ class RequestApplySnapshotChunk:
 
 # ---------------------------------------------------------------------------
 # Responses
+
+
+@dataclass(frozen=True)
+class ResponseException:
+    error: str = ""
 
 
 @dataclass(frozen=True)

@@ -125,6 +125,18 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   blocks, RPC_REPS of each in turns; headers/s of each and ms a page of
   the bulk fetch (its HTTP call, JSON and proto decode). The HTTP sync
   must end at the tip's header.
+- node_start: a node started by make_node from a home written by the
+  CLI's `init` (the catch-up chain's genesis, block sync on, state sync
+  off, its device plane from [gpu]) on a MemoryNetwork with the three
+  serving peers (workloads.init_home, run_node_start), over
+  CATCHUP_REPS fresh homes: the seconds from node.start() to block sync
+  switching consensus on, and the blocks/s of that span; then the
+  chain's last block staged as a crash before apply (workloads.
+  stage_crash) and the node started again from the home with a fresh
+  kvstore app: the seconds of its ABCI handshake (every block replayed
+  into the app, the last applied through BlockExecutor.apply_block).
+  The synced state must be the chain's, and the restart's app hash
+  the chain's last.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -263,6 +275,17 @@ CELL_KEYS = {
         "chunks",
         "backfill_headers_per_s",
         "discovery_s",
+        "heights",
+        "txs",
+        "validators",
+        "reps",
+        "chain_build_s",
+    ),
+    "node_start": (
+        "start_to_caught_up_s",
+        "blocks_per_s",
+        "handshake_replay_s",
+        "blocks_replayed",
         "heights",
         "txs",
         "validators",
@@ -913,7 +936,9 @@ def cell_consensus_gossip(ctx: Ctx) -> dict:
 
 
 def _served_chain(ctx: Ctx) -> dict:
-    """The catch-up cells' chain and the node serving it, built once."""
+    """The catch-up cells' chain and the node serving it, built once; it
+    starts from the app's InitChain, as a node started from a home
+    needs (workloads.block_exec_node)."""
     from .workloads import kv_genesis, kv_txs, seeded_keys, serve_chain
 
     if "served" not in ctx.cache:
@@ -922,9 +947,9 @@ def _served_chain(ctx: Ctx) -> dict:
         genesis = kv_genesis(CHAIN_ID, privs)
         t0 = time.perf_counter()
         txs = [kv_txs(seed, h, TXS, (100, 300)) for h in range(1, CATCHUP_HEIGHTS + 1)]
-        chain, node, _states = serve_chain(genesis, privs, txs, seed, CATCHUP_SNAPSHOT)
+        chain, node, states = serve_chain(genesis, privs, txs, seed, CATCHUP_SNAPSHOT, init_chain=True)
         ctx.cache["served"] = {"seed": seed, "genesis": genesis, "chain": chain, "node": node,
-                               "build_s": time.perf_counter() - t0}
+                               "states": states, "build_s": time.perf_counter() - t0}
     return ctx.cache["served"]
 
 
@@ -948,7 +973,7 @@ def cell_block_sync(ctx: Ctx) -> dict:
 
     for _rep in range(CATCHUP_REPS):
         run = run_catchup(served["genesis"], node, [node.block_store] * 3, (50, 51, 52, 53),
-                          served["seed"], "block", instrument=instrument)
+                          served["seed"], "block", instrument=instrument, init_chain=True)
         if run.fresh.exec_node.app.app_hash != chain[-1].block.header.app_hash:
             raise AssertionError("block_sync: the app hash differs from the chain's")
         rates.append(run.applied / run.seconds)
@@ -979,7 +1004,7 @@ def cell_state_sync(ctx: Ctx) -> dict:
     restores, rates = [], []
     for _rep in range(CATCHUP_REPS):
         run = run_catchup(served["genesis"], node, [node.block_store] * 3, (60, 61, 62, 63),
-                          served["seed"], "state", ss_cfg=cfg)
+                          served["seed"], "state", ss_cfg=cfg, init_chain=True)
         if run.restored_height != CATCHUP_SNAPSHOT or run.backfilled != CATCHUP_SNAPSHOT - 1:
             raise AssertionError(f"state_sync: restored {run.restored_height}, "
                                  f"backfilled {run.backfilled}")
@@ -993,6 +1018,51 @@ def cell_state_sync(ctx: Ctx) -> dict:
         "chunks": snapshot.chunks,
         "backfill_headers_per_s": float(np.mean(rates)),
         "discovery_s": CATCHUP_DISCOVERY_S,
+        "heights": len(chain),
+        "txs": TXS,
+        "validators": VALIDATORS,
+        "reps": CATCHUP_REPS,
+        "chain_build_s": served["build_s"],
+    }
+
+
+def cell_node_start(ctx: Ctx) -> dict:
+    import tempfile
+
+    from .abci.kvstore import KVStoreApplication
+    from .workloads import NODE_MEM_ADDR, catchup_peers, init_home, run_node_start, stage_crash
+
+    served = _served_chain(ctx)
+    node, chain, states, seed = served["node"], served["chain"], served["states"], served["seed"]
+    keys = (70, 71, 72)
+    settings = {
+        "blocksync": {"enable": True}, "statesync": {"enable": False},
+        "p2p": {"laddr": "tcp://" + NODE_MEM_ADDR, "persistent_peers": catchup_peers(keys, seed)},
+        "rpc": {"laddr": "tcp://127.0.0.1:0"},
+    }
+    before = _stats()
+    spans, rates, handshakes, replayed = [], [], [], []
+    for _rep in range(CATCHUP_REPS):
+        with tempfile.TemporaryDirectory() as home:
+            init_home(home, served["genesis"], settings)
+            run = run_node_start(home, node, keys, seed, device=ctx.device)
+            if run.state.to_proto() != states[-2].to_proto():
+                raise AssertionError("node_start: the synced state differs from the chain's")
+            spans.append(run.start_s + run.sync_s)
+            rates.append(run.applied / spans[-1])
+            stage_crash(home, chain[-1])
+            again = run_node_start(home, node, keys, seed, device=ctx.device, app=KVStoreApplication(),
+                                   wait_synced=False)
+            if again.app_hash != states[-1].app_hash:
+                raise AssertionError("node_start: the restart's app hash differs from the chain's")
+            handshakes.append(again.handshake_s)
+            replayed.append(again.replayed)
+    _no_fault(before, "node_start")
+    return {
+        "start_to_caught_up_s": float(np.mean(spans)),
+        "blocks_per_s": float(np.mean(rates)),
+        "handshake_replay_s": float(np.mean(handshakes)),
+        "blocks_replayed": replayed[0],
         "heights": len(chain),
         "txs": TXS,
         "validators": VALIDATORS,
@@ -1068,6 +1138,7 @@ RUNNERS = {
     "consensus_gossip": cell_consensus_gossip,
     "block_sync": cell_block_sync,
     "state_sync": cell_state_sync,
+    "node_start": cell_node_start,
     "rpc_light": cell_rpc_light,
 }
 

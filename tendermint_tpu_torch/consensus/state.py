@@ -58,8 +58,8 @@ plane call, so the ported reactor's stall resets run as in the JAX
 package with only their recording dropped. Left out: the flight
 recorder itself (consensus/timeline.py), the consensus metrics and the
 trace spans (ROADMAP item 11; the step machine runs as the JAX one does
-with none of them fed), and the replay console's replay_mode
-(consensus/replay.py, item 21).
+with none of them fed), and the replay console's replay_mode (the
+`replay` commands, item 21b).
 """
 
 from __future__ import annotations

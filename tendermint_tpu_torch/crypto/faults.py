@@ -9,8 +9,8 @@ and the network filters src, dst and ch), the label match and `NetPlan`
 `reset` (:397-440), `set_partition`, `partition_blocked` and `net_plan`
 (:443-548), `fire`, `mangle` and `clip` (:556-614). The TM_TPU_FAULT
 environment spec (`load_env` :297) and the partition file's poll (:465)
-wait for the process runner of node start (ROADMAP item 21): the port
-arms rules and partitions in-process only, through inject() and
+wait for the process runner of the e2e tests (ROADMAP item 21b): the
+port arms rules and partitions in-process only, through inject() and
 set_partition().
 
 Fault points are named strings consulted where a device or a disk would

@@ -274,6 +274,16 @@ class FieldReader:
         v = int(v)
         return v - (1 << 64) if v >= 1 << 63 else v
 
+    def sfixed64(self, field: int, default: int = 0) -> int:
+        v = self.get(field)
+        if v is None:
+            return default
+        if not isinstance(v, int):
+            raise ValueError(
+                f"field {field}: expected fixed64, got length-delimited"
+            )
+        return v - (1 << 64) if v >= 1 << 63 else v
+
     def bool(self, field: int) -> bool:
         vals = self._fields.get(field)
         if not vals:

@@ -5,7 +5,7 @@ internal/eventbus/event_bus.go: EventBus :24, publish with flattened
 ABCI events :87, the typed helpers :113-176), on its `metrics=None`
 path: `EventBusMetrics` (published, deliveries, fanout lag, dropped
 subscriptions) waits for the port's metrics library (ROADMAP item 11).
-The step machine, BlockExecutor and block sync publish here.
+The step machine, BlockExecutor, block sync and node start publish here.
 """
 
 from __future__ import annotations
@@ -123,3 +123,6 @@ class EventBus(Service):
 
     def publish_block_sync_status(self, data: E.EventDataBlockSyncStatus) -> None:
         self._publish(E.EventValue.BLOCK_SYNC_STATUS, data)
+
+    def publish_state_sync_status(self, data: E.EventDataStateSyncStatus) -> None:
+        self._publish(E.EventValue.STATE_SYNC_STATUS, data)

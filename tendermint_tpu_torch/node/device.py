@@ -17,9 +17,15 @@ than asked for.
 
 from __future__ import annotations
 
+import copy
+
 from ..config import GPUConfig
 
-__all__ = ["install_device_plane", "uninstall_device_plane", "visible_devices"]
+__all__ = ["install_device_plane", "installed_plane", "uninstall_device_plane", "visible_devices"]
+
+# what install_device_plane last installed: (a copy of the GPUConfig,
+# the device), while it stays installed
+_CURRENT = None
 
 
 def visible_devices(device="cuda") -> int:
@@ -50,25 +56,44 @@ def install_device_plane(cfg: GPUConfig, device="cuda") -> bool:
     True when installed, False when cfg.enable is off. Raises when a
     kernel or the native CPU plane fails to build, when CUDA is absent,
     or when cfg.devices asks for more than one card."""
+    global _CURRENT
     if not cfg.enable:
         return False
     _one_card(cfg.devices, device)
     from ..crypto import gpu_verifier
     from ..ops import merkle_kernel
 
+    _CURRENT = None
     gpu_verifier.install(
         device=device,
         min_batch=cfg.min_batch_size,
         bucket_sizes=cfg.bucket_sizes,
     )
     merkle_kernel.install(device=device)
+    _CURRENT = (copy.deepcopy(cfg), str(device))
     return True
+
+
+def installed_plane():
+    """(the GPUConfig, the device) of the plane install_device_plane
+    installed, while both of its parts stay installed with that config's
+    gate; else None."""
+    from ..crypto import gpu_verifier
+    from ..ops import merkle_kernel
+
+    if _CURRENT is None or merkle_kernel.installed() is None:
+        return None
+    if gpu_verifier.installed() != _CURRENT[0].min_batch_size:
+        return None
+    return _CURRENT
 
 
 def uninstall_device_plane() -> None:
     """Remove both: batches, roots and proofs go back to the CPU."""
+    global _CURRENT
     from ..crypto import gpu_verifier
     from ..ops import merkle_kernel
 
+    _CURRENT = None
     gpu_verifier.uninstall()
     merkle_kernel.uninstall()

@@ -1,8 +1,6 @@
 """Async JSON-RPC clients: HTTP and websocket, and an in-process one.
 
-Counterpart: tendermint_tpu/rpc/client.py:1-352, but for
-`LocalClient.from_node` (:315-322), which needs the node of ROADMAP item 21
-(reference: rpc/jsonrpc/client/{http_json_client,ws_client}.go,
+Counterpart: tendermint_tpu/rpc/client.py:1-352 (reference: rpc/jsonrpc/client/{http_json_client,ws_client}.go,
 rpc/client/http, rpc/client/local). Raw asyncio streams, as the server.
 The light client's HTTPProvider (light/provider.py) calls HTTPClient.
 """
@@ -312,6 +310,15 @@ class LocalClient:
     def __init__(self, env) -> None:
         self._routes = env.routes()
         self._ids = itertools.count(1)
+
+    @classmethod
+    def from_node(cls, node) -> "LocalClient":
+        if node.rpc_env is None:
+            raise RPCClientError(
+                "node has no RPC environment (rpc.laddr disabled "
+                "or node not started)"
+            )
+        return cls(node.rpc_env)
 
     async def call(self, method: str, **params: Any) -> Any:
         from .jsonrpc import INVALID_PARAMS, RPCError, RPCRequest

@@ -5,8 +5,9 @@ Counterpart: tendermint_tpu/state/store.py: ABCIResponses (:44-119),
 StateStore's load and save (:153-182), the sparse validator sets
 (:209-250), consensus params (:252-276) and ABCI responses (:278-288);
 bootstrap (:184) and save_validators (:204), which state sync calls;
-reference: internal/state/store.go. Left out: prune (the node's pruning
-of old heights) and rollback (the CLI's), which wait for those items.
+rollback (:331), which the CLI's `rollback` runs; reference:
+internal/state/store.go, internal/state/rollback.go. Left out: prune
+(the node's pruning of old heights; the port's node does not prune).
 """
 
 from __future__ import annotations
@@ -288,3 +289,53 @@ class StateStore:
         return (
             ABCIResponses.from_proto(data) if data is not None else None
         )
+
+    # -- rollback --
+
+    def rollback(self, block_store) -> State:
+        """Rewind the state one height (reference:
+        internal/state/rollback.go:13-104)."""
+        state = self.load()
+        if state is None or state.is_empty():
+            raise ValueError("no state found")
+        bs_height = block_store.height()
+        # the block store may be one ahead (its save and the state's are
+        # not one write): nothing to roll back
+        if bs_height == state.last_block_height + 1:
+            return state
+        if bs_height != state.last_block_height:
+            raise ValueError(
+                f"statestore height ({state.last_block_height}) is not "
+                f"one below or equal to blockstore height ({bs_height})"
+            )
+        rollback_height = state.last_block_height - 1
+        meta = block_store.load_block_meta(rollback_height)
+        if meta is None:
+            raise ValueError(f"block at height {rollback_height} not found")
+        prev_last_vals = self.load_validators(rollback_height)
+        if prev_last_vals is None:
+            raise ValueError(f"no validators at height {rollback_height}")
+        params = self.load_params(rollback_height + 1)
+        if params is None:
+            raise ValueError(f"no params at height {rollback_height + 1}")
+        val_change = state.last_height_validators_changed
+        if val_change > rollback_height:
+            val_change = rollback_height + 1
+        params_change = state.last_height_consensus_params_changed
+        if params_change > rollback_height:
+            params_change = rollback_height + 1
+        new_state = state.copy()
+        new_state.last_block_height = meta.header.height
+        new_state.last_block_id = meta.block_id
+        new_state.last_block_time_ns = meta.header.time_ns
+        new_state.next_validators = state.validators
+        new_state.validators = state.last_validators
+        new_state.last_validators = prev_last_vals
+        new_state.last_height_validators_changed = val_change
+        new_state.consensus_params = params
+        new_state.app_version = params.version.app_version
+        new_state.last_height_consensus_params_changed = params_change
+        new_state.app_hash = meta.header.app_hash
+        new_state.last_results_hash = meta.header.last_results_hash
+        self._db.set(_STATE, new_state.to_proto())
+        return new_state

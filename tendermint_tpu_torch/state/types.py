@@ -66,6 +66,9 @@ class State:
     app_hash: bytes = b""
     app_version: int = 0
 
+    def is_empty(self) -> bool:
+        return self.validators is None
+
     def copy(self) -> "State":
         return State(
             chain_id=self.chain_id,

@@ -3,9 +3,9 @@
 Counterpart: tendermint_tpu/types/events.py:1-137 (reference:
 types/events.go: event values :15-47, reserved composite keys :197-208,
 payloads :100-190). Payloads are light frozen dataclasses; the tag
-flattening that makes them queryable lives in eventbus/. The state-sync
-status payload comes with node start (ROADMAP item 21), which publishes
-it.
+flattening that makes them queryable lives in eventbus/. Node start
+publishes the state-sync status at the end of a restore
+(node/node.py _state_sync_then_follow).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ __all__ = [
     "EventDataNewEvidence",
     "EventDataNewRound",
     "EventDataRoundState",
+    "EventDataStateSyncStatus",
     "EventDataTx",
     "EventDataValidatorSetUpdates",
     "EventDataVote",
@@ -127,5 +128,11 @@ class EventDataValidatorSetUpdates:
 
 @dataclass(frozen=True)
 class EventDataBlockSyncStatus:
+    complete: bool
+    height: int
+
+
+@dataclass(frozen=True)
+class EventDataStateSyncStatus:
     complete: bool
     height: int

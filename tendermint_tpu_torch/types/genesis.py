@@ -2,9 +2,8 @@
 
 Counterpart: tendermint_tpu/types/genesis.py:25-195 (GenesisValidator
 :25, GenesisDoc :37 with validate_and_complete :48, validator_set,
-to_json / from_json :88-186; reference: types/genesis.go). The JSON is
-the reference's genesis.json. The file form (save_as, from_file) waits
-for node start.
+to_json / from_json :88-186, save_as / from_file :188-195; reference:
+types/genesis.go). The JSON is the reference's genesis.json.
 """
 
 from __future__ import annotations
@@ -186,3 +185,12 @@ class GenesisDoc:
         )
         g.validate_and_complete()
         return g
+
+    def save_as(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def from_file(cls, path: str) -> "GenesisDoc":
+        with open(path) as f:
+            return cls.from_json(f.read())

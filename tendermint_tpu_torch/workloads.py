@@ -173,8 +173,14 @@ __all__ = [
     "http_light_client",
     "http_light_sync",
     "publish_stored_height",
+    "NodeStartRun",
+    "catchup_peers",
+    "cli_localnet",
+    "init_home",
     "rpc_light_sync",
     "rpc_serving",
+    "run_node_start",
+    "stage_crash",
     "stored_light_blocks",
     "block_exec_node",
     "block_txs",
@@ -643,11 +649,16 @@ class ExecNode:
 
 
 def block_exec_node(genesis_json: str, db_dir: Optional[str] = None,
-                    snapshot_interval: int = 0) -> ExecNode:
+                    snapshot_interval: int = 0, init_chain: bool = False) -> ExecNode:
     """A fresh node at the genesis: the stores on MemKV, or on SqliteKV
     files `state.sqlite` and `blockstore.sqlite` in db_dir (made if
     missing; ExecNode.close closes them); its kvstore app takes a
-    state-sync snapshot every snapshot_interval heights (0: never)."""
+    state-sync snapshot every snapshot_interval heights (0: never). With
+    init_chain, the app has taken the genesis's InitChain and the state
+    its answer, as a started node's handshake does at genesis
+    (consensus/replay.py); the kvstore app then folds the genesis
+    validators into its hash, so only such a chain can be synced by a
+    node started from a home."""
     if db_dir is None:
         state_db, block_db = MemKV(), MemKV()
     else:
@@ -658,6 +669,13 @@ def block_exec_node(genesis_json: str, db_dir: Optional[str] = None,
     state_store, block_store = StateStore(state_db), BlockStore(block_db)
     state_store.save(state)
     app = KVStoreApplication(snapshot_interval=snapshot_interval)
+    if init_chain:
+        from .consensus.replay import Handshaker
+
+        genesis = GenesisDoc.from_json(genesis_json)
+        hs = Handshaker(state_store, state, block_store, genesis)
+        state = hs._apply_init_chain_response(state, app.init_chain(hs._init_chain_request()))
+        state_store.save(state)
     executor = BlockExecutor(
         state_store, LocalClient(app), NopMempool(), block_store=block_store
     )
@@ -665,12 +683,14 @@ def block_exec_node(genesis_json: str, db_dir: Optional[str] = None,
 
 
 def serve_chain(genesis_json: str, privs: Sequence, txs: Sequence[list], seed: int,
-                snapshot_interval: int = 0) -> tuple:
+                snapshot_interval: int = 0, init_chain: bool = False) -> tuple:
     """(build_block_chain's chain, the node that applied it, the State
     after each height): the node's stores hold every block, its commits
     and validator sets, and its app the snapshots of every
-    snapshot_interval heights, as a peer serving the chain holds them."""
-    node = block_exec_node(genesis_json, snapshot_interval=snapshot_interval)
+    snapshot_interval heights, as a peer serving the chain holds them.
+    init_chain: the chain starts from the app's InitChain
+    (block_exec_node)."""
+    node = block_exec_node(genesis_json, snapshot_interval=snapshot_interval, init_chain=init_chain)
     chain_id = node.state.chain_id
     state = node.state
     last_commit = Commit(height=0)
@@ -2005,13 +2025,15 @@ def serving_node(node: ExecNode, key, transport: Transport, chain_id: str, liste
 
 
 def fresh_node(genesis_json: str, key, transport: Transport, listen_addr: str,
-               block_sync: bool, ss_cfg: Optional[StateSyncConfig] = None) -> CatchupNode:
+               block_sync: bool, ss_cfg: Optional[StateSyncConfig] = None,
+               init_chain: bool = False) -> CatchupNode:
     """A node at the genesis (block_exec_node's stores on MemKV and app;
     no validator key): block sync in sync mode when block_sync, state
     sync with ss_cfg, and a consensus reactor (a ConsensusState of the
     ConsensusConfig defaults, no WAL) that block sync switches on. Build
-    it inside the running loop."""
-    node = block_exec_node(genesis_json)
+    it inside the running loop. init_chain: its app has taken the
+    genesis's InitChain (block_exec_node)."""
+    node = block_exec_node(genesis_json, init_chain=init_chain)
     chain_id = node.state.chain_id
     node_id, router, manager = _catchup_router(key, transport, chain_id, listen_addr)
     bus = EventBus()
@@ -2076,7 +2098,7 @@ async def _wait_synced(fresh: CatchupNode, timeout_s: float) -> None:
 
 def run_catchup(genesis_json: str, node: ExecNode, views: Sequence, node_keys: Sequence[int],
                 seed: int, mode: str, ss_cfg: Optional[StateSyncConfig] = None,
-                timeout_s: float = 300.0, instrument=None) -> CatchupRun:
+                timeout_s: float = 300.0, instrument=None, init_chain: bool = False) -> CatchupRun:
     """A fresh node catching up from len(views) peers serving node's
     chain, all on one MemoryNetwork: mode "block" block-syncs from the
     genesis; mode "state" state-syncs a snapshot (ss_cfg's trust root;
@@ -2086,7 +2108,9 @@ def run_catchup(genesis_json: str, node: ExecNode, views: Sequence, node_keys: S
     ServingStore); the fresh node's key is node_key(seed, node_keys[0]),
     peer i's node_key(seed, node_keys[i + 1]). instrument(fresh, servers),
     if given, runs once they are built, before anything starts. Every
-    peer is stopped at the end; an error a peer ended on is raised."""
+    peer is stopped at the end; an error a peer ended on is raised.
+    init_chain: the fresh node's app has taken the genesis's InitChain,
+    as `node`'s must have (serve_chain)."""
     chain_id = node.state.chain_id
 
     async def go() -> CatchupRun:
@@ -2098,7 +2122,7 @@ def run_catchup(genesis_json: str, node: ExecNode, views: Sequence, node_keys: S
         ]
         fresh = fresh_node(genesis_json, node_key(seed, node_keys[0]),
                            MemoryTransport(net, "fresh.mem:9"), "fresh.mem:9",
-                           block_sync=mode == "block", ss_cfg=ss_cfg)
+                           block_sync=mode == "block", ss_cfg=ss_cfg, init_chain=init_chain)
         # the bans in order: a banned peer the router then drops leaves
         # the pool's peer list
         banned: List[str] = []
@@ -2308,3 +2332,329 @@ def publish_stored_height(bus: EventBus, block_store, state_store, height: int) 
 class _BusHolder:
     event_bus: EventBus
 
+
+# -- the node-start harness --
+
+# the memory address of the node run_node_start starts
+NODE_MEM_ADDR = "node.mem:9"
+
+
+def _server_addr(i: int) -> str:
+    return f"server{i}.mem:{i + 1}"
+
+
+def catchup_peers(node_keys: Sequence[int], seed: int) -> str:
+    """The p2p.persistent_peers value naming run_node_start's serving
+    peers: peer i's node ID (node_key(seed, node_keys[i])) at its memory
+    address."""
+    return ",".join(
+        f"{node_id_from_pubkey(node_key(seed, k).pub_key())}@{_server_addr(i)}"
+        for i, k in enumerate(node_keys)
+    )
+
+
+def init_home(home: str, genesis_json: str, settings: Dict[str, dict]) -> None:
+    """A home as an operator makes it: the CLI's `init` (node key,
+    FilePV, config.toml), then genesis_json as its genesis
+    (GenesisDoc.save_as) and `settings` ({section: {key: value}}) written
+    into its config.toml (write_config)."""
+    import io
+
+    from .cmd import main
+    from .config import load_config, write_config
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        if main(["init", "--home", home]) != 0:
+            raise RuntimeError(f"init of {home} failed")
+    genesis = GenesisDoc.from_json(genesis_json)
+    genesis.save_as(os.path.join(home, "config", "genesis.json"))
+    path = os.path.join(home, "config", "config.toml")
+    cfg = load_config(path)
+    cfg.base.chain_id = genesis.chain_id
+    for section, values in settings.items():
+        for key, value in values.items():
+            if not hasattr(getattr(cfg, section), key):
+                raise KeyError(f"no setting {section}.{key}")
+            setattr(getattr(cfg, section), key, value)
+    write_config(cfg, path)
+
+
+def stage_crash(home: str, block: ChainBlock) -> None:
+    """The "crash before apply" of a node at `home`: `block` and its seen
+    commit saved into the home's block store, the state left one height
+    below it (the block store's save and the state's are two writes)."""
+    from .config import load_config
+    from .store.kv import open_db
+
+    cfg = load_config(os.path.join(home, "config", "config.toml"))
+    cfg.base.home = home
+    db = open_db("blockstore", cfg.base.db_backend, cfg.base.path(cfg.base.db_dir))
+    try:
+        BlockStore(db).save_block(block.block, block.parts, block.seen_commit)
+    finally:
+        db.close()
+
+
+def _db_closed(db) -> bool:
+    conn = getattr(db, "_conn", None)
+    if conn is None:
+        return True
+    import sqlite3
+
+    try:
+        conn.execute("SELECT 1")
+    except sqlite3.ProgrammingError:
+        return True
+    return False
+
+
+@dataclass
+class NodeStartRun:
+    """What run_node_start saw (perf_counter seconds): make_node, the
+    node's start (its ABCI handshake among it), the handshake alone,
+    from the start's return to the switch to consensus, and the whole;
+    the heights block sync
+    applied, the blocks the handshake replayed into the app, block
+    sync's final state, the app's hash, and after the stop whether the
+    data lock was free again and every DB closed."""
+
+    make_s: float
+    start_s: float
+    handshake_s: float
+    sync_s: float
+    seconds: float
+    applied: int
+    replayed: int
+    state: State
+    app_hash: bytes
+    lock_released: bool
+    dbs_closed: int
+    dbs: int
+    node: object
+
+
+def run_node_start(home: str, served: ExecNode, node_keys: Sequence[int], seed: int,
+                   device="cuda", app=None, timeout_s: float = 300.0, instrument=None,
+                   wait_synced: bool = True) -> NodeStartRun:
+    """make_node(load_config(home)) on a MemoryNetwork where
+    len(node_keys) peers serve `served`'s chain (block sync and state
+    sync, as run_catchup's servers; peer i's key node_key(seed,
+    node_keys[i]), catchup_peers names them), its app `app` (None: the
+    builtin kvstore app). The home's config gives the node its peers,
+    p2p.laddr tcp://NODE_MEM_ADDR and its sync settings. Runs until its
+    block sync has switched consensus on (or, without wait_synced, until
+    start() returns), then stops the node and the peers; an error a part
+    ended on is raised. instrument(node), if given, runs after
+    make_node, before the start."""
+    from .config import load_config
+    from .node import node as node_mod
+    from .node.node import acquire_pid_lock, make_node, release_pid_lock
+
+    chain_id = served.state.chain_id
+    handshake_s = []
+
+    class TimedHandshaker(node_mod.Handshaker):
+        async def handshake(self, app_client):
+            t0 = time.perf_counter()
+            try:
+                return await super().handshake(app_client)
+            finally:
+                handshake_s.append(time.perf_counter() - t0)
+
+    async def go() -> NodeStartRun:
+        net = MemoryNetwork()
+        servers = [
+            serving_node(served, node_key(seed, k), MemoryTransport(net, _server_addr(i)),
+                         chain_id, _server_addr(i))
+            for i, k in enumerate(node_keys)
+        ]
+        cfg = load_config(os.path.join(home, "config", "config.toml"))
+        cfg.base.home = home
+        # the height the node starts block sync from: the stored state's,
+        # or one above it where the block store is (the handshake applies
+        # that block)
+        from .store.kv import open_db
+
+        dbs = [open_db(name, cfg.base.db_backend, cfg.base.path(cfg.base.db_dir))
+               for name in ("state", "blockstore")]
+        try:
+            stored = StateStore(dbs[0]).load()
+            h_state = stored.last_block_height if stored is not None else 0
+            h_store = BlockStore(dbs[1]).height()
+        finally:
+            for db in dbs:
+                db.close()
+        start_height = h_state + (h_store == h_state + 1)
+        try:
+            for peer in servers:
+                await peer.start()
+            t0 = time.perf_counter()
+            node = make_node(cfg, app=app, transport=MemoryTransport(net, NODE_MEM_ADDR), device=device)
+            t1 = time.perf_counter()
+            if instrument is not None:
+                instrument(node)
+            try:
+                node_mod.Handshaker = TimedHandshaker
+                try:
+                    await node.start()
+                finally:
+                    node_mod.Handshaker = TimedHandshaker.__base__
+                t2 = time.perf_counter()
+                deadline = time.monotonic() + timeout_s
+                while wait_synced and (not node.blocksync_reactor.synced
+                                       or node.consensus_reactor.wait_sync):
+                    err = node.failure()
+                    if err is not None:
+                        raise err
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"block sync did not catch up (at {node.blocksync_reactor.pool.height})"
+                        )
+                    await asyncio.sleep(0.01)
+                t3 = time.perf_counter()
+                state = node.blocksync_reactor.state
+                app_hash = (await node.proxy.query.info(abci_types.RequestInfo())).last_block_app_hash
+            finally:
+                dbs = list(node._dbs)
+                if node.is_running:
+                    await node.stop()
+            lock = os.path.join(cfg.base.path(cfg.base.db_dir), "LOCK")
+            try:
+                release_pid_lock(lock, acquire_pid_lock(lock))
+                released = not node.data_locked
+            except RuntimeError:
+                released = False
+        finally:
+            errors = []
+            for peer in servers:
+                try:
+                    await peer.stop()
+                except Exception as e:  # raised below, once every peer stopped
+                    errors.append(e)
+            if errors:
+                raise errors[0]
+        return NodeStartRun(
+            make_s=t1 - t0, start_s=t2 - t1, handshake_s=handshake_s[0], sync_s=t3 - t2, seconds=t3 - t0,
+            applied=state.last_block_height - start_height, replayed=node.handshaker.n_blocks,
+            state=state, app_hash=app_hash, lock_released=released,
+            dbs_closed=sum(_db_closed(db) for db in dbs), dbs=len(dbs), node=node,
+        )
+
+    return asyncio.run(go())
+
+
+def _free_port_base(n: int) -> int:
+    """A port p with p..p+n-1 all free on 127.0.0.1 just now."""
+    import socket
+
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {n} consecutive free ports")
+
+
+@dataclass
+class CliNode:
+    """One `start` process of cli_localnet: its home, the height its
+    status read last, its exit code, and its log's lines."""
+
+    home: str
+    rpc: str
+    height: int
+    rc: Optional[int]
+    log: List[str]
+
+
+def cli_localnet(out_dir: str, n: int, min_height: int, gpu: bool, device: str = "cuda",
+                 timeout_s: float = 120.0, settings: Optional[Dict[str, dict]] = None) -> List[CliNode]:
+    """`testnet` writes n validator homes under out_dir (127.0.0.1 ports
+    taken free, [gpu] enable = gpu, and `settings` written into each
+    config.toml), then n `python3 -m tendermint_tpu_torch.cmd start`
+    processes run over TCP until the port's HTTP client's `status` reads
+    a height of at least min_height on every one; each is then sent
+    SIGTERM and waited for. Every process is gone when this returns."""
+    import io
+    import signal
+    import subprocess
+    import sys
+
+    from .cmd import main
+    from .config import load_config, write_config
+    from .rpc.client import HTTPClient
+
+    base = _free_port_base(2 * n)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if main(["testnet", "-v", str(n), "-o", out_dir, "--starting-port", str(base)]) != 0:
+            raise RuntimeError("testnet failed")
+    homes = [os.path.join(out_dir, f"node{i}") for i in range(n)]
+    for home in homes:
+        path = os.path.join(home, "config", "config.toml")
+        cfg = load_config(path)
+        cfg.gpu.enable = gpu
+        for section, values in (settings or {}).items():
+            for key, value in values.items():
+                setattr(getattr(cfg, section), key, value)
+        write_config(cfg, path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, logs = [], []
+    nodes = [CliNode(home, f"127.0.0.1:{base + 2 * i + 1}", 0, None, []) for i, home in enumerate(homes)]
+
+    async def poll() -> None:
+        deadline = time.monotonic() + timeout_s
+        clients = [HTTPClient(nd.rpc, timeout=2.0) for nd in nodes]
+        try:
+            while any(nd.height < min_height for nd in nodes):
+                for nd, client, proc in zip(nodes, clients, procs):
+                    if proc.poll() is not None:
+                        raise RuntimeError(f"{nd.home}: start exited with {proc.returncode}")
+                    try:
+                        st = await client.call("status")
+                        nd.height = int(st["sync_info"]["latest_block_height"])
+                    except (OSError, asyncio.TimeoutError, RuntimeError, ValueError):
+                        await client.close()
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"heights {[nd.height for nd in nodes]} after {timeout_s} s")
+                await asyncio.sleep(0.2)
+        finally:
+            for client in clients:
+                await client.close()
+
+    try:
+        for nd in nodes:
+            log = open(os.path.join(nd.home, "start.log"), "w")
+            logs.append(log)
+            cmd = [sys.executable, "-m", "tendermint_tpu_torch.cmd", "--home", nd.home, "start",
+                   "--device", device]
+            procs.append(subprocess.Popen(cmd, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT))
+        asyncio.run(poll())
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+        for nd, proc in zip(nodes, procs):
+            nd.rc = proc.wait(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    for nd in nodes:
+        with open(os.path.join(nd.home, "start.log")) as f:
+            nd.log = f.read().splitlines()
+    return nodes

@@ -171,6 +171,26 @@ def test_bench_block_sync_and_state_sync_cells(capsys, monkeypatch):
         assert math.isfinite(cells["state_sync"][key]) and cells["state_sync"][key] > 0
 
 
+def test_bench_node_start_cell(capsys, monkeypatch):
+    """The node_start cell at 8 mixed validators and 40 txs a block, one
+    home (the native CPU plane below the gate, block sync's caught-up
+    grace shortened): every key it declares, the seconds and rates
+    positive, every block replayed by the restart's handshake."""
+    from tendermint_tpu_torch.blocksync import pool
+
+    monkeypatch.setattr(bench, "VALIDATORS", 8)
+    monkeypatch.setattr(bench, "TXS", 40)
+    monkeypatch.setattr(bench, "CATCHUP_REPS", 1)
+    monkeypatch.setattr(pool, "_CAUGHT_UP_GRACE_S", 0.3)
+    assert bench.main(["--device", "cpu", "--cells", "node_start"]) == 0
+    cell = json.loads(capsys.readouterr().out)["cells"]["node_start"]
+    assert set(cell) == set(bench.CELL_KEYS["node_start"]) | {"cell_s"}
+    assert (cell["heights"], cell["txs"], cell["validators"]) == (8, 40, 8)
+    assert cell["blocks_replayed"] == 8
+    for key in ("start_to_caught_up_s", "blocks_per_s", "handshake_replay_s"):
+        assert math.isfinite(cell[key]) and cell[key] > 0
+
+
 def test_bench_rpc_light_cell(capsys, monkeypatch):
     """The rpc_light cell at 4 validators and 24 hops on the CPU, one
     sync of each kind: the HTTP sync pages the bulk route (heights 2-24

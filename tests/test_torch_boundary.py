@@ -2,7 +2,7 @@
 
 tendermint_tpu_torch imports torch and numpy, never jax and nothing of
 tendermint_tpu (not even the JAX package's framework-free modules), and
-chip_smoke.py imports neither. Neither imports the `cryptography`
+chip_smoke.py and node_start_trace.py import neither. Neither imports the `cryptography`
 package either: SecretConnection and crypto/symmetric.py run their
 pure-Python X25519, HKDF and AEAD. Its entry points target CUDA unless the
 caller passes device="cpu"; without a card they raise instead of running
@@ -27,6 +27,8 @@ def _port_modules():
     mods = []
     for path in sorted(PKG.rglob("*.py")):
         parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__main__":
+            continue  # an entry point runs when imported: see the CLI's test
         if parts[-1] == "__init__":
             parts = parts[:-1]
         mods.append(".".join(parts))
@@ -143,6 +145,17 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         "tendermint_tpu_torch.state.sink_sql",
         "tendermint_tpu_torch.store.keymigrate",
         "tendermint_tpu_torch.config",
+        "tendermint_tpu_torch.version",
+        "tendermint_tpu_torch.libs.log",
+        "tendermint_tpu_torch.abci.codec",
+        "tendermint_tpu_torch.abci.server",
+        "tendermint_tpu_torch.consensus.replay",
+        "tendermint_tpu_torch.consensus.wal_generator",
+        "tendermint_tpu_torch.node",
+        "tendermint_tpu_torch.node.key",
+        "tendermint_tpu_torch.node.node",
+        "tendermint_tpu_torch.cmd",
+        "tendermint_tpu_torch.cmd.commands",
     ):
         assert m in added
     assert [m for m in added if _forbidden(m)] == []
@@ -165,6 +178,9 @@ def test_importing_the_device_plane_builds_and_starts_nothing():
         "from tendermint_tpu_torch.state import indexer, sink_sql\n"
         "from tendermint_tpu_torch.store import keymigrate\n"
         "from tendermint_tpu_torch.node import device\n"
+        "from tendermint_tpu_torch import cmd, node\n"
+        "from tendermint_tpu_torch.consensus import replay, wal_generator\n"
+        "from tendermint_tpu_torch.abci import server\n"
         "from tendermint_tpu_torch.crypto import breaker, faults, gpu_verifier\n"
         "print(json.dumps([native._LIB is None, threading.active_count(),\n"
         "                  faults.armed(), gpu_verifier.installed()]))\n"
@@ -176,6 +192,35 @@ def test_importing_the_device_plane_builds_and_starts_nothing():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [True, 1, False, None]
+
+
+def test_node_and_cli_load_no_jax_and_no_jax_package():
+    """`import tendermint_tpu_torch.node`, `tendermint_tpu_torch.cmd` and
+    a run of `python3 -m tendermint_tpu_torch.cmd --help` load neither
+    jax nor tendermint_tpu; --help prints the node's commands."""
+    code = (
+        "import json, runpy, sys\n"
+        "import tendermint_tpu_torch.node, tendermint_tpu_torch.cmd\n"
+        "sys.argv = ['tendermint_tpu_torch.cmd', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tendermint_tpu_torch.cmd', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    code = e.code\n"
+        "print(json.dumps([code, sorted(sys.modules)]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    rc, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rc == 0
+    assert [m for m in loaded if _forbidden(m)] == []
+    for command in ("init", "start", "testnet", "rollback", "unsafe-reset-all", "show-node-id",
+                    "show-validator", "gen-validator", "gen-node-key", "signer", "abci", "key-migrate",
+                    "reindex-event", "version"):
+        assert command in out.stdout
 
 
 def test_device_plane_without_cuda_raises():
@@ -195,7 +240,7 @@ def test_device_plane_without_cuda_raises():
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "node_start_trace.py"],
 )
 def test_source_names_no_forbidden_import(path):
     tree = ast.parse((ROOT / path).read_text())

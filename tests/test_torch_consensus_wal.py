@@ -288,6 +288,9 @@ def test_corrupt_record_stops_reading_as_jax(tmp_path, monkeypatch, where):
 
 
 def test_oversize_message_refused_as_jax(tmp_path, monkeypatch):
+    # one clock for both writes: the record's size counts the varints of
+    # its time, which two readings of the host clock can make differ
+    monkeypatch.setattr(time, "time_ns", lambda: 1_760_000_000_123_456_789)
     big = port_msgs.MsgInfo(msg=port_msgs.BlockPartMessage(
         height=1, round=0, part=Part(index=0, bytes=b"\x07" * (1 << 20),
                                      proof=Proof(total=1, index=0, leaf_hash=b"\x01" * 32))))
