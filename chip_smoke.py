@@ -341,6 +341,28 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# the plain versions' times of phase_kernels and vote_kernels, by
+# function: plain_once times the one call whose result the kernel is
+# held against, and the row takes it from here
+_PLAIN_MS: dict = {}
+
+
+def plain_once(torch, plain):
+    """plain()'s result; its milliseconds between two CUDA events kept
+    as the row's plain_ms (one call, no warm-up: a plain version takes
+    1.5-18 s a call on the card, and its comparison needs the call
+    anyway)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = plain()
+    end.record()
+    torch.cuda.synchronize()
+    _PLAIN_MS[plain] = start.elapsed_time(end)
+    return out
+
+
 # profiler sessions device_ms and device_busy_ms take at most:
 # torch.profiler on an H100 host has dropped kernel records at random
 # (seen: 48 of 50 K2 records in one session, 4 and 0 of X5's 10 in two
@@ -428,30 +450,16 @@ def bound_ms(nbytes: float, instr: float):
     return t_ops * 1e3, "operations"
 
 
-def _counted_modules():
-    from tendermint_tpu_torch.ops import ed25519_cuda, merkle_kernel
-    from tendermint_tpu_torch.ops import sha256_kernel, sha512_kernel
-    from tendermint_tpu_torch.ops import sr25519_cuda
-
-    return (
-        ed25519_cuda,
-        sha512_kernel,
-        sr25519_cuda,
-        sha256_kernel,
-        merkle_kernel,
-    )
-
-
 def reset_launches() -> None:
-    for mod in _counted_modules():
-        mod.reset_launches()
+    from tendermint_tpu_torch.node.device import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def launches() -> dict:
-    out = {}
-    for mod in _counted_modules():
-        out.update(mod.LAUNCHES)
-    return out
+    from tendermint_tpu_torch.node.device import launch_counts
+
+    return launch_counts()
 
 
 # -- commits built with the port's own types --
@@ -572,20 +580,27 @@ def hashlib_ram(sig, pk, msgs) -> np.ndarray:
 
 
 def phase_x1_ragged(torch, dev, seed: int) -> None:
-    """X1's ragged entry against its plain version and hashlib: mixed
-    message lengths 0-300 in one launch, at a width no block of rows
-    divides and at the widest bucket."""
+    """X1's ragged entry against hashlib, mixed message lengths 0-300 in
+    one launch, at a width no block of rows divides (and there against
+    its plain version too) and at the widest bucket. The plain version
+    takes ~40 s a width on the card (a call per length group, 301 of
+    them), so the widest bucket is held against hashlib alone (the
+    script's time, PERF.md §4)."""
     from tendermint_tpu_torch.ops import sha512_kernel as S
 
     out = {}
     for n in (RAGGED, WIDE):
         (sig, pk, flat, off), msgs = ragged_rows(torch, dev, n, 300, seed + n)
         got = S.sha512_ragged(sig, pk, flat, off, 300).cpu().numpy()
-        plain = S.sha512_ragged_plain(sig, pk, flat, off).cpu().numpy()
         ref = hashlib_ram(sig.cpu().numpy(), pk.cpu().numpy(), msgs)
-        if not (np.array_equal(got, plain) and np.array_equal(got, ref)):
-            raise AssertionError(f"X1 ragged digests differ at width {n}")
-        out[str(n)] = {"lengths": len({len(m) for m in msgs})}
+        held = ["hashlib"]
+        if n == RAGGED:
+            held.append("plain")
+            if not np.array_equal(got, S.sha512_ragged_plain(sig, pk, flat, off).cpu().numpy()):
+                raise AssertionError(f"X1 ragged digests differ from the plain version at width {n}")
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"X1 ragged digests differ from hashlib at width {n}")
+        out[str(n)] = {"lengths": len({len(m) for m in msgs}), "held_against": held}
     emit({"phase": "x1_ragged_vs_plain_and_hashlib", "widths": out, "ok": True})
 
 
@@ -2564,7 +2579,7 @@ def vote_kernels(torch, dev, windows: dict, valid: set) -> dict:
     out: dict = {}
 
     def held(name, width, fn, plain, want_bits=None):
-        got, ref = fn(), plain()
+        got, ref = fn(), plain_once(torch, plain)
         err = int((got.int() - ref.int()).abs().max().item())
         if err:
             raise AssertionError(f"{name} differs from its plain version at {width}")
@@ -2573,7 +2588,7 @@ def vote_kernels(torch, dev, windows: dict, valid: set) -> dict:
         out.setdefault(name, {})[str(width)] = {
             "max_abs_err": err,
             "ms": cuda_ms(torch, fn, 10),
-            "plain_ms": cuda_ms(torch, plain, 1),
+            "plain_ms": _PLAIN_MS.pop(plain),
         }
 
     for kt, verifier in (("ed25519", ed), ("sr25519", sr)):
@@ -2823,9 +2838,10 @@ def phase_vote_path(torch, dev, seed: int) -> dict:
     return {"sizes": results, "launches": launches_by_size, "kernels": held}
 
 
-# block execution at config 5's set: heights, timed replays
+# block execution at config 5's set: heights, timed replays (3, cut
+# from 5 for the script's time: PERF.md §4)
 BLOCK_EXEC_HEIGHTS = 3
-BLOCK_EXEC_REPS = 5
+BLOCK_EXEC_REPS = 3
 
 
 def block_exec_rule(state, block, app_keys: int, gate: int, step: int, min_batch: int) -> tuple:
@@ -4170,12 +4186,13 @@ def phase_mempool_proposer(torch, seed: int) -> dict:
 # equivocates on its prevote of GOSSIP_EQUIVOCATE_AT) and the harness
 # peer on one MemoryNetwork; GOSSIP_TXS txs in each harness block and in
 # B's pool, which A reaps; the CPU plane's reference runs
-# GOSSIP_CPU_HEIGHTS heights (the script's time: PERF.md §4; 2 in PR 16)
+# GOSSIP_CPU_HEIGHTS heights (none, cut from 2 and then 1 for the
+# script's time: PERF.md §4)
 GOSSIP_HEIGHTS = 3
 GOSSIP_PROPOSES_AT = 3
 GOSSIP_EQUIVOCATE_AT = 2
 GOSSIP_TXS = 2_000
-GOSSIP_CPU_HEIGHTS = 1
+GOSSIP_CPU_HEIGHTS = 0
 GOSSIP_TIMEOUT_S = 120.0
 # at GOSSIP_EQUIVOCATE_AT the harness holds its votes until a node found
 # C's two prevotes, this long at most: the HasVote of the first one can
@@ -4426,8 +4443,8 @@ def phase_consensus_gossip(torch, seed: int) -> dict:
     more, none under it), every LastCommit verify_commit its windows,
     nothing else launches but X4, and the pre-verify launches X1 and X3;
     no fault or reroute; and the CPU plane's run of heights
-    1..GOSSIP_CPU_HEIGHTS gives the same blocks, states and app hashes at
-    every node. Reports, a height: ms from the proposal to each node's
+    1..GOSSIP_CPU_HEIGHTS (none for now: the script's time) gives the
+    same blocks, states and app hashes at every node. Reports, a height: ms from the proposal to each node's
     EndHeight and their spread, the proposal's ms to the complete block
     at the farthest node, votes/s by gossip from real peers and from H,
     duplicates, envelopes by channel (HasVote apart), burst sizes, the
@@ -4478,10 +4495,12 @@ def phase_consensus_gossip(torch, seed: int) -> dict:
         finally:
             uninstall_device_plane()
         sigcache.reset()
-        t_ref = time.perf_counter()
-        ref = run_gossip(torch, genesis, privs, keys, node_keys, txs[:GOSSIP_CPU_HEIGHTS], pool_txs,
-                         os.path.join(tmp, "cpu"), seed, False)
-        ref_s = time.perf_counter() - t_ref
+        ref = None
+        if GOSSIP_CPU_HEIGHTS:
+            t_ref = time.perf_counter()
+            ref = run_gossip(torch, genesis, privs, keys, node_keys, txs[:GOSSIP_CPU_HEIGHTS], pool_txs,
+                             os.path.join(tmp, "cpu"), seed, False)
+            ref_s = time.perf_counter() - t_ref
 
     run = dev["run"]
     ids = dev["real_ids"]
@@ -4607,7 +4626,7 @@ def phase_consensus_gossip(torch, seed: int) -> dict:
                          "through_evidence_reactor": through_reactor,
                          "harness_held_votes_ms": dev["held_ms"],
                          # None: the reference ends before that height
-                         "cpu_plane_harness_held_votes_ms": ref.get("held_ms")},
+                         "cpu_plane_harness_held_votes_ms": ref.get("held_ms") if ref else None},
         "queue_drops": run.dropped,
         "launches": {k: n for k, n in dev["launches"].items() if n},
         "launches_per_height": {h: r["launches"] for h, r in by_height.items()},
@@ -4618,8 +4637,8 @@ def phase_consensus_gossip(torch, seed: int) -> dict:
             "run_s": ref["run_s"],
             "phase_s": ref_s,
             "by_height": {g.height: height_report(ref, g) for g in ref["run"].heights},
-        },
-        "equal_to_cpu_plane": ["block", "state", "app_hash"],
+        } if ref else {"heights": 0},
+        "equal_to_cpu_plane": ["block", "state", "app_hash"] if ref else [],
         "device_busy_ms_heights_2_3": busy,
         "device_records_kept": kept,
         "device_kernels_not_measured": sorted(k for k, n in launched.items() if n and k not in busy),
@@ -5762,7 +5781,9 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
         "p2p": {"laddr": "tcp://" + NODE_MEM_ADDR, "persistent_peers": catchup_peers(keys, seed)},
         "rpc": {"laddr": "tcp://127.0.0.1:0"},
     }
-    with tempfile.TemporaryDirectory(prefix="node_start_") as tmp:
+    # the home outlives the phase: operator_tools inspects and replays it,
+    # then removes tmp
+    with kept_on_success("node_start_") as tmp:
         home = os.path.join(tmp, "home")
         t0 = time.perf_counter()
         init_home(home, genesis, settings)
@@ -5911,7 +5932,504 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return {"launches": {"block_sync_from_home": launched1,
-                         "crash_replay_handshake": {k: n for k, n in shakes2[0].items() if n}}}
+                         "crash_replay_handshake": {k: n for k, n in shakes2[0].items() if n}},
+            "home": home, "tmp": tmp}
+
+
+# operator_tools: the operator's commands as processes of the CLI, each
+# installing its own device plane. (a)/(b): `light` over config 4's
+# chains of OPS_LIGHT_HEIGHTS heights (150 ed25519; 75 + 75 mixed),
+# asked for light_block 2..tip in order; (b) with OPS_FAULT.
+# (c): `inspect` and `replay` on node_start's stopped home. (d): a
+# ProcessRunner net of config 1 to OPS_NET_HEIGHT, validator02 SIGKILLed
+# at OPS_NET_KILL_AT and a state-sync joiner starting at OPS_NET_JOIN_AT.
+OPS_LIGHT_HEIGHTS = 24
+OPS_LIGHT_CHAIN_ID = "chip-smoke-operator"
+OPS_FAULT = "gpu.dispatch:raise:p=0.5:seed=11"
+OPS_NET_HEIGHT = 7
+OPS_NET_KILL_AT = 3
+OPS_NET_JOIN_AT = 4
+OPS_TIMEOUT_S = 180.0
+# where every child installs its plane
+OPS_DEVICE = "cuda"
+OPS_KERNELS = ("sha512_ram", "ed25519_verify_tile", "sr25519_verify", "sha256_tree")
+_OPS_ADDR = re.compile(r" on (127\.0\.0\.1):(\d+)")
+
+
+@contextlib.contextmanager
+def kept_on_success(prefix: str):
+    """A temporary directory the caller removes; removed here only when
+    the block raises."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix=prefix)
+    try:
+        yield tmp
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def cli_env(**extra) -> dict:
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.update(extra)
+    return env
+
+
+async def cli_serving(*argv, env=None):
+    """A `python3 -m tendermint_tpu_torch.cmd` process serving on
+    127.0.0.1: (the process, its address, the lines it printed up to the
+    one naming the address, the seconds to that line)."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "tendermint_tpu_torch.cmd", *argv, env=env or cli_env(),
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT,
+    )
+    lines = []
+    while True:
+        line = (await asyncio.wait_for(proc.stdout.readline(), OPS_TIMEOUT_S)).decode()
+        if not line:
+            raise AssertionError(f"operator_tools: {argv[:3]} exited {await proc.wait()}: {lines[-8:]}")
+        lines.append(line.rstrip("\n"))
+        m = _OPS_ADDR.search(line)
+        if m:
+            return proc, f"{m.group(1)}:{m.group(2)}", lines, time.perf_counter() - t0
+
+
+async def cli_stopped(proc, what: str) -> list:
+    """SIGTERM, then the rest of the output; the process must exit 0."""
+    import asyncio
+    import signal
+
+    if proc.returncode is None:
+        proc.send_signal(signal.SIGTERM)
+    out = (await asyncio.wait_for(proc.stdout.read(), OPS_TIMEOUT_S)).decode().splitlines()
+    rc = await asyncio.wait_for(proc.wait(), OPS_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError(f"operator_tools: {what} exited {rc}: {out[-8:]}")
+    return out
+
+
+def plane_line(lines: list, what: str) -> dict:
+    """The `device plane: {...}` line a light or replay process prints
+    as its last."""
+    reports = [json.loads(x.split("device plane: ", 1)[1]) for x in lines if x.startswith("device plane: ")]
+    if len(reports) != 1:
+        raise AssertionError(f"operator_tools: {what} printed {len(reports)} device plane lines: {lines[-8:]}")
+    return reports[0]
+
+
+def ops_light_chain(seed: int, n_sr: int) -> dict:
+    """A config 4 chain of OPS_LIGHT_HEIGHTS applied blocks (no txs) of
+    LIGHT_VALIDATORS validators, n_sr of them sr25519, built on the CPU
+    plane (workloads.serve_chain)."""
+    from tendermint_tpu_torch.workloads import kv_genesis, seeded_keys, serve_chain, stored_light_blocks
+
+    t0 = time.perf_counter()
+    privs = seeded_keys(LIGHT_VALIDATORS, seed, n_sr)
+    _chain, node, _states = serve_chain(kv_genesis(OPS_LIGHT_CHAIN_ID, privs), privs,
+                                        [[] for _ in range(OPS_LIGHT_HEIGHTS)], seed)
+    bs, ss = node.block_store, node.state_store
+    return {"node": node, "blocks": stored_light_blocks(bs, ss, range(1, bs.height() + 1)),
+            "build_s": time.perf_counter() - t0}
+
+
+def light_rule(blocks: dict, heights: list, gate: int, step: int) -> dict:
+    """commit_rule("light") summed over the hops to `heights`, each an
+    adjacent verify_commit_light of its block's commit."""
+    rule = dict.fromkeys(SIGNATURE_KERNELS, 0)
+    for h in heights:
+        lb = blocks[h]
+        signers = commit_signers("light", lb.validator_set, lb.signed_header.commit)
+        for k, n in window_rule(signers, gate, step).items():
+            rule[k] += n
+    return rule
+
+
+def ops_light(torch, chains: dict, tmp: str) -> dict:
+    """(a) and (b): for each chain two `light` processes (the second
+    under OPS_FAULT) of an RPC server over it, all four spawned and asked
+    at once, then an in-process light.Client of the same server; each is
+    asked for light_block 2..tip in order (an adjacent hop each:
+    verify_commit_light, 2/3 of the set's signatures). The bytes must be
+    the chain's stored light blocks; the in-process client's launches
+    (counted here) and the first process's (its exit line) must both
+    equal light_rule; the faulted one must report faults and rerouted
+    signatures."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.crypto.gpu_verifier import _GpuBatchVerifier
+    from tendermint_tpu_torch.light import Client, LightStore, TrustOptions
+    from tendermint_tpu_torch.light.provider import HTTPProvider
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.rpc.core import Environment
+    from tendermint_tpu_torch.store.kv import MemKV
+    from tendermint_tpu_torch.workloads import rpc_serving
+
+    gate, step = gpu_verifier.installed(), _GpuBatchVerifier.STREAM_CHUNK
+    period_s = CATCHUP_TRUST_PERIOD_S
+    heights = {name: list(range(2, max(c["blocks"]) + 1)) for name, c in chains.items()}
+    rules = {name: light_rule(c["blocks"], heights[name], gate, step) for name, c in chains.items()}
+    runs = [(name, run) for name in chains for run in ("plain", "faulted")]
+
+    async def ask(addr: str, hs: list) -> tuple:
+        client = HTTPClient(addr, timeout=OPS_TIMEOUT_S)
+        t0 = time.perf_counter()
+        try:
+            got = {h: (await client.call("light_block", height=h))["light_block"] for h in hs}
+        finally:
+            await client.close()
+        return got, (time.perf_counter() - t0) * 1e3 / len(hs)
+
+    async def in_process(name: str, primary: str) -> dict:
+        blocks = chains[name]["blocks"]
+        client = Client(OPS_LIGHT_CHAIN_ID, TrustOptions(period_ns=int(period_s * 1e9), height=1,
+                                                         hash=blocks[1].signed_header.hash()),
+                        HTTPProvider(primary), [], LightStore(MemKV()))
+        rule = rules[name]
+        expect = {"ed25519": (rule["sha512_ram"], {"sha512_ram": rule["sha512_ram"],
+                                                   "ed25519_verify_tile": rule["ed25519_verify_tile"]}),
+                  "sr25519": (rule["sr25519_verify"], {"sr25519_verify": rule["sr25519_verify"]})}
+        by_type: dict = {}
+        before = gpu_verifier.stats()
+        t0 = time.perf_counter()
+        with charged_dispatches(by_type):
+            reset_launches()
+            mine = {h: (await client.verify_light_block_at_height(h, time.time_ns())).to_proto().hex()
+                    for h in heights[name]}
+            torch.cuda.synchronize()
+            counts = launches()
+        ms = (time.perf_counter() - t0) * 1e3 / len(heights[name])
+        await client.primary.close()
+        checked = check_counts(before, gpu_verifier.stats(), by_type, counts, expect,
+                               where=f"operator_tools light {name} in process")
+        return {"mine": mine, "ms": ms, "checked": checked}
+
+    async def go() -> dict:
+        envs = [Environment(chain_id=OPS_LIGHT_CHAIN_ID, block_store=c["node"].block_store,
+                            state_store=c["node"].state_store) for c in chains.values()]
+        async with rpc_serving(envs) as addrs:
+            primary = dict(zip(chains, addrs))
+
+            def argv(name, run):
+                return ["--home", os.path.join(tmp, f"light-{name}-{run}"), "light", OPS_LIGHT_CHAIN_ID,
+                        "--primary", primary[name], "--trust-height", "1",
+                        "--trust-hash", chains[name]["blocks"][1].signed_header.hash().hex(),
+                        "--trust-period", str(period_s), "--laddr", "tcp://127.0.0.1:0", "--device", OPS_DEVICE]
+
+            procs = await asyncio.gather(*(
+                cli_serving(*argv(name, run), env=cli_env(**({"TM_TPU_FAULT": OPS_FAULT} if run == "faulted" else {})))
+                for name, run in runs))
+            try:
+                asked = await asyncio.gather(*(ask(p[1], heights[name]) for (name, _r), p in zip(runs, procs)))
+            finally:
+                exits = [await cli_stopped(p[0], f"light {name} {run}") for (name, run), p in zip(runs, procs)]
+            mine = {name: await in_process(name, primary[name]) for name in chains}
+            return {"procs": procs, "asked": asked, "exits": exits, "mine": mine}
+
+    res = asyncio_ops(go())
+    out = {}
+    for name, chain in chains.items():
+        blocks = chain["blocks"]
+        want = {h: blocks[h].to_proto().hex() for h in heights[name]}
+        got = {run: res["asked"][i] for i, (n, run) in enumerate(runs) if n == name}
+        lines = {run: res["exits"][i] for i, (n, run) in enumerate(runs) if n == name}
+        ready = {run: res["procs"][i][3] for i, (n, run) in enumerate(runs) if n == name}
+        for run, (served, _ms) in got.items():
+            if served != want:
+                bad = [h for h in heights[name] if served[h] != want[h]]
+                raise AssertionError(f"operator_tools: light {name} {run} served other bytes at heights {bad}")
+        mine = res["mine"][name]
+        if mine["mine"] != want:
+            raise AssertionError(f"operator_tools: the in-process client of {name} verified other light blocks")
+        plain, faulted = (plane_line(lines[run], f"light {name} {run}") for run in ("plain", "faulted"))
+        rule = rules[name]
+        child = {k: plain["launches"].get(k, 0) for k in OPS_KERNELS}
+        if child != {**rule, "sha256_tree": 0} or any(n for k, n in plain["launches"].items() if k not in OPS_KERNELS):
+            raise AssertionError(f"operator_tools: light {name} launched {plain['launches']}, the rule {rule}")
+        if plain["installed"] != OPS_DEVICE or plain["stats"]["faults"] or plain["stats"]["rerouted_sigs"]:
+            raise AssertionError(f"operator_tools: light {name}'s plane {plain['installed']}, stats {plain['stats']}")
+        if faulted["stats"]["faults"] < 1 or faulted["stats"]["rerouted_sigs"] < 1:
+            raise AssertionError(f"operator_tools: light {name} under {OPS_FAULT} reported {faulted['stats']}")
+        key_types = [v.pub_key.type() for v in blocks[1].validator_set.validators]
+        out[name] = {
+            "validators": {kt: key_types.count(kt) for kt in ("ed25519", "sr25519")},
+            "heights_asked": [heights[name][0], heights[name][-1]],
+            "chain_build_s": chain["build_s"],
+            "proxy_ready_s": ready,
+            "ms_per_light_block": {**{run: ms for run, (_g, ms) in got.items()}, "in_process": mine["ms"]},
+            "rule": rule,
+            "launches_child": {k: n for k, n in child.items() if n},
+            "launches_in_process": {k: n for k, n in mine["checked"].items() if k != "by_key_type" and n},
+            "faulted": {"spec": OPS_FAULT, "faults": faulted["stats"]["faults"],
+                        "rerouted_sigs": faulted["stats"]["rerouted_sigs"],
+                        "launches": {k: n for k, n in faulted["launches"].items() if n}},
+            "equal_bytes": ["plain", "faulted", "in_process", "stored"],
+        }
+    return out
+
+
+def asyncio_ops(coro):
+    """asyncio.run under the phase's limit, so that a hang fails it."""
+    import asyncio
+
+    return asyncio.run(asyncio.wait_for(coro, 4 * OPS_TIMEOUT_S))
+
+
+def ops_inspect_replay(node_start: dict, served: dict) -> dict:
+    """(c)'s processes on node_start's stopped home: `inspect` refuses
+    while this process holds the data dir's lock; then it serves block,
+    commit, light_block and header at heights 1, tip // 2 and tip (10k
+    light blocks, ~1 MB of JSON each), whose answers ops_inspect_check
+    holds against the stores. `replay --device cuda` rebuilds the app
+    from the stored blocks: its final height and app hash are the
+    chain's, and its launches are X4 = blocks + 1 (the InitChain's root
+    and one app hash a block) and nothing else. Nothing here runs a
+    kernel in this process."""
+    import asyncio
+
+    from tendermint_tpu_torch.node.node import acquire_pid_lock, release_pid_lock
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+
+    home = node_start["home"]
+    states = served["states"]
+    tip = len(served["chain"])
+    heights = (1, tip // 2, tip)
+    routes = [(m, h) for h in heights for m in ("block", "commit", "light_block", "header")]
+
+    async def refused() -> tuple:
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "tendermint_tpu_torch.cmd", "--home", home, "inspect",
+            "--laddr", "tcp://127.0.0.1:0", env=cli_env(),
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT)
+        out = (await asyncio.wait_for(proc.stdout.read(), OPS_TIMEOUT_S)).decode()
+        return await proc.wait(), out
+
+    lock = os.path.join(home, "data", "LOCK")
+    fd = acquire_pid_lock(lock)
+    try:
+        t0 = time.perf_counter()
+        rc, out = asyncio_ops(refused())
+        refused_s = time.perf_counter() - t0
+    finally:
+        release_pid_lock(lock, fd)
+    if rc != 1 or "node appears to be running" not in out:
+        raise AssertionError(f"operator_tools: inspect of a locked home exited {rc}: {out[-300:]}")
+
+    async def served_by_inspect() -> tuple:
+        proc, addr, _lines, ready_s = await cli_serving("--home", home, "inspect", "--laddr", "tcp://127.0.0.1:0")
+        client = HTTPClient(addr, timeout=OPS_TIMEOUT_S)
+        try:
+            t0 = time.perf_counter()
+            got = {f"{m} {h}": await client.call(m, height=h) for m, h in routes}
+            return got, ready_s, (time.perf_counter() - t0) * 1e3 / len(routes)
+        finally:
+            await client.close()
+            await cli_stopped(proc, "inspect")
+
+    t0 = time.perf_counter()
+    got, ready_s, ms = asyncio_ops(served_by_inspect())
+    inspect_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "tendermint_tpu_torch.cmd", "--home", home, "replay",
+                           "--device", OPS_DEVICE], env=cli_env(), capture_output=True, text=True,
+                          timeout=OPS_TIMEOUT_S)
+    replay_s = time.perf_counter() - t0
+    lines = done.stdout.splitlines()
+    if done.returncode != 0:
+        raise AssertionError(f"operator_tools: replay exited {done.returncode}: {done.stderr[-600:]}")
+    final = [x for x in lines if x.startswith("replayed ")]
+    want_line = f"replayed {tip} blocks; final height {tip} app_hash {states[tip - 1].app_hash.hex()}"
+    if final != [want_line]:
+        raise AssertionError(f"operator_tools: replay printed {final}, not [{want_line!r}]")
+    report = plane_line(lines, "replay")
+    child = {k: report["launches"].get(k, 0) for k in OPS_KERNELS}
+    want_launches = {**dict.fromkeys(SIGNATURE_KERNELS, 0), "sha256_tree": tip + 1}
+    if child != want_launches or any(n for k, n in report["launches"].items() if k not in OPS_KERNELS):
+        raise AssertionError(f"operator_tools: replay launched {report['launches']}, not {want_launches}")
+    if report["installed"] != OPS_DEVICE or report["stats"]["faults"]:
+        raise AssertionError(f"operator_tools: replay's plane {report['installed']}, stats {report['stats']}")
+    return {
+        "answers": got, "heights": heights, "routes": routes,
+        "inspect": {"refused_locked_s": refused_s, "ready_s": ready_s, "s": inspect_s, "ms_per_route": ms,
+                    "routes": len(routes), "equal_to": ["rpc_server_over_the_stores", "stored_light_blocks"]},
+        "replay": {"s": replay_s, "blocks": tip, "app_hash": states[tip - 1].app_hash.hex(),
+                   "launches": {k: n for k, n in child.items() if n}, "rule": {"sha256_tree": tip + 1}},
+    }
+
+
+def ops_inspect_check(node_start: dict, served: dict, res: dict) -> None:
+    """(c)'s check, in this process with no plane installed: each answer
+    `inspect` gave equals an RPC server's over the same stores, and each
+    light block the stored bytes."""
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.rpc.core import Environment
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.store.block_store import BlockStore
+    from tendermint_tpu_torch.store.kv import SqliteKV
+    from tendermint_tpu_torch.workloads import rpc_serving, stored_light_blocks
+
+    home = node_start["home"]
+    dbs = [SqliteKV(os.path.join(home, "data", f"{n}.sqlite")) for n in ("blockstore", "state")]
+    try:
+        bs, ss = BlockStore(dbs[0]), StateStore(dbs[1])
+
+        async def in_process() -> dict:
+            async with rpc_serving([Environment(chain_id=served["states"][0].chain_id, block_store=bs,
+                                                state_store=ss)]) as (addr,):
+                client = HTTPClient(addr, timeout=OPS_TIMEOUT_S)
+                try:
+                    return {f"{m} {h}": await client.call(m, height=h) for m, h in res["routes"]}
+                finally:
+                    await client.close()
+
+        want = asyncio_ops(in_process())
+        stored = stored_light_blocks(bs, ss, res["heights"])
+    finally:
+        for db in dbs:
+            db.close()
+    got = res["answers"]
+    if got != want:
+        bad = [k for k in got if got[k] != want[k]]
+        raise AssertionError(f"operator_tools: inspect answered {bad[:6]} unlike the stores")
+    for h in res["heights"]:
+        if got[f"light_block {h}"]["light_block"] != stored[h].to_proto().hex():
+            raise AssertionError(f"operator_tools: inspect's light block {h} is not the stored one")
+
+
+def ops_process_net(tmp: str) -> dict:
+    """(d) a ProcessRunner net of config 1 (e2e/process_runner.py): four
+    validators as `start --device cuda` processes with their `abci
+    kvstore` processes over TCP, validator02 SIGKILLed at OPS_NET_KILL_AT
+    and started again, and full01 state-syncing from OPS_NET_JOIN_AT, to
+    OPS_NET_HEIGHT. The runner's invariants hold (one chain over RPC, the
+    joiner restored and holds no genesis block), every start of a child
+    installed its plane, every node exits 0 on the runner's SIGTERM, and
+    the block-interval stats are reported.
+    Under the gate of 32 its commits verify on the CPU plane (no
+    launch, by rule)."""
+    import asyncio
+
+    from tendermint_tpu_torch.e2e import Manifest
+    from tendermint_tpu_torch.e2e.process_runner import ProcessRunner
+
+    m = Manifest.parse({
+        "chain_id": "chip-smoke-e2e",
+        "target_height": OPS_NET_HEIGHT,
+        "validators": {f"validator{i:02d}": 10 for i in range(1, 5)},
+        "node": {
+            "validator02": {"perturb": [f"kill:{OPS_NET_KILL_AT}"]},
+            "full01": {"mode": "full", "start_at": OPS_NET_JOIN_AT, "state_sync": True},
+        },
+    })
+    runner = ProcessRunner(m, os.path.join(tmp, "net"), timeout=OPS_TIMEOUT_S, device=OPS_DEVICE)
+    t0 = time.perf_counter()
+    rep = asyncio.run(runner.run())
+    net_s = time.perf_counter() - t0
+    if not rep.ok:
+        raise AssertionError(f"operator_tools: the process net failed: {rep.failures}")
+    installs = {}
+    for name, h in runner.handles.items():
+        with open(h.log_path, errors="replace") as f:
+            installs[name] = (f.read().count("device plane installed"), h.starts)
+    if any(n != starts for n, starts in installs.values()) or installs["validator02"][1] != 2:
+        raise AssertionError(f"operator_tools: plane installs / starts by node {installs}")
+    if rep.state_synced != {"full01": True}:
+        raise AssertionError(f"operator_tools: the joiner {rep.state_synced}")
+    exits = {name: h.node_proc.returncode for name, h in runner.handles.items()}
+    if any(rc != 0 for rc in exits.values()):
+        raise AssertionError(f"operator_tools: the nodes' exits on SIGTERM {exits}")
+    return {"s": net_s, "nodes": len(installs), "reached_height": rep.reached_height,
+            "starts": {n: s for n, (_i, s) in installs.items()}, "state_synced": rep.state_synced,
+            "blocks": rep.blocks, "interval_avg_s": rep.interval_avg, "interval_stddev_s": rep.interval_stddev,
+            "interval_min_s": rep.interval_min, "interval_max_s": rep.interval_max, "launches": 0}
+
+
+def phase_operator_tools(torch, seed: int, served: dict, node_start: dict) -> dict:
+    """The operator's tools as processes of the CLI on the card (ROADMAP
+    item 21b): (a) `light` over config 4's ed25519 and mixed chains with
+    the launches of the rule, (b) the same under TM_TPU_FAULT, (c)
+    `inspect` and `replay` on node_start's stopped home, (d) a
+    ProcessRunner net of config 1 across a SIGKILL and a state-synced
+    joiner (ops_light, ops_inspect_replay and ops_inspect_check,
+    ops_process_net). (c)'s processes and (d) run on threads of their own
+    beside (a) (the script's time): their processes count their own
+    launches (replay's exit line) or launch nothing, and this process
+    launches only in (a)'s in-process clients (the threads run no check
+    here; (c)'s comparison with the stores runs after (a), with the plane
+    uninstalled), so every count stays exact; the hosts' timings are
+    taken under each other's load. The in-process light clients run with this process's
+    plane installed (install_device_plane(GPUConfig()),
+    settle_probes()). Reports each part's seconds."""
+    import shutil
+    import threading
+
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, merkle
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+
+    if gpu_verifier.installed() is not None or merkle._device_root_hook is not None:
+        raise AssertionError("the device plane is installed before operator_tools")
+    t_phase = time.perf_counter()
+    out = {"phase": "operator_tools", "device": OPS_DEVICE}
+    parts: dict = {}
+
+    def run_part(name: str, fn, *args) -> None:
+        t0 = time.perf_counter()
+        try:
+            parts[name] = fn(*args)
+            parts[name]["s"] = time.perf_counter() - t0
+        except BaseException as e:  # raised by the phase once the thread is joined
+            parts[name] = e
+
+    try:
+        with kept_on_success("operator_tools_") as tmp:
+            threads = [
+                threading.Thread(target=run_part, args=("process_net", ops_process_net, tmp)),
+                threading.Thread(target=run_part, args=("inspect_replay", ops_inspect_replay,
+                                                        node_start, served)),
+            ]
+            for thread in threads:
+                thread.start()
+            try:
+                t0 = time.perf_counter()
+                chains = {"ed25519": ops_light_chain(seed + 90, 0),
+                          "mixed": ops_light_chain(seed + 91, LIGHT_VALIDATORS // 2)}
+                install_device_plane(GPUConfig())
+                settle_probes()
+                try:
+                    light = ops_light(torch, chains, tmp)
+                finally:
+                    uninstall_device_plane()
+                out["light"] = {"s": time.perf_counter() - t0, **light}
+            finally:
+                for thread in threads:
+                    thread.join(4 * OPS_TIMEOUT_S)
+                if any(thread.is_alive() for thread in threads):
+                    raise AssertionError("operator_tools: a part on a thread did not end")
+                shutil.rmtree(tmp, ignore_errors=True)
+            for name in ("inspect_replay", "process_net"):
+                if isinstance(parts[name], BaseException):
+                    raise parts[name]
+            ops_inspect_check(node_start, served, parts["inspect_replay"])
+            for key in ("answers", "heights", "routes"):
+                del parts["inspect_replay"][key]
+            out["inspect_replay"] = parts["inspect_replay"]
+            out["process_net"] = parts["process_net"]
+    finally:
+        shutil.rmtree(node_start["tmp"], ignore_errors=True)
+    out["ok"] = True
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"launches": {"light_ed25519": light["ed25519"]["launches_child"],
+                         "light_mixed": light["mixed"]["launches_child"],
+                         "replay": out["inspect_replay"]["replay"]["launches"]}}
 
 
 def phase_kernels(
@@ -5964,7 +6482,7 @@ def phase_kernels(
             "device_ms": d_ms,
             # kernel records the profiler kept per session, of 10 * launches
             "device_records": records,
-            "plain_ms": cuda_ms(torch, plain, 1),
+            "plain_ms": _PLAIN_MS.pop(plain),
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
@@ -5983,7 +6501,7 @@ def phase_kernels(
     got = x1()
     err = max(
         int((a.int() - b.int()).abs().max().item())
-        for a, b in zip(got, x1_plain())
+        for a, b in zip(got, plain_once(torch, x1_plain))
     )
     for (c_pks, c_msgs, c_sigs), g in zip(chunks, got):
         ref = b"".join(
@@ -6018,7 +6536,7 @@ def phase_kernels(
     packed = [verifier.pack(*c) for c in chunks]
     k2 = lambda: [C.verify_tile(*p[:3]) for p in packed]  # noqa: E731
     k2_plain = lambda: [K._verify_tile(*p[:3]) for p in packed]  # noqa: E731
-    got, plain = k2(), k2_plain()
+    got, plain = k2(), plain_once(torch, k2_plain)
     for c, g in zip(chunks, got):
         if not bool(g[: len(c[0])].all()):
             raise AssertionError("K2 rejected a valid signature of the commit")
@@ -6056,7 +6574,7 @@ def phase_kernels(
     k1_plain = lambda: [  # noqa: E731
         K.dual_mult_sb_minus_ka(*a) for a in k1_in
     ]
-    err = max(projective_err(torch, a, b) for a, b in zip(k1(), k1_plain()))
+    err = max(projective_err(torch, a, b) for a, b in zip(k1(), plain_once(torch, k1_plain)))
     rows.append(
         row(
             "ed25519_dual_mult",
@@ -6100,7 +6618,7 @@ def phase_kernels(
     x3_plain = lambda: [  # noqa: E731
         SK._verify_tile_sr(w.pk_b, w.sig_b, w.k_b) for w in sr_wins
     ]
-    got, plain = x3(), x3_plain()
+    got, plain = x3(), plain_once(torch, x3_plain)
     lane = 0
     for w, g in zip(sr_wins, got):
         if not bool(g[: len(w.size_ok)].all()):
@@ -6183,7 +6701,7 @@ def phase_kernels(
     got = x4()
     if got.cpu().numpy().tobytes() != config5["data_hash"]:
         raise AssertionError("X4's root differs from the block's data hash")
-    err = int((got.int() - x4_plain().int()).abs().max().item())
+    err = int((got.int() - plain_once(torch, x4_plain).int()).abs().max().item())
     rows.append(
         row(
             "sha256_tree",
@@ -6224,7 +6742,7 @@ def phase_kernels(
     views = batch.to(dev)
     x5 = lambda: MK.merkle_proofs(*views)  # noqa: E731
     x5_plain = lambda: MK.verify_program_plain(*views)  # noqa: E731
-    (r_k, ok_k), (r_p, ok_p) = x5(), x5_plain()
+    (r_k, ok_k), (r_p, ok_p) = x5(), plain_once(torch, x5_plain)
     if not bool(ok_k.all()):
         raise AssertionError("X5 rejected a valid proof of the block")
     err = max(
@@ -6532,6 +7050,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     state_sync = phase_state_sync(torch, args.seed, served)
     rpc = phase_rpc(torch, args.seed, served)
     node_start = phase_node_start(torch, args.seed, served, block_sync)
+    operator_tools = phase_operator_tools(torch, args.seed, served, node_start)
     del served
     kernels = phase_kernels(
         torch, dev, main_run, mixed_run, config5, card, power, x5_old_build
@@ -6573,6 +7092,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
         r["state_sync"] = {"launches": state_sync["launches"].get(r["name"], 0)}
         r["rpc"] = {run: c.get(r["name"], 0) for run, c in rpc["launches"].items()}
         r["node_start"] = {run: c.get(r["name"], 0) for run, c in node_start["launches"].items()}
+        r["operator_tools"] = {run: c.get(r["name"], 0) for run, c in operator_tools["launches"].items()}
     # the vote path's launches per height at each size, and each kernel
     # against its plain version on the path's windows at VOTE_WIDTHS
     for r in kernels["kernels"]:

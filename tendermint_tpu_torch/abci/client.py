@@ -11,7 +11,7 @@ socket_client.go, creators.go:12-36. Every method is a coroutine; the
 local client runs the synchronous application inline under one lock, as
 the reference's mutex-serialized local client does. The socket client
 pipelines varint-framed requests (abci/codec.py) and matches the answers
-FIFO. The gRPC client is ROADMAP item 21b.
+FIFO. The gRPC client is abci/grpc_transport.py.
 """
 
 from __future__ import annotations

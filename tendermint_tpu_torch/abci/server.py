@@ -6,7 +6,7 @@ and abci/server/server.go). SocketServer answers echo and flush itself
 and dispatches the rest to the app under one lock (dispatch_to_app); an
 app that raises answers ResponseException, which the client raises as
 ABCIClientError. The app runs on the host: no device call runs under the
-catch. The gRPC server is ROADMAP item 21b.
+catch. The gRPC server is abci/grpc_transport.py.
 """
 
 from __future__ import annotations

@@ -137,6 +137,15 @@ installed from its config (node.device.install_device_plane(GPUConfig())):
   into the app, the last applied through BlockExecutor.apply_block).
   The synced state must be the chain's, and the restart's app hash
   the chain's last.
+- e2e_interval: BASELINE.md's "e2e block interval" (reference:
+  test/e2e/runner/benchmark.go:14-23): a process net of config 1 (four
+  `start` processes, each with its device plane on the card and its
+  `abci kvstore` app process, TCP p2p; e2e/process_runner.py) run to
+  height E2E_HEIGHT (103: the runner keeps the intervals past the first
+  2, a 100-block window); the block-interval avg, stddev, min and
+  max, with the card's name and power limit. Every child must have
+  installed its plane; under the gate of 32 the commits verify on the
+  CPU plane, as config 1 says.
 
 Every cell checks its outputs (a verified commit, a full bitmap, equal
 roots, every header verified) and fails otherwise; no device fault and
@@ -196,6 +205,10 @@ CHAIN_BUDGET_S = 240.0
 # rpc_light's chain (config 4's validators, its depth cut to 256 hops for
 # the cell's time) and its syncs of each kind
 RPC_HEADERS, RPC_REPS = 256, 2
+# e2e_interval: config 1's validators and the target height of its
+# process net (the runner leaves out the first 2 intervals past 10, so
+# 103 heights give the 100-block window), and its time limit (seconds)
+E2E_VALIDATORS, E2E_HEIGHT, E2E_TIMEOUT_S = 4, 103, 600.0
 
 # each cell and the keys of its object
 CELL_KEYS = {
@@ -302,6 +315,17 @@ CELL_KEYS = {
         "window",
         "chain_build_s",
         "reduced",
+    ),
+    "e2e_interval": (
+        "interval_avg_s",
+        "interval_stddev_s",
+        "interval_min_s",
+        "interval_max_s",
+        "blocks",
+        "reached_height",
+        "validators",
+        "children_with_plane",
+        "nvidia_smi",
     ),
     # last: it leaves both breakers open
     "commit10k_mixed_cpu_plane": ("validators", "p50_ms", "p95_ms", "reps"),
@@ -1120,6 +1144,50 @@ def cell_rpc_light(ctx: Ctx) -> dict:
     }
 
 
+def cell_e2e_interval(ctx: Ctx) -> dict:
+    """BASELINE.md's "e2e block interval" (reference:
+    test/e2e/runner/benchmark.go:14-23): a process net of config 1
+    (E2E_VALIDATORS validators, each a `start` process with its
+    `abci kvstore` app over a socket, TCP p2p) run by
+    e2e.process_runner.ProcessRunner to E2E_HEIGHT, every child with the
+    device plane on ctx.device ([gpu] enable = false on the CPU); the
+    block-interval avg, stddev, min and max over the window the runner
+    keeps. Under the gate of 32 the commits verify on the CPU plane."""
+    import asyncio
+    import tempfile
+
+    from .e2e import Manifest
+    from .e2e.process_runner import ProcessRunner
+
+    m = Manifest.parse({
+        "chain_id": "bench-e2e",
+        "target_height": E2E_HEIGHT,
+        "validators": {f"validator{i:02d}": 10 for i in range(1, E2E_VALIDATORS + 1)},
+    })
+    with tempfile.TemporaryDirectory(prefix="bench_e2e_") as home:
+        runner = ProcessRunner(m, home, timeout=E2E_TIMEOUT_S, device=ctx.device)
+        rep = asyncio.run(runner.run())
+        if not rep.ok:
+            raise AssertionError(f"e2e_interval: {rep.failures}")
+        with_plane = 0
+        for h in runner.handles.values():
+            with open(h.log_path, errors="replace") as f:
+                with_plane += "device plane installed" in f.read()
+    if ctx.device == "cuda" and with_plane != E2E_VALIDATORS:
+        raise AssertionError(f"e2e_interval: {with_plane} of {E2E_VALIDATORS} children installed the plane")
+    return {
+        "interval_avg_s": rep.interval_avg,
+        "interval_stddev_s": rep.interval_stddev,
+        "interval_min_s": rep.interval_min,
+        "interval_max_s": rep.interval_max,
+        "blocks": rep.blocks,
+        "reached_height": rep.reached_height,
+        "validators": E2E_VALIDATORS,
+        "children_with_plane": with_plane,
+        "nvidia_smi": _nvidia_smi() if ctx.device == "cuda" else None,
+    }
+
+
 RUNNERS = {
     "batch_curve": cell_batch_curve,
     "throughput_8192": cell_throughput,
@@ -1140,6 +1208,7 @@ RUNNERS = {
     "state_sync": cell_state_sync,
     "node_start": cell_node_start,
     "rpc_light": cell_rpc_light,
+    "e2e_interval": cell_e2e_interval,
 }
 
 

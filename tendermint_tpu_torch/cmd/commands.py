@@ -2,12 +2,18 @@
 
 Counterpart: tendermint_tpu/cmd/commands.py (reference:
 cmd/tendermint/commands/): the node's own commands init (:45), signer
-(:91, the remote signer over TCP), start (:151), gen-validator (:187),
-gen-node-key (:210), show-node-id (:227), show-validator (:236),
-rollback (:258), unsafe-reset-all (:287), testnet (:311), key-migrate
-(:1115), version (:1150), reindex-event (:1188) and abci (:1337, the
-kvstore app behind a SocketServer, or a SocketClient driving one), with
-build_parser (:1418) and main (:1651). argparse in place of cobra; every
+(:91, the remote signer over TCP, or its gRPC server with --grpc),
+start (:151), gen-validator (:187), gen-node-key (:210), show-node-id
+(:227), show-validator (:236), rollback (:258), unsafe-reset-all (:287),
+testnet (:311), light (:362, a verifying proxy over HTTPProvider with
+the routes header, commit, light_block and status), inspect (:465,
+_inspect_serve :485: read-only RPC over a stopped node's stores, its
+lock held), replay and replay --console (:550, _stdin_reader_queue
+:633, _console_rs :669, _replay_console :702), e2e generate and run
+[--processes] (:1059), key-migrate (:1115), version (:1150),
+reindex-event (:1188) and abci (:1284, :1337: the kvstore app behind a
+socket or --grpc server, a client sending one request, or the
+interactive `abci console`), with build_parser (:1418) and main (:1651). argparse in place of cobra; every
 command works on a --home laid out as make_node reads it
 (config/config.toml, config/genesis.json, config/node_key.json,
 config/priv_validator_key.json, data/). The default home is
@@ -22,9 +28,20 @@ an error while it runs (block sync's pool routine, the evidence loop,
 an RPC route, the state sync task: Node.failure) stops the node too, and
 the command raises that error, so it exits non-zero without a signal.
 
-Left out: the commands light, inspect, replay and replay-console, debug
-and e2e (ROADMAP item 21b; debug's device profile is item 11), and the
-gRPC transports of signer and abci (item 21b).
+`light` and `replay` install the device plane too, from the home's
+[gpu] (defaults where the home has no config.toml), on `--device`
+(cuda; cpu runs the kernels' plain versions); the JAX commands install
+none. A failed install or launch ends the command with an error: neither
+carries on on the CPU. Each prints, as the last line of its standard
+output (an error's traceback follows on stderr), "device plane:" and
+node/device.py plane_report() as JSON: its launches, and the faults
+and rerouted signatures of TM_TPU_FAULT (crypto/faults.py), which arms
+any command's process. `light` serves until SIGINT or SIGTERM, or until
+a route raises an error that is not the route's own answer (the
+server's failure(), polled as `start` polls its node), and then raises
+it.
+
+Left out: `debug` (ROADMAP item 11, with its device profile).
 """
 
 from __future__ import annotations
@@ -105,8 +122,9 @@ def cmd_init(args) -> int:
 def cmd_signer(args) -> int:
     """The external signing process for a node's [priv_validator]
     listen_addr: this home's FilePV (its key and its double-sign state)
-    serving signing requests over SecretConnection (reference:
-    privval/signer_server.go)."""
+    serving signing requests over SecretConnection, dialing the node, or
+    with --grpc as a gRPC server the node dials (reference:
+    privval/signer_server.go, privval/grpc/server.go)."""
     from ..libs.log import configure
     from ..privval.file import FilePV
     from ..privval.signer import SignerServer
@@ -117,10 +135,19 @@ def cmd_signer(args) -> int:
         cfg.base.path(cfg.priv_validator.key_file),
         cfg.base.path(cfg.priv_validator.state_file),
     )
+    if args.grpc and args.node_id:
+        print("--node-id applies to the socket transport only (gRPC has no identity check)",
+              file=sys.stderr)
+        return 2
     print(f"signer for validator {pv.key.address.hex()} -> {args.addr}", flush=True)
 
     async def run() -> None:
-        srv = SignerServer(args.addr, pv, expected_node_id=args.node_id, chain_id=cfg.base.chain_id)
+        if args.grpc:
+            from ..privval.grpc import GRPCSignerServer
+
+            srv = GRPCSignerServer(args.addr, cfg.base.chain_id, pv)
+        else:
+            srv = SignerServer(args.addr, pv, expected_node_id=args.node_id, chain_id=cfg.base.chain_id)
         loop = asyncio.get_running_loop()
         stop = asyncio.Event()
         for sig in (signal.SIGINT, signal.SIGTERM):
@@ -151,27 +178,33 @@ def cmd_start(args) -> int:
 
     async def run() -> None:
         node = make_node(cfg, device=args.device)
-        loop = asyncio.get_running_loop()
-        stop = asyncio.Event()
-        for sig in (signal.SIGINT, signal.SIGTERM):
-            loop.add_signal_handler(sig, stop.set)
         # a failed start tears itself down: only a started node owes a stop
         await node.start()
-        failed = None
-        try:
-            while failed is None and not stop.is_set():
-                try:
-                    await asyncio.wait_for(stop.wait(), _FAILURE_POLL_S)
-                except asyncio.TimeoutError:
-                    failed = node.failure()
-        finally:
-            # raises the error a part ended on
-            await node.stop()
-        if failed is not None:
-            raise failed
+        await _run_until_stopped(node)
 
     asyncio.run(run())
     return 0
+
+
+async def _run_until_stopped(part) -> None:
+    """Wait for SIGINT or SIGTERM, or for an error a part of `part` ended
+    on (its failure(), polled every _FAILURE_POLL_S), then stop it; raise
+    that error. stop() of a node raises it too."""
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    failed = None
+    try:
+        while failed is None and not stop.is_set():
+            try:
+                await asyncio.wait_for(stop.wait(), _FAILURE_POLL_S)
+            except asyncio.TimeoutError:
+                failed = part.failure()
+    finally:
+        await part.stop()
+    if failed is not None:
+        raise failed
 
 
 # -- keys and identity ------------------------------------------------------
@@ -414,6 +447,442 @@ def _reindex_events(cfg: Config, args) -> int:
         idb.close()
 
 
+# -- the device plane of light and replay -----------------------------------
+
+
+def _install_plane(cfg: Config, device: str) -> None:
+    """install_device_plane(cfg.gpu, device); it raises when CUDA, a
+    kernel or the native CPU plane is missing."""
+    from ..node.device import install_device_plane
+
+    if install_device_plane(cfg.gpu, device):
+        print(f"device plane installed on {device} (min_batch {cfg.gpu.min_batch_size})", flush=True)
+
+
+def _print_plane_report() -> None:
+    from ..node.device import plane_report
+
+    print("device plane: " + json.dumps(plane_report(), sort_keys=True), flush=True)
+
+
+# -- light (reference: commands/light.go, the verifying proxy) ---------------
+
+
+def cmd_light(args) -> int:
+    from ..light import Client, LightStore, TrustOptions
+    from ..light.provider import HTTPProvider
+    from ..node.device import uninstall_device_plane
+    from ..rpc.core import encode
+    from ..rpc.jsonrpc import INVALID_PARAMS, JSONRPCServer, RPCError
+    from ..rpc.server import _split_laddr
+    from ..store.kv import open_db
+
+    cfg = _load_home(args.home)
+    home = os.path.expanduser(args.home)
+    os.makedirs(os.path.join(home, "light"), exist_ok=True)
+    _install_plane(cfg, args.device)
+    db = open_db("light", "sqlite", os.path.join(home, "light"))
+
+    async def run() -> None:
+        primary = HTTPProvider(args.primary)
+        witnesses = [HTTPProvider(w) for w in args.witness or []]
+        client = Client(
+            args.chain_id,
+            TrustOptions(
+                period_ns=int(args.trust_period * 1e9),
+                height=args.trust_height,
+                hash=bytes.fromhex(args.trust_hash),
+            ),
+            primary,
+            witnesses,
+            LightStore(db),
+            sequential=args.sequential,
+        )
+
+        def height_of(req) -> int:
+            h = int(req.params.get("height", 0))
+            if h <= 0:
+                raise RPCError(INVALID_PARAMS, "height required")
+            return h
+
+        async def verified(req):
+            return await client.verify_light_block_at_height(height_of(req), time.time_ns())
+
+        async def route_header(req):
+            lb = await verified(req)
+            return {"header": encode(lb.signed_header.header)}
+
+        async def route_commit(req):
+            lb = await verified(req)
+            return {"signed_header": encode(lb.signed_header), "canonical": True}
+
+        async def route_light_block(req):
+            lb = await verified(req)
+            return {"height": lb.height, "light_block": lb.to_proto().hex()}
+
+        async def route_status(req):
+            lb = client.store.latest_light_block()
+            return {
+                "chain_id": args.chain_id,
+                "trusted_height": lb.height if lb is not None else 0,
+                "primary": args.primary,
+                "witnesses": [w.id() for w in witnesses],
+            }
+
+        server = JSONRPCServer(
+            {
+                "header": route_header,
+                "commit": route_commit,
+                "light_block": route_light_block,
+                "status": route_status,
+            }
+        )
+        host, port = _split_laddr(args.laddr)
+        await server.start(host, port)
+        print(f"light client proxy for {args.chain_id} on {host}:{server.bound_port} "
+              f"(primary {args.primary})", flush=True)
+        try:
+            await _run_until_stopped(server)
+        finally:
+            for p in [primary, *witnesses]:
+                await p.close()
+
+    try:
+        asyncio.run(run())
+    finally:
+        db.close()
+        _print_plane_report()
+        uninstall_device_plane()
+    return 0
+
+
+# -- inspect (reference: internal/inspect) ------------------------------------
+
+# the routes inspect serves: those that read the stores alone
+INSPECT_ROUTES = (
+    "health", "status", "genesis", "genesis_chunked", "blockchain",
+    "header", "header_by_hash", "block", "block_by_hash",
+    "block_results", "commit", "validators", "consensus_params",
+    "tx", "tx_search", "block_search", "light_block",
+)
+
+
+def cmd_inspect(args) -> int:
+    """Read-only RPC over a stopped node's stores. The data dir's lock
+    is held while it serves, so that a node (or rollback, or a reset)
+    started meanwhile fails fast; only taking the lock maps to the
+    one-line refusal."""
+    cfg = _load_home(args.home)
+    guard = _ensure_node_stopped(cfg)
+    try:
+        guard.__enter__()
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    try:
+        return _inspect_serve(cfg, args)
+    finally:
+        guard.__exit__(None, None, None)
+
+
+def _inspect_serve(cfg: Config, args) -> int:
+    from ..rpc.core import Environment
+    from ..rpc.jsonrpc import JSONRPCServer
+    from ..rpc.server import _split_laddr
+    from ..state.indexer import KVSink
+    from ..state.store import StateStore
+    from ..store.block_store import BlockStore
+    from ..store.kv import open_db
+    from ..types.genesis import GenesisDoc
+
+    db_dir = cfg.base.path(cfg.base.db_dir)
+    dbs = [open_db(n, cfg.base.db_backend, db_dir) for n in ("blockstore", "state", "tx_index")]
+    try:
+        gpath = cfg.base.path(cfg.base.genesis_file)
+        genesis = GenesisDoc.from_file(gpath) if os.path.exists(gpath) else None
+        env = Environment(
+            chain_id=genesis.chain_id if genesis else "",
+            block_store=BlockStore(dbs[0]),
+            state_store=StateStore(dbs[1]),
+            genesis=genesis,
+            event_sinks=[KVSink(dbs[2])],
+            cfg=cfg,
+        )
+        read_only = {k: v for k, v in env.routes().items() if k in INSPECT_ROUTES}
+
+        async def run() -> None:
+            server = JSONRPCServer(read_only)
+            host, port = _split_laddr(args.laddr)
+            await server.start(host, port)
+            print(f"inspect server on {host}:{server.bound_port} "
+                  f"(read-only routes: {', '.join(sorted(read_only))})", flush=True)
+            await _run_until_stopped(server)
+
+        asyncio.run(run())
+    finally:
+        for db in dbs:
+            db.close()
+    return 0
+
+
+# -- replay (reference: commands/replay.go, consensus/replay_file.go) --------
+
+
+def cmd_replay(args) -> int:
+    """Re-execute the stored blocks through a fresh builtin app, with the
+    device plane installed from the home's [gpu] (the app's roots take
+    X4); print the final state's height and app hash. With --console,
+    step the WAL's records after the last height one at a time
+    (reference: replay_file.go:54, 188-193)."""
+    from ..abci.client import local_creator
+    from ..abci.kvstore import KVStoreApplication
+    from ..abci.proxy import AppConns
+    from ..consensus.replay import Handshaker
+    from ..node.device import uninstall_device_plane
+    from ..state.store import StateStore
+    from ..state.types import state_from_genesis
+    from ..store.block_store import BlockStore
+    from ..store.kv import open_db
+    from ..types.genesis import GenesisDoc
+
+    cfg = _load_home(args.home)
+    try:
+        guard = _ensure_node_stopped(cfg)
+        guard.__enter__()
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    try:
+        _install_plane(cfg, args.device)
+        db_dir = cfg.base.path(cfg.base.db_dir)
+        block_db = open_db("blockstore", cfg.base.db_backend, db_dir)
+        state_db = open_db("state", cfg.base.db_backend, db_dir)
+        genesis = GenesisDoc.from_file(cfg.base.path(cfg.base.genesis_file))
+
+        async def run() -> None:
+            block_store = BlockStore(block_db)
+            # the node's own state store, as the reference's
+            # newConsensusStateForReplay (replay_file.go:295) uses it
+            state_store = StateStore(state_db)
+            state = state_store.load()
+            if state is None:
+                state = state_from_genesis(genesis)
+                state_store.save(state)
+            proxy = AppConns(local_creator(KVStoreApplication()))
+            await proxy.start()
+            try:
+                await Handshaker(state_store, state, block_store, genesis).handshake(proxy.consensus)
+                final = state_store.load()
+                print(f"replayed {block_store.height()} blocks; final height "
+                      f"{final.last_block_height} app_hash {final.app_hash.hex()}", flush=True)
+                if args.console:
+                    await _replay_console(cfg, final, proxy, block_store)
+            finally:
+                await proxy.stop()
+
+        try:
+            asyncio.run(run())
+        finally:
+            block_db.close()
+            state_db.close()
+            _print_plane_report()
+            uninstall_device_plane()
+    finally:
+        guard.__exit__(None, None, None)
+    return 0
+
+
+async def _build_replay_cs(cfg: Config, state, proxy, block_store):
+    """A playback-only ConsensusState (replay_mode) over the handshaken
+    state: no signer, no live WAL; its ticker runs so that scheduled
+    timeouts are tracked, and the console feeds the recorded
+    TimeoutInfo records."""
+    from ..config import MempoolConfig
+    from ..consensus.state import ConsensusState
+    from ..mempool.mempool import TxMempool
+    from ..state.execution import BlockExecutor
+    from ..state.store import StateStore
+    from ..store.kv import MemKV
+
+    state_store = StateStore(MemKV())
+    state_store.save(state)
+    mempool = TxMempool(proxy.mempool, MempoolConfig())
+    block_exec = BlockExecutor(state_store, proxy.consensus, mempool, block_store=block_store)
+    cs = ConsensusState(cfg.consensus, state, block_exec, block_store, privval=None, replay_mode=True)
+    await cs.ticker.start()
+    return cs
+
+
+def _stdin_reader_queue(loop, prompt: str = "") -> "asyncio.Queue":
+    """Stdin lines into an asyncio.Queue from a daemon thread, so that a
+    console never parks the event loop it shares with the ABCI clients,
+    and asyncio.run's teardown never joins a thread parked in input().
+    EOF (or a closed loop) ends the stream with None."""
+    import threading
+
+    lines: asyncio.Queue = asyncio.Queue()
+
+    def post(item) -> None:
+        try:
+            loop.call_soon_threadsafe(lines.put_nowait, item)
+        except RuntimeError:
+            pass  # the loop closed: the console is gone
+
+    def reader() -> None:
+        while True:
+            try:
+                raw = input(prompt)
+            except Exception:  # EOF, a closed or broken stdin
+                post(None)
+                return
+            post(raw)
+
+    threading.Thread(target=reader, daemon=True).start()
+    return lines
+
+
+def _console_rs(cs, field: str) -> str:
+    """One view of the round state (reference: replay_file.go:259-287)."""
+    rs = cs.rs
+    if field in ("short", ""):
+        return f"{rs.height}/{rs.round}/{rs.step}"
+    if field == "locked_round":
+        return str(rs.locked_round)
+    if field == "locked_block":
+        return rs.locked_block.hash().hex() if rs.locked_block is not None else "nil"
+    if field == "proposal":
+        return repr(rs.proposal)
+    if field == "validators":
+        return "\n".join(f"{v.address.hex()} power={v.voting_power}" for v in rs.validators.validators)
+    if field == "votes":
+        out = []
+        for r in range(rs.round + 1):
+            pv = rs.votes.prevotes(r)
+            pc = rs.votes.precommits(r)
+            out.append(f"round {r}: prevotes={pv.bit_array() if pv else None} "
+                       f"precommits={pc.bit_array() if pc else None}")
+        return "\n".join(out)
+    return f"unknown rs field {field!r}"
+
+
+async def _replay_console(cfg: Config, state, proxy, block_store) -> None:
+    """WAL playback (reference: replay_file.go console: next [N], back
+    [N], rs [field], n, quit): the records after the last EndHeight, one
+    at a time through a replay-mode ConsensusState. `back` rebuilds the
+    state machine and replays to count - N, as the reference does."""
+    from ..consensus.wal import WAL
+
+    wal = WAL(cfg.base.path(cfg.consensus.wal_file))
+    end_height = state.last_block_height
+    msgs = wal.search_for_end_height(end_height)
+    if msgs is None:
+        print(f"cannot replay: WAL has no EndHeight({end_height}) marker (missing or corrupt WAL)")
+        return
+    print(f"console: {len(msgs)} WAL records after EndHeight({end_height}); commands: next [N] | "
+          "back [N] | rs [short|locked_round|locked_block|proposal|validators|votes] | n | quit")
+    cs = await _build_replay_cs(cfg, state, proxy, block_store)
+    pos = 0
+
+    async def apply_one() -> bool:
+        nonlocal pos
+        if pos >= len(msgs):
+            print("end of WAL")
+            return False
+        m = msgs[pos]
+        pos += 1
+        try:
+            await cs.replay_one(m)
+        except RuntimeError as e:  # an EndHeight in the tail: store and WAL disagree
+            print(f"replay error at #{pos}: {e}")
+            return False
+        print(f"#{pos}: {type(m).__name__} -> {_console_rs(cs, 'short')}")
+        return True
+
+    lines = _stdin_reader_queue(asyncio.get_running_loop(), prompt="> ")
+    while True:
+        line = await lines.get()
+        if line is None:
+            break
+        tokens = line.split()
+        if not tokens:
+            continue
+        cmd, rest = tokens[0], tokens[1:]
+        count = int(rest[0]) if rest and rest[0].isdigit() else 1
+        if cmd in ("quit", "q"):
+            break
+        elif cmd == "next":
+            for _ in range(count):
+                if not await apply_one():
+                    break
+        elif cmd == "back":
+            target = max(0, pos - count)
+            await cs.ticker.stop()
+            cs = await _build_replay_cs(cfg, state, proxy, block_store)
+            pos = 0
+            for _ in range(target):
+                await apply_one()
+            print(f"rewound to #{pos}")
+        elif cmd == "rs":
+            print(_console_rs(cs, rest[0] if rest else ""))
+        elif cmd == "n":
+            print(pos)
+        else:
+            print(f"unknown command {cmd!r}")
+    await cs.ticker.stop()
+
+
+# -- e2e (reference: the test/e2e runner and generator) ----------------------
+
+
+def cmd_e2e(args) -> int:
+    """`e2e generate` writes seeded manifests; `e2e run` runs one, in
+    process or (--processes) a `start` process a node, and prints the
+    report as JSON. The nodes' device plane runs on --device (cuda; cpu
+    writes [gpu] enable = false)."""
+    from ..e2e import Manifest, generate, run_manifest
+
+    if args.e2e_cmd == "generate":
+        if args.manifest:
+            print("e2e generate takes no manifest argument", file=sys.stderr)
+            return 1
+        out = os.path.expanduser(args.output_dir)
+        os.makedirs(out, exist_ok=True)
+        for i, m in enumerate(generate(seed=args.seed, count=args.count)):
+            path = os.path.join(out, f"gen-{args.seed}-{i}.toml")
+            with open(path, "w") as f:
+                f.write(m.to_toml())
+            print(path)
+        return 0
+    if not args.manifest:
+        print("e2e run requires a manifest path", file=sys.stderr)
+        return 1
+    import tempfile
+
+    m = Manifest.from_toml(os.path.expanduser(args.manifest))
+    home = args.home_dir or tempfile.mkdtemp(prefix="tt-e2e-")
+    mode = "processes" if args.processes else "in-process"
+    print(f"running {m.chain_id}: {len(m.nodes)} nodes ({mode}) -> {home}")
+    if args.processes:
+        from ..e2e.process_runner import run_manifest_processes
+
+        rep = run_manifest_processes(m, home, timeout=args.timeout, device=args.device)
+    else:
+        rep = run_manifest(m, home, timeout=args.timeout, device=args.device)
+    print(json.dumps({
+        "ok": rep.ok,
+        "reached_height": rep.reached_height,
+        "blocks": rep.blocks,
+        "block_interval_avg_s": round(rep.interval_avg, 3),
+        "block_interval_stddev_s": round(rep.interval_stddev, 3),
+        "txs_submitted": rep.txs_submitted,
+        "txs_committed": rep.txs_committed,
+        "evidence_heights": rep.evidence_heights,
+        "state_synced": rep.state_synced,
+        "failures": rep.failures,
+    }, indent=2))
+    return 0 if rep.ok else 1
+
+
 # -- testnet (reference: commands/testnet.go) -------------------------------
 
 
@@ -519,16 +988,21 @@ async def _abci_exec(client, cmd: str, operand: str, path: str) -> None:
 
 
 def cmd_abci(args) -> int:
-    """Serve the builtin kvstore app on a socket (`abci kvstore`), or
-    send an out-of-process app one request (reference: abci/cmd/, the
-    abci-cli tool and its example-app server). The interactive console
-    is left out with the other item 21b commands."""
-    from ..abci.client import SocketClient
+    """Serve the builtin kvstore app (`abci kvstore`), send an
+    out-of-process app one request, or read requests from stdin (`abci
+    console`), over a socket or with --grpc over gRPC (reference:
+    abci/cmd/, the abci-cli tool, its console and example-app server)."""
     from ..abci.kvstore import KVStoreApplication
-    from ..abci.server import SocketServer
+
+    if args.grpc:
+        from ..abci.grpc_transport import GRPCClient as make_client
+        from ..abci.grpc_transport import GRPCServer as make_server
+    else:
+        from ..abci.client import SocketClient as make_client
+        from ..abci.server import SocketServer as make_server
 
     async def serve_kvstore() -> int:
-        srv = SocketServer(args.addr, KVStoreApplication(snapshot_interval=args.snapshot_interval))
+        srv = make_server(args.addr, KVStoreApplication(snapshot_interval=args.snapshot_interval))
         loop = asyncio.get_running_loop()
         stop = asyncio.Event()
         for sig in (signal.SIGINT, signal.SIGTERM):
@@ -541,17 +1015,37 @@ def cmd_abci(args) -> int:
             await srv.stop()
         return 0
 
+    async def console(client) -> None:
+        print("abci console: echo|info|deliver-tx|check-tx|commit|query <operand>  (ctrl-d to exit)",
+              flush=True)
+        lines = _stdin_reader_queue(asyncio.get_running_loop())
+        while True:
+            line = await lines.get()
+            if line is None:
+                break
+            parts = line.strip().split(None, 1)
+            if not parts:
+                continue
+            try:
+                await _abci_exec(client, parts[0], parts[1] if len(parts) > 1 else "", args.path)
+            except Exception as e:  # the console answers and reads on
+                print(f"-> error: {e}", flush=True)
+
     async def drive() -> int:
-        client = SocketClient(args.addr, must_connect=True)
+        client = make_client(args.addr, must_connect=True)
         await client.start()
         try:
-            await _abci_exec(client, args.abci_cmd, args.operand, args.path)
-        except ValueError as e:
-            print(f"-> error: {e}", file=sys.stderr)
-            return 1
+            if args.abci_cmd == "console":
+                await console(client)
+                return 0
+            try:
+                await _abci_exec(client, args.abci_cmd, args.operand, args.path)
+            except ValueError as e:
+                print(f"-> error: {e}", file=sys.stderr)
+                return 1
+            return 0
         finally:
             await client.stop()
-        return 0
 
     if args.abci_cmd == "kvstore":
         return asyncio.run(serve_kvstore())
@@ -595,6 +1089,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sp.add_argument("--addr", default="tcp://127.0.0.1:26659", help="the node's priv_validator listen address")
     sp.add_argument("--node-id", default="", help="the node identity the SecretConnection expects (empty: any)")
+    sp.add_argument(
+        "--grpc", action="store_true",
+        help="serve the gRPC privval transport on --addr (the node dials grpc://<addr>)",
+    )
     sp.set_defaults(fn=cmd_signer)
 
     sp = sub.add_parser("gen-validator", help="print a fresh validator key")
@@ -632,7 +1130,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_reindex_event)
 
     sp = sub.add_parser("abci", help="abci-cli: drive an ABCI app socket or serve the kvstore")
-    sp.add_argument("abci_cmd", choices=["kvstore", "echo", "info", "deliver-tx", "check-tx", "commit", "query"])
+    sp.add_argument(
+        "abci_cmd", choices=["kvstore", "console", "echo", "info", "deliver-tx", "check-tx", "commit", "query"]
+    )
     sp.add_argument("operand", nargs="?", default="")
     sp.add_argument("--addr", default="tcp://127.0.0.1:26658")
     sp.add_argument("--path", default="/store", help="query path")
@@ -641,7 +1141,50 @@ def build_parser() -> argparse.ArgumentParser:
         help="kvstore server: take a state snapshot every N heights (0 disables; needed for "
         "state-sync providers)",
     )
+    sp.add_argument("--grpc", action="store_true", help="use the gRPC ABCI transport instead of the socket one")
     sp.set_defaults(fn=cmd_abci)
+
+    device_help = ("where the device plane runs when [gpu] enable is true (cuda; cpu runs the "
+                   "kernels' plain versions)")
+    sp = sub.add_parser("light", help="run a verifying light-client RPC proxy")
+    sp.add_argument("chain_id")
+    sp.add_argument("--primary", required=True, help="full node RPC addr")
+    sp.add_argument("--witness", action="append", help="witness RPC addr (repeatable)")
+    sp.add_argument("--trust-height", type=int, required=True)
+    sp.add_argument("--trust-hash", required=True)
+    sp.add_argument("--trust-period", type=float, default=168 * 3600.0, help="seconds")
+    sp.add_argument("--sequential", action="store_true")
+    sp.add_argument("--laddr", default="tcp://127.0.0.1:8888")
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.set_defaults(fn=cmd_light)
+
+    sp = sub.add_parser("inspect", help="read-only RPC over a stopped node's data")
+    sp.add_argument("--laddr", default="tcp://127.0.0.1:26657")
+    sp.set_defaults(fn=cmd_inspect)
+
+    sp = sub.add_parser("replay", help="re-execute stored blocks through a fresh app")
+    sp.add_argument(
+        "--console", action="store_true",
+        help="interactive WAL playback after block replay (next/back/rs/n/quit)",
+    )
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.set_defaults(fn=cmd_replay)
+
+    sp = sub.add_parser("e2e", help="run or generate manifest-driven e2e testnets")
+    sp.add_argument("e2e_cmd", choices=["run", "generate"])
+    sp.add_argument("manifest", nargs="?", default="")
+    sp.add_argument("--home-dir", default="")
+    sp.add_argument("--timeout", type=float, default=240.0)
+    sp.add_argument("--seed", type=int, default=1)
+    sp.add_argument("--count", type=int, default=4)
+    sp.add_argument("--output-dir", "-o", default="./e2e-manifests")
+    sp.add_argument(
+        "--processes", action="store_true",
+        help="run each node as a separate OS process over TCP with a socket ABCI app; "
+        "perturbations use real signals (SIGKILL/SIGSTOP)",
+    )
+    sp.add_argument("--device", default="cuda", help="where the nodes' device plane runs (cpu: [gpu] off)")
+    sp.set_defaults(fn=cmd_e2e)
 
     sp = sub.add_parser("key-migrate", help="migrate legacy database key formats to the current layout")
     sp.set_defaults(fn=cmd_key_migrate)

@@ -58,8 +58,8 @@ plane call, so the ported reactor's stall resets run as in the JAX
 package with only their recording dropped. Left out: the flight
 recorder itself (consensus/timeline.py), the consensus metrics and the
 trace spans (ROADMAP item 11; the step machine runs as the JAX one does
-with none of them fed), and the replay console's replay_mode (the
-`replay` commands, item 21b).
+with none of them fed). `replay_mode=True` (:86, :121-124 there) builds
+the replay console's playback-only instance.
 """
 
 from __future__ import annotations
@@ -195,6 +195,7 @@ class ConsensusState(Service):
         event_bus: Optional[EventBus] = None,
         wal: "WAL | NopWAL | None" = None,
         evidence_pool=None,
+        replay_mode: bool = False,
     ) -> None:
         super().__init__(name="consensus", logger=logging.getLogger(__name__))
         self.cfg = cfg
@@ -214,8 +215,11 @@ class ConsensusState(Service):
         self.internal_msg_queue: asyncio.Queue = asyncio.Queue(maxsize=QUEUE_SIZE)
         self.ticker = TimeoutTicker()
         # set while the WAL's inputs are replayed: signing errors are
-        # silenced and no step marker is written or published
-        self._replay_mode = False
+        # silenced and no step marker is written or published.
+        # replay_mode=True builds a playback-only instance (the replay
+        # console), fed recorded inputs through replay_one(), never
+        # start()ed
+        self._replay_mode = replay_mode
         self._task: Optional[asyncio.Task] = None
         # messages queued and not yet handled, own ones included: a
         # queue's join() cannot tell, since the loop's pending get()

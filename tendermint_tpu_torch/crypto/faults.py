@@ -7,11 +7,26 @@ the point, mode, probability, seed, budget, hang length and key filter,
 and the network filters src, dst and ch), the label match and `NetPlan`
 (:221-270), `armed` (:273) and `net_armed` (:288), `inject` and
 `reset` (:397-440), `set_partition`, `partition_blocked` and `net_plan`
-(:443-548), `fire`, `mangle` and `clip` (:556-614). The TM_TPU_FAULT
-environment spec (`load_env` :297) and the partition file's poll (:465)
-wait for the process runner of the e2e tests (ROADMAP item 21b): the
-port arms rules and partitions in-process only, through inject() and
-set_partition().
+(:443-548), `rules` (:551), `fire`, `mangle` and `clip` (:556-614), the
+TM_TPU_FAULT environment spec (`load_env` :297, `_parse_rule` :346) and
+the partition file's poll (`_poll_partition_file_locked` :465).
+
+Rules are armed in-process through inject() and set_partition(), or for
+a whole process (an e2e child, an operator's command) from the
+environment, with the JAX package's variable names and grammar, so that
+one e2e manifest arms the children of either package:
+
+    TM_TPU_FAULT="gpu.dispatch:raise:p=0.3:seed=7;gpu.gather:hang:hang_s=0.5"
+    TM_TPU_FAULT="p2p.send:drop:p=0.4:seed=7:src=load0:dst=load1:ch=34"
+    TM_TPU_PARTITION="load0,load1|load2,load3"
+    TM_TPU_PARTITION_FILE=/path/to/spec   (re-read when it changes)
+
+A rule is `point:mode[:p=..][:seed=..][:times=..][:hang_s=..][:key=..]
+[:src=..][:dst=..][:ch=..][:delay_s=..][:dup=..]`. The spec is parsed on
+the first armed() or net_armed() call; a malformed spec raises there once
+and leaves the plane disarmed (all or none of its rules arm). The point
+names are the port's: a JAX `tpu.dispatch` or `tpu.gather` rule parses
+and arms, but no point of the port consults it, so it never fires.
 
 Fault points are named strings consulted where a device or a disk would
 fail:
@@ -52,8 +67,10 @@ router and the transports (the plane never sleeps the event loop):
 
 `src` and `dst` match a node's net labels (moniker, node ID, listen
 host) exactly, or as a prefix when the member is 8 or more hex digits
-(a node-ID prefix). A partition (set_partition("a,b|c,d")) cuts every
-send, receive and dial between members of different groups.
+(a node-ID prefix). A partition (set_partition("a,b|c,d"), TM_TPU_PARTITION, or the file named by
+TM_TPU_PARTITION_FILE, stat()ed at most every 0.2 s) cuts every send,
+receive and dial between members of different groups. A missing or
+unreadable file is no partition, so deleting it heals the net.
 
 Every rule owns a `random.Random(seed)`, so whether a consult fires is a
 function of (seed, consult index) alone. `inject()` arms a rule for the
@@ -64,6 +81,7 @@ module-level boolean (`armed()`).
 from __future__ import annotations
 
 import contextlib
+import os
 import random
 import threading
 import time
@@ -78,12 +96,14 @@ __all__ = [
     "clip",
     "fire",
     "inject",
+    "load_env",
     "mangle",
     "net_armed",
     "net_plan",
     "partition_blocked",
     "partition_spec",
     "reset",
+    "rules",
     "set_partition",
 ]
 
@@ -140,6 +160,7 @@ class Rule:
         self.dup = int(dup)
         self.rng = random.Random(self.seed)
         self.fired = 0  # consults that faulted
+        self.from_env = False  # armed by load_env()
 
     def _matches(self, point: str, key: Optional[str]) -> bool:
         if self.point != point:
@@ -218,23 +239,94 @@ _NET_ARMED = False  # a p2p rule or a partition is live; ditto
 # different groups are cut; replaced whole by set_partition
 _PARTITION: List[List[str]] = []
 _PARTITION_SPEC = ""
+_ENV_LOADED = False
+_PARTITION_FILE: Optional[str] = None
+_PARTITION_FILE_SIG: Optional[tuple] = None  # (mtime_ns, size)
+_PARTITION_NEXT_POLL = 0.0
+_PARTITION_POLL_S = 0.2  # the file form's stat() throttle
 
 
 def armed() -> bool:
-    """False when no rule is armed: then no fault code runs at all."""
+    """False when no rule is armed: then no fault code runs at all. The
+    environment is parsed on the first call."""
+    if not _ENV_LOADED:
+        load_env()
     return _ARMED
 
 
 def net_armed() -> bool:
     """False when no network rule and no partition is live: then the
     router and transports run no fault code."""
+    if not _ENV_LOADED:
+        load_env()
     return _NET_ARMED
 
 
 def _refresh() -> None:
     global _ARMED, _NET_ARMED
     _ARMED = bool(_RULES)
-    _NET_ARMED = bool(_PARTITION) or any(r.point.startswith("p2p.") for r in _RULES)
+    _NET_ARMED = (
+        bool(_PARTITION)
+        or _PARTITION_FILE is not None
+        or any(r.point.startswith("p2p.") for r in _RULES)
+    )
+
+
+def load_env() -> None:
+    """(Re-)parse TM_TPU_FAULT into armed rules, and TM_TPU_PARTITION and
+    TM_TPU_PARTITION_FILE into the partition. Rules from an earlier load
+    are dropped first; inject() rules stay. A malformed spec raises, arms
+    none of its rules, and still latches, so that the next armed() runs
+    disarmed instead of parsing and raising again."""
+    global _ENV_LOADED, _PARTITION_SPEC, _PARTITION_FILE
+    global _PARTITION_FILE_SIG, _PARTITION_NEXT_POLL
+    spec = os.environ.get("TM_TPU_FAULT", "")
+    with _LOCK:
+        _RULES[:] = [r for r in _RULES if not r.from_env]
+        try:
+            # the partition first: a malformed TM_TPU_FAULT leaves it armed
+            _PARTITION_SPEC = os.environ.get("TM_TPU_PARTITION", "")
+            _PARTITION[:] = _parse_partition(_PARTITION_SPEC)
+            _PARTITION_FILE = os.environ.get("TM_TPU_PARTITION_FILE") or None
+            _PARTITION_FILE_SIG = None
+            _PARTITION_NEXT_POLL = 0.0
+            parsed = []
+            for part in spec.split(";"):
+                part = part.strip()
+                if part:
+                    rule = _parse_rule(part)
+                    rule.from_env = True
+                    parsed.append(rule)
+            _RULES.extend(parsed)
+        finally:
+            _refresh()
+            _ENV_LOADED = True
+
+
+_FLOAT_OPTS = ("p", "hang_s", "delay_s")
+_INT_OPTS = ("seed", "times", "ch", "dup")
+_STR_OPTS = ("key", "src", "dst")
+
+
+def _parse_rule(spec: str) -> Rule:
+    """`point:mode[:name=value]...`, the options of Rule."""
+    fields = spec.split(":")
+    if len(fields) < 2:
+        raise ValueError(f"bad TM_TPU_FAULT rule {spec!r} (want point:mode)")
+    kwargs = {}
+    for opt in fields[2:]:
+        if "=" not in opt:
+            raise ValueError(f"bad fault option {opt!r} in {spec!r}")
+        k, v = opt.split("=", 1)
+        if k in _FLOAT_OPTS:
+            kwargs[k] = float(v)
+        elif k in _INT_OPTS:
+            kwargs[k] = int(v)
+        elif k in _STR_OPTS:
+            kwargs[k] = v
+        else:
+            raise ValueError(f"unknown fault option {k!r} in {spec!r}")
+    return Rule(fields[0], fields[1], **kwargs)
 
 
 @contextlib.contextmanager
@@ -269,12 +361,14 @@ def inject(
 
 
 def reset() -> None:
-    """Disarm every rule and heal the partition."""
-    global _PARTITION_SPEC
+    """Disarm every rule and heal the partition, the file form too."""
+    global _PARTITION_SPEC, _PARTITION_FILE, _PARTITION_FILE_SIG
     with _LOCK:
         _RULES.clear()
         _PARTITION.clear()
         _PARTITION_SPEC = ""
+        _PARTITION_FILE = None
+        _PARTITION_FILE_SIG = None
         _refresh()
 
 
@@ -291,6 +385,8 @@ def _parse_partition(spec: str) -> List[List[str]]:
 def set_partition(spec: str) -> None:
     """Install the partition's groups (or heal it with "")."""
     global _PARTITION_SPEC
+    if not _ENV_LOADED:
+        load_env()  # else a later first load would overwrite this spec
     groups = _parse_partition(spec)
     with _LOCK:
         _PARTITION[:] = groups
@@ -301,6 +397,29 @@ def set_partition(spec: str) -> None:
 def partition_spec() -> str:
     with _LOCK:
         return _PARTITION_SPEC
+
+
+def _poll_partition_file_locked() -> None:
+    """Re-read TM_TPU_PARTITION_FILE when its (mtime, size) changed,
+    stat()ing it at most every _PARTITION_POLL_S. Callers hold _LOCK."""
+    global _PARTITION_FILE_SIG, _PARTITION_NEXT_POLL, _PARTITION_SPEC
+    now = time.monotonic()
+    if now < _PARTITION_NEXT_POLL:
+        return
+    _PARTITION_NEXT_POLL = now + _PARTITION_POLL_S
+    try:
+        st = os.stat(_PARTITION_FILE)
+        sig = (st.st_mtime_ns, st.st_size)
+        if sig == _PARTITION_FILE_SIG:
+            return
+        with open(_PARTITION_FILE, "r") as f:
+            spec = f.read().strip()
+        _PARTITION_FILE_SIG = sig
+    except OSError:
+        _PARTITION_FILE_SIG = None
+        spec = ""
+    _PARTITION[:] = _parse_partition(spec)
+    _PARTITION_SPEC = spec
 
 
 def _group_of(labels: tuple) -> Optional[int]:
@@ -315,6 +434,8 @@ def partition_blocked(src_labels: tuple, dst_labels: tuple) -> bool:
     """True when the partition cuts the src -> dst link: both ends are
     named, in different groups. Callers gate on net_armed()."""
     with _LOCK:
+        if _PARTITION_FILE is not None:
+            _poll_partition_file_locked()
         if not _PARTITION:
             return False
         a = _group_of(src_labels)
@@ -350,6 +471,12 @@ def net_plan(point: str, src: tuple = (), dst: tuple = (),
             elif r.mode == "reorder":
                 plan.reorder = True
     return plan
+
+
+def rules() -> List[Rule]:
+    """The armed rules, a copy."""
+    with _LOCK:
+        return list(_RULES)
 
 
 def fire(point: str, key: Optional[str] = None) -> None:

@@ -6,7 +6,9 @@ install_device_plane puts crypto/gpu_verifier (ed25519 and sr25519
 batches) and ops/merkle_kernel (tree roots and proof batches) behind the
 port's crypto.batch and crypto/merkle.py seams, from a config.GPUConfig.
 Consensus, p2p and the rest of make_node stay out: none of them runs a
-device program.
+device program. plane_report() is what a process ran on its plane: the
+kernels' launch counts and the verifier's stats (faults, rerouted
+signatures), which the `light` and `replay` commands print at exit.
 
 `devices` follows the JAX node: 1 is one card, 0 every visible card.
 More than one card is X6, the batch split over a mesh (ROADMAP item 10),
@@ -21,7 +23,15 @@ import copy
 
 from ..config import GPUConfig
 
-__all__ = ["install_device_plane", "installed_plane", "uninstall_device_plane", "visible_devices"]
+__all__ = [
+    "install_device_plane",
+    "installed_plane",
+    "launch_counts",
+    "plane_report",
+    "reset_launch_counts",
+    "uninstall_device_plane",
+    "visible_devices",
+]
 
 # what install_device_plane last installed: (a copy of the GPUConfig,
 # the device), while it stays installed
@@ -97,3 +107,37 @@ def uninstall_device_plane() -> None:
     _CURRENT = None
     gpu_verifier.uninstall()
     merkle_kernel.uninstall()
+
+
+def _counted_modules():
+    from ..ops import ed25519_cuda, merkle_kernel, sha256_kernel, sha512_kernel, sr25519_cuda
+
+    return (ed25519_cuda, sha512_kernel, sr25519_cuda, sha256_kernel, merkle_kernel)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches in this process, by kernel name (each
+    wrapper counts where it launches)."""
+    out = {}
+    for mod in _counted_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for mod in _counted_modules():
+        mod.reset_launches()
+
+
+def plane_report() -> dict:
+    """{"installed": (the device, or None), "launches": launch_counts(),
+    "stats": gpu_verifier.stats()}: faults are the contained device
+    faults, rerouted_sigs the signatures they sent to the CPU plane."""
+    from ..crypto import gpu_verifier
+
+    plane = installed_plane()
+    return {
+        "installed": plane[1] if plane is not None else None,
+        "launches": launch_counts(),
+        "stats": gpu_verifier.stats(),
+    }

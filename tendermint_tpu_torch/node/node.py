@@ -3,9 +3,10 @@
 Counterpart: tendermint_tpu/node/node.py:70-912 (reference:
 node/node.go:116-412 makeNode, node/setup.go, node/public.go): Node's
 construction (:79-346: DBs and stores, the three `abci` modes
-:176-189, the event bus and the indexer sinks, the node key, FilePV or
-the remote signer's SignerListenerEndpoint, NodeInfo, PeerManager and
-Router on a TCPTransport unless one is passed in), on_start (:350) and
+:176-189, gRPC through abci/grpc_transport.py, the event bus and the
+indexer sinks, the node key, FilePV, the remote signer's
+SignerListenerEndpoint or the gRPC signer's client :222-262, NodeInfo,
+PeerManager and Router on a TCPTransport unless one is passed in), on_start (:350) and
 _start_impl (:413-626: the ABCI handshake, then the reactors built
 against the post-handshake state with the JAX wait_sync, block_sync and
 state_sync flags :493-497, the Byzantine plane armed at assembly, then
@@ -37,8 +38,7 @@ server (:627-726; `instrumentation.prometheus = true` raises
 NotImplementedError), the trace ring, the slow-request exemplars, the
 profiler and the TimelineRecorder (the step machine keeps NopTimeline);
 the switches of them that are on are logged once at construction as not
-honored. The gRPC transports (`abci = "grpc"`, a `grpc://` signer) are
-item 21b and raise NotImplementedError.
+honored.
 """
 
 from __future__ import annotations
@@ -138,7 +138,10 @@ class Node(Service):
             self._app = None
             creator = socket_creator(cfg.base.proxy_app, must_connect=True)
         elif cfg.base.abci == "grpc":
-            raise NotImplementedError("abci = grpc: the gRPC transport is ROADMAP item 21b, not ported")
+            from ..abci.grpc_transport import grpc_creator
+
+            self._app = None
+            creator = grpc_creator(cfg.base.proxy_app, must_connect=True)
         else:
             raise ValueError(f"unknown abci mode {cfg.base.abci!r}")
         self.proxy = AppConns(creator)
@@ -172,10 +175,15 @@ class Node(Service):
         if cfg.base.mode == MODE_VALIDATOR:
             addr = cfg.priv_validator.listen_addr
             if addr.startswith("grpc://"):
-                raise NotImplementedError(
-                    "priv_validator.listen_addr grpc://: the gRPC signer is ROADMAP item 21b, not ported"
-                )
-            if addr:
+                # the node dials a gRPC signer (reference: node/setup.go:586),
+                # under the socket path's retries; started and stopped as
+                # privval_listener
+                from ..privval.grpc import GRPCSignerClient
+                from ..privval.signer import RetrySignerClient
+
+                self.privval_listener = GRPCSignerClient(addr)
+                self.privval = RetrySignerClient(self.privval_listener)
+            elif addr:
                 # the remote signer dials in (reference:
                 # privval/signer_listener_endpoint.go)
                 from ..privval.signer import RetrySignerClient, SignerListenerEndpoint

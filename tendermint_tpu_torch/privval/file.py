@@ -10,9 +10,11 @@ The last-sign state is fsynced before a signature leaves this object, so
 a crash never releases two conflicting signatures for one height, round
 and step. Fault point `privval.save` (crypto/faults.py: io_error, an
 fsync failure; raise, a crash before the checkpoint), keyed by the node
-home's basename. The JAX package's `privval.release` point (between the
-checkpoint and the signature's release) is not ported: the port has no
-process boundary to kill across yet.
+home's basename. Fault point `privval.release`
+(tendermint_tpu/privval/file.py:339), same key, fires between the
+checkpoint's fsync and the signature leaving this object: a raise there
+stands for a SIGKILL between sign and send, and the restarted signer must
+re-release that signature, never a conflicting one.
 """
 
 from __future__ import annotations
@@ -328,6 +330,8 @@ class FilePV(PrivValidator):
 
         sig = self.key.priv_key.sign(sign_bytes)
         self._save_signed(height, round_, step, sign_bytes, sig)
+        if faults.armed():
+            faults.fire("privval.release", key=_node_key(lss.file_path))
         vote.signature = sig
 
     def _sign_proposal(self, chain_id: str, proposal: Proposal) -> None:
@@ -357,6 +361,8 @@ class FilePV(PrivValidator):
 
         sig = self.key.priv_key.sign(sign_bytes)
         self._save_signed(height, round_, step, sign_bytes, sig)
+        if faults.armed():
+            faults.fire("privval.release", key=_node_key(lss.file_path))
         proposal.signature = sig
 
     def _save_signed(

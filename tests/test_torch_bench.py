@@ -206,3 +206,17 @@ def test_bench_rpc_light_cell(capsys, monkeypatch):
     assert cell["headers"] == 24 and cell["validators"] == 4
     assert cell["pages"] == 2 and cell["ms_per_page"] > 0
     assert [len(v) for v in cell["headers_per_s_readings"].values()] == [1, 1]
+
+
+@pytest.mark.slow
+def test_bench_e2e_interval_cell(capsys, monkeypatch):
+    """The e2e_interval cell on the CPU to height 4: four `start`
+    processes with [gpu] enable = false; every key it declares, an
+    interval window of the heights reached."""
+    monkeypatch.setattr(bench, "E2E_HEIGHT", 4)
+    assert bench.main(["--device", "cpu", "--cells", "e2e_interval"]) == 0
+    cell = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["cells"]["e2e_interval"]
+    assert sorted(cell) == sorted([*bench.CELL_KEYS["e2e_interval"], "cell_s"])
+    assert cell["validators"] == 4 and cell["reached_height"] >= 4 and cell["blocks"] >= 3
+    assert cell["children_with_plane"] == 0 and cell["nvidia_smi"] is None
+    assert 0 < cell["interval_min_s"] <= cell["interval_avg_s"] <= cell["interval_max_s"]

@@ -605,3 +605,214 @@ def test_min_batch_gate_and_the_sr25519_single_route(monkeypatch):
     assert pk.pub_key().verify_signature(b"one", sig)
     assert not pk.pub_key().verify_signature(b"two", sig)
     assert G.stats()["batches_sr25519"] == before["batches_sr25519"] + 2
+
+
+# -- the environment spec (tests/test_faults.py:92-130,
+# tests/test_netfaults.py:66-208), held against the JAX plane ----------
+
+from tendermint_tpu.crypto import faults as jax_faults  # noqa: E402
+
+_RULE_FIELDS = ("point", "mode", "p", "seed", "times", "hang_s", "key", "src", "dst", "ch", "delay_s", "dup")
+
+ENV_SPECS = (
+    "gpu.dispatch:raise:p=0.25:seed=9;wal.fsync:io_error",
+    "tpu.dispatch:raise:p=0.3:seed=7;tpu.gather:hang:hang_s=0.5",
+    "p2p.send:drop:p=0.4:seed=9:src=load0:dst=load1:ch=34;p2p.recv:delay:delay_s=0.2;p2p.send:duplicate:dup=3",
+    "privval.release:raise:times=1:key=node3; rpc.route:hang:hang_s=1.3:key=abci_query ;",
+    "",
+)
+MALFORMED_SPECS = (
+    "gpu.dispatch:raise;gpu.gather:bogus-mode",
+    "gpu.dispatch",
+    "gpu.dispatch:raise:p",
+    "gpu.dispatch:raise:speed=3",
+    "gpu.dispatch:raise:seed=x",
+    "p2p.send:bogus-mode",
+)
+
+
+def _env_rules(mod):
+    return [tuple(getattr(r, f) for f in _RULE_FIELDS) for r in mod.rules()]
+
+
+@pytest.fixture
+def env_planes(monkeypatch):
+    """Both planes loaded from the test's environment; both cleared after."""
+    for var in ("TM_TPU_FAULT", "TM_TPU_PARTITION", "TM_TPU_PARTITION_FILE"):
+        monkeypatch.delenv(var, raising=False)
+    yield monkeypatch
+    for var in ("TM_TPU_FAULT", "TM_TPU_PARTITION", "TM_TPU_PARTITION_FILE"):
+        monkeypatch.delenv(var, raising=False)
+    for mod in (faults, jax_faults):
+        mod.load_env()
+        mod.reset()
+
+
+@pytest.mark.parametrize("spec", ENV_SPECS)
+def test_env_spec_arms_the_jax_rules(env_planes, spec):
+    env_planes.setenv("TM_TPU_FAULT", spec)
+    env_planes.setenv("TM_TPU_PARTITION", "a,b|c")
+    for mod in (faults, jax_faults):
+        mod.load_env()
+    assert _env_rules(faults) == _env_rules(jax_faults)
+    assert faults.armed() == jax_faults.armed() == bool(spec.strip(" ;"))
+    assert faults.net_armed() and jax_faults.net_armed()
+    assert faults.partition_spec() == jax_faults.partition_spec() == "a,b|c"
+    assert faults.partition_blocked(("a",), ("c",)) and not faults.partition_blocked(("a",), ("b",))
+    # a reload drops the env's rules and keeps inject()'s
+    with faults.inject("gpu.gather", "misshape") as kept:
+        env_planes.setenv("TM_TPU_FAULT", "")
+        faults.load_env()
+        assert faults.rules() == [kept]
+
+
+def test_env_io_error_fires_and_a_jax_point_name_never_does(env_planes):
+    env_planes.setenv("TM_TPU_FAULT", "wal.fsync:io_error;tpu.dispatch:raise")
+    faults.load_env()
+    with pytest.raises(OSError, match="injected I/O fault at wal.fsync"):
+        faults.fire("wal.fsync")
+    # the port's points are gpu.*: a JAX tpu.* rule arms and never fires
+    for _ in range(3):
+        faults.fire("gpu.dispatch")
+    assert [r.fired for r in faults.rules()] == [1, 0]
+
+
+@pytest.mark.parametrize("spec", MALFORMED_SPECS)
+def test_malformed_env_spec_raises_once_then_disarmed(env_planes, spec):
+    env_planes.setenv("TM_TPU_FAULT", spec)
+    env_planes.setenv("TM_TPU_PARTITION", "a|b")
+    errors = []
+    for mod in (faults, jax_faults):
+        env_planes.setattr(mod, "_ENV_LOADED", False)
+        with pytest.raises(ValueError) as err:
+            mod.armed()
+        errors.append(str(err.value))
+        # latched: disarmed, no raise again, none of the spec's rules, and
+        # the partition still armed
+        assert not mod.armed()
+        assert mod.rules() == []
+        assert mod.net_armed() and mod.partition_blocked(("a",), ("b",))
+    assert errors[0] == errors[1]
+    # a corrected spec re-arms through the explicit reload
+    env_planes.setenv("TM_TPU_FAULT", "gpu.dispatch:raise")
+    faults.load_env()
+    assert faults.armed()
+
+
+def test_partition_file_is_re_read_when_it_changes(env_planes, tmp_path):
+    pf = tmp_path / "partition"
+    pf.write_text("v1|v0,v2")
+    env_planes.setenv("TM_TPU_PARTITION_FILE", str(pf))
+    faults.load_env()
+    assert faults.net_armed() and not faults.armed()
+    assert faults.partition_blocked(("v1",), ("v0",))
+    assert not faults.partition_blocked(("v0",), ("v2",))
+    pf.write_text("")
+    faults._PARTITION_NEXT_POLL = 0.0  # past the stat() throttle
+    assert not faults.partition_blocked(("v1",), ("v0",))
+    pf.write_text("v0|v2")
+    faults._PARTITION_NEXT_POLL = 0.0
+    assert faults.partition_blocked(("v0",), ("v2",))
+    pf.unlink()  # a missing file heals
+    faults._PARTITION_NEXT_POLL = 0.0
+    assert not faults.partition_blocked(("v0",), ("v2",)) and faults.partition_spec() == ""
+
+
+def test_the_environment_arms_a_child_process(tmp_path):
+    """TM_TPU_FAULT, TM_TPU_PARTITION and TM_TPU_PARTITION_FILE arm the
+    plane of a fresh process on its first consult."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    pf = tmp_path / "partition"
+    pf.write_text("x|y")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, TM_TPU_FAULT="gpu.dispatch:raise:p=0.5:seed=3;p2p.dial:drop",
+               TM_TPU_PARTITION="a|b", TM_TPU_PARTITION_FILE=str(pf))
+    code = (
+        "import json\n"
+        "from tendermint_tpu_torch.crypto import faults\n"
+        "armed = faults.armed()\n"
+        "fired = 0\n"
+        "for _ in range(40):\n"
+        "    try:\n"
+        "        faults.fire('gpu.dispatch')\n"
+        "    except faults.DeviceFault:\n"
+        "        fired += 1\n"
+        "print(json.dumps([armed, faults.net_armed(), [(r.point, r.mode) for r in faults.rules()], fired,\n"
+        "                  faults.partition_blocked(('x',), ('y',))]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    armed, net, rules, fired, blocked = json.loads(out.stdout.strip().splitlines()[-1])
+    assert armed and net and blocked
+    assert rules == [["gpu.dispatch", "raise"], ["p2p.dial", "drop"]]
+    # the seeded schedule: the JAX rule of the same seed fires as often
+    with jax_faults.inject("gpu.dispatch", "raise", p=0.5, seed=3):
+        want = 0
+        for _ in range(40):
+            try:
+                jax_faults.fire("gpu.dispatch")
+            except jax_faults.DeviceFault:
+                want += 1
+    assert fired == want > 0
+
+
+def test_privval_release_fires_after_the_checkpoint_as_in_jax(tmp_path):
+    """privval.release raises between the last-sign-state fsync and the
+    signature's release: the vote leaves unsigned, the state files of
+    both packages hold the same bytes, and a retry re-releases the
+    checkpointed signature (tendermint_tpu/privval/file.py:339)."""
+    import asyncio
+
+    from tendermint_tpu.privval.file import FilePV as JaxFilePV
+    from tendermint_tpu.types.vote import Vote as JaxVote
+    from tendermint_tpu_torch.privval.file import FilePV
+    from tendermint_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.canonical import PREVOTE_TYPE
+    from tendermint_tpu_torch.types.vote import Vote
+
+    priv = PrivKeyEd25519.from_seed(b"\x44" * 32)
+    homes = {name: tmp_path / name for name in ("port", "jax")}
+    for name in homes:
+        (homes[name] / "config").mkdir(parents=True)
+        (homes[name] / "data").mkdir()
+    port_pv = FilePV.from_priv_key(priv, str(homes["port"] / "config" / "k.json"),
+                                   str(homes["port"] / "data" / "s.json"))
+    port_pv.save()
+    from tendermint_tpu.crypto.ed25519 import PrivKeyEd25519 as JaxPriv
+
+    jax_pv = JaxFilePV.from_priv_key(JaxPriv.from_seed(b"\x44" * 32), str(homes["jax"] / "config" / "k.json"),
+                                     str(homes["jax"] / "data" / "s.json"))
+    jax_pv.save()
+    bid = BlockID(hash=b"\x0b" * 32, part_set_header=PartSetHeader(total=1, hash=b"\x0c" * 32))
+
+    def vote(ts):
+        return Vote(type=PREVOTE_TYPE, height=5, round=0, block_id=bid, timestamp_ns=ts,
+                    validator_address=priv.pub_key().address(), validator_index=0)
+
+    def jax_vote(ts):
+        return JaxVote.from_proto(vote(ts).to_proto())
+
+    sigs = {}
+    for name, pv, make, mod in (("port", port_pv, vote, faults), ("jax", jax_pv, jax_vote, jax_faults)):
+        v = make(1_000)
+        with mod.inject("privval.release", "raise", times=1, key=name) as rule:
+            with pytest.raises(mod.DeviceFault, match="privval.release"):
+                asyncio.run(pv.sign_vote("release-chain", v))
+            assert rule.fired == 1 and not v.signature
+            # the retry (a later timestamp) re-releases the checkpoint
+            again = make(2_000)
+            asyncio.run(pv.sign_vote("release-chain", again))
+        assert again.timestamp_ns == 1_000
+        sigs[name] = again.signature
+        conflicting = make(3_000)
+        conflicting.block_id = type(conflicting.block_id)(hash=b"\x0d" * 32,
+                                                          part_set_header=conflicting.block_id.part_set_header)
+        with pytest.raises(ValueError, match="conflicting data"):
+            asyncio.run(pv.sign_vote("release-chain", conflicting))
+    assert sigs["port"] == sigs["jax"]
+    assert priv.pub_key().verify_signature(vote(1_000).sign_bytes("release-chain"), sigs["port"])
+    assert (homes["port"] / "data" / "s.json").read_bytes() == (homes["jax"] / "data" / "s.json").read_bytes()
