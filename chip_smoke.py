@@ -36,7 +36,18 @@ past a 2 s deadline, a short bitmap and a flipped lane into one
 the CPU, the probe closing the breaker), checks that a window dispatched
 on a side stream, its kernels held back by a sleep on that stream, is
 gathered after them and not contained as a fault, then times the mixed
-10k Commit on the CPU plane alone. Phase config4 drives BASELINE.md
+10k Commit on the CPU plane alone. Phase sharding runs X6, the batch
+split over several cards (parallel/sharding.py), on 1, 2, 4 and 8
+virtual shards of this card: the ZIP-215 and sr25519 corpora with a
+signature spoiled at every shard boundary and the mixed 10k Commit give
+the unsharded verifier's, the plain version's and the oracle's bitmaps,
+X1, K2, X3 (and K1 in the hybrid) launch once a shard on streams of their
+own, verify_commit through a plane installed over the mesh launches k
+times a window, one 10k window is timed at each k, `[gpu] devices = 0`
+installs the unsharded plane and `devices = 2` is refused; phase
+compile_probe compiles the compile probe's segments
+(ops/compile_probe.py) alone for sm_90a and reports their ptxas -v
+beside the sources' from the build. Phase config4 drives BASELINE.md
 config 4 through the light client with the device plane installed: a
 fresh sequential client syncs a 1,024-header chain of 150 validators in
 merged windows of 32 commits (windows, X1 and K2 launches counted for the
@@ -412,33 +423,11 @@ def device_ms(torch, fn, reps: int, kernel: str, launches: int):
 
 
 def ptxas_resources(log: str, entry: str = "") -> dict:
-    """Registers of the source's entry kernels, and the largest stack
-    frame and spill bytes over all of its functions, from `ptxas -v`;
-    only those of the entry kernels whose name holds `entry`."""
-    regs, stack, st, ld = [], [0], [0], [0]
-    sections = re.split(r"(?=ptxas info\s+: Compiling entry function)", log)
-    picked = [sec for sec in sections if entry in sec.split("\n", 1)[0]]
-    if entry and not picked:
-        raise AssertionError(f"ptxas -v reports no entry kernel {entry}")
-    for line in "\n".join(picked).splitlines():
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            regs.append(int(m.group(1)))
-        m = re.search(
-            r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-            r"(\d+) bytes spill loads",
-            line,
-        )
-        if m:
-            stack.append(int(m.group(1)))
-            st.append(int(m.group(2)))
-            ld.append(int(m.group(3)))
-    return {
-        "registers": max(regs) if regs else None,
-        "stack_frame_bytes": max(stack),
-        "spill_store_bytes": max(st),
-        "spill_load_bytes": max(ld),
-    }
+    """Registers, stack frame and spill bytes from `ptxas -v`
+    (ops/compile_probe.ptxas_resources)."""
+    from tendermint_tpu_torch.ops.compile_probe import ptxas_resources as parse
+
+    return parse(log, entry)
 
 
 def bound_ms(nbytes: float, instr: float):
@@ -831,9 +820,9 @@ def charged_dispatches(by_type: dict):
     from tendermint_tpu_torch.ops.sr25519_kernel import Sr25519Verifier
 
     def charged(dispatch, key_type):
-        def wrapper(self, *args):
+        def wrapper(self, *args, **kwargs):
             before = launches()
-            handle = dispatch(self, *args)
+            handle = dispatch(self, *args, **kwargs)
             mine = by_type.setdefault(key_type, dict.fromkeys(before, 0))
             for name, n in launches().items():
                 mine[name] += n - before[name]
@@ -2123,6 +2112,318 @@ def phase_fault_containment(torch, main: dict, mixed: dict) -> dict:
         }
     )
     return {"cases": results, "fallback": fallback}
+
+
+# -- the batch split over several cards (X6) on virtual shards of this
+# one card, and the compile probe --
+
+# virtual shards of the card the split runs on: the JAX suite's 8 virtual
+# devices and scripts/shard_scaling.py's MESH_SIZES
+SHARD_COUNTS = (1, 2, 4, 8)
+# the corpora's window: 128 lanes, a multiple of every shard count; lanes
+# at every shard boundary of SHARD_COUNTS (multiples of 128 / 8) are
+# corrupted
+SHARD_WINDOW = 128
+# timed calls of the split's 10k window at each shard count
+SHARD_REPS = 5
+# the shard count the hybrid program (plain torch around K1, launch-bound
+# on the card) is split over in (a): the largest, so K1 launches 8 times
+SHARD_HYBRID = 8
+
+
+@contextlib.contextmanager
+def recorded_streams(into: list):
+    """For the block every kernel launch (ops/build.launch) appends (the
+    card's index, the stream's handle) to `into`."""
+    from tendermint_tpu_torch.ops import build
+
+    stream_of = build.stream_of
+
+    def recording(device):
+        s = stream_of(device)
+        into.append((device.index, s.value))
+        return s
+
+    build.stream_of = recording
+    try:
+        yield into
+    finally:
+        build.stream_of = stream_of
+
+
+def boundary_lanes(width: int, n: int) -> list:
+    """The first and last lane of each shard of a `width`-lane window at
+    every count of SHARD_COUNTS, those below n."""
+    step = width // max(SHARD_COUNTS)
+    return sorted({i for j in range(0, width, step) for i in (j, j + step - 1) if i < n})
+
+
+def spoiled(triples: list, lanes: list) -> tuple:
+    """(pubkeys, messages, signatures) of the triples with a bit of S
+    flipped in each of `lanes` that has a 64-byte signature."""
+    pks, msgs, sigs = (list(x) for x in zip(*triples))
+    for i in lanes:
+        if len(sigs[i]) == 64:
+            sigs[i] = sigs[i][:40] + bytes([sigs[i][40] ^ 1]) + sigs[i][41:]
+    return pks, msgs, sigs
+
+
+def phase_sharding(torch, dev, seed: int, main: dict, mixed: dict) -> dict:
+    """X6, the batch split over k virtual shards of this card, k in
+    SHARD_COUNTS (parallel/sharding.py): each shard its own window,
+    stream and launches, the bitmap gathered in add order.
+
+    (a) The ZIP-215 and sr25519 corpora in a window of SHARD_WINDOW lanes
+    with a bit of S flipped at every shard boundary: at each k the tile
+    program's bitmaps, and at k = SHARD_HYBRID the hybrid program's,
+    equal the unsharded verifier's, the plain version's (K2's or X3's on
+    the unsharded window) and the oracle's, lane for lane; X1 and K2, X3,
+    and K1 in the hybrid launch k times a window, each shard's launches
+    on one stream of its own.
+    (b) Config 5's mixed 10k Commit at full width: with the plane
+    installed over the mesh, verify_commit dispatches the windows of one
+    card and launches k times as many (count_one_call), no fault; each
+    key type's 5,000 triples, spoiled at shard boundaries of their
+    8,192-lane bucket's splits, give the unsharded verifier's bitmap at
+    every k.
+    (c) Device ms (torch.profiler, X1 and K2) and CUDA-event ms of one
+    window of the 10k ed25519 Commit's signatures (bucket 12288) at each
+    k against k = 1: what the split costs on one card (shard_scaling's
+    overhead, on virtual shards of one card).
+    (d) The node seam: `[gpu] devices = 0` installs the unsharded plane on
+    this one card, `devices = 2` raises the JAX node's "only" error.
+    (e) parallel.dryrun.dryrun_multichip(4, "cuda")."""
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier, sr25519_corpus, zip215_corpus
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+    from tendermint_tpu_torch.ops import ed25519_kernel as K
+    from tendermint_tpu_torch.ops import sr25519_kernel as SK
+    from tendermint_tpu_torch.parallel import (
+        ShardedEd25519Verifier,
+        ShardedSr25519Verifier,
+        make_mesh,
+    )
+    from tendermint_tpu_torch.parallel.dryrun import dryrun_multichip
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    t_phase = time.perf_counter()
+    parts_s = {}
+    lanes = boundary_lanes(SHARD_WINDOW, SHARD_WINDOW)
+    corpora = {}
+    for key_type, triples, expected in (
+        ("ed25519", zip215_corpus.corpus(16, seed), zip215_corpus.expected),
+        ("sr25519", sr25519_corpus.corpus(seed + 3), sr25519_corpus.expected),
+    ):
+        tr = (triples * -(-SHARD_WINDOW // len(triples)))[:SHARD_WINDOW]
+        exp = np.array(expected(tr))
+        exp[lanes] = False
+        corpora[key_type] = (spoiled(tr, lanes), exp)
+    single = {
+        "ed25519": K.Ed25519Verifier([SHARD_WINDOW], device=dev),
+        "sr25519": SK.Sr25519Verifier([SHARD_WINDOW], device=dev),
+    }
+    classes = {"ed25519": ShardedEd25519Verifier, "sr25519": ShardedSr25519Verifier}
+    programs = {
+        ("ed25519", "tile"): {"sha512_ram": 1, "ed25519_verify_tile": 1},
+        ("ed25519", "hybrid"): {"sha512_ram": 1, "ed25519_dual_mult": 1},
+        ("sr25519", "tile"): {"sr25519_verify": 1},
+        ("sr25519", "hybrid"): {"ed25519_dual_mult": 1},
+    }
+    # the references of (a), each on the unsharded window
+    refs = {}
+    for key_type, ((pks, msgs, sigs), exp) in corpora.items():
+        v = single[key_type]
+        if key_type == "ed25519":
+            pk_b, sig_b, dig_b, size_ok = v.pack(pks, msgs, sigs)
+            plain = K._verify_tile(pk_b, sig_b, dig_b).cpu().numpy()
+        else:
+            w = v.upload(pks, msgs, sigs)
+            plain, size_ok = SK._verify_tile_sr(w.pk_b, w.sig_b, w.k_b).cpu().numpy(), w.size_ok
+        refs[key_type] = (v.verify(pks, msgs, sigs), plain & size_ok)
+        if not (np.array_equal(refs[key_type][0], exp) and np.array_equal(refs[key_type][1], exp)):
+            raise AssertionError(f"sharding: the unsharded {key_type} references disagree with the oracle")
+    parts_s["references"] = time.perf_counter() - t_phase
+    corpus_rows = {}
+    for k in SHARD_COUNTS:
+        mesh = make_mesh([dev] * k)
+        for (key_type, program), per_window in programs.items():
+            if program == "hybrid" and k != SHARD_HYBRID:
+                continue
+            t_part = time.perf_counter()
+            (pks, msgs, sigs), exp = corpora[key_type]
+            v = classes[key_type](mesh, [SHARD_WINDOW], program=program)
+            streams: list = []
+            reset_launches()
+            with recorded_streams(streams):
+                got = v.verify(pks, msgs, sigs)
+            counts = {n: c for n, c in launches().items() if c}
+            torch.cuda.synchronize()
+            unsharded, plain = refs[key_type]
+            checks = {
+                "eq_unsharded": np.array_equal(got, unsharded),
+                "eq_plain": np.array_equal(got, plain),
+                "eq_oracle": np.array_equal(got, exp),
+                "launches_k_a_window": counts == {n: k * c for n, c in per_window.items()},
+                # each shard's launches on one stream, a stream a shard
+                "a_stream_a_shard": len(set(streams)) == k
+                and len(streams) == k * sum(per_window.values()),
+            }
+            if not all(checks.values()):
+                raise AssertionError(f"sharding (a) {key_type} {program} k={k}: {checks}, {counts}")
+            corpus_rows.setdefault(str(k), {})[f"{key_type}_{program}"] = {
+                "launches": counts,
+                "streams": len(set(streams)),
+            }
+            parts_s[f"{key_type}_{program}"] = parts_s.get(f"{key_type}_{program}", 0.0) + (
+                time.perf_counter() - t_part)
+
+    # (b) config 5's mixed 10k Commit through the plane over the mesh
+    t_part = time.perf_counter()
+    vals, commit = mixed["vals"], mixed["commit"]
+    pks, msgs, sigs = commit_triples(vals, commit)
+    step = gpu_verifier._GpuBatchVerifier.STREAM_CHUNK
+    by_type = {}
+    for key_type in gpu_verifier.KEY_TYPES:
+        idx = [i for i, v in enumerate(vals.validators) if v.pub_key.type() == key_type]
+        triples = [(pks[i], msgs[i], sigs[i]) for i in idx]
+        # lanes at shard boundaries of its bucket's splits
+        bad = boundary_lanes(K.bucket_for(len(idx), K.DEFAULT_BUCKET_SIZES), len(idx))
+        by_type[key_type] = (spoiled(triples, bad), bad, -(-len(idx) // step))
+    w_ed, w_sr = by_type["ed25519"][2], by_type["sr25519"][2]
+    commit_rows = {}
+    unsharded_bits = {
+        kt: classes[kt]._SINGLE(device=dev).verify(*t) for kt, (t, _bad, _w) in by_type.items()
+    }
+    for key_type, (_t, bad, _w) in by_type.items():
+        want = np.ones(len(unsharded_bits[key_type]), dtype=bool)
+        want[bad] = False
+        if not np.array_equal(unsharded_bits[key_type], want):
+            raise AssertionError(f"sharding (b): the unsharded {key_type} bitmap is not the expected one")
+    for k in SHARD_COUNTS:
+        mesh = make_mesh([dev] * k)
+        for key_type, (t, _bad, _w) in by_type.items():
+            got = classes[key_type](mesh).verify(*t)
+            if not np.array_equal(got, unsharded_bits[key_type]):
+                raise AssertionError(f"sharding (b): {key_type} at k={k} is not the unsharded bitmap")
+        gpu_verifier.install(mesh=mesh)
+        settle_probes()
+        try:
+            per_call = count_one_call(
+                lambda: verify_commit(CHAIN_ID, vals, commit.block_id, HEIGHT, commit),
+                {
+                    "ed25519": (w_ed, {"sha512_ram": k * w_ed, "ed25519_verify_tile": k * w_ed}),
+                    "sr25519": (w_sr, {"sr25519_verify": k * w_sr}),
+                },
+            )
+        finally:
+            gpu_verifier.uninstall()
+        commit_rows[str(k)] = {n: c for n, c in per_call.items() if n != "by_key_type" and c}
+
+    parts_s["mixed_10k"] = time.perf_counter() - t_part
+    # (c) the split's cost on one card: one 10k window at each k
+    t_part = time.perf_counter()
+    pks10, msgs10, sigs10 = commit_triples(main["vals"], main["commit"])
+    timing = {}
+    for k in SHARD_COUNTS:
+        v = ShardedEd25519Verifier(make_mesh([dev] * k))
+
+        def call():
+            return v.verify(pks10, msgs10, sigs10)
+
+        if not call().all():
+            raise AssertionError(f"sharding (c): the 10k window at k={k} did not verify")
+        k2_ms, k2_seen = device_ms(torch, call, SHARD_REPS, KERNEL_NAMES["ed25519_verify_tile"], k)
+        x1_ms, x1_seen = device_ms(torch, call, SHARD_REPS, KERNEL_NAMES["sha512_ram"], k)
+        timing[str(k)] = {
+            "bucket": v._bucket(len(pks10)),
+            "lanes_a_shard": v._bucket(len(pks10)) // k,
+            "device_ms_k2": k2_ms,
+            "device_ms_x1": x1_ms,
+            "device_records": {"k2": k2_seen, "x1": x1_seen},
+            "events_ms_call": cuda_ms(torch, call, SHARD_REPS),
+        }
+    base = timing["1"]
+    for row in timing.values():
+        row["device_ms_vs_k1"] = (row["device_ms_k2"] + row["device_ms_x1"]) / (
+            base["device_ms_k2"] + base["device_ms_x1"])
+        row["events_ms_vs_k1"] = row["events_ms_call"] / base["events_ms_call"]
+
+    parts_s["window_10k"] = time.perf_counter() - t_part
+    # (d) the node seam on this one card
+    t_part = time.perf_counter()
+    install_device_plane(GPUConfig(devices=0))
+    settle_probes()
+    try:
+        if any(hasattr(gpu_verifier._VERIFIERS[kt], "mesh") for kt in gpu_verifier.KEY_TYPES):
+            raise AssertionError("sharding (d): devices = 0 on one card installed a mesh")
+    finally:
+        uninstall_device_plane()
+    try:
+        install_device_plane(GPUConfig(devices=2))
+    except RuntimeError as e:
+        if "only" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        uninstall_device_plane()
+        raise AssertionError("sharding (d): devices = 2 on one card was installed")
+    if gpu_verifier.installed() is not None:
+        raise AssertionError("sharding (d): the refused config left a plane installed")
+
+    # (e) the dry run
+    dry = dryrun_multichip(4, "cuda")
+    settle_probes()
+    parts_s["node_seam_and_dryrun"] = time.perf_counter() - t_part
+
+    out = {
+        "phase": "sharding",
+        "shard_counts": list(SHARD_COUNTS),
+        "corpus_window": SHARD_WINDOW,
+        "corrupted_lanes": lanes,
+        "corpora": corpus_rows,
+        "mixed_10k_launches_per_verify_commit": commit_rows,
+        "mixed_10k_windows": {"ed25519": w_ed, "sr25519": w_sr},
+        "mixed_10k_spoiled_lanes": {kt: b[1] for kt, b in by_type.items()},
+        "window_10k": timing,
+        "timing_note": "virtual shards of one card: all k shards run on this one GPU",
+        "node_seam": {"devices_0": "unsharded", "devices_2": refused},
+        "dryrun_multichip_4": dry.tolist(),
+        "parts_s": parts_s,
+        "seconds": time.perf_counter() - t_phase,
+        "ok": True,
+    }
+    emit(out)
+    return out
+
+
+def phase_compile_probe(torch) -> dict:
+    """The compile probe (ops/compile_probe.py), the counterpart of
+    scripts/aot_bisect.py: its segments, each a one-thread wrapper around
+    one device function, compiled alone for sm_90a in parallel with the
+    kernels' nvcc flags, their ptxas -v numbers printed; the whole
+    sources' numbers from this install's build_report(), not rebuilt."""
+    from tendermint_tpu_torch.ops import build, compile_probe
+
+    t0 = time.perf_counter()
+    rows = compile_probe.probe(list(compile_probe.SEGMENTS))
+    for row in rows:
+        print(compile_probe.format_row(row), file=sys.stderr, flush=True)
+    failed = [r["unit"] for r in rows if not r["ok"]]
+    if failed:
+        raise AssertionError(f"compile_probe: {failed} failed to compile alone")
+    sources = {
+        stem: compile_probe.ptxas_resources(log)
+        for stem, log in build.build_report()["ptxas"].items()
+    }
+    out = {
+        "phase": "compile_probe",
+        "segments": rows,
+        "sources": sources,
+        "seconds": time.perf_counter() - t0,
+        "ok": True,
+    }
+    emit(out)
+    return out
 
 
 # BASELINE.md config 4: a light client's sequential sync at 150
@@ -7039,6 +7340,8 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     config5 = phase_config5(torch, dev, args.seed, mixed_run)
     phase_min_batch(torch, main_run, mixed_run)
     phase_fault_containment(torch, main_run, mixed_run)
+    sharding = phase_sharding(torch, dev, args.seed, main_run, mixed_run)
+    phase_compile_probe(torch)
     phase_config4(torch, args.seed)
     votes = phase_vote_path(torch, dev, args.seed)
     block_exec = phase_block_exec(torch, args.seed)
@@ -7085,6 +7388,14 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
             "launches_per_height": {
                 str(h): c.get(r["name"], 0) for h, c in gossip["launches"].items()
             },
+        }
+    # every kernel's launches in one mixed 10k verify_commit split over k
+    # virtual shards (phase sharding)
+    for r in kernels["kernels"]:
+        r["sharding"] = {
+            "launches_per_verify_commit": {
+                k: c.get(r["name"], 0) for k, c in sharding["mixed_10k_launches_per_verify_commit"].items()
+            }
         }
     # every kernel's launches in the catch-up phases' runs
     for r in kernels["kernels"]:

@@ -24,8 +24,9 @@ config/priv_validator_key.json, data/). The default home is
 are built from the repository's sources into build/torch_kernels/ (or
 loaded from there) at the install. SIGINT and SIGTERM stop the node, and
 the command exits 0 after a clean stop. A part of the node that ends on
-an error while it runs (block sync's pool routine, the evidence loop,
-an RPC route, the state sync task: Node.failure) stops the node too, and
+an error while it runs (block sync's pool routine, the step machine's
+receive loop, the evidence loop, an RPC route, the state sync task:
+Node.failure) stops the node too, and
 the command raises that error, so it exits non-zero without a signal.
 
 `light` and `replay` install the device plane too, from the home's

@@ -105,8 +105,9 @@ class GPUConfig:
     - min_batch_size: the smallest batch of either key type sent to the
       card (smaller ones stay on the native CPU plane);
     - bucket_sizes: the padded window widths of the signature kernels;
-    - devices: 1 is one card; 0 is every visible card; more than one
-      card (X6, ROADMAP item 10) is refused.
+    - devices: 1 is one card; 0 is every visible card; n the first n
+      cards, each window of both key types split over them
+      (parallel/sharding.py); more than are visible is refused.
 
     TPUConfig's donate_buffers is left out: it is XLA's input buffer
     donation, and the port's kernels write into outputs their wrappers

@@ -42,8 +42,10 @@ the first two, and the signer's refusals and its checkpoint's I/O
 failure (`SIGNER_ERRORS`) in the third; the pre-verify catches nothing.
 A DeviceFault is contained by the device verifier's fault policy (the
 batch re-verified on the native CPU plane), and any other launch or
-CUDA error ends the receive loop and reaches the caller: wait_idle() and
-stop() raise it.
+CUDA error ends the receive loop and reaches the caller: it is logged at
+ERROR when the loop ends ("task receive failed", as the JAX service's
+`_run_guarded` logs it), failure() returns it, and wait_idle() and stop()
+raise it.
 
 The overridable hooks of the Byzantine plane (consensus/byzantine.py)
 are bound as the JAX constructor binds them (:130-131):
@@ -245,8 +247,9 @@ class ConsensusState(Service):
         await self.ticker.start()
         await self._catchup_replay(self.rs.height)
         # the loop's task is the node's own, not spawn()'s: an error that
-        # ends it is raised by wait_idle() and stop(), not logged
-        self._task = asyncio.get_running_loop().create_task(self._receive_routine())
+        # ends it is logged when it ends (_receive_guarded), returned by
+        # failure() and raised by wait_idle() and stop()
+        self._task = asyncio.get_running_loop().create_task(self._receive_guarded())
         self._schedule_round_0()
 
     async def on_stop(self) -> None:
@@ -262,6 +265,13 @@ class ConsensusState(Service):
         finally:
             await self.ticker.stop()
             await self.wal.stop()
+
+    def failure(self) -> Optional[BaseException]:
+        """What ended the receive loop, or None while it runs."""
+        task = self._task
+        if task is None or not task.done() or task.cancelled():
+            return None
+        return task.exception()
 
     async def wait_idle(self) -> None:
         """Return once every message queued so far was handled, own
@@ -422,6 +432,16 @@ class ConsensusState(Service):
         )
 
     # -- the receive loop (reference: state.go:803 receiveRoutine) --
+
+    async def _receive_guarded(self) -> None:
+        """The receive loop; an error that ends it is logged at ERROR at
+        once, as the JAX service's `_run_guarded`
+        (tendermint_tpu/libs/service.py:131) logs it, and raised."""
+        try:
+            await self._receive_routine()
+        except Exception:
+            self.logger.exception("task receive failed")
+            raise
 
     async def _receive_routine(self) -> None:
         internal_get = peer_get = timeout_get = None

@@ -6,8 +6,8 @@ add/verify (:387-655) with `_disprove_invalid_lanes` (:657) and
 `_cpu_fallback` (:686), the gather deadline and its watchdog
 (:232-377), the ed25519 and sr25519 subclasses (:721-742), `stats`
 (:773), the factories and the sr25519 single-verify route (:783-893),
-`install` and `uninstall` (:894-997) with the group affinity they set
-(:950-969, :976-997), and the dispatch telemetry
+`install` with its mesh and `uninstall` (:894-997) with the group
+affinity they set (:950-969, :976-997), and the dispatch telemetry
 (:40-95, 130-157) as integer counters. install() registers a factory
 per key type with crypto.batch: create_batch_verifier then returns a
 GpuEd25519BatchVerifier or GpuSr25519BatchVerifier for a batch of at
@@ -61,6 +61,15 @@ that dispatched it; its gather runs on a watchdog thread under that
 same stream, so the bitmap's copy to the host is ordered after them
 whatever stream the caller verifies on.
 
+THE MESH. install(mesh=...) splits every window of both key types over
+the mesh's devices (parallel/sharding.py): one handle then carries a
+stream a shard, its gather waits on each in turn, and the gather
+deadline covers the whole of it. A window is still one dispatch: the
+fault point `gpu.dispatch` fires once a window, so the seeded draws of
+TM_TPU_FAULT stay those of one card, and a fault contained in any shard
+re-verifies the whole batch. The min-batch gate applies to the batch,
+and stats() books the window's rounded bucket.
+
 MIN-BATCH ROUTING. A batch of fewer than `min_batch` signatures of
 either key type stays on the CPU factory: the default (32, config.py) is
 where one device window stops losing to the native CPU batch, measured
@@ -74,8 +83,7 @@ re-verify, the single-verify route and the counters above. The
 verified-signature cache (crypto/sigcache.py) serves the consensus vote
 path; crypto.batch.drain_and_cache records nothing of a batch marked
 `faulted`. Still not ported: the commit memo (no port path keeps one),
-trace spans (the port has no tracing library) and the device mesh (one
-card: node/device.py refuses more).
+trace spans (the port has no tracing library).
 """
 
 from __future__ import annotations
@@ -252,8 +260,9 @@ def _deadline_call(fn, deadline_s: float):
 
 def _dispatch_stream(v):
     """The stream v's kernels were just enqueued on (the calling
-    thread's current one), or None for the CPU."""
-    if v.device.type != "cuda":
+    thread's current one), or None: for the CPU, and for a verifier split
+    over a mesh, whose handle carries its shards' streams."""
+    if v.device.type != "cuda" or getattr(v, "mesh", None) is not None:
         return None
     import torch
 
@@ -325,7 +334,9 @@ class _GpuBatchVerifier(BatchVerifier):
     def _account(self, v, n: int) -> None:
         from ..ops.ed25519_kernel import bucket_for
 
-        bucket = bucket_for(n, v.bucket_sizes)
+        # the window's padded width; a verifier split over a mesh rounds
+        # it to a multiple of the mesh's size
+        bucket = v._bucket(n) if getattr(v, "mesh", None) is not None else bucket_for(n, v.bucket_sizes)
         key = (self.KEY_TYPE, bucket)
         with _STATS_LOCK:
             warm = key in _WARM
@@ -640,27 +651,40 @@ def install(
     program: str = "tile",
     bucket_sizes=None,
     gather_deadline_s: Optional[float] = DEFAULT_GATHER_DEADLINE_S,
+    mesh=None,
 ) -> None:
     """Register the device factories for ed25519 and sr25519 on `device`
     (CUDA by default; raises when there is none), after building and
     loading every kernel and the native CPU plane (raises when one fails
     to build). `program` is "tile" (kernels K2 and X3) or "hybrid"
     (kernel K1 inside plain torch); `min_batch` gates both key types;
-    `gather_deadline_s` bounds every gather (None or 0: no watchdog).
-    Each install is a new breaker generation. It also sets the group
-    affinity for the device (DEVICE_GROUP_AFFINITY) unless an operator
-    pinned one."""
+    `gather_deadline_s` bounds every gather (None or 0: no watchdog);
+    `mesh` (parallel.make_mesh) splits every window over its devices,
+    which then take the place of `device` (module docstring). Each
+    install is a new breaker generation. It also sets the group affinity
+    for the device (DEVICE_GROUP_AFFINITY) unless an operator pinned
+    one."""
     global _GATHER_DEADLINE_S, _MIN_BATCH
     import torch
 
     from .. import native
-    from ..ops.ed25519_kernel import Ed25519Verifier
-    from ..ops.sr25519_kernel import Sr25519Verifier
 
-    verifiers = {
-        "ed25519": Ed25519Verifier(bucket_sizes, device=device, program=program),
-        "sr25519": Sr25519Verifier(bucket_sizes, device=device, program=program),
-    }
+    if mesh is not None:
+        from ..parallel.sharding import ShardedEd25519Verifier, ShardedSr25519Verifier
+
+        verifiers = {
+            "ed25519": ShardedEd25519Verifier(mesh, bucket_sizes, program=program),
+            "sr25519": ShardedSr25519Verifier(mesh, bucket_sizes, program=program),
+        }
+        device = mesh.devices[0]
+    else:
+        from ..ops.ed25519_kernel import Ed25519Verifier
+        from ..ops.sr25519_kernel import Sr25519Verifier
+
+        verifiers = {
+            "ed25519": Ed25519Verifier(bucket_sizes, device=device, program=program),
+            "sr25519": Sr25519Verifier(bucket_sizes, device=device, program=program),
+        }
     if torch.device(device).type == "cuda":
         from ..ops.build import kernels
 

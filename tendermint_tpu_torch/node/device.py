@@ -10,11 +10,14 @@ device program. plane_report() is what a process ran on its plane: the
 kernels' launch counts and the verifier's stats (faults, rerouted
 signatures), which the `light` and `replay` commands print at exit.
 
-`devices` follows the JAX node: 1 is one card, 0 every visible card.
-More than one card is X6, the batch split over a mesh (ROADMAP item 10),
-which the port does not have: asking for it raises NotImplementedError
-rather than running on one card, as the JAX node refuses a mesh smaller
-than asked for.
+`devices` follows the JAX node (`device_mesh`): 1 is one card, 0 every
+visible card, n the first n cards; more than one card installs the batch
+split over them (X6, parallel/sharding.py: both key types' windows cut
+into one shard a card), while merkle (X4, X5) stays on the first card,
+as the JAX node installs merkle_kernel without a mesh. More cards than
+are visible, or a negative count, raise RuntimeError, as the JAX node
+refuses a mesh smaller than asked for. On the CPU (the tests' device)
+one device is visible; a mesh of it repeats the device (virtual shards).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import copy
 from ..config import GPUConfig
 
 __all__ = [
+    "device_mesh",
     "install_device_plane",
     "installed_plane",
     "launch_counts",
@@ -48,16 +52,34 @@ def visible_devices(device="cuda") -> int:
     return torch.cuda.device_count()
 
 
-def _one_card(devices: int, device) -> None:
-    """Raise unless `devices` names one card."""
+def device_mesh(devices: int, device="cuda"):
+    """The batch split's mesh from `[gpu] devices` (counterpart:
+    tendermint_tpu/node/node.py:368 `Node._device_mesh`): 1 -> None (one
+    card); 0 -> every visible card; n -> the first n cards. Raises
+    RuntimeError when fewer than n are visible (a smaller mesh would
+    change the windows' padding) or when n is negative. On the CPU the
+    mesh repeats the one device."""
+    import torch
+
+    from ..parallel import make_mesh
+
+    if devices == 1:
+        return None
     if devices < 0:
-        raise ValueError(f"GPUConfig.devices = {devices}: must be >= 0")
-    n = visible_devices(device) if devices == 0 else devices
-    if n > 1:
-        raise NotImplementedError(
-            f"GPUConfig.devices = {devices} asks for {n} cards: the batch "
-            f"split over several GPUs (X6, ROADMAP item 10) is not ported"
+        raise RuntimeError(f"[gpu] devices = {devices}: must be >= 0")
+    avail = visible_devices(device)
+    if devices == 0:
+        devices = avail
+    if devices == 1:
+        return None
+    if avail < devices:
+        raise RuntimeError(
+            f"[gpu] devices = {devices} but only {avail} device(s) are visible"
         )
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return make_mesh([torch.device("cuda", i) for i in range(devices)])
+    return make_mesh([dev] * devices)
 
 
 def install_device_plane(cfg: GPUConfig, device="cuda") -> bool:
@@ -65,11 +87,11 @@ def install_device_plane(cfg: GPUConfig, device="cuda") -> bool:
     default; device="cpu" runs the kernels' plain versions, for tests).
     True when installed, False when cfg.enable is off. Raises when a
     kernel or the native CPU plane fails to build, when CUDA is absent,
-    or when cfg.devices asks for more than one card."""
+    or when cfg.devices asks for more cards than are visible."""
     global _CURRENT
     if not cfg.enable:
         return False
-    _one_card(cfg.devices, device)
+    mesh = device_mesh(cfg.devices, device)
     from ..crypto import gpu_verifier
     from ..ops import merkle_kernel
 
@@ -78,8 +100,9 @@ def install_device_plane(cfg: GPUConfig, device="cuda") -> bool:
         device=device,
         min_batch=cfg.min_batch_size,
         bucket_sizes=cfg.bucket_sizes,
+        mesh=mesh,
     )
-    merkle_kernel.install(device=device)
+    merkle_kernel.install(device=device if mesh is None else mesh.devices[0])
     _CURRENT = (copy.deepcopy(cfg), str(device))
     return True
 

@@ -517,12 +517,13 @@ class Node(Service):
 
     def failure(self) -> Optional[BaseException]:
         """The first error that ended a part of the running node (the
-        state sync task, block sync's pool routine, the evidence
-        reactor's receive loop, an RPC route), or None."""
+        state sync task, block sync's pool routine, the step machine's
+        receive loop, the evidence reactor's receive loop, an RPC route),
+        or None."""
         task = self._state_sync_task
         if task is not None and task.done() and not task.cancelled() and task.exception():
             return task.exception()
-        for part in (self.blocksync_reactor, self.evidence_reactor, self.rpc_server):
+        for part in (self.blocksync_reactor, self.consensus, self.evidence_reactor, self.rpc_server):
             err = part.failure() if part is not None else None
             if err is not None:
                 return err

@@ -7,7 +7,8 @@ started together. A source that includes PyTorch's headers takes minutes
 to compile (torch.utils.cpp_extension.load), a plain C interface
 seconds, so the wrappers pass pointers and the current stream as
 integers instead (`tensor.data_ptr()`,
-`torch.cuda.current_stream().cuda_stream`).
+`torch.cuda.current_stream().cuda_stream`), each launch under
+`torch.cuda.device` of the card its tensors are on (`launch`).
 
 Libraries go to `build/torch_kernels/` at the repository root (listed in
 .gitignore), named by a hash of the sources and flags, so an edited
@@ -37,6 +38,7 @@ __all__ = [
     "build_report",
     "check_launch",
     "kernels",
+    "launch",
     "nvcc_path",
     "ptr",
     "stream_of",
@@ -188,6 +190,19 @@ def stream_of(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(fn, device, *args) -> int:
+    """fn(*args, stream) with `device` made the current CUDA device and
+    `stream` its current stream (stream_of): the return code of a kernel
+    library's launch function. The library sets the card itself; this
+    keeps PyTorch's current device and the stream on the card the
+    tensors are on, as a launch on each card of a mesh needs
+    (parallel/sharding.py), and gives the caller's device back after."""
+    import torch
+
+    with torch.cuda.device(device):
+        return fn(*args, stream_of(device))
 
 
 def check_launch(rc: int, lib, name: str) -> None:

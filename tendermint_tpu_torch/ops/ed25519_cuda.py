@@ -26,8 +26,9 @@ shorten; the design notes are in the two sources.
 
 Each wrapper takes the plain version only for a CPU tensor. For a CUDA
 tensor it checks device, dtype, shape and contiguity, allocates the
-output with torch.empty, launches on the current stream, raises on a
-launch error, and counts the launch in LAUNCHES.
+output with torch.empty, launches on the current stream of the card the
+tensors are on, under torch.cuda.device of that card (build.launch),
+raises on a launch error, and counts the launch in LAUNCHES.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 
 from . import ed25519_kernel as K
 from . import field25519 as F
-from .build import check_launch, kernels, ptr, stream_of
+from .build import check_launch, kernels, launch, ptr
 
 __all__ = ["LAUNCHES", "dual_mult", "reset_launches", "verify_tile"]
 
@@ -74,7 +75,9 @@ def verify_tile(pk_b, sig_b, dig_b) -> torch.Tensor:
     _check("dig_b", dig_b, (64, n), (pk_b.dtype,), pk_b.device)
     out = torch.empty(n, dtype=torch.bool, device=pk_b.device)
     lib = kernels()["ed25519_verify"]
-    rc = lib.tm_ed25519_verify_tile(
+    rc = launch(
+        lib.tm_ed25519_verify_tile,
+        pk_b.device,
         ptr(pk_b),
         ptr(sig_b),
         ptr(dig_b),
@@ -82,7 +85,6 @@ def verify_tile(pk_b, sig_b, dig_b) -> torch.Tensor:
         n,
         pk_b.element_size(),
         pk_b.device.index,
-        stream_of(pk_b.device),
     )
     check_launch(rc, lib, "ed25519_verify_tile")
     LAUNCHES["ed25519_verify_tile"] += 1
@@ -104,14 +106,15 @@ def dual_mult(A, dS, dk) -> torch.Tensor:
     _check("dk", dk, (64, n), (torch.int32,), A.device)
     out = torch.empty((3, F.NLIMBS, n), dtype=torch.int32, device=A.device)
     lib = kernels()["ed25519_dual_mult"]
-    rc = lib.tm_ed25519_dual_mult(
+    rc = launch(
+        lib.tm_ed25519_dual_mult,
+        A.device,
         ptr(A),
         ptr(dS),
         ptr(dk),
         ptr(out),
         n,
         A.device.index,
-        stream_of(A.device),
     )
     check_launch(rc, lib, "ed25519_dual_mult")
     LAUNCHES["ed25519_dual_mult"] += 1

@@ -332,9 +332,17 @@ class BucketedVerifier:
         self.program = program
         self.bucket_sizes = sorted(bucket_sizes or DEFAULT_BUCKET_SIZES)
 
-    def dispatch(self, pubkeys, msgs, sigs):
-        """Enqueue one batch; returns the handle for gather()."""
+    def dispatch(self, pubkeys, msgs, sigs, bucket: Optional[int] = None):
+        """Enqueue one batch; returns the handle for gather(). `bucket`
+        is the window's width, self._bucket(n) unless given; with a width
+        given, even an empty batch launches (a mesh's shard of padding
+        lanes, parallel/sharding.py)."""
         raise NotImplementedError
+
+    def _bucket(self, n: int) -> int:
+        """The width of a window of n signatures: the smallest configured
+        bucket >= n, or n itself when oversized."""
+        return bucket_for(n, self.bucket_sizes)
 
     @staticmethod
     def _pack_rows(buf: np.ndarray, bucket: int, parts) -> None:
@@ -373,33 +381,34 @@ class Ed25519Verifier(BucketedVerifier):
 
         return verify_tile(pk, sig, dig)
 
-    def dispatch(self, pubkeys, msgs, sigs):
+    def dispatch(self, pubkeys, msgs, sigs, bucket: Optional[int] = None):
         """Enqueue one batch; returns the handle for gather()."""
         n = len(pubkeys)
-        if n == 0:
+        if n == 0 and bucket is None:
             return (None, 0, np.zeros(0, dtype=bool))
-        pk_b, sig_b, dig_b, size_ok = self.pack(pubkeys, msgs, sigs)
+        pk_b, sig_b, dig_b, size_ok = self.pack(pubkeys, msgs, sigs, bucket)
         return (self._run(pk_b, sig_b, dig_b), n, size_ok)
 
-    def pack(self, pubkeys, msgs, sigs):
-        """The device inputs of one non-empty batch: (pk_b (32, B),
-        sig_b (64, B), dig_b (64, B)) uint8 rows padded with zero lanes
-        to the bucket B, and the host (n,) size_ok mask. Malformed sizes
-        become zero rows, masked after the fact. dig_b is one launch of
-        kernel X1 over upload()'s buffers."""
-        w = self.upload(pubkeys, msgs, sigs)
+    def pack(self, pubkeys, msgs, sigs, bucket: Optional[int] = None):
+        """The device inputs of one batch: (pk_b (32, B), sig_b (64, B),
+        dig_b (64, B)) uint8 rows padded with zero lanes to the bucket B,
+        and the host (n,) size_ok mask. Malformed sizes become zero rows,
+        masked after the fact. dig_b is one launch of kernel X1 over
+        upload()'s buffers."""
+        w = self.upload(pubkeys, msgs, sigs, bucket)
         dig_b = sha512_ragged(w.sig_b, w.pk_b, w.msg, w.offsets, w.max_len)
         return w.pk_b, w.sig_b, dig_b, w.size_ok
 
-    def upload(self, pubkeys, msgs, sigs) -> "Window":
-        """One non-empty batch on the device, in one host-to-device copy:
-        pk and sig byte rows padded with zero lanes to the bucket B (lanes
-        of malformed size as zero rows), the messages as one flat buffer
-        with B + 1 int32 offsets (padding lanes of length 0), as
-        sha512_ragged takes them."""
+    def upload(self, pubkeys, msgs, sigs, bucket: Optional[int] = None) -> "Window":
+        """One batch on the device, in one host-to-device copy: pk and
+        sig byte rows padded with zero lanes to the bucket B (self._bucket
+        unless given; lanes of malformed size as zero rows), the messages
+        as one flat buffer with B + 1 int32 offsets (padding lanes of
+        length 0), as sha512_ragged takes them."""
         n = len(pubkeys)
         size_ok, pubkeys, sigs = size_mask(pubkeys, sigs)
-        bucket = bucket_for(n, self.bucket_sizes)
+        if bucket is None:
+            bucket = self._bucket(n)
         lens = np.fromiter(map(len, msgs), dtype=np.int64, count=n)
         offsets = np.zeros(bucket + 1, dtype=np.int32)
         np.cumsum(lens, out=offsets[1 : n + 1])
@@ -419,6 +428,6 @@ class Ed25519Verifier(BucketedVerifier):
             sig_b=dev[32 * bucket : at_off].view(64, bucket),
             msg=dev[at_msg:],
             offsets=dev[at_off : at_off + 4 * (bucket + 1)].view(torch.int32),
-            max_len=int(lens.max()),
+            max_len=int(lens.max()) if n else 0,
             size_ok=size_ok,
         )

@@ -36,7 +36,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .build import check_launch, kernels, ptr, stream_of
+from .build import check_launch, kernels, launch, ptr
 from .sha256_kernel import INNER_PREFIX, sha256_rows_plain, sha256_tree
 
 __all__ = [
@@ -308,9 +308,9 @@ def merkle_proofs(leaf, aunts, off, sides, want, ok_in):
     roots = torch.empty((k, 32), dtype=torch.uint8, device=dev)
     ok = torch.empty((k,), dtype=torch.bool, device=dev)
     lib = kernels()["merkle_proofs"]
-    rc = lib.tm_merkle_proofs(
-        ptr(leaf), ptr(aunts), ptr(off), ptr(sides), ptr(want), ptr(ok_in),
-        ptr(roots), ptr(ok), k, dev.index, stream_of(dev),
+    rc = launch(
+        lib.tm_merkle_proofs, dev, ptr(leaf), ptr(aunts), ptr(off),
+        ptr(sides), ptr(want), ptr(ok_in), ptr(roots), ptr(ok), k, dev.index,
     )
     check_launch(rc, lib, "merkle_proofs")
     LAUNCHES["merkle_proofs"] += 1

@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from .build import check_launch, kernels, ptr, stream_of
+from .build import check_launch, kernels, launch, ptr
 
 __all__ = [
     "LAUNCHES",
@@ -159,9 +159,9 @@ def sha256_tree_plain(leaves: torch.Tensor) -> torch.Tensor:
 
 def _launch(data, out, length: int, n: int, prefix, carry: bool) -> None:
     lib = kernels()["sha256"]
-    rc = lib.tm_sha256_rows(
-        ptr(data), ptr(out), length, n, -1 if prefix is None else prefix,
-        int(carry), data.device.index, stream_of(data.device),
+    rc = launch(
+        lib.tm_sha256_rows, data.device, ptr(data), ptr(out), length, n,
+        -1 if prefix is None else prefix, int(carry), data.device.index,
     )
     check_launch(rc, lib, "sha256_rows")
     LAUNCHES["sha256_rows"] += 1
@@ -227,8 +227,9 @@ def sha256_tree(leaves: torch.Tensor) -> torch.Tensor:
     work = torch.empty(
         lib.tm_sha256_tree_work(n), dtype=torch.uint8, device=leaves.device
     )
-    rc = lib.tm_sha256_tree(
-        ptr(leaves), ptr(work), n, leaves.device.index, stream_of(leaves.device)
+    rc = launch(
+        lib.tm_sha256_tree, leaves.device, ptr(leaves), ptr(work), n,
+        leaves.device.index,
     )
     check_launch(rc, lib, "sha256_tree")
     LAUNCHES["sha256_tree"] += 1

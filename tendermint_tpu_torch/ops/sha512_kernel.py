@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check_launch, kernels, ptr, stream_of
+from .build import check_launch, kernels, launch, ptr
 
 __all__ = [
     "LAUNCHES",
@@ -167,9 +167,9 @@ def sha512_fixed(data: torch.Tensor) -> torch.Tensor:
     length, n = data.shape
     out = torch.empty((64, n), dtype=torch.uint8, device=data.device)
     lib = kernels()["sha512"]
-    rc = lib.tm_sha512_rows(
-        ptr(data), ptr(out), length, n, data.device.index,
-        stream_of(data.device),
+    rc = launch(
+        lib.tm_sha512_rows, data.device, ptr(data), ptr(out), length, n,
+        data.device.index,
     )
     check_launch(rc, lib, "sha512_rows")
     LAUNCHES["sha512_rows"] += 1
@@ -230,7 +230,9 @@ def sha512_ragged(sig_b, pk_b, msg, offsets, max_len: int) -> torch.Tensor:
         )
     out = torch.empty((64, n), dtype=torch.uint8, device=sig_b.device)
     lib = kernels()["sha512"]
-    rc = lib.tm_sha512_ram(
+    rc = launch(
+        lib.tm_sha512_ram,
+        sig_b.device,
         ptr(sig_b),
         ptr(pk_b),
         ptr(msg),
@@ -239,7 +241,6 @@ def sha512_ragged(sig_b, pk_b, msg, offsets, max_len: int) -> torch.Tensor:
         n,
         max_len,
         sig_b.device.index,
-        stream_of(sig_b.device),
     )
     check_launch(rc, lib, "sha512_ram")
     LAUNCHES["sha512_ram"] += 1

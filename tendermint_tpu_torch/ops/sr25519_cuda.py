@@ -16,8 +16,9 @@ the design does about it, is in csrc/sr25519_verify.cu.
 
 The wrapper takes the plain version only for a CPU tensor. For a CUDA
 tensor it checks device, dtype, shape and contiguity, allocates the
-output with torch.empty, launches on the current stream, raises on a
-launch error, and counts the launch in LAUNCHES.
+output with torch.empty, launches on the current stream of the card the
+tensors are on, under torch.cuda.device of that card (build.launch),
+raises on a launch error, and counts the launch in LAUNCHES.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import sr25519_kernel as SK
-from .build import check_launch, kernels, ptr, stream_of
+from .build import check_launch, kernels, launch, ptr
 from .ed25519_cuda import _check
 
 __all__ = ["LAUNCHES", "reset_launches", "verify_sr"]
@@ -53,7 +54,9 @@ def verify_sr(pk_b, sig_b, k_b) -> torch.Tensor:
     _check("k_b", k_b, (32, n), (pk_b.dtype,), pk_b.device)
     out = torch.empty(n, dtype=torch.bool, device=pk_b.device)
     lib = kernels()["sr25519_verify"]
-    rc = lib.tm_sr25519_verify(
+    rc = launch(
+        lib.tm_sr25519_verify,
+        pk_b.device,
         ptr(pk_b),
         ptr(sig_b),
         ptr(k_b),
@@ -61,7 +64,6 @@ def verify_sr(pk_b, sig_b, k_b) -> torch.Tensor:
         n,
         pk_b.element_size(),
         pk_b.device.index,
-        stream_of(pk_b.device),
     )
     check_launch(rc, lib, "sr25519_verify")
     LAUNCHES["sr25519_verify"] += 1

@@ -25,7 +25,7 @@ selected explicitly, never as a fallback).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,7 +40,6 @@ from .ed25519_kernel import (
     _lt_const_dev,
     _nibbles_dev,
     _s_lt_l_dev,
-    bucket_for,
     dual_mult_sb_minus_ka,
     size_mask,
 )
@@ -171,12 +170,12 @@ class Sr25519Verifier(BucketedVerifier):
     K1 ("hybrid"). The merlin challenges are computed on the host in
     upload(), before the window's one copy to the device."""
 
-    def dispatch(self, pubkeys, msgs, sigs):
+    def dispatch(self, pubkeys, msgs, sigs, bucket: Optional[int] = None):
         """Enqueue one batch; returns the handle for gather()."""
         n = len(pubkeys)
-        if n == 0:
+        if n == 0 and bucket is None:
             return (None, 0, np.zeros(0, dtype=bool))
-        w = self.upload(pubkeys, msgs, sigs)
+        w = self.upload(pubkeys, msgs, sigs, bucket)
         if self.program == "hybrid":
             ok = verify_hybrid_sr(w.pk_b, w.sig_b, w.k_b)
         else:
@@ -185,18 +184,20 @@ class Sr25519Verifier(BucketedVerifier):
             ok = verify_sr(w.pk_b, w.sig_b, w.k_b)
         return (ok, n, w.size_ok)
 
-    def upload(self, pubkeys, msgs, sigs) -> SrWindow:
-        """One non-empty batch on the device, in one host-to-device copy:
-        pk, sig and challenge byte rows padded with zero lanes to the
-        bucket B (lanes of malformed size as zero rows, masked after the
-        fact), the challenges computed here by challenge_rows in one C
-        call and written into the buffer as they come, 32-byte rows."""
+    def upload(self, pubkeys, msgs, sigs, bucket: Optional[int] = None) -> SrWindow:
+        """One batch on the device, in one host-to-device copy: pk, sig
+        and challenge byte rows padded with zero lanes to the bucket B
+        (self._bucket unless given; lanes of malformed size as zero rows,
+        masked after the fact), the challenges computed here by
+        challenge_rows in one C call and written into the buffer as they
+        come, 32-byte rows."""
         from ..crypto.sr25519 import challenge_rows
 
         n = len(pubkeys)
         size_ok, pubkeys, sigs = size_mask(pubkeys, sigs)
         ks = challenge_rows(pubkeys, msgs, [sig[:32] for sig in sigs])
-        bucket = bucket_for(n, self.bucket_sizes)
+        if bucket is None:
+            bucket = self._bucket(n)
         # [pk rows | sig rows | k rows], each (k, bucket), batch-minor
         buf = np.zeros(128 * bucket, dtype=np.uint8)
         self._pack_rows(buf, bucket, ((0, pubkeys, 32), (32, sigs, 64)))

@@ -11,7 +11,10 @@ ERRORS. A route's RPCError is its answer; TypeError, ValueError and
 KeyError answer INVALID_PARAMS, as in the JAX package. Any other error
 answers INTERNAL_ERROR, as there, and the server also keeps the first
 such error (`failure()`): a failed kernel launch or a CUDA error under a
-route is never only a reply to one client. The `rpc.route` fault point
+route is never only a reply to one client. A request whose params are
+a JSON string, number or boolean makes a route that reads them raise
+AttributeError: that is the client's error, answered INTERNAL_ERROR with
+the JAX server's text and not kept. The `rpc.route` fault point
 (crypto/faults.py) fires inside the dispatch, keyed by the method. The
 request metrics, trace spans, slow-request records and profiler task
 labels of the JAX server wait for the port's metrics and tracing
@@ -98,6 +101,13 @@ def _response(req_id: Any, result: Any = None, error: Optional[dict] = None):
     else:
         obj["result"] = result
     return obj
+
+
+def _client_params_error(req: RPCRequest, e: BaseException) -> bool:
+    """e is a route's AttributeError on params that are not an object
+    (a string, number or boolean in the request): the client's error,
+    which the server does not keep (module docstring)."""
+    return isinstance(e, AttributeError) and not isinstance(req.params, dict)
 
 
 class WSConn:
@@ -522,7 +532,7 @@ class JSONRPCServer:
             self.logger.error(
                 "rpc handler error method=%s err=%r", req.method, e
             )
-            if self._failure is None:
+            if self._failure is None and not _client_params_error(req, e):
                 self._failure = e
             return _response(
                 req.req_id,

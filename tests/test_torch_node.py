@@ -27,18 +27,25 @@ localnets, catch-up, and the CLI's `start` as a process
 - a `start` process whose block sync meets a failed launch (peers over
   TCP serving the chain) stops its node and exits non-zero, unsignalled;
 - two `python3 -m tendermint_tpu_torch.cmd start` processes of a
-  `testnet` reach height 2 over TCP and exit 0 on SIGTERM.
+  `testnet` reach height 2 over TCP and exit 0 on SIGTERM;
+- a node run by `start`'s loop (cmd/commands.py `_run_until_stopped`)
+  answers JSON-RPC requests whose params are "x", 7 or true as the JAX
+  server does and keeps serving; one whose step machine ends on the
+  `wal.fsync` fault's OSError logs "task receive failed" at once, as the
+  JAX `_run_guarded` does, and that loop stops it with the OSError.
 
 Every node runs on device="cpu" or with [gpu] enable = false; every
 event loop runs under a deadline. Tolerance: zero (bytes).
 """
 
 import asyncio
+import json
 import logging
 import os
 import signal
 import socket
 import sys
+import time
 
 import pytest
 
@@ -450,6 +457,89 @@ def test_a_failed_launch_under_block_sync_ends_the_start_process(tmp_path, serve
     assert rc not in (0, -signal.SIGTERM, -signal.SIGKILL), out
     assert "CUDA error: launch failed" in out
     assert "node started" in out
+
+
+def test_malformed_params_leave_a_started_node_serving(tmp_path):
+    """A single validator under `start`'s loop answers the three requests
+    of params "x", 7 and true INTERNAL_ERROR and goes on: no failure()
+    ends the loop, and its RPC answers /status after them."""
+    from tendermint_tpu_torch.cmd.commands import _FAILURE_POLL_S, _run_until_stopped
+
+    from .test_torch_rpc import MALFORMED_PARAMS, post_request, raw_http
+
+    priv = _privs(1, 11)[0]
+    home = _home(tmp_path, 0, _genesis([priv]), priv)
+
+    async def go():
+        node = make_node(_cfg(home), device="cpu")
+        await node.start()
+        loop_task = asyncio.ensure_future(_run_until_stopped(node))
+        addr = f"127.0.0.1:{node.rpc_server.bound_port}"
+        answers = [await raw_http(addr, post_request(req)) for req in MALFORMED_PARAMS]
+        await asyncio.sleep(3 * _FAILURE_POLL_S)
+        running = not loop_task.done()
+        status = await raw_http(addr, b"GET /status HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n")
+        loop_task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await loop_task
+        return answers, running, status, node
+
+    answers, running, status, node = run(go())
+    for a in answers:
+        err = json.loads(a.split(b"\r\n\r\n", 1)[1])["error"]
+        assert err["code"] == -32603 and err["message"].startswith("AttributeError(")
+    assert running and node.failure() is None
+    assert json.loads(status.split(b"\r\n\r\n", 1)[1])["result"]["node_info"]["network"] == CHAIN_ID
+    assert not node.data_locked
+
+
+def test_a_step_machine_ended_by_an_error_ends_start(tmp_path, monkeypatch):
+    """A single validator with TM_TPU_FAULT="wal.fsync:io_error:p=0.05:
+    seed=3:times=1": the fsync of an own message raises OSError in the
+    step machine's receive loop; "task receive failed" is logged at ERROR
+    when the loop ends, before the stop, and `start`'s loop stops the
+    node and raises that OSError within seconds."""
+    from tendermint_tpu_torch.cmd.commands import _run_until_stopped
+    from tendermint_tpu_torch.crypto import faults
+
+    priv = _privs(1, 13)[0]
+    home = _home(tmp_path, 0, _genesis([priv]), priv)
+    events = []
+
+    class _Record(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.ERROR:
+                events.append(("log", record.getMessage(), record.exc_info))
+
+    async def go():
+        node = make_node(_cfg(home), device="cpu")
+        await node.start()
+        stop = node.stop
+
+        async def recorded_stop():
+            events.append(("stop",))
+            await stop()
+
+        node.stop = recorded_stop
+        t0 = time.monotonic()
+        with pytest.raises(OSError) as err:
+            await _run_until_stopped(node)
+        return time.monotonic() - t0, err.value, node
+
+    handler = _Record()
+    logger = logging.getLogger("tendermint_tpu_torch.consensus.state")
+    logger.addHandler(handler)
+    monkeypatch.setenv("TM_TPU_FAULT", "wal.fsync:io_error:p=0.05:seed=3:times=1")
+    faults.load_env()
+    try:
+        elapsed, error, node = run(go(), 30.0)
+    finally:
+        logger.removeHandler(handler)
+        faults.reset()
+    assert elapsed < 10.0
+    assert events[0][:2] == ("log", "task receive failed") and events[0][2][1] is error
+    assert events[1] == ("stop",)
+    assert not node.data_locked
 
 
 def test_cli_testnet_processes_reach_height_2_and_exit_0(tmp_path):

@@ -1,7 +1,9 @@
 """The node's device seam: config.GPUConfig and node/device.py.
 
 GPUConfig's defaults against the JAX package's TPUConfig, the `devices`
-rules (one card; more is X6, refused), and install_device_plane on
+rules of the JAX `Node._device_mesh` (1 one card, 0 every visible card,
+n the first n; more than are visible, or a negative count, raise
+RuntimeError), and install_device_plane on
 device="cpu" putting crypto/gpu_verifier and ops/merkle_kernel behind
 the port's seams from the config, then verifying a Commit as the JAX
 package does. Tolerance: zero (exact outcomes and messages).
@@ -68,27 +70,37 @@ def test_disabled_config_installs_nothing():
 
 @pytest.mark.parametrize("devices", [2, 4])
 def test_more_than_one_card_is_refused_naming_x6(devices):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    """More cards than are visible (the CPU counts one) raise the JAX
+    node's RuntimeError, naming how many are visible, before anything is
+    installed."""
+    with pytest.raises(RuntimeError, match=f"devices = {devices} but only 1 device"):
         node_device.install_device_plane(config.GPUConfig(devices=devices), "cpu")
     assert gpu_verifier.installed() is None
 
 
 def test_every_visible_card_means_one_here_and_more_is_refused(monkeypatch):
-    """devices = 0 takes every visible card: the CPU counts one; a host
-    with four CUDA cards is refused before anything is installed."""
+    """devices = 0 takes every visible card: the CPU counts one, so the
+    plane is unsharded; a host with four CUDA cards gets a mesh of its
+    four distinct cards, cuda:0 to cuda:3."""
     assert node_device.visible_devices("cpu") == 1
+    assert node_device.device_mesh(0, "cpu") is None
     assert node_device.install_device_plane(config.GPUConfig(devices=0), "cpu")
+    assert not hasattr(gpu_verifier._VERIFIERS["ed25519"], "mesh")
     node_device.uninstall_device_plane()
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert node_device.visible_devices("cuda") == 4
-    with pytest.raises(NotImplementedError, match="X6"):
-        node_device.install_device_plane(config.GPUConfig(devices=0))
-    assert gpu_verifier.installed() is None
+    mesh = node_device.device_mesh(0)
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
+    assert node_device.device_mesh(1) is None
+    assert node_device.device_mesh(3).size == 3
+    with pytest.raises(RuntimeError, match="only 4 device"):
+        node_device.device_mesh(5)
 
 
 def test_negative_devices_raise():
-    with pytest.raises(ValueError, match="must be >= 0"):
+    with pytest.raises(RuntimeError, match="must be >= 0"):
         node_device.install_device_plane(config.GPUConfig(devices=-1), "cpu")
+    assert gpu_verifier.installed() is None
 
 
 def test_one_card_without_cuda_raises_instead_of_running_on_cpu():

@@ -318,23 +318,34 @@ def test_every_route_answers_as_the_jax_one(served):
         assert port == jax, (method, params)
 
 
+async def raw_http(addr, req: bytes) -> bytes:
+    """The server's whole answer to one raw HTTP request."""
+    host, port = addr.split(":")
+    r, w = await asyncio.open_connection(host, int(port))
+    w.write(req)
+    await w.drain()
+    data = await r.read()
+    w.close()
+    return data
+
+
+def post_request(body: bytes) -> bytes:
+    return (b"POST / HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+            b"Content-Length: %d\r\n\r\n" % len(body)) + body
+
+
+# JSON-RPC requests whose params are a string, a number and true
+MALFORMED_PARAMS = tuple(
+    b'{"jsonrpc":"2.0","id":1,"method":"block","params":%s}' % x for x in (b'"x"', b"7", b"true")
+)
+
+
 def test_uri_form_post_batch_and_protocol_errors(served_ed):
     """GET /method?k=v (JSON values, bare strings), the route listing at
     /, a POST batch, a parse error, positional params, an unknown method
     and a body over the limit: the same bytes from both servers."""
 
-    async def raw(addr, req: bytes) -> bytes:
-        host, port = addr.split(":")
-        r, w = await asyncio.open_connection(host, int(port))
-        w.write(req)
-        await w.drain()
-        data = await r.read()
-        w.close()
-        return data
-
-    def post(body: bytes) -> bytes:
-        return (b"POST / HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
-                b"Content-Length: %d\r\n\r\n" % len(body)) + body
+    raw, post = raw_http, post_request
 
     def get(target: str) -> bytes:
         return f"GET {target} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n".encode()
@@ -379,6 +390,27 @@ def test_uri_form_post_batch_and_protocol_errors(served_ed):
     assert codes[11]["error"]["code"] == -32600
     assert codes[12] == b"HTTP/1.1 413 Too Large"
     assert codes[13] == b"HTTP/1.1 405 Method Not Allowed"
+
+
+def test_params_that_are_not_an_object_are_answered_as_jax_and_not_kept(served_ed):
+    """A request whose params are "x", 7 or true: each gets the JAX
+    server's answer (INTERNAL_ERROR with the route's AttributeError, as
+    tendermint_tpu/rpc/jsonrpc.py `_dispatch` gives it), the port's server
+    keeps none of them as its failure(), and answers the next call."""
+
+    async def body(pair):
+        answers = []
+        for req in MALFORMED_PARAMS:
+            answers.append([await raw_http(a, post_request(req)) for a in (pair.port_addr, pair.jax_addr)])
+        return answers, pair.port_srv.failure(), await pair.both("header", height=2)
+
+    answers, failure, after = run_pair(served_ed, body)
+    for port, jax in answers:
+        assert port == jax
+        err = json.loads(port.split(b"\r\n\r\n", 1)[1])["error"]
+        assert err["code"] == -32603 and err["message"].startswith("AttributeError(")
+    assert failure is None
+    assert after[0] == after[1] and after[0][0] == "ok"
 
 
 def test_websocket_subscribe_notifications_equal_the_jax_text(served_ed):
