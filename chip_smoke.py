@@ -47,7 +47,14 @@ times a window, one 10k window is timed at each k, `[gpu] devices = 0`
 installs the unsharded plane and `devices = 2` is refused; phase
 compile_probe compiles the compile probe's segments
 (ops/compile_probe.py) alone for sm_90a and reports their ptxas -v
-beside the sources' from the build. Phase config4 drives BASELINE.md
+beside the sources' from the build. Phase secp256k1 verifies the JAX
+bench's three-class 10k Commit (3,334 ed25519, 3,333 sr25519 and 3,333
+secp256k1 validators) through the device plane: the ed25519 and sr25519
+thirds launch X1 + K2 and X3 by the rule, the secp256k1 third is
+verified on the host and launches nothing, and each call's wall time is
+split into the host's secp256k1 ms and the rest; then a 1k three-class
+Commit spoiled at one index of each class, and on the scalar route, gets
+the CPU plane's error texts. Phase config4 drives BASELINE.md
 config 4 through the light client with the device plane installed: a
 fresh sequential client syncs a 1,024-header chain of 150 validators in
 merged windows of 32 commits (windows, X1 and K2 launches counted for the
@@ -148,7 +155,9 @@ block by block; then a staged crash before apply and a restart whose
 ABCI handshake replays the chain into a fresh app and applies the last
 block on the card at block_exec's rule; then four `start` processes of
 a `testnet` over TCP to height 3, each exiting 0 on SIGTERM (the kernels
-line's `node_start`). Keys, key types, messages,
+line's `node_start`); the first node and each process serve Prometheus
+on /metrics and /healthz, scraped over HTTP and held against
+gpu_verifier.stats() and the node's stores. Keys, key types, messages,
 timestamps, signing witnesses, chains, votes and transactions come from
 --seed (made by tendermint_tpu_torch.workloads).
 
@@ -2422,6 +2431,178 @@ def phase_compile_probe(torch) -> dict:
         "seconds": time.perf_counter() - t0,
         "ok": True,
     }
+    emit(out)
+    return out
+
+
+# phase secp256k1: the JAX bench's three-class Commits (bench.py:147-178),
+# ed25519, sr25519 and secp256k1 by validator index mod 3
+SECP_VALIDATORS = N_VALIDATORS
+SECP_SMALL_VALIDATORS = 1_000
+# the 1k Commit's BlockIDFlag outside uint8, at this index (the scalar route)
+SECP_FLAG_AT = 500
+
+
+@contextlib.contextmanager
+def timed_secp_verifies(into: list):
+    """For the block, each Secp256k1BatchVerifier.verify appends (its
+    host-clock ms, the kernel launches made inside it)."""
+    from tendermint_tpu_torch.crypto.secp256k1 import Secp256k1BatchVerifier
+
+    inner = Secp256k1BatchVerifier.verify
+
+    def wrapper(self):
+        before = launches()
+        t0 = time.perf_counter()
+        try:
+            return inner(self)
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            into.append((ms, {k: n - before[k] for k, n in launches().items() if n != before[k]}))
+
+    Secp256k1BatchVerifier.verify = wrapper
+    try:
+        yield into
+    finally:
+        Secp256k1BatchVerifier.verify = inner
+
+
+def phase_secp256k1(torch, seed: int) -> dict:
+    """secp256k1 (ROADMAP item 22) beside the card. First, on an earlier
+    line, whether this host's hashlib has RIPEMD-160, the address hash of
+    crypto/secp256k1.py (the phase fails where not). (a) The JAX bench's three-class
+    10k Commit (3,334 ed25519, 3,333 sr25519, 3,333 secp256k1
+    validators; workloads.build_three_class_commit, its secp256k1 keys
+    and signatures made on a process pool: set-up) verified by
+    verify_commit through install_device_plane(GPUConfig()) twice, a warm
+    call and a timed one: the ed25519 third launches X1 and K2 a window
+    of 2,048, the sr25519 third X3, and the secp256k1 third, verified by
+    Secp256k1BatchVerifier on the host, launches nothing; each call's
+    wall time split into the ms inside Secp256k1BatchVerifier and the
+    rest. (b) The 1k three-class Commit (bench.py:2851's row), spoiled at
+    one index of each class, and with one BlockIDFlag outside uint8 (the
+    scalar route of types/validation.py): verify_commit's error text on
+    the device plane equals the CPU plane's, and each call launches one
+    X1 + K2 and one X3 window. No fault and nothing rerouted throughout."""
+    import hashlib as _hashlib
+    import ssl
+
+    from tendermint_tpu_torch.config import GPUConfig
+    from tendermint_tpu_torch.crypto import gpu_verifier
+    from tendermint_tpu_torch.crypto.gpu_verifier import GpuSr25519BatchVerifier
+    from tendermint_tpu_torch.node.device import install_device_plane, uninstall_device_plane
+    from tendermint_tpu_torch.types.commit import Commit
+    from tendermint_tpu_torch.types.validation import verify_commit
+    from tendermint_tpu_torch.workloads import build_three_class_commit
+
+    t_phase = time.perf_counter()
+    try:
+        _hashlib.new("ripemd160")
+        hashlib_ok = True
+    except ValueError:
+        hashlib_ok = False
+    emit({"phase": "secp256k1_probe", "hashlib_ripemd160": hashlib_ok, "openssl": ssl.OPENSSL_VERSION})
+    if not hashlib_ok:
+        raise AssertionError("secp256k1: this host's hashlib has no RIPEMD-160 (the address hash)")
+    workers = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    vals, bid, commit = build_three_class_commit(SECP_VALIDATORS, CHAIN_ID, HEIGHT, seed, workers=workers)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vals1k, bid1k, commit1k = build_three_class_commit(SECP_SMALL_VALIDATORS, CHAIN_ID, HEIGHT, seed + 1)
+    build_1k_s = time.perf_counter() - t0
+    kinds = [v.pub_key.type() for v in vals.validators]
+    by_class = {kt: kinds.count(kt) for kt in ("ed25519", "sr25519", "secp256k1")}
+    n = SECP_VALIDATORS
+    if by_class != {"ed25519": -(-n // 3), "sr25519": (n + 1) // 3, "secp256k1": n // 3}:
+        raise AssertionError(f"secp256k1: the 10k Commit's classes {by_class}")
+    step = GpuSr25519BatchVerifier.STREAM_CHUNK
+
+    def tile(ed, sr):
+        return {
+            "ed25519": (ed, {"sha512_ram": ed, "ed25519_verify_tile": ed}),
+            "sr25519": (sr, {"sr25519_verify": sr}),
+        }
+
+    # (b)'s variants and their CPU-plane errors first
+    kinds1k = [v.pub_key.type() for v in vals1k.validators]
+    variants = {}
+    for kt in ("ed25519", "sr25519", "secp256k1"):
+        i = next(j for j in range(len(kinds1k) // 3, len(kinds1k)) if kinds1k[j] == kt)
+        variants[f"bad_{kt}"] = (i, None)
+    variants["scalar_route_bad_secp256k1"] = (
+        next(j for j in range(SECP_FLAG_AT + 1, len(kinds1k)) if kinds1k[j] == "secp256k1"), SECP_FLAG_AT)
+
+    def variant(name):
+        at, flag_at = variants[name]
+        out = Commit.from_proto(commit1k.to_proto())
+        sig = bytearray(out.signatures[at].signature)
+        sig[0] ^= 0x01
+        out.signatures[at].signature = bytes(sig)
+        if flag_at is not None:
+            out.signatures[flag_at].block_id_flag = 300
+            if out.block_id_flags_array() is not None:
+                raise AssertionError("secp256k1: the flag did not leave uint8")
+        return out
+
+    spoiled = {name: variant(name) for name in variants}
+    cpu_plane = {name: outcome(lambda c=c: verify_commit(CHAIN_ID, vals1k, bid1k, HEIGHT, c))
+                 for name, c in spoiled.items()}
+    for name, (kind, msg) in cpu_plane.items():
+        if kind != "InvalidCommitError" or "wrong signature" not in msg:
+            raise AssertionError(f"secp256k1: the CPU plane answered {name} with {kind}: {msg}")
+
+    start = gpu_verifier.stats()
+    install_device_plane(GPUConfig())
+    settle_probes()
+    try:
+        w_ed, w_sr = -(-by_class["ed25519"] // step), -(-by_class["sr25519"] // step)
+
+        def full():
+            verify_commit(CHAIN_ID, vals, bid, HEIGHT, commit)
+
+        calls = []
+        for name in ("warm", "timed"):
+            secp = []
+            with timed_secp_verifies(secp):
+                t0 = time.perf_counter()
+                counted = count_one_call(full, tile(w_ed, w_sr))
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            if len(secp) != 1 or secp[0][1]:
+                raise AssertionError(f"secp256k1: {name}: the secp256k1 batches {secp} (one, launching nothing)")
+            calls.append({"call": name, "wall_ms": wall_ms, "secp256k1_host_ms": secp[0][0],
+                          "rest_ms": wall_ms - secp[0][0], "launches": counted})
+        device = {}
+        for name, c in spoiled.items():
+            secp = []
+            with timed_secp_verifies(secp):
+                counted = count_one_call(lambda c=c: device.__setitem__(
+                    name, outcome(lambda: verify_commit(CHAIN_ID, vals1k, bid1k, HEIGHT, c))), tile(1, 1))
+            if device[name] != cpu_plane[name]:
+                raise AssertionError(f"secp256k1: {name}: the device plane answered {device[name]}, "
+                                     f"the CPU plane {cpu_plane[name]}")
+            if any(launched for _ms, launched in secp):
+                raise AssertionError(f"secp256k1: {name}: a secp256k1 batch launched {secp}")
+            device[name] = {"error": device[name][1][:60] + "...", "at": variants[name][0],
+                            "launches": counted}
+        assert_no_fault(start, gpu_verifier.stats(), "secp256k1")
+    finally:
+        uninstall_device_plane()
+    out = {
+        "phase": "secp256k1",
+        "validators": by_class,
+        "commit_build_s": build_s,
+        "commit_build_1k_s": build_1k_s,
+        "build_workers": workers,
+        "verify_commit_10k": calls,
+        "rule": {"sha512_ram": w_ed, "ed25519_verify_tile": w_ed, "sr25519_verify": w_sr},
+        "commit_1k": device,
+        "equal_to_cpu_plane": sorted(device),
+        "hashlib_ripemd160": hashlib_ok,
+        "ok": True,
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -6020,7 +6201,14 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
     launched outside them (check_catchup_launches); each applied block's
     X1, K2, X3 and X4 launches equal block_sync's for the same block, and
     the node's totals equal block_sync's less its refused pair; the
-    stored blocks, the state and the app hash equal the chain's; after
+    stored blocks, the state and the app hash equal the chain's; the home
+    has [instrumentation] prometheus = true on 127.0.0.1:0, and the
+    node's /metrics and /healthz, scraped over HTTP before the stop
+    (workloads.check_node_scrape), parse with no duplicate series, the
+    gpu_* batches, signatures and padded lanes moved as
+    gpu_verifier.stats() did over the part and its faults not at all,
+    state_block_processing counted each block applied, /healthz reads
+    the block store's height and p2p_peers the three peers; after
     stop() the data lock is free and every DB closed. (2) The chain's
     last block and its seen commit saved into the home's block store (the
     "crash before apply" of tests/test_consensus_replay.py) and the node
@@ -6036,9 +6224,12 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
     [gpu] enable = true, run as `python3 -m tendermint_tpu_torch.cmd
     start` processes over TCP (workloads.cli_localnet) until the HTTP
     client's `status` reads NODE_START_CLI_HEIGHT on each; each installs
-    its plane in its own process, and exits 0 on SIGTERM. Under the gate
+    its plane in its own process, and exits 0 on SIGTERM; each serves
+    Prometheus on a port taken free and is scraped once at that height
+    (workloads.check_cli_scrape: consensus_height reached it, the gpu_*
+    family there with no batch). Under the gate
     of 32 their commits verify on the CPU plane, so they launch nothing
-    by rule. Reports each part's seconds, blocks/s through the node
+    by rule. Reports each part's seconds, the scrapes' ms and bytes, blocks/s through the node
     beside block_sync's, the handshake's replay seconds, the card's idle
     share of parts 1 and 2, and each process's install line and height."""
     import tempfile
@@ -6057,7 +6248,10 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
     from tendermint_tpu_torch.workloads import (
         NODE_MEM_ADDR,
         catchup_peers,
+        check_cli_scrape,
+        check_node_scrape,
         cli_localnet,
+        gpu_series,
         init_home,
         run_node_start,
         stage_crash,
@@ -6081,6 +6275,7 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
         "statesync": {"enable": False},
         "p2p": {"laddr": "tcp://" + NODE_MEM_ADDR, "persistent_peers": catchup_peers(keys, seed)},
         "rpc": {"laddr": "tcp://127.0.0.1:0"},
+        "instrumentation": {"prometheus": True, "prometheus_listen_addr": "127.0.0.1:0"},
     }
     # the home outlives the phase: operator_tools inspects and replays it,
     # then removes tmp
@@ -6098,7 +6293,7 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
             assembled.update({k: v for k, v in launches().items() if v})
             reset_launches()
 
-        start = gpu_verifier.stats()
+        start, series0 = gpu_verifier.stats(), gpu_series()
         try:
             # (1) block sync from the home
             t1 = time.perf_counter()
@@ -6114,6 +6309,8 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
             if plane != (GPUConfig(), NODE_START_DEVICE):
                 raise AssertionError(f"node_start: the node installed {plane}, not its [gpu]")
             reports1 = check_catchup_launches(calls, counts1, "node_start")
+            # its scrape before the stop, over HTTP
+            scrape1 = check_node_scrape(run1, start, series0, peers=len(keys))
             verifier = gpu_verifier._VERIFIERS["ed25519"]
             # (2) the staged crash, and the restart's handshake
             stage_crash(home, chain[tip - 1])
@@ -6186,7 +6383,7 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
         # (3) the CLI's processes
         t3 = time.perf_counter()
         procs = cli_localnet(os.path.join(tmp, "net"), NODE_START_CLI_NODES, NODE_START_CLI_HEIGHT, gpu=True,
-                             device=NODE_START_DEVICE, timeout_s=NODE_START_CLI_TIMEOUT_S)
+                             device=NODE_START_DEVICE, timeout_s=NODE_START_CLI_TIMEOUT_S, prometheus=True)
         part3_s = time.perf_counter() - t3
     processes = []
     for nd in procs:
@@ -6195,7 +6392,8 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
             raise AssertionError(f"node_start: {os.path.basename(nd.home)} exited {nd.rc} at height "
                                  f"{nd.height}, install lines {installed}; log tail {nd.log[-5:]}")
         processes.append({"home": os.path.basename(nd.home), "height": nd.height, "rc": nd.rc,
-                          "install_line": installed[0]})
+                          "install_line": installed[0],
+                          "scrape": check_cli_scrape(nd, NODE_START_CLI_HEIGHT)})
     launched1 = {k: n for k, n in counts1.items() if n}
     out = {
         "phase": "node_start",
@@ -6213,6 +6411,7 @@ def phase_node_start(torch, seed: int, served: dict, block_sync: dict) -> dict:
             "launches": launched1,
             "launches_per_block": {h: {k: n for k, n in pairs[h].items() if n} for h in sorted(pairs)},
             "checks": reports1,
+            "scrape": scrape1,
             **{f"{k}_parts_1": v for k, v in catchup_busy(prof1, counts1, run1.seconds).items()},
         },
         "crash_replay": {
@@ -7342,6 +7541,7 @@ def _run(torch, args, smi, dev, card, power, sass, x5_old_build) -> int:
     phase_fault_containment(torch, main_run, mixed_run)
     sharding = phase_sharding(torch, dev, args.seed, main_run, mixed_run)
     phase_compile_probe(torch)
+    phase_secp256k1(torch, args.seed)
     phase_config4(torch, args.seed)
     votes = phase_vote_path(torch, dev, args.seed)
     block_exec = phase_block_exec(torch, args.seed)

@@ -42,7 +42,7 @@ a route raises an error that is not the route's own answer (the
 server's failure(), polled as `start` polls its node), and then raises
 it.
 
-Left out: `debug` (ROADMAP item 11, with its device profile).
+Left out: `debug` (ROADMAP item 11c, with its device profile).
 """
 
 from __future__ import annotations

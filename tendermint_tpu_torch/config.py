@@ -15,10 +15,11 @@ The port's Config holds `gpu: GPUConfig` where the JAX one holds
 `tpu: TPUConfig`, and config.toml has a [gpu] section in place of [tpu];
 every other section and key is the JAX file's. The default home is
 ~/.tendermint_tpu_torch, so that the two CLIs never share a home by
-accident. InstrumentationConfig is carried so that home files
-round-trip: what it switches on (the Prometheus server, trace spans,
-the profiler and the flight recorder) is ROADMAP item 11, and node start
-refuses `prometheus = true` (node/node.py).
+accident. InstrumentationConfig round-trips the JAX keys: `prometheus`
+starts the node's /metrics and /healthz server on
+`prometheus_listen_addr` (node/node.py); the trace spans, the profiler
+and the flight recorder it also switches are ROADMAP item 11b, and node
+start logs those switches as not yet honored.
 """
 
 from __future__ import annotations
@@ -252,9 +253,10 @@ class TxIndexConfig:
 
 @dataclass
 class InstrumentationConfig:
-    """Carried so that config.toml round-trips with the JAX package's
-    keys and defaults. Node start refuses prometheus = true and logs the
-    other switches that are on as not yet honored (ROADMAP item 11)."""
+    """The JAX package's keys and defaults. prometheus = true serves
+    /metrics and /healthz on prometheus_listen_addr; node start logs the
+    trace, exemplar, timeline and profiler switches that are on as not
+    yet honored (ROADMAP item 11b)."""
 
     prometheus: bool = False
     prometheus_listen_addr: str = ":26660"

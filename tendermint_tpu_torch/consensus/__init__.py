@@ -3,5 +3,5 @@ of one node with its receive loop and vote-burst pre-verify on the
 device, the round state and VoteSet tallies of every round of a height,
 the wire messages and WAL records, the WAL and the timeout ticker, the
 consensus reactor and PeerState (its gossip over p2p), and the Byzantine
-plane. The Handshaker, the WAL generator, the flight recorder and the
-metrics are not ported yet."""
+plane, the Handshaker, the WAL generator and the consensus metrics. The
+flight recorder is not ported yet (ROADMAP item 11b)."""

@@ -54,13 +54,20 @@ prevote (:700), default to `_default_decide_proposal` and
 `_default_do_prevote`; `_sign_add_vote` is looked up on the instance,
 so a harness may wrap it too.
 
+METRICS. `cs.metrics` (consensus/metrics.py, DEFAULT_REGISTRY unless the
+caller passes a struct; node/node.py passes its per-node one) is fed at
+the JAX sites: the height, rounds, validators and their power at each
+new height (:263-266), the round at each new round (:563), and the
+block's txs, size and interval at finalize (:941-948). No decision reads
+it.
+
 `cs.timeline` is NopTimeline, a flight recorder that records nothing:
 it has every mark_* method the JAX step machine, reactor and Byzantine
 plane call, so the ported reactor's stall resets run as in the JAX
 package with only their recording dropped. Left out: the flight
-recorder itself (consensus/timeline.py), the consensus metrics and the
-trace spans (ROADMAP item 11; the step machine runs as the JAX one does
-with none of them fed). `replay_mode=True` (:86, :121-124 there) builds
+recorder itself (consensus/timeline.py), with the four consensus series
+it feeds (rounds_per_height, the two quorum latencies, stall resets),
+and the trace spans (ROADMAP item 11b). `replay_mode=True` (:86, :121-124 there) builds
 the replay console's playback-only instance.
 """
 
@@ -94,6 +101,7 @@ from ..types.part_set import PartSet
 from ..types.proposal import Proposal
 from ..types.vote import Vote
 from ..types.vote_set import ConflictingVoteError, VoteSet, commit_to_vote_set
+from .metrics import ConsensusMetrics
 from .msgs import (
     BlockPartMessage,
     EndHeightMessage,
@@ -141,7 +149,7 @@ class NopTimeline:
     """A flight recorder that records nothing (the JAX package's
     consensus/timeline.py TimelineRecorder, disabled): the mark_*
     methods its step machine (:262-1151), reactor (:613, :654) and
-    Byzantine plane call, each a no-op, until ROADMAP item 11 ports the
+    Byzantine plane call, each a no-op, until ROADMAP item 11b ports the
     recorder."""
 
     enabled = False
@@ -198,8 +206,10 @@ class ConsensusState(Service):
         wal: "WAL | NopWAL | None" = None,
         evidence_pool=None,
         replay_mode: bool = False,
+        metrics: Optional[ConsensusMetrics] = None,
     ) -> None:
         super().__init__(name="consensus", logger=logging.getLogger(__name__))
+        self.metrics = metrics if metrics is not None else ConsensusMetrics()
         self.cfg = cfg
         self.block_exec = block_exec
         self.block_store = block_store
@@ -400,6 +410,10 @@ class ConsensusState(Service):
         rs.last_validators = state.last_validators
         rs.triggered_timeout_precommit = False
         self.state = state
+        self.metrics.height.set(height)
+        self.metrics.rounds.set(0)
+        self.metrics.validators.set(validators.size())
+        self.metrics.validators_power.set(validators.total_voting_power())
 
     def _reconstruct_last_commit_from_store(self, state: State) -> None:
         """On a restart, rebuild the LastCommit from the stored seen
@@ -615,6 +629,7 @@ class ConsensusState(Service):
             rs.round == round_ and rs.step != RoundStep.NEW_HEIGHT
         ):
             return
+        self.metrics.rounds.set(round_)
         self.logger.info("entering new round %d/%d (at %s)", height, round_, rs.height_round_step())
         validators = rs.validators
         if rs.round < round_:
@@ -915,6 +930,12 @@ class ConsensusState(Service):
             block.hash().hex()[:16],
             len(block.txs),
         )
+        self.metrics.num_txs.set(len(block.txs))
+        self.metrics.total_txs.inc(len(block.txs))
+        self.metrics.block_size.set(block.size())
+        if self.state.last_block_time_ns:
+            interval_ns = max(0, block.header.time_ns - self.state.last_block_time_ns)
+            self.metrics.block_interval.observe(interval_ns / NS_PER_S)
         if self.block_store.height() < block.header.height:
             seen_commit = precommits.make_commit()
             self.block_store.save_block(block, block_parts, seen_commit)

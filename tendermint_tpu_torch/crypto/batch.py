@@ -1,8 +1,8 @@
 """Batch-verifier dispatch: the offload decision point.
 
 Counterpart: tendermint_tpu/crypto/batch.py:43-170, `drain_and_cache`
-:172-201 and the defaults :220-230 (ed25519 and sr25519; secp256k1 has no device path and is not
-ported), with the group-affinity seam :77-145 and `native_cpu_affinity`
+:172-201 and the defaults :220-232 (ed25519, sr25519 and secp256k1; secp256k1 has a CPU
+factory only, as in the JAX package), with the group-affinity seam :77-145 and `native_cpu_affinity`
 :204. A device factory registered here (crypto/gpu_verifier.install)
 serves a key type's batches once the caller's size hint is large enough;
 until then, and for key types without one, the registered CPU factory
@@ -198,8 +198,11 @@ def _register_defaults() -> None:
     from .ed25519 import KEY_TYPE as ED, Ed25519BatchVerifier
     from .sr25519 import KEY_TYPE as SR, Sr25519BatchVerifier
 
+    from .secp256k1 import KEY_TYPE as SECP, Secp256k1BatchVerifier
+
     register_cpu_factory(ED, Ed25519BatchVerifier)
     register_cpu_factory(SR, Sr25519BatchVerifier)
+    register_cpu_factory(SECP, Secp256k1BatchVerifier)
 
 
 _register_defaults()

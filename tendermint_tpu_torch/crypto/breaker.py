@@ -20,10 +20,13 @@ CPU factories with no device touch and no per-call warning.
 - The backoff is exponential (base x 2^(trips - 1), capped), so a dead
   device converges to one cheap probe per cap interval.
 
-The JAX package publishes the state as a metrics gauge and reads its
-base backoff from TM_TPU_BREAKER_BACKOFF_S; here `stats()` carries the
-state as an integer (`code`: 0 closed, 1 open, 2 half-open) beside the
-trip and probe counts, and the base backoff is an argument (10 s).
+`stats()` carries the state as an integer (`code`: 0 closed, 1 open, 2
+half-open) beside the trip and probe counts, and the JAX family on
+libs/metrics.DEFAULT_REGISTRY publishes the same (:61-75): the gauge
+`breaker_state` and the counters `breaker_trips_total` and
+`breaker_probes_total`, labelled by the breaker's `name`. The JAX
+package reads the base backoff from TM_TPU_BREAKER_BACKOFF_S; here it is
+an argument (10 s).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Callable, Dict, Optional
+
+from ..libs import metrics as M
 
 __all__ = [
     "CLOSED",
@@ -49,6 +54,22 @@ OPEN = "open"
 HALF_OPEN = "half_open"
 
 STATE_CODE = {CLOSED: 0, OPEN: 1, HALF_OPEN: 2}
+
+_m_state = M.new_gauge(
+    "breaker", "state",
+    "Circuit-breaker state (0 closed, 1 open, 2 half-open).",
+    label_names=("name",),
+)
+_m_trips = M.new_counter(
+    "breaker", "trips_total",
+    "Circuit-breaker transitions into OPEN.",
+    label_names=("name",),
+)
+_m_probes = M.new_counter(
+    "breaker", "probes_total",
+    "Circuit-breaker re-arm probes launched.",
+    label_names=("name",),
+)
 
 
 class CircuitBreaker:
@@ -86,6 +107,7 @@ class CircuitBreaker:
         # launched before the override must not publish over it
         self._probe_gen = 0
         self._probes = 0
+        _m_state.set(STATE_CODE[self._state], name=self.name)
 
     # -- introspection --
 
@@ -193,6 +215,7 @@ class CircuitBreaker:
         self._retry_at = self._clock() + backoff
         self._half_open_ticket = False
         self._set_state(OPEN)
+        _m_trips.inc(name=self.name)
         if self._probe_fn is not None:
             self._schedule_probe_locked(backoff)
 
@@ -229,11 +252,13 @@ class CircuitBreaker:
             if self._state != OPEN:
                 self._trips += 1
                 self._set_state(OPEN)
+                _m_trips.inc(name=self.name)
 
     # -- internals (call with self._lock held) --
 
     def _set_state(self, state: str) -> None:
         self._state = state
+        _m_state.set(STATE_CODE[state], name=self.name)
 
     def _cancel_timer_locked(self) -> None:
         if self._probe_timer is not None:
@@ -265,6 +290,7 @@ class CircuitBreaker:
         if self._probe_thread is not None and self._probe_thread.is_alive():
             return  # single-flight: alive-check and publish share the lock
         self._probes += 1
+        _m_probes.inc(name=self.name)
         gen = self._probe_gen
         t = threading.Thread(
             target=self._run_probe,

@@ -8,7 +8,12 @@ add/verify (:387-655) with `_disprove_invalid_lanes` (:657) and
 (:773), the factories and the sr25519 single-verify route (:783-893),
 `install` with its mesh and `uninstall` (:894-997) with the group
 affinity they set (:950-969, :976-997), and the dispatch telemetry
-(:40-95, 130-157) as integer counters. install() registers a factory
+(:40-95, 130-157): integer counters (`stats()`) and, on
+libs/metrics.DEFAULT_REGISTRY, the JAX `tpu_*` family under the
+subsystem `gpu` (`tendermint_tpu_gpu_verify_batches_total`, ...), each
+counter fed where its stats() key is, so the two agree. The three
+timings come from host clocks around verify()'s dispatch and gathers;
+no synchronization, event or launch is added for them. install() registers a factory
 per key type with crypto.batch: create_batch_verifier then returns a
 GpuEd25519BatchVerifier or GpuSr25519BatchVerifier for a batch of at
 least `min_batch` signatures while the key type's breaker is closed;
@@ -79,7 +84,8 @@ on the card for both key types (PERF.md §5, chip_smoke.py phase
 admits one signature.
 
 Ported here and not before: the breakers, the watchdog, the CPU
-re-verify, the single-verify route and the counters above. The
+re-verify, the single-verify route and the counters above; the metrics
+family followed with the port's metrics library. The
 verified-signature cache (crypto/sigcache.py) serves the consensus vote
 path; crypto.batch.drain_and_cache records nothing of a batch marked
 `faulted`. Still not ported: the commit memo (no port path keeps one),
@@ -90,9 +96,11 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import List, Optional, Tuple
 
 from ..config import DEFAULT_MIN_BATCH
+from ..libs import metrics as M
 from . import breaker as _breaker_mod
 from . import faults
 from .batch import (
@@ -162,10 +170,74 @@ _PROBE_TRIPLES: dict = {}
 _PROBE_ERRORS: dict = {}
 
 
+# the device-offload family (tendermint_tpu/crypto/tpu_verifier.py:44-93),
+# process-wide on DEFAULT_REGISTRY: one device runtime a process, shared
+# by every node in it. Names, HELP texts and buckets are the JAX ones,
+# under the subsystem `gpu`.
+_m_batches = M.new_counter(
+    "gpu", "verify_batches_total", "Device batch-verify invocations."
+)
+_m_sigs = M.new_counter(
+    "gpu", "verify_sigs_total", "Signatures verified on device."
+)
+_m_device_faults = M.new_counter(
+    "gpu",
+    "device_faults_total",
+    "Device faults contained (raise/timeout/mis-shape/disproven result).",
+)
+_m_verify_time = M.new_histogram(
+    "gpu",
+    "verify_seconds",
+    "Wall time of one batch verification.",
+    buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5),
+)
+_m_host_prep = M.new_histogram(
+    "gpu",
+    "host_prep_seconds",
+    "Host-side packing + async dispatch of one batch.",
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+             0.025, 0.05, 0.1, 0.25),
+)
+_m_device_wall = M.new_histogram(
+    "gpu",
+    "device_wall_seconds",
+    "Device wall time (gather barrier) of one batch.",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5, 1.0, 2.5),
+)
+_m_pad_waste = M.new_counter(
+    "gpu",
+    "pad_waste_slots_total",
+    "Signature slots wasted padding batches to bucket shapes.",
+)
+_m_warm_hits = M.new_counter(
+    "gpu",
+    "warm_bucket_hits_total",
+    "Dispatches into a bucket already run this install generation.",
+)
+_m_warm_misses = M.new_counter(
+    "gpu",
+    "warm_bucket_misses_total",
+    "First dispatches into a bucket (likely paying an XLA compile).",
+)
+# the stats() key each counter mirrors
+_SERIES = {
+    "batches": _m_batches,
+    "sigs": _m_sigs,
+    "faults": _m_device_faults,
+    "pad_waste": _m_pad_waste,
+    "warm_buckets": _m_warm_hits,
+    "cold_buckets": _m_warm_misses,
+}
+
+
 def _count(**deltas) -> None:
     with _STATS_LOCK:
         for k, v in deltas.items():
             _STATS[k] += v
+            series = _SERIES.get(k)
+            if series is not None and v:
+                series.inc(v)
 
 
 def _breaker(route: str) -> _breaker_mod.CircuitBreaker:
@@ -380,11 +452,17 @@ class _GpuBatchVerifier(BatchVerifier):
         One-shot: a second call without new add()s returns (False, [])."""
         if not self._all:
             return False, []
+        with _m_verify_time.time():
+            return self._verify_timed()
+
+    def _verify_timed(self) -> Tuple[bool, List[bool]]:
+        t0 = time.perf_counter()
         work = self._all
         total = len(work)
         bits: Optional[List[bool]] = None
         fault: Optional[BaseException] = None
         device_sigs = 0  # lanes with a finished device verdict
+        host_prep: Optional[float] = None  # s to the last dispatch
         try:
             if self._stream_fault is not None:
                 raise self._stream_fault
@@ -398,6 +476,7 @@ class _GpuBatchVerifier(BatchVerifier):
                 raise _RoutedToCpu()
             if self._pks:
                 self._dispatch_pending()
+            host_prep = time.perf_counter() - t0
             got: List[bool] = []
             try:
                 for handle, n, stream in self._handles:
@@ -429,6 +508,8 @@ class _GpuBatchVerifier(BatchVerifier):
         if bits is None:
             return self._cpu_fallback(work, fault, total)
         _breaker(self.KEY_TYPE).record_success()
+        _m_host_prep.observe(host_prep)
+        _m_device_wall.observe(time.perf_counter() - t0 - host_prep)
         return all(bits), bits
 
     def _disprove_invalid_lanes(self, work, bits: List[bool]) -> None:

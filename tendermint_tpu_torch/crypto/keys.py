@@ -123,11 +123,10 @@ def pubkey_from_type_and_bytes(key_type: str, data: bytes) -> PubKey:
     return cls(data)
 
 
-# privval key types (tendermint_tpu/crypto/keys.py:133-150; reference:
-# privval/file.go:188 GenFilePV's switch): ed25519, the default. The JAX
-# package also signs with secp256k1, which the port's keys do not have
-# yet (ROADMAP item 22): it is refused with the message of any type the
-# signer does not take.
+# privval key types (tendermint_tpu/crypto/keys.py:129-150; reference:
+# privval/file.go:188 GenFilePV's switch): ed25519, the default, and
+# secp256k1 on request. One dispatch for FilePVKey.load, FilePV.generate
+# and the gen-validator command.
 
 
 def _privval_priv_cls(key_type: str) -> type:
@@ -135,6 +134,10 @@ def _privval_priv_cls(key_type: str) -> type:
         from .ed25519 import PrivKeyEd25519
 
         return PrivKeyEd25519
+    if key_type == "secp256k1":
+        from .secp256k1 import PrivKeySecp256k1
+
+        return PrivKeySecp256k1
     raise ValueError(f"key type: {key_type} is not supported")
 
 

@@ -30,15 +30,20 @@ two heights of precommits at MAX_VOTES_COUNT (types/vote_set.py).
 Left out: the commit-level keys (`seen_commit`/`add_commit`, :280-305)
 and their memo switch. No port path keeps a commit memo, and the port's
 commit paths (types/validation.py) consult no cache, so a commit's
-signatures always reach the kernels there. The JAX package's metrics
-registry is replaced by integer counters (`stats()`), and its
-TM_TPU_NO_SIGCACHE environment switch by the `disabled()` scope alone.
+signatures always reach the kernels there. The counters (`stats()`)
+also feed the JAX `sigcache_hits_total`, `sigcache_misses_total` and
+`sigcache_evictions_total` on libs/metrics.DEFAULT_REGISTRY (:106-117;
+the two commit-memo counters go with the memo). The JAX
+TM_TPU_NO_SIGCACHE environment switch is replaced by the `disabled()`
+scope alone.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+
+from ..libs import metrics as M
 
 __all__ = [
     "DEFAULT_CAPACITY",
@@ -64,6 +69,19 @@ _gen1: set = set()  # old generation: dropped whole at rotation
 _lock = threading.Lock()  # guards rotation and the counters
 _force_off = False
 _counts = {"hits": 0, "misses": 0, "evictions": 0}
+
+_m_hits = M.new_counter(
+    "sigcache", "hits_total",
+    "Verified-signature cache hits (signature checks skipped).",
+)
+_m_misses = M.new_counter(
+    "sigcache", "misses_total",
+    "Verified-signature cache misses (full verification performed).",
+)
+_m_evictions = M.new_counter(
+    "sigcache", "evictions_total",
+    "Verified-signature triples dropped by generation rotation.",
+)
 
 
 def enabled() -> bool:
@@ -146,6 +164,7 @@ def _rotate() -> None:
         if len(_gen0) < _capacity:  # another thread rotated first
             return
         _counts["evictions"] += len(_gen1)
+        _m_evictions.inc(len(_gen1))
         _gen1 = _gen0
         _gen0 = set()
 
@@ -158,6 +177,7 @@ def seen(pk_bytes: bytes, sign_bytes: bytes, signature: bytes) -> bool:
     hit = seen_key(key_for(pk_bytes, sign_bytes, signature))
     with _lock:
         _counts["hits" if hit else "misses"] += 1
+    (_m_hits if hit else _m_misses).inc()
     return hit
 
 

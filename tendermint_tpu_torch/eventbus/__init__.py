@@ -1,22 +1,63 @@
 """EventBus: the node's typed event backbone over pubsub.Server.
 
-Counterpart: tendermint_tpu/eventbus/__init__.py:83-206 (reference:
+Counterpart: tendermint_tpu/eventbus/__init__.py:1-206 (reference:
 internal/eventbus/event_bus.go: EventBus :24, publish with flattened
-ABCI events :87, the typed helpers :113-176), on its `metrics=None`
-path: `EventBusMetrics` (published, deliveries, fanout lag, dropped
-subscriptions) waits for the port's metrics library (ROADMAP item 11).
-The step machine, BlockExecutor, block sync and node start publish here.
+ABCI events :87, the typed helpers :113-176), with `EventBusMetrics`
+(:20-70): events published, deliveries, the fanout lag, live
+subscriptions and the subscriptions dropped for a full queue, fed at
+every publish and subscription change when the bus has a struct
+(node/node.py passes one on its per-node Registry). The step machine,
+BlockExecutor, block sync and node start publish here.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional
 
+from ..libs.metrics import DEFAULT_REGISTRY, Registry
 from ..libs.service import Service
 from ..pubsub import Query, Server, Subscription
 from ..types import events as E
 
-__all__ = ["EventBus"]
+__all__ = ["EventBus", "EventBusMetrics"]
+
+
+class EventBusMetrics:
+    """The bus's fanout instruments (go-kit pattern; node assembly
+    threads the per-node Registry). `eventbus_fanout_lag` is the deepest
+    subscriber queue after the latest publish: near 0 on a healthy bus,
+    climbing toward the queue limit when a subscriber cannot drain."""
+
+    def __init__(self, registry: Optional[Registry] = None) -> None:
+        r = registry if registry is not None else DEFAULT_REGISTRY
+        self.published = r.counter(
+            "eventbus",
+            "published_total",
+            "Events published onto the bus.",
+        )
+        self.deliveries = r.counter(
+            "eventbus",
+            "deliveries_total",
+            "Per-subscriber deliveries (one publish fans out to every "
+            "matching subscription).",
+        )
+        self.fanout_lag = r.gauge(
+            "eventbus",
+            "fanout_lag",
+            "Deepest subscriber queue after the latest publish — how "
+            "far the slowest live subscriber lags the publisher.",
+        )
+        self.subscriptions = r.gauge(
+            "eventbus",
+            "subscriptions",
+            "Live subscriptions on the bus.",
+        )
+        self.dropped_subscriptions = r.counter(
+            "eventbus",
+            "dropped_subscriptions_total",
+            "Subscriptions terminated because their bounded queue "
+            "overflowed (slow consumer).",
+        )
 
 
 def _flatten_abci_events(abci_events: Iterable) -> Dict[str, List[str]]:
@@ -33,9 +74,10 @@ def _flatten_abci_events(abci_events: Iterable) -> Dict[str, List[str]]:
 
 
 class EventBus(Service):
-    def __init__(self) -> None:
+    def __init__(self, metrics: Optional[EventBusMetrics] = None) -> None:
         super().__init__(name="eventbus")
         self._server = Server(name="eventbus.pubsub")
+        self.metrics = metrics
 
     async def on_start(self) -> None:
         await self._server.start()
@@ -45,14 +87,22 @@ class EventBus(Service):
 
     # -- subscription --
 
+    def _sync_sub_gauge(self) -> None:
+        if self.metrics is not None:
+            self.metrics.subscriptions.set(self._server.num_subscriptions())
+
     def subscribe(self, client_id: str, query: "Query | str", limit: int = 100) -> Subscription:
-        return self._server.subscribe(client_id, query, limit)
+        sub = self._server.subscribe(client_id, query, limit)
+        self._sync_sub_gauge()
+        return sub
 
     def unsubscribe(self, client_id: str, query: "Query | str") -> None:
         self._server.unsubscribe(client_id, query)
+        self._sync_sub_gauge()
 
     def unsubscribe_all(self, client_id: str) -> None:
         self._server.unsubscribe_all(client_id)
+        self._sync_sub_gauge()
 
     # -- publishing --
 
@@ -64,7 +114,18 @@ class EventBus(Service):
     ) -> None:
         tags = dict(extra_tags or {})
         tags.setdefault(E.EVENT_TYPE_KEY, []).append(event_value)
-        self._server.publish(data, tags)
+        matched, max_depth, dropped = self._server.publish(data, tags)
+        m = self.metrics
+        if m is not None:
+            m.published.inc()
+            # deliveries: messages enqueued; a matched subscriber whose
+            # queue overflowed (or was already dead) received nothing
+            if matched > dropped:
+                m.deliveries.inc(matched - dropped)
+            m.fanout_lag.set(max_depth)
+            if dropped:
+                m.dropped_subscriptions.inc(dropped)
+                self._sync_sub_gauge()
 
     def publish_new_block(self, data: E.EventDataNewBlock) -> None:
         tags = _flatten_abci_events(getattr(data.result_begin_block, "events", ()))

@@ -1,6 +1,5 @@
 """The evidence pool, evidence verification and the evidence reactor
-(counterpart: tendermint_tpu/evidence/). The metrics wait for the port's
-metrics library (ROADMAP item 11)."""
+and its metrics (counterpart: tendermint_tpu/evidence/)."""
 
 from .pool import EvidenceError, EvidencePool
 from .verify import verify_duplicate_vote, verify_evidence, verify_light_client_attack

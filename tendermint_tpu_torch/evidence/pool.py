@@ -5,8 +5,8 @@ internal/evidence/pool.go:56-324): the pending list in a KV store,
 expiry by age and height, committed-evidence markers, and the intake of
 a double sign the step machine reports (ReportConflictingVotes :188),
 buffered until the next update, when the validator set of its height is
-known. The pool's metrics (`evidence/metrics.py`) wait for the port's
-metrics library (ROADMAP item 11).
+known. The pool's mutators keep its EvidenceMetrics struct's pool_size
+exact and count committed and expired evidence (:41-58, :180-210).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from ..types.evidence import (
     evidence_to_proto,
 )
 from ..types.vote import Vote
+from .metrics import EvidenceMetrics
 from .verify import verify_evidence
 
 __all__ = ["EvidencePool", "EvidenceError"]
@@ -41,11 +42,12 @@ def _key(prefix: bytes, ev: Evidence) -> bytes:
 
 
 class EvidencePool:
-    def __init__(self, db, state_store, block_store) -> None:
+    def __init__(self, db, state_store, block_store, metrics=None) -> None:
         self.db = db
         self.state_store = state_store
         self.block_store = block_store
         self.logger = logging.getLogger(__name__)
+        self.metrics = metrics if metrics is not None else EvidenceMetrics()
         self._pending: List[Evidence] = []
         self._pending_keys: set = set()
         # consensus-reported double signs buffered until the next Update
@@ -53,6 +55,7 @@ class EvidencePool:
         # reference: pool.go:188-204 + consensus buffer handling)
         self._consensus_buffer: List[Tuple[Vote, Vote]] = []
         self._load_pending()
+        self.metrics.pool_size.set(len(self._pending))
 
     # -- queries --
 
@@ -174,10 +177,12 @@ class EvidencePool:
             ):
                 self.db.delete(_key(_PENDING_PREFIX, ev))
                 self._pending_keys.discard(_key(_PENDING_PREFIX, ev))
+                self.metrics.expired_total.inc()
                 self.logger.info("pruned expired evidence at height %d", ev.height())
             else:
                 keep.append(ev)
         self._pending = keep
+        self.metrics.pool_size.set(len(self._pending))
 
     # -- storage --
 
@@ -186,11 +191,13 @@ class EvidencePool:
         self.db.set(key, evidence_to_proto(ev))
         self._pending.append(ev)
         self._pending_keys.add(key)
+        self.metrics.pool_size.set(len(self._pending))
 
     def _mark_committed(self, commit_height: int, ev: Evidence) -> None:
         self.db.set(
             _key(_COMMITTED_PREFIX, ev), struct.pack(">q", commit_height)
         )
+        self.metrics.committed_total.inc()
         key = _key(_PENDING_PREFIX, ev)
         if key in self._pending_keys:
             self.db.delete(key)
@@ -198,6 +205,7 @@ class EvidencePool:
             self._pending = [
                 p for p in self._pending if p.hash() != ev.hash()
             ]
+            self.metrics.pool_size.set(len(self._pending))
 
     def _load_pending(self) -> None:
         end = _PENDING_PREFIX[:-1] + bytes([_PENDING_PREFIX[-1] + 1])

@@ -18,8 +18,9 @@ admission as one pool-wide lock would. Reap, recheck, expiry and
 eviction run on the global (-priority, seq) and seq orders, which no
 shard layout changes, since seq rises across the pool.
 
-The pool takes no metrics (MempoolMetrics waits for ROADMAP item 11),
-and no decision of it reads one.
+The pool feeds its MempoolMetrics struct at the JAX sites (:109-147,
+:210-616): the size, failed and evicted txs, CheckTx's latency and its
+lock wait, and the recheck's duration. No decision of it reads one.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..abci import types as abci
 from ..abci.client import ABCIClient
 from ..config import MempoolConfig
 from .cache import LRUTxCache, NopTxCache
+from .metrics import MempoolMetrics
 from .types import (
     Mempool,
     MempoolError,
@@ -101,6 +103,7 @@ class TxMempool(Mempool):
         app_conn: ABCIClient,
         cfg: Optional[MempoolConfig] = None,
         height: int = 0,
+        metrics: Optional[MempoolMetrics] = None,
         prevalidator: Optional[Prevalidator] = None,
     ) -> None:
         self.cfg = cfg or MempoolConfig()
@@ -128,6 +131,7 @@ class TxMempool(Mempool):
         self._count = 0
         self.cache = _ShardedCache(self)
         self._tx_available = asyncio.Event()
+        self.metrics = metrics if metrics is not None else MempoolMetrics()
         self._prevalidator = prevalidator
 
     # -- shard routing --
@@ -181,6 +185,7 @@ class TxMempool(Mempool):
         self._prio_counts.clear()
         self._bytes = 0
         self._count = 0
+        self.metrics.size.set(0)
 
     # -- ingestion --
 
@@ -188,26 +193,33 @@ class TxMempool(Mempool):
         """Validate tx through the app and admit it (reference:
         internal/mempool/mempool.go:202-263), under its shard's lock: a
         tx is never checked against the state before a commit and
-        inserted after it."""
+        inserted after it. checktx_seconds counts the lock wait in: under
+        load the wait for consensus to release the pool is the ingest
+        latency."""
+        t0 = time.perf_counter()
         if len(tx) > self.cfg.max_tx_bytes:
             raise MempoolError(f"tx too large: {len(tx)} > {self.cfg.max_tx_bytes}")
         key = tx_key(tx)
         shard = self._shard_for_key(key)
-        async with shard.lock:
-            res = self._precheck(shard, tx, key, tx_info)
-            if isinstance(res, MempoolError):
-                raise res
-            if self._prevalidator is not None:
-                verdicts = await asyncio.get_running_loop().run_in_executor(
-                    None, self._prevalidator, [tx]
-                )
-                if not verdicts[0]:
-                    return self._prevalidate_reject(tx)
-            resp = await self._app.check_tx(abci.RequestCheckTx(tx=tx))
-            out = self._admit(shard, tx, key, tx_info, resp)
-            if isinstance(out, MempoolError):
-                raise out
-            return out
+        try:
+            async with shard.lock:
+                self.metrics.lock_wait_seconds.observe(time.perf_counter() - t0)
+                res = self._precheck(shard, tx, key, tx_info)
+                if isinstance(res, MempoolError):
+                    raise res
+                if self._prevalidator is not None:
+                    verdicts = await asyncio.get_running_loop().run_in_executor(
+                        None, self._prevalidator, [tx]
+                    )
+                    if not verdicts[0]:
+                        return self._prevalidate_reject(tx)
+                resp = await self._app.check_tx(abci.RequestCheckTx(tx=tx))
+                out = self._admit(shard, tx, key, tx_info, resp)
+                if isinstance(out, MempoolError):
+                    raise out
+                return out
+        finally:
+            self.metrics.checktx_seconds.observe(time.perf_counter() - t0)
 
     async def check_tx_batch(
         self, txs: Sequence[bytes], tx_info: Optional[TxInfo] = None
@@ -218,11 +230,13 @@ class TxMempool(Mempool):
         order across the app call, as the consensus barrier takes them."""
         if not txs:
             return []
+        t0 = time.perf_counter()
         keys = [tx_key(tx) for tx in txs]
         shard_ids = sorted({int.from_bytes(k[:8], "big") % len(self._shards) for k in keys})
         for sid in shard_ids:
             await self._shards[sid].lock.acquire()
         try:
+            self.metrics.lock_wait_seconds.observe(time.perf_counter() - t0)
             out: List[Union[abci.ResponseCheckTx, MempoolError]] = [None] * len(txs)
             pending: List[int] = []  # indices awaiting the app's verdict
             for i, (tx, key) in enumerate(zip(txs, keys)):
@@ -255,6 +269,9 @@ class TxMempool(Mempool):
         finally:
             for sid in reversed(shard_ids):
                 self._shards[sid].lock.release()
+            dur = time.perf_counter() - t0
+            for _ in txs:
+                self.metrics.checktx_seconds.observe(dur)
 
     def _precheck(self, shard: _Shard, tx: bytes, key: bytes,
                   tx_info: Optional[TxInfo]) -> Optional[MempoolError]:
@@ -277,6 +294,7 @@ class TxMempool(Mempool):
         return None
 
     def _prevalidate_reject(self, tx: bytes) -> abci.ResponseCheckTx:
+        self.metrics.failed_txs.inc()
         if not self.cfg.keep_invalid_txs_in_cache:
             self.cache.remove(tx)
         return abci.ResponseCheckTx(code=1, log="rejected by batch prevalidator")
@@ -287,6 +305,7 @@ class TxMempool(Mempool):
         the verdict and the insert."""
         tx_info = tx_info or TxInfo()
         if not res.is_ok:
+            self.metrics.failed_txs.inc()
             if not self.cfg.keep_invalid_txs_in_cache:
                 shard.cache.remove(tx)
             return res
@@ -333,6 +352,7 @@ class TxMempool(Mempool):
             for v in chosen:
                 self.logger.debug("evicting lower-priority tx %s", v.key.hex()[:16])
                 self._remove(v.key, remove_from_cache=True)
+                self.metrics.evicted_txs.inc(reason="full")
         shard.txs[wtx.key] = wtx
         if wtx.sender:
             self._senders[wtx.sender] = wtx.key
@@ -341,6 +361,7 @@ class TxMempool(Mempool):
         self._prio_counts[wtx.priority] = self._prio_counts.get(wtx.priority, 0) + 1
         self._bytes += wtx.size()
         self._count += 1
+        self.metrics.size.set(self._count)
         self._tx_available.set()
         return True
 
@@ -361,6 +382,7 @@ class TxMempool(Mempool):
             self._fifo_seqs = [s for s in self._fifo_seqs if s in self._fifo_live]
         self._bytes -= wtx.size()
         self._count -= 1
+        self.metrics.size.set(self._count)
         if remove_from_cache:
             shard.cache.remove_by_key(key)
 
@@ -411,7 +433,11 @@ class TxMempool(Mempool):
             self._remove(tx_key(tx))
         self._purge_expired(block_height)
         if self._count and self.cfg.recheck:
-            await self._recheck()
+            t0 = time.perf_counter()
+            try:
+                await self._recheck()
+            finally:
+                self.metrics.recheck_seconds.observe(time.perf_counter() - t0)
         if self._count:
             self._tx_available.set()
 
@@ -452,6 +478,7 @@ class TxMempool(Mempool):
                     self.cfg.ttl_num_blocks and block_height - wtx.height > self.cfg.ttl_num_blocks
                 ):
                     self._remove(key, remove_from_cache=True)
+                    self.metrics.evicted_txs.inc(reason="expired")
 
     # -- gossip --
 

@@ -33,17 +33,29 @@ an RPC route, the state sync task), where the JAX teardown logs them: a
 failed launch reaches the caller of stop(). failure() returns such an
 error while the node runs.
 
-Left out (ROADMAP item 11): the metrics registry and the Prometheus
-server (:627-726; `instrumentation.prometheus = true` raises
-NotImplementedError), the trace ring, the slow-request exemplars, the
-profiler and the TimelineRecorder (the step machine keeps NopTimeline);
-the switches of them that are on are logged once at construction as not
-honored.
+METRICS. Each node has its own libs/metrics Registry
+(`metrics_registry`, :91-97), threaded into the event bus, the peer
+manager and router, the mempool, the evidence pool, BlockExecutor, the
+step machine and the RPC Environment (:193, :287-330, :449-487,
+:582-600), so nodes in one process scrape disjoint series. With
+`instrumentation.prometheus = true` the node serves, on
+`prometheus_listen_addr`, the Prometheus text exposition on /metrics
+(its registry, then DEFAULT_REGISTRY's process-wide gpu_*, sigcache_*
+and breaker_* families without the names already rendered) and JSON
+liveness on /healthz (node id, the block store's height, whether it
+still syncs), as the JAX node does (:627-726); `metrics_port` is the
+bound port. The server closes first in the teardown (:776-783).
+
+Left out (ROADMAP item 11b): the trace ring, the slow-request exemplars,
+the profiler and the TimelineRecorder (the step machine keeps
+NopTimeline); the switches of them that are on are logged once at
+construction as not honored.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import os
 from typing import Optional
 
@@ -51,17 +63,22 @@ from ..abci.client import local_creator, socket_creator
 from ..abci.kvstore import KVStoreApplication
 from ..abci.proxy import AppConns
 from ..config import MODE_SEED, MODE_VALIDATOR, Config
+from ..consensus.metrics import ConsensusMetrics
 from ..consensus.reactor import ConsensusReactor, consensus_channel_descriptors
 from ..consensus.replay import Handshaker
 from ..consensus.state import ConsensusState
 from ..consensus.wal import WAL
-from ..eventbus import EventBus
+from ..eventbus import EventBus, EventBusMetrics
+from ..evidence.metrics import EvidenceMetrics
 from ..evidence.pool import EvidencePool
 from ..evidence.reactor import EvidenceReactor, evidence_channel_descriptor
 from ..libs.log import get_logger
+from ..libs.metrics import DEFAULT_REGISTRY, Registry
 from ..libs.service import Service
 from ..mempool.mempool import TxMempool
+from ..mempool.metrics import MempoolMetrics
 from ..mempool.reactor import MempoolReactor, mempool_channel_descriptor
+from ..p2p.metrics import P2PMetrics
 from ..p2p.peermanager import PeerManager, peer_manager_options
 from ..p2p.router import Router, router_options
 from ..p2p.transport import TCPTransport, Transport
@@ -69,6 +86,7 @@ from ..p2p.types import NodeInfo
 from ..privval.file import FilePV
 from ..state.execution import BlockExecutor
 from ..state.indexer import IndexerService, KVSink, NullSink
+from ..state.metrics import StateMetrics
 from ..state.store import StateStore
 from ..state.types import state_from_genesis
 from ..store.block_store import BlockStore
@@ -79,7 +97,7 @@ from .key import NodeKey
 
 __all__ = ["Node", "acquire_pid_lock", "make_node", "release_pid_lock"]
 
-# the instrumentation switches whose subsystems are ROADMAP item 11
+# the instrumentation switches whose subsystems are ROADMAP item 11b
 _NOT_HONORED = ("trace_spans", "slo_exemplars", "consensus_timeline", "profiler", "profiler_labels")
 
 
@@ -102,14 +120,14 @@ class Node(Service):
         self.genesis = genesis
         genesis.validate_and_complete()
         inst = cfg.instrumentation
-        if inst.prometheus:
-            raise NotImplementedError(
-                "instrumentation.prometheus = true: the metrics server is "
-                "ROADMAP item 11, not ported"
-            )
         on = [k for k in _NOT_HONORED if getattr(inst, k)]
         if on:
-            self.logger.info("instrumentation not yet honored (ROADMAP item 11)", on=",".join(on))
+            self.logger.info("instrumentation not yet honored (ROADMAP item 11b)", on=",".join(on))
+        # the node's own registry: nodes in one process scrape disjoint
+        # series; the process-wide families stay on DEFAULT_REGISTRY
+        self.metrics_registry = Registry()
+        self._metrics_server: Optional[asyncio.AbstractServer] = None
+        self.metrics_port: Optional[int] = None
 
         # -- the device plane, first: every later check dispatches
         # through it. Its install is process-wide.
@@ -147,7 +165,7 @@ class Node(Service):
         self.proxy = AppConns(creator)
 
         # -- the event bus and the indexer --
-        self.event_bus = EventBus()
+        self.event_bus = EventBus(metrics=EventBusMetrics(self.metrics_registry))
         sinks = []
         for kind in cfg.tx_index.indexer:
             if kind == "kv":
@@ -216,8 +234,12 @@ class Node(Service):
             network=genesis.chain_id,
             moniker=cfg.base.moniker,
         )
+        p2p_metrics = P2PMetrics(self.metrics_registry)
         self.peer_manager = PeerManager(
-            self.node_key.node_id, peer_manager_options(cfg.p2p), store=_db("peerstore")
+            self.node_key.node_id,
+            peer_manager_options(cfg.p2p),
+            store=_db("peerstore"),
+            metrics=p2p_metrics,
         )
         for addr in (a.strip() for a in cfg.p2p.bootstrap_peers.split(",")):
             if addr:
@@ -230,6 +252,7 @@ class Node(Service):
             self.transport,
             listen_addr=listen,
             options=router_options(cfg.p2p),
+            metrics=p2p_metrics,
         )
 
         # built in on_start, after the ABCI handshake
@@ -340,8 +363,15 @@ class Node(Service):
         assert state is not None
 
         # -- the reactors, against the post-handshake state --
-        self.mempool = TxMempool(self.proxy.mempool, cfg.mempool, height=state.last_block_height)
-        self.evidence_pool = EvidencePool(self._evidence_db, self.state_store, self.block_store)
+        reg = self.metrics_registry
+        self.mempool = TxMempool(
+            self.proxy.mempool, cfg.mempool, height=state.last_block_height,
+            metrics=MempoolMetrics(reg),
+        )
+        self.evidence_pool = EvidencePool(
+            self._evidence_db, self.state_store, self.block_store,
+            metrics=EvidenceMetrics(reg),
+        )
         self.block_exec = BlockExecutor(
             self.state_store,
             self.proxy.consensus,
@@ -349,6 +379,7 @@ class Node(Service):
             evidence_pool=self.evidence_pool,
             block_store=self.block_store,
             event_bus=self.event_bus,
+            metrics=StateMetrics(reg),
         )
         self.consensus = ConsensusState(
             cfg.consensus,
@@ -359,6 +390,7 @@ class Node(Service):
             event_bus=self.event_bus,
             wal=WAL(cfg.base.path(cfg.consensus.wal_file)),
             evidence_pool=self.evidence_pool,
+            metrics=ConsensusMetrics(reg),
         )
 
         # the sync flags (reference: node/node.go:230; onlyValidatorIsUs
@@ -442,6 +474,7 @@ class Node(Service):
         # always exists, for in-process clients; the server only with a
         # listen address --
         from ..rpc import Environment, RPCServer
+        from ..rpc.metrics import RPCMetrics
 
         self.rpc_env = Environment(
             chain_id=self.genesis.chain_id,
@@ -459,12 +492,17 @@ class Node(Service):
             node_info=self.node_info,
             privval_pub_key=self.privval_pub_key,
             cfg=cfg,
+            metrics=RPCMetrics(reg),
         )
         if cfg.rpc.laddr:
             self.rpc_server = RPCServer(
                 self.rpc_env, laddr=cfg.rpc.laddr, max_body_bytes=cfg.rpc.max_body_bytes
             )
             await self.rpc_server.start()
+
+        # -- Prometheus exposition (reference: node/node.go:606) --
+        if cfg.instrumentation.prometheus:
+            await self._start_metrics_server(cfg.instrumentation.prometheus_listen_addr)
 
         if state_sync:
             # the node's own task: an error that ends it is raised by
@@ -480,6 +518,92 @@ class Node(Service):
             mode=cfg.base.mode,
             gpu=f"installed on {self.device}" if cfg.gpu.enable else "disabled",
         )
+
+    def _render_metrics(self) -> str:
+        """The node's series, then DEFAULT_REGISTRY's (the process-wide
+        families and any struct built without a registry) without the
+        names the node's registry already rendered: one exposition
+        document with no duplicate series."""
+        text = self.metrics_registry.render()
+        return text + DEFAULT_REGISTRY.render(exclude=self.metrics_registry.names())
+
+    def _health_payload(self) -> dict:
+        """/healthz: the node id, the block store's height, and whether
+        the consensus reactor still waits on state or block sync."""
+        syncing = False
+        if self.consensus_reactor is not None:
+            syncing = bool(self.consensus_reactor.wait_sync)
+        return {
+            "node_id": self.node_key.node_id,
+            "height": self.block_store.height(),
+            "syncing": syncing,
+        }
+
+    async def _start_metrics_server(self, addr: str) -> None:
+        """Plain-text Prometheus exposition on /metrics, JSON liveness on
+        /healthz (reference: node/node.go:606). GET and HEAD only; a
+        request's line and headers are read under one 10 s deadline and
+        a cap of 100 header lines, since the port is unauthenticated."""
+        host, _, port = addr.replace("tcp://", "").rpartition(":")
+
+        async def handler(reader, writer):
+            try:
+                deadline = asyncio.get_running_loop().time() + 10.0
+
+                async def _line():
+                    budget = deadline - asyncio.get_running_loop().time()
+                    if budget <= 0:
+                        raise asyncio.TimeoutError
+                    return await asyncio.wait_for(reader.readline(), budget)
+
+                line = await _line()
+                for _ in range(100):  # header cap
+                    h = await _line()
+                    if h in (b"\r\n", b"\n", b""):
+                        break
+                else:
+                    raise asyncio.TimeoutError
+                # the request line parsed: a request merely containing
+                # "/metrics" (a query, a longer path) does not scrape
+                try:
+                    method, target, _version = line.decode("latin-1").strip().split(" ", 2)
+                except (ValueError, UnicodeDecodeError):
+                    method, target = "", ""
+                path = target.split("?", 1)[0]
+                ctype = b"text/plain; version=0.0.4"
+                if method not in ("GET", "HEAD"):
+                    status, body = b"405 Method Not Allowed", b"GET only\n"
+                elif path == "/metrics":
+                    status = b"200 OK"
+                    body = self._render_metrics().encode()
+                elif path == "/healthz":
+                    status = b"200 OK"
+                    ctype = b"application/json"
+                    body = json.dumps(self._health_payload()).encode()
+                else:
+                    status = b"404 Not Found"
+                    body = b"see /metrics or /healthz\n"
+                writer.write(
+                    b"HTTP/1.1 " + status + b"\r\n"
+                    b"Content-Type: " + ctype + b"\r\n"
+                    b"Content-Length: " + str(len(body)).encode() + b"\r\n"
+                    b"Connection: close\r\n\r\n"
+                    + (b"" if method == "HEAD" else body)
+                )
+                await writer.drain()
+            except (
+                ConnectionError,
+                asyncio.IncompleteReadError,
+                asyncio.TimeoutError,
+                ValueError,  # readline: a line past the 64 KiB limit
+            ):
+                pass
+            finally:
+                writer.close()
+
+        self._metrics_server = await asyncio.start_server(handler, host or "0.0.0.0", int(port))
+        self.metrics_port = self._metrics_server.sockets[0].getsockname()[1]
+        self.logger.info("prometheus metrics", addr=f"{host}:{self.metrics_port}")
 
     async def _start_seed(self) -> None:
         """A seed: the router and PEX only (reference: node/seed.go)."""
@@ -535,6 +659,13 @@ class Node(Service):
 
     async def _teardown(self) -> None:
         errors = []
+        ms, self._metrics_server = self._metrics_server, None
+        if ms is not None:
+            ms.close()
+            try:
+                await asyncio.wait_for(ms.wait_closed(), timeout=1.0)
+            except asyncio.TimeoutError:
+                pass  # straggling scrape connections die with the loop
         task, self._state_sync_task = self._state_sync_task, None
         if task is not None:
             if not task.done():

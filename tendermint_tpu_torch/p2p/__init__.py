@@ -1,7 +1,6 @@
 """The p2p stack: router, peer manager, transports, SecretConnection,
 PEX and the in-process test network (counterpart: tendermint_tpu/p2p/;
-reference: internal/p2p/). P2PMetrics is not ported yet (ROADMAP item
-11)."""
+reference: internal/p2p/), and P2PMetrics (p2p/metrics.py)."""
 
 from .channel import Channel  # noqa: F401
 from .peermanager import PeerManager, PeerManagerOptions, PeerStatus, PeerUpdate  # noqa: F401

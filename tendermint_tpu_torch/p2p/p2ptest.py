@@ -2,8 +2,8 @@
 
 Counterpart: tendermint_tpu/p2p/p2ptest.py:1-108 (reference:
 internal/p2p/p2ptest/network.go): N router and peer manager nodes on
-memory transports, fully connected. The JAX nodes each take a private
-metrics registry; the port's router takes no metrics (ROADMAP item 11).
+memory transports, fully connected, each node's router and peer manager
+sharing a P2PMetrics struct on the node's own Registry.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ import asyncio
 from typing import Optional
 
 from ..crypto.ed25519 import PrivKeyEd25519
+from ..libs.metrics import Registry
+from .metrics import P2PMetrics
 from .peermanager import PeerManager, PeerManagerOptions
 from .router import Router, RouterOptions
 from .transport import MemoryNetwork, MemoryTransport
@@ -40,13 +42,18 @@ class TestNode:
             moniker=f"node{index}",
         )
         self.transport = MemoryTransport(network, self.addr)
-        self.peer_manager = PeerManager(self.node_id, PeerManagerOptions(max_connected=64))
+        self.registry = Registry()
+        self.metrics = P2PMetrics(self.registry)
+        self.peer_manager = PeerManager(
+            self.node_id, PeerManagerOptions(max_connected=64), metrics=self.metrics
+        )
         self.router = Router(
             self.node_info,
             self.priv_key,
             self.peer_manager,
             self.transport,
             options=router_options,
+            metrics=self.metrics,
         )
 
     def open_channel(self, descriptor: ChannelDescriptor):

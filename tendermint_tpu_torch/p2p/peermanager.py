@@ -3,9 +3,9 @@
 Counterpart: tendermint_tpu/p2p/peermanager.py: the peer store, scoring,
 dial order, backoff (:67), crossover rejection (:312) and PeerUpdates;
 reference: internal/p2p/peermanager.go (design comment :63-119, state
-transitions :386-778, Subscribe :828, Advertise :793). It takes no
-metrics (P2PMetrics waits for ROADMAP item 11): the JAX manager only
-observes its dial backoff there. The manager owns
+transitions :386-778, Subscribe :828, Advertise :793). With a
+P2PMetrics struct it observes each failed dial's backoff in
+dial_backoff_seconds (:113-118, :263-264). The manager owns
 which peers to dial, what to do on failure (exponential backoff), when to
 evict, and who gets the connection slots (persistent peers always win).
 
@@ -125,10 +125,12 @@ class PeerManager:
         self_id: NodeID,
         options: Optional[PeerManagerOptions] = None,
         store=None,  # optional KVStore for address-book persistence
+        metrics=None,  # optional P2PMetrics (dial-backoff histogram)
         clock=time.monotonic,  # injectable for backoff-schedule tests
     ) -> None:
         self.self_id = self_id
         self.opts = options or PeerManagerOptions()
+        self.metrics = metrics
         self._clock = clock
         self.logger = logging.getLogger(__name__)
         self._peers: Dict[NodeID, _Peer] = {}
@@ -273,6 +275,8 @@ class PeerManager:
         )
         peer.retry_at = peer.last_dial_failure + peer.retry_delay_s
         peer.score = max(peer.score - 1, -100)
+        if self.metrics is not None:
+            self.metrics.dial_backoff.observe(peer.retry_delay_s)
         self._wakeup.set()
 
     def dialed(self, node_id: NodeID) -> None:

@@ -18,9 +18,10 @@ liveness deadline. They live here at the router layer rather than
 inside a TCP framing class so every transport (memory included) gets
 identical semantics — one scheduler, not one per transport.
 
-The router takes no metrics (P2PMetrics waits for ROADMAP item 11): a
-fault, a drop or a disconnect is counted nowhere, and does what it does
-in the JAX router. Its broad catches are the JAX ones, each around a
+The router feeds its P2PMetrics struct (shared with the PeerManager in a
+node) at the JAX sites (:221-225, :534-860): the peer count, bytes sent
+and received by channel, disconnects by reason, messages shed by a full
+send queue, and the net faults applied. No decision reads one. Its broad catches are the JAX ones, each around a
 peer's connection or bytes only (a dial, a handshake, a frame's decode,
 a transport's send or receive); none covers a call that reaches the
 device (ROADMAP §3).
@@ -39,6 +40,7 @@ from ..crypto.keys import PrivKey
 from ..config import P2PConfig
 from ..libs.service import Service
 from .channel import Channel
+from .metrics import P2PMetrics
 from .peermanager import AlreadyConnectedError, PeerManager
 from .transport import Connection, Transport
 from .types import ChannelDescriptor, Envelope, NodeID, NodeInfo
@@ -246,8 +248,10 @@ class Router(Service):
         transport: Transport,
         listen_addr: str = "",
         options: Optional[RouterOptions] = None,
+        metrics: Optional[P2PMetrics] = None,
     ) -> None:
         super().__init__(name="router", logger=logging.getLogger(__name__))
+        self.metrics = metrics if metrics is not None else P2PMetrics()
         self.node_info = node_info
         self.priv_key = priv_key
         self.peer_manager = peer_manager
@@ -548,6 +552,7 @@ class Router(Service):
         recv_t = self.spawn(self._recv_peer(node_id, conn), f"recv-{node_id[:8]}")
         ping_t = self.spawn(self._ping_peer(node_id, q), f"ping-{node_id[:8]}")
         self._peer_tasks[node_id] = [send_t, recv_t, ping_t]
+        self.metrics.peers.set(len(self._peer_conns))
         self.peer_manager.ready(node_id)
         self.logger.info("peer connected (peer=%s, addr=%s)", node_id[:12], conn.remote_addr)
 
@@ -561,7 +566,10 @@ class Router(Service):
         """Is this link cut by the live partition? Asked per frame.
         Callers gate on faults.net_armed()."""
         src, dst = self._link_labels(point, node_id)
-        return faults.partition_blocked(src, dst)
+        if faults.partition_blocked(src, dst):
+            self.metrics.net_faults.inc(point=point, mode="partition")
+            return True
+        return False
 
     async def _consult_net_rules(
         self, point: str, node_id: NodeID, channel_id: int
@@ -577,9 +585,15 @@ class Router(Service):
         if plan is None:
             return False, 0, False
         if plan.delay_s > 0:
+            self.metrics.net_faults.inc(point=point, mode="delay")
             await asyncio.sleep(plan.delay_s)
         if plan.drop:
+            self.metrics.net_faults.inc(point=point, mode="drop")
             return True, 0, False
+        if plan.dup:
+            self.metrics.net_faults.inc(point=point, mode="duplicate")
+        if plan.reorder:
+            self.metrics.net_faults.inc(point=point, mode="reorder")
         return False, plan.dup, plan.reorder
 
     async def _send_peer(
@@ -619,6 +633,7 @@ class Router(Service):
                 held = None
             for cid, pl in batch:
                 await limiter.wait(len(pl))
+                self.metrics.bytes_sent.inc(len(pl), ch=cid)
                 try:
                     await conn.send(cid, pl)
                 except asyncio.CancelledError:
@@ -716,6 +731,7 @@ class Router(Service):
                 return
             cid, pl = held
             held = None
+            self.metrics.bytes_recv.inc(len(pl), ch=cid)
             self._deliver_inbound(node_id, cid, pl)
 
         try:
@@ -750,6 +766,7 @@ class Router(Service):
                     batch.append(held)
                     held = None
                 for cid, pl in batch:
+                    self.metrics.bytes_recv.inc(len(pl), ch=cid)
                     await limiter.wait(len(pl))
                     if not self._deliver_inbound(node_id, cid, pl):
                         return
@@ -775,6 +792,7 @@ class Router(Service):
             return
         reason = self._peer_bye.pop(node_id, reason)
         self._close_peer(node_id, bye_reason=reason if notify else None)
+        self.metrics.peer_disconnects.inc(reason=reason)
         self.peer_manager.disconnected(node_id)
         self.logger.info("peer disconnected (peer=%s, reason=%s)", node_id[:12], reason)
 
@@ -819,6 +837,7 @@ class Router(Service):
         self._peer_labels.pop(node_id, None)
         self._peer_bye.pop(node_id, None)
         self._send_drops.pop(node_id, None)
+        self.metrics.peers.set(len(self._peer_conns))
         for t in self._peer_tasks.pop(node_id, []):
             if not t.done() and t is not asyncio.current_task():
                 t.cancel()
@@ -852,6 +871,7 @@ class Router(Service):
                         "peer channel queue full; dropping message (peer=%s, ch=%s)",
                         node_id[:12], ch.id,
                     )
+                    self.metrics.send_queue_dropped.inc(ch=ch.id)
                     self._note_send_drop(node_id)
 
     def _note_send_drop(self, node_id: NodeID) -> None:

@@ -230,8 +230,8 @@ class FilePV(PrivValidator):
         state_file_path: str,
         key_type: str = "ed25519",
     ) -> "FilePV":
-        """reference: privval/file.go:188 GenFilePV: ed25519 (the JAX
-        package also takes secp256k1, which the port's keys lack)."""
+        """reference: privval/file.go:188 GenFilePV: ed25519 by default,
+        secp256k1 on request, any other type refused."""
         priv = generate_priv_key(key_type)
         return cls.from_priv_key(priv, key_file_path, state_file_path)
 

@@ -2,8 +2,7 @@
 
 Counterpart: tendermint_tpu/rpc/__init__.py:1-15 (reference: rpc/, the JSON-RPC
 machinery and clients; internal/rpc/core, the methods;
-node/node.go:480-540, the server's start). `rpc/metrics.py` waits for
-the port's metrics (ROADMAP item 11).
+node/node.go:480-540, the server's start), and `rpc/metrics.py`.
 """
 
 from .client import (  # noqa: F401

@@ -6,7 +6,7 @@ mempool.go, status.go, tx.go, consensus.go, abci.go, events.go,
 evidence.go, net.go, health.go}). The Environment holds the node
 internals the reference's does; every public method is one JSON-RPC
 route. `consensus_timeline` and `profile` (:588-674) read the flight
-recorder and the profiler, which the port does not have yet (ROADMAP item 11): the
+recorder and the profiler, which the port does not have yet (ROADMAP item 11b): the
 route table omits them, and a call answers METHOD_NOT_FOUND.
 
 JSON conventions, the JAX package's: bytes are lowercase hex strings;
@@ -20,7 +20,10 @@ package's message; the JAX route turns any exception of
 launch of the conflicting commit's check among them, raises to the
 dispatcher, which answers INTERNAL_ERROR and keeps it (rpc/jsonrpc.py,
 RPCServer.failure()). A DeviceFault stays contained inside the
-verifier. The RPC metrics and trace spans wait for ROADMAP item 11.
+verifier. The Environment's RPCMetrics struct (DEFAULT_REGISTRY's
+unless given; :208-241) reaches the serving cache and the JSON-RPC
+server, and counts the bulk light_blocks and tx_proofs requests
+(:1063-1112). The trace spans wait for ROADMAP item 11b.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from .jsonrpc import (
     RPCError,
     RPCRequest,
 )
+from .metrics import RPCMetrics
 from .servingcache import DEFAULT_CAPACITY, ServingCache
 
 __all__ = [
@@ -207,6 +211,7 @@ class Environment:
         node_info=None,
         privval_pub_key: Optional[PubKey] = None,
         cfg=None,
+        metrics: Optional[RPCMetrics] = None,
     ) -> None:
         self.chain_id = chain_id
         self.block_store = block_store
@@ -223,6 +228,7 @@ class Environment:
         self.node_info = node_info
         self.privval_pub_key = privval_pub_key
         self.cfg = cfg
+        self.metrics = metrics if metrics is not None else RPCMetrics()
         # per-block serving cache (encoded LightBlock blobs and held
         # tx-proof trees); capacity 0 disables it (rpc/servingcache.py)
         self.serving_cache = ServingCache(
@@ -233,6 +239,7 @@ class Environment:
                 if cfg is not None
                 else DEFAULT_CAPACITY
             ),
+            metrics=self.metrics,
         )
         self.logger = logging.getLogger(__name__)
         # ws client_id -> set of query strings (for unsubscribe_all)
@@ -938,6 +945,8 @@ class Environment:
             w.message(1, blob)
             count += 1
         w.int(2, top)
+        self.metrics.light_blocks_requests.inc()
+        self.metrics.light_blocks_batch_size.observe(count)
         return {
             "count": count,
             "last_height": top,
@@ -980,6 +989,7 @@ class Environment:
             proofs = tree.proofs(raw)
         except (ValueError, OverflowError) as e:
             raise RPCError(INVALID_PARAMS, str(e))
+        self.metrics.tx_proofs_requests.inc()
         return {
             "height": height,
             "total": tree.total,

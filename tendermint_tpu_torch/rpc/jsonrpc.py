@@ -15,10 +15,16 @@ route is never only a reply to one client. A request whose params are
 a JSON string, number or boolean makes a route that reads them raise
 AttributeError: that is the client's error, answered INTERNAL_ERROR with
 the JAX server's text and not kept. The `rpc.route` fault point
-(crypto/faults.py) fires inside the dispatch, keyed by the method. The
-request metrics, trace spans, slow-request records and profiler task
-labels of the JAX server wait for the port's metrics and tracing
-(ROADMAP item 11).
+(crypto/faults.py) fires inside the dispatch, keyed by the method.
+
+METRICS. With an RPCMetrics struct (rpc/metrics.py) the dispatch records
+each route's requests, errors, latency and in-flight count, a method
+with no route in the unlabeled unknown_methods_total, and a request past
+its route's SLO in slow_requests_total; the websocket side records live
+connections, each subscriber's send-queue depth at every enqueue and the
+slow subscribers dropped (:104-135, :256-260, :499-592). The trace
+spans, the slow-request exemplars and the profiler task labels of the
+JAX server wait for the port's tracing (ROADMAP item 11b).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import hashlib
 import json
 import struct
 import logging
+import time
 from dataclasses import dataclass
 from typing import Any, Awaitable, Callable, Dict, Optional
 from urllib.parse import parse_qsl, urlsplit
@@ -119,7 +126,7 @@ class WSConn:
     rpc/jsonrpc/server/ws_handler.go OnDisconnect).
     """
 
-    def __init__(self, reader, writer, remote: str) -> None:
+    def __init__(self, reader, writer, remote: str, metrics=None) -> None:
         self.reader = reader
         self.writer = writer
         self.remote = remote
@@ -127,6 +134,7 @@ class WSConn:
         self._sendq: asyncio.Queue = asyncio.Queue(maxsize=512)
         self.closed = asyncio.Event()
         self.on_close: Optional[Callable[["WSConn"], None]] = None
+        self._metrics = metrics  # RPCMetrics or None
 
     async def send_json(self, obj: Any) -> None:
         await self.send_text(json.dumps(obj))
@@ -142,7 +150,13 @@ class WSConn:
         except asyncio.QueueFull:
             # slow client: drop the connection rather than buffer
             # unboundedly (reference pubsub terminates slow subscribers)
+            if self._metrics is not None:
+                self._metrics.ws_slow_clients_dropped.inc()
             self._close()
+            return
+        if self._metrics is not None:
+            # the depth after the enqueue: this subscriber's lag now
+            self._metrics.ws_send_queue_depth.observe(self._sendq.qsize())
 
     def _close(self) -> None:
         if not self.closed.is_set():
@@ -260,9 +274,11 @@ class JSONRPCServer:
         self,
         routes: Dict[str, Handler],
         max_body_bytes: int = 1_000_000,
+        metrics=None,
     ) -> None:
         self.routes = routes
         self.max_body_bytes = max_body_bytes
+        self.metrics = metrics  # rpc.metrics.RPCMetrics or None
         self.logger = logging.getLogger(__name__)
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()
@@ -500,45 +516,68 @@ class JSONRPCServer:
 
     async def _dispatch(self, req: RPCRequest):
         handler = self.routes.get(req.method)
+        m = self.metrics
         if handler is None:
+            if m is not None:
+                # not labeled by method: route labels stay a server-known
+                # set, or a client mints unbounded series
+                m.unknown_methods.inc()
             return _response(
                 req.req_id,
                 error=RPCError(
                     METHOD_NOT_FOUND, f"unknown method {req.method!r}"
                 ).to_obj(),
             )
+        if m is not None:
+            m.requests_total.inc(route=req.method)
+            m.inflight.add(1, route=req.method)
+        failed = False
+        t0 = time.perf_counter()
         try:
-            if faults.armed():
-                # chaos seam: `rpc.route` keyed by method; an injected
-                # raise maps to the INTERNAL_ERROR a crashing handler's
-                # would
-                faults.fire("rpc.route", req.method)
-            result = await handler(req)
-        except RPCError as e:
-            return _response(req.req_id, error=e.to_obj())
-        except (TypeError, ValueError, KeyError) as e:
-            # int()/decode failures on client-supplied params; logged so
-            # a genuine server bug surfacing here stays visible
-            self.logger.info(
-                "rpc invalid params method=%s err=%r", req.method, e
-            )
-            return _response(
-                req.req_id,
-                error=RPCError(INVALID_PARAMS, str(e)).to_obj(),
-            )
-        except Exception as e:
-            # the client gets INTERNAL_ERROR, as from the JAX server; the
-            # server keeps the error too (module docstring)
-            self.logger.error(
-                "rpc handler error method=%s err=%r", req.method, e
-            )
-            if self._failure is None and not _client_params_error(req, e):
-                self._failure = e
-            return _response(
-                req.req_id,
-                error=RPCError(INTERNAL_ERROR, repr(e)).to_obj(),
-            )
-        return _response(req.req_id, result=result)
+            try:
+                if faults.armed():
+                    # chaos seam: `rpc.route` keyed by method; an injected
+                    # raise maps to the INTERNAL_ERROR a crashing handler's
+                    # would
+                    faults.fire("rpc.route", req.method)
+                result = await handler(req)
+            except RPCError as e:
+                failed = True
+                return _response(req.req_id, error=e.to_obj())
+            except (TypeError, ValueError, KeyError) as e:
+                # int()/decode failures on client-supplied params; logged
+                # so a genuine server bug surfacing here stays visible
+                failed = True
+                self.logger.info(
+                    "rpc invalid params method=%s err=%r", req.method, e
+                )
+                return _response(
+                    req.req_id,
+                    error=RPCError(INVALID_PARAMS, str(e)).to_obj(),
+                )
+            except Exception as e:
+                # the client gets INTERNAL_ERROR, as from the JAX server;
+                # the server keeps the error too (module docstring)
+                failed = True
+                self.logger.error(
+                    "rpc handler error method=%s err=%r", req.method, e
+                )
+                if self._failure is None and not _client_params_error(req, e):
+                    self._failure = e
+                return _response(
+                    req.req_id,
+                    error=RPCError(INTERNAL_ERROR, repr(e)).to_obj(),
+                )
+            return _response(req.req_id, result=result)
+        finally:
+            if m is not None:
+                dur = time.perf_counter() - t0
+                m.inflight.add(-1, route=req.method)
+                m.request_latency.observe(dur, route=req.method)
+                if failed:
+                    m.request_errors.inc(route=req.method)
+                if dur > m.slo_for(req.method):
+                    m.slow_requests.inc(route=req.method)
 
     # -- websocket --
 
@@ -562,8 +601,10 @@ class JSONRPCServer:
 
         peer = writer.get_extra_info("peername")
         remote = f"{peer[0]}:{peer[1]}" if peer else "unknown"
-        ws = WSConn(reader, writer, remote)
+        ws = WSConn(reader, writer, remote, metrics=self.metrics)
         self._ws_conns.add(ws)
+        if self.metrics is not None:
+            self.metrics.ws_connections.add(1)
         wtask = asyncio.ensure_future(ws._writer_loop())
         msg = bytearray()
         sem = asyncio.Semaphore(WS_PIPELINE_DEPTH)
@@ -612,6 +653,8 @@ class JSONRPCServer:
         finally:
             ws._close()
             self._ws_conns.discard(ws)
+            if self.metrics is not None:
+                self.metrics.ws_connections.add(-1)
             wtask.cancel()
             for task in list(inflight):
                 task.cancel()

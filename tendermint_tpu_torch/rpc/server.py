@@ -56,7 +56,9 @@ class RPCServer(Service):
 
     async def on_start(self) -> None:
         host, port = _split_laddr(self.laddr)
-        self._srv = JSONRPCServer(self.env.routes(), max_body_bytes=self._max_body)
+        self._srv = JSONRPCServer(
+            self.env.routes(), max_body_bytes=self._max_body, metrics=self.env.metrics
+        )
         await self._srv.start(host, port)
         self.logger.info("rpc server listening addr=%s:%d", host, self.bound_port)
 

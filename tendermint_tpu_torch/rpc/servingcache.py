@@ -36,8 +36,8 @@ Safety model:
   same.
 
 The cache is confined to the event loop of the Environment that owns
-it; no locking. Its hit, miss and eviction counters wait for the port's
-metrics (ROADMAP item 11).
+it; no locking. With an RPCMetrics struct it counts its hits, misses
+and evictions (:99-141).
 """
 
 from __future__ import annotations
@@ -62,10 +62,12 @@ class ServingCache:
         block_store,
         state_store,
         capacity: int = DEFAULT_CAPACITY,
+        metrics=None,  # RPCMetrics or None
     ) -> None:
         self.block_store = block_store
         self.state_store = state_store
         self.capacity = int(capacity)
+        self.metrics = metrics
         # height -> LightBlock proto blob / MerkleMultiTree
         self._blobs: "OrderedDict[int, bytes]" = OrderedDict()
         self._trees: "OrderedDict[int, MerkleMultiTree]" = OrderedDict()
@@ -75,16 +77,24 @@ class ServingCache:
     def _usable(self) -> bool:
         return self.capacity > 0
 
+    def _count(self, name: str, n: int = 1) -> None:
+        if self.metrics is not None:
+            getattr(self.metrics, "servingcache_" + name).inc(n)
+
     def _put(self, lru: OrderedDict, height: int, value) -> None:
         lru[height] = value
         lru.move_to_end(height)
         while len(lru) > self.capacity:
             lru.popitem(last=False)
+            self._count("evictions")
 
     def _get(self, lru: OrderedDict, height: int):
         v = lru.get(height)
         if v is not None:
             lru.move_to_end(height)
+            self._count("hits")
+        else:
+            self._count("misses")
         return v
 
     # -- light blocks --

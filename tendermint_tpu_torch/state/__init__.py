@@ -1,6 +1,6 @@
 """Replicated state, its store, block execution, and the tx indexer with
-its KV and SQL sinks (counterpart: tendermint_tpu/state/). The state
-metrics wait for ROADMAP item 11."""
+its KV and SQL sinks, and the state metrics (counterpart:
+tendermint_tpu/state/)."""
 
 from .execution import (  # noqa: F401
     BlockExecutor,

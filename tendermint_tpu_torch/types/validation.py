@@ -12,7 +12,10 @@ byte-identical to the JAX package's.
 The batch path packs a Commit's (pubkey, sign-bytes, signature) triples
 into one crypto.batch verifier per key type; with the device verifier
 installed (crypto/gpu_verifier.install) that is the CUDA kernels on the
-padded batch. The three entry points run the vector plans
+padded batch for ed25519 and sr25519, and the host's
+Secp256k1BatchVerifier for secp256k1, which has no device path: the
+groups are drained one after another, lowest bad index first across
+them. The three entry points run the vector plans
 (_verify_commit_batch_vector): a masked sum or a prefix sum over the
 powers picks the indexes the reference loop would visit and its tally,
 and their sign-bytes are spliced in one C call. The scalar loop

@@ -4,6 +4,10 @@ all built with the port's own types from a seed.
 
 - build_commit: a Commit of n equal-power validators, every one signing,
   some of them sr25519;
+- build_three_class_commit: a Commit of n equal-power validators in the
+  JAX bench's three-class rotation (bench.py:147-178), ed25519, sr25519
+  and secp256k1 by index mod 3, the secp256k1 keys and signatures made on
+  a process pool when asked;
 - build_light_chain: LightBlocks 1..n of one chain with a static set of
   equal-power validators, every one signing every height: the shape of
   BASELINE.md config 4 (the JAX package's bench.py:1161
@@ -68,7 +72,12 @@ all built with the port's own types from a seed.
   rpc_light_sync, a node's chain synced from height 1 over HTTP from it
   and honest witnesses, its light_blocks pages timed; and
   publish_stored_height, a stored height's events on an event bus as
-  BlockExecutor publishes them (the indexer's feed).
+  BlockExecutor publishes them (the indexer's feed);
+- the metrics harness: scrape, a node's /metrics and /healthz over HTTP
+  (the scrape's ms and bytes beside them), and parse_exposition, a
+  Prometheus text document as {series: value}, refusing a line it cannot
+  parse and a series it meets twice; run_node_start and cli_localnet
+  scrape the nodes they start when those serve Prometheus.
 
 Keys, timestamps and signing witnesses come from the seed, so a seed
 gives the same bytes on every host. Signing is native: ed25519's and
@@ -83,6 +92,7 @@ import asyncio
 import contextlib
 import dataclasses
 import hashlib
+import json
 import os
 import time
 from dataclasses import dataclass
@@ -93,6 +103,7 @@ import numpy as np
 from .abci import types as abci_types
 from .blocksync import BlocksyncReactor, blocksync_channel_descriptor
 from .crypto.ed25519 import PrivKeyEd25519
+from .crypto.secp256k1 import PrivKeySecp256k1, PubKeySecp256k1
 from .crypto.sr25519 import PrivKeySr25519, sign_batch
 from .config import ConsensusConfig, MempoolConfig, P2PConfig, StateSyncConfig
 from .consensus.msgs import (
@@ -141,7 +152,7 @@ from .store.kv import MemKV, SqliteKV
 from .types.block import Block
 from .types.block_id import BlockID, PartSetHeader
 from .types.block_meta import BlockMeta
-from .types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
+from .types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE, vote_sign_bytes
 from .types.commit import Commit, CommitSig
 from .types.evidence import DuplicateVoteEvidence
 from .types.genesis import GenesisDoc, GenesisValidator
@@ -180,6 +191,13 @@ __all__ = [
     "rpc_light_sync",
     "rpc_serving",
     "run_node_start",
+    "GPU_SCRAPE_SERIES",
+    "Scrape",
+    "check_cli_scrape",
+    "check_node_scrape",
+    "gpu_series",
+    "parse_exposition",
+    "scrape",
     "stage_crash",
     "stored_light_blocks",
     "block_exec_node",
@@ -188,6 +206,7 @@ __all__ = [
     "build_commit",
     "build_consensus_chain",
     "build_light_chain",
+    "build_three_class_commit",
     "admit",
     "build_vote_traffic",
     "clock_at",
@@ -212,6 +231,8 @@ __all__ = [
     "seeded_keys",
     "seeded_witness",
     "sign_commit",
+    "THREE_CLASSES",
+    "three_class_key",
     "validator_node",
     "vote_state",
     "wait_for_pool",
@@ -329,6 +350,84 @@ def build_commit(
         ],
     )
     return vals, block_id, commit
+
+
+THREE_CLASSES = ("ed25519", "sr25519", "secp256k1")
+
+
+def three_class_key(i: int):
+    """Validator i's private key in the JAX bench's rotation
+    (bench.py:164-178): THREE_CLASSES[i % 3], from the seed
+    i.to_bytes(4, "big") + b"\\x33" * 28."""
+    seed = int(i).to_bytes(4, "big") + b"\x33" * 28
+    kind = THREE_CLASSES[i % 3]
+    if kind == "sr25519":
+        return PrivKeySr25519.from_seed(seed)
+    if kind == "secp256k1":
+        return PrivKeySecp256k1(seed)
+    return PrivKeyEd25519.from_seed(seed)
+
+
+def _secp_keys_and_sigs(job: list) -> list:
+    """(public key bytes, signature) of each (validator index, message)
+    of a job: a pool worker's share of a three-class Commit's secp256k1
+    third (about 3 ms a key and 3.6 ms a signature, pure Python)."""
+    out = []
+    for i, msg in job:
+        priv = three_class_key(i)
+        out.append((priv.pub_key().bytes(), priv.sign(msg)))
+    return out
+
+
+def build_three_class_commit(n: int, chain_id: str, height: int, seed: int, workers: int = 1):
+    """(ValidatorSet, BlockID, Commit) of n equal-power validators, all
+    signing, validator i keyed by three_class_key(i). Vote timestamps
+    spread over one second from the seed; the sr25519 witnesses come from
+    the seed too, and ed25519 and secp256k1 signatures are deterministic,
+    so a seed gives the same bytes on every host. With workers > 1 the
+    secp256k1 keys and signatures are made on a process pool of that
+    many workers (spawned, so a parent holding a CUDA context is safe)."""
+    rng = np.random.default_rng([seed, 3])
+    block_id = BlockID(
+        hashlib.sha256(b"three-class-block-%d" % seed).digest(),
+        PartSetHeader(1, hashlib.sha256(b"three-class-parts-%d" % seed).digest()),
+    )
+    stamps = [BASE_TIME_NS + int(t) for t in rng.integers(0, 1_000_000_000, size=n)]
+    msgs = [vote_sign_bytes(chain_id, PRECOMMIT_TYPE, height, 0, block_id, ts) for ts in stamps]
+    pubs: list = [None] * n
+    sigs: list = [None] * n
+    secp = [(i, msgs[i]) for i in range(n) if THREE_CLASSES[i % 3] == "secp256k1"]
+    if workers > 1 and secp:
+        import concurrent.futures
+        import multiprocessing
+
+        jobs = [secp[k::workers] for k in range(workers)]
+        with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")
+        ) as pool:
+            for job, done in zip(jobs, pool.map(_secp_keys_and_sigs, jobs)):
+                for (i, _msg), (pub, sig) in zip(job, done):
+                    pubs[i], sigs[i] = PubKeySecp256k1(pub), sig
+    else:
+        for (i, _msg), (pub, sig) in zip(secp, _secp_keys_and_sigs(secp)):
+            pubs[i], sigs[i] = PubKeySecp256k1(pub), sig
+    sr_idx = [i for i in range(n) if THREE_CLASSES[i % 3] == "sr25519"]
+    sr_privs = [three_class_key(i) for i in sr_idx]
+    witness = np.random.default_rng([seed, 25519])
+    for i, priv, sig in zip(
+        sr_idx, sr_privs, sign_batch(sr_privs, [msgs[i] for i in sr_idx], rng=witness.bytes)
+    ):
+        pubs[i], sigs[i] = priv.pub_key(), sig
+    for i in range(0, n, 3):
+        priv = three_class_key(i)
+        pubs[i], sigs[i] = priv.pub_key(), priv.sign(msgs[i])
+    vals = ValidatorSet([Validator(pub_key=pk, voting_power=10) for pk in pubs])
+    by_addr = {pk.address(): i for i, pk in enumerate(pubs)}
+    commit_sigs = []
+    for val in vals.validators:
+        i = by_addr[val.address]
+        commit_sigs.append(CommitSig.for_block(sigs[i], val.address, stamps[i]))
+    return vals, block_id, Commit(height=height, round=0, block_id=block_id, signatures=commit_sigs)
 
 
 def build_light_chain(
@@ -2416,7 +2515,8 @@ class NodeStartRun:
     the heights block sync
     applied, the blocks the handshake replayed into the app, block
     sync's final state, the app's hash, and after the stop whether the
-    data lock was free again and every DB closed."""
+    data lock was free again and every DB closed; and, when the node
+    serves Prometheus, its scrape just before the stop."""
 
     make_s: float
     start_s: float
@@ -2431,6 +2531,11 @@ class NodeStartRun:
     dbs_closed: int
     dbs: int
     node: object
+    # with [instrumentation] prometheus: the scrape before the stop, the
+    # block store's height and gpu_verifier.stats() around it
+    scraped: Optional["Scrape"] = None
+    store_height: int = 0
+    stats_at_scrape: Optional[dict] = None
 
 
 def run_node_start(home: str, served: ExecNode, node_keys: Sequence[int], seed: int,
@@ -2445,7 +2550,10 @@ def run_node_start(home: str, served: ExecNode, node_keys: Sequence[int], seed: 
     block sync has switched consensus on (or, without wait_synced, until
     start() returns), then stops the node and the peers; an error a part
     ended on is raised. instrument(node), if given, runs after
-    make_node, before the start."""
+    make_node, before the start. A node that serves Prometheus and was
+    waited for until synced is scraped (scrape) just before its stop;
+    gpu_verifier.stats() is read on both sides of the scrape, which must
+    not move it."""
     from .config import load_config
     from .node import node as node_mod
     from .node.node import acquire_pid_lock, make_node, release_pid_lock
@@ -2514,6 +2622,15 @@ def run_node_start(home: str, served: ExecNode, node_keys: Sequence[int], seed: 
                 t3 = time.perf_counter()
                 state = node.blocksync_reactor.state
                 app_hash = (await node.proxy.query.info(abci_types.RequestInfo())).last_block_app_hash
+                scraped, store_height, stats_at = None, 0, None
+                if wait_synced and node.metrics_port is not None:
+                    from .crypto import gpu_verifier
+
+                    stats_at = gpu_verifier.stats()
+                    store_height = node.block_store.height()
+                    scraped = await scrape(node.metrics_port)
+                    if gpu_verifier.stats() != stats_at:
+                        raise RuntimeError("the device plane verified during the scrape")
             finally:
                 dbs = list(node._dbs)
                 if node.is_running:
@@ -2538,9 +2655,134 @@ def run_node_start(home: str, served: ExecNode, node_keys: Sequence[int], seed: 
             applied=state.last_block_height - start_height, replayed=node.handshaker.n_blocks,
             state=state, app_hash=app_hash, lock_released=released,
             dbs_closed=sum(_db_closed(db) for db in dbs), dbs=len(dbs), node=node,
+            scraped=scraped, store_height=store_height, stats_at_scrape=stats_at,
         )
 
     return asyncio.run(go())
+
+
+@dataclass
+class Scrape:
+    """One scrape of a node's Prometheus server: the /metrics text, the
+    /healthz JSON, and the /metrics request's ms and bytes."""
+
+    text: str
+    health: dict
+    ms: float
+    nbytes: int
+
+
+async def _http_get(port: int, path: str, timeout_s: float = 10.0) -> bytes:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n\r\n".encode())
+        await writer.drain()
+        data = await asyncio.wait_for(reader.read(-1), timeout_s)
+    finally:
+        writer.close()
+    head, _, body = data.partition(b"\r\n\r\n")
+    if not head.startswith(b"HTTP/1.1 200 "):
+        raise RuntimeError(f"GET {path}: {head.splitlines()[0] if head else b'no answer'!r}")
+    return body
+
+
+async def scrape(port: int) -> Scrape:
+    """GET /metrics, then /healthz, from a node's Prometheus server on
+    127.0.0.1:port."""
+    t0 = time.perf_counter()
+    body = await _http_get(port, "/metrics")
+    ms = (time.perf_counter() - t0) * 1e3
+    health = json.loads(await _http_get(port, "/healthz"))
+    return Scrape(text=body.decode(), health=health, ms=ms, nbytes=len(body))
+
+
+# the device family's series a node's scrape is held against
+# gpu_verifier.stats(), by stats() key
+GPU_SCRAPE_SERIES = {
+    "batches": "tendermint_tpu_gpu_verify_batches_total",
+    "sigs": "tendermint_tpu_gpu_verify_sigs_total",
+    "pad_waste": "tendermint_tpu_gpu_pad_waste_slots_total",
+    "faults": "tendermint_tpu_gpu_device_faults_total",
+}
+
+
+def gpu_series() -> Dict[str, float]:
+    """This process's GPU_SCRAPE_SERIES now, from DEFAULT_REGISTRY."""
+    from .libs.metrics import DEFAULT_REGISTRY
+
+    return {key: DEFAULT_REGISTRY.get(name).value() for key, name in GPU_SCRAPE_SERIES.items()}
+
+
+def check_node_scrape(run: NodeStartRun, stats_before: dict, series_before: dict, peers: int) -> dict:
+    """The checks of a run_node_start node's scrape: the exposition
+    parses with no duplicate series; over the run, each GPU_SCRAPE_SERIES
+    counter moved as its gpu_verifier.stats() key did (stats_before and
+    series_before read at the run's start), and no fault; the
+    state_block_processing count is the blocks block sync applied;
+    /healthz's height is the block store's; p2p_peers is `peers`.
+    Returns what was compared; raises AssertionError on a difference."""
+    if run.scraped is None:
+        raise AssertionError("the node served no Prometheus scrape")
+    series = parse_exposition(run.scraped.text)
+    moved = {key: series[name] - series_before[key] for key, name in GPU_SCRAPE_SERIES.items()}
+    want = {key: run.stats_at_scrape[key] - stats_before[key] for key in GPU_SCRAPE_SERIES}
+    if moved != want or moved["faults"]:
+        raise AssertionError(f"the scrape's gpu_* deltas {moved}, stats() moved {want}")
+    blocks = series["tendermint_tpu_state_block_processing_seconds_count"]
+    if blocks != run.applied:
+        raise AssertionError(f"block_processing counted {blocks} blocks, block sync applied {run.applied}")
+    if run.scraped.health["height"] != run.store_height:
+        raise AssertionError(f"/healthz height {run.scraped.health['height']}, store {run.store_height}")
+    if series["tendermint_tpu_p2p_peers"] != peers:
+        raise AssertionError(f"p2p_peers {series['tendermint_tpu_p2p_peers']}, not {peers}")
+    return {"gpu_deltas": moved, "blocks_processed": blocks, "healthz": run.scraped.health,
+            "p2p_peers": peers, "series": len(series), "scrape_ms": run.scraped.ms,
+            "scrape_bytes": run.scraped.nbytes}
+
+
+def check_cli_scrape(nd: CliNode, min_height: int) -> dict:
+    """The checks of a cli_localnet process's scrape at min_height: it
+    parses with no duplicate series, consensus_height reached min_height,
+    and the gpu_* family is there with no batch (a net under the gate)."""
+    if nd.scraped is None:
+        raise AssertionError(f"{nd.home}: no scrape")
+    series = parse_exposition(nd.scraped.text)
+    height = series["tendermint_tpu_consensus_height"]
+    gpu = {key: series[name] for key, name in GPU_SCRAPE_SERIES.items()}
+    if height < min_height or gpu["batches"] != 0 or gpu["faults"] != 0:
+        raise AssertionError(f"{nd.home}: consensus_height {height}, gpu series {gpu}")
+    return {"consensus_height": height, "gpu": gpu, "scrape_ms": nd.scraped.ms,
+            "scrape_bytes": nd.scraped.nbytes, "series": len(series)}
+
+
+def parse_exposition(text: str) -> Dict[str, float]:
+    """A Prometheus text exposition (0.0.4) as {series: value}, a series
+    named by its metric and its labels sorted (`name{k=v,...}`). Raises
+    ValueError on a line it cannot parse and on a series met twice."""
+    out: Dict[str, float] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        metric, _, value = line.rpartition(" ")
+        if not metric:
+            raise ValueError(f"unparseable exposition line: {line!r}")
+        if "{" in metric:
+            name, _, rest = metric.partition("{")
+            if not rest.endswith('"}'):
+                raise ValueError(f"unparseable labels: {line!r}")
+            pairs = []
+            for pair in rest[:-2].split('",'):
+                k, eq, v = pair.partition('="')
+                if not eq:
+                    raise ValueError(f"unparseable labels: {line!r}")
+                pairs.append(f"{k}={v}")
+            key = name + "{" + ",".join(sorted(pairs)) + "}"
+        else:
+            key = metric
+        if key in out:
+            raise ValueError(f"duplicate series {key}")
+        out[key] = float(value)
+    return out
 
 
 def _free_port_base(n: int) -> int:
@@ -2571,23 +2813,30 @@ def _free_port_base(n: int) -> int:
 @dataclass
 class CliNode:
     """One `start` process of cli_localnet: its home, the height its
-    status read last, its exit code, and its log's lines."""
+    status read last, its exit code, its log's lines, and with
+    prometheus its metrics port and its scrape at min_height."""
 
     home: str
     rpc: str
     height: int
     rc: Optional[int]
     log: List[str]
+    metrics_port: Optional[int] = None
+    scraped: Optional[Scrape] = None
 
 
 def cli_localnet(out_dir: str, n: int, min_height: int, gpu: bool, device: str = "cuda",
-                 timeout_s: float = 120.0, settings: Optional[Dict[str, dict]] = None) -> List[CliNode]:
+                 timeout_s: float = 120.0, settings: Optional[Dict[str, dict]] = None,
+                 prometheus: bool = False) -> List[CliNode]:
     """`testnet` writes n validator homes under out_dir (127.0.0.1 ports
     taken free, [gpu] enable = gpu, and `settings` written into each
     config.toml), then n `python3 -m tendermint_tpu_torch.cmd start`
     processes run over TCP until the port's HTTP client's `status` reads
     a height of at least min_height on every one; each is then sent
-    SIGTERM and waited for. Every process is gone when this returns."""
+    SIGTERM and waited for. With prometheus, each serves /metrics on a
+    127.0.0.1 port of its own, taken free, and is scraped once when its
+    status first reads min_height. Every process is gone when this
+    returns."""
     import io
     import signal
     import subprocess
@@ -2597,7 +2846,7 @@ def cli_localnet(out_dir: str, n: int, min_height: int, gpu: bool, device: str =
     from .config import load_config, write_config
     from .rpc.client import HTTPClient
 
-    base = _free_port_base(2 * n)
+    base = _free_port_base(3 * n)
     with contextlib.redirect_stdout(io.StringIO()):
         if main(["testnet", "-v", str(n), "-o", out_dir, "--starting-port", str(base)]) != 0:
             raise RuntimeError("testnet failed")
@@ -2606,6 +2855,9 @@ def cli_localnet(out_dir: str, n: int, min_height: int, gpu: bool, device: str =
         path = os.path.join(home, "config", "config.toml")
         cfg = load_config(path)
         cfg.gpu.enable = gpu
+        if prometheus:
+            cfg.instrumentation.prometheus = True
+            cfg.instrumentation.prometheus_listen_addr = f"127.0.0.1:{base + 2 * n + homes.index(home)}"
         for section, values in (settings or {}).items():
             for key, value in values.items():
                 setattr(getattr(cfg, section), key, value)
@@ -2613,7 +2865,8 @@ def cli_localnet(out_dir: str, n: int, min_height: int, gpu: bool, device: str =
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs, logs = [], []
-    nodes = [CliNode(home, f"127.0.0.1:{base + 2 * i + 1}", 0, None, []) for i, home in enumerate(homes)]
+    nodes = [CliNode(home, f"127.0.0.1:{base + 2 * i + 1}", 0, None, [],
+                     base + 2 * n + i if prometheus else None) for i, home in enumerate(homes)]
 
     async def poll() -> None:
         deadline = time.monotonic() + timeout_s
@@ -2628,6 +2881,8 @@ def cli_localnet(out_dir: str, n: int, min_height: int, gpu: bool, device: str =
                         nd.height = int(st["sync_info"]["latest_block_height"])
                     except (OSError, asyncio.TimeoutError, RuntimeError, ValueError):
                         await client.close()
+                    if nd.metrics_port is not None and nd.scraped is None and nd.height >= min_height:
+                        nd.scraped = await scrape(nd.metrics_port)
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"heights {[nd.height for nd in nodes]} after {timeout_s} s")
                 await asyncio.sleep(0.2)

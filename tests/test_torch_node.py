@@ -19,8 +19,8 @@ localnets, catch-up, and the CLI's `start` as a process
 - a node state-syncs a snapshot, backfills, block-syncs and switches to
   consensus, publishing StateSyncStatus on its event bus;
 - with [gpu] enable = true and no CUDA, make_node raises at the
-  install; it never runs on the CPU plane; prometheus = true raises
-  NotImplementedError; a second node with the same [gpu] config reuses
+  install; it never runs on the CPU plane; prometheus = true serves
+  /metrics and /healthz on a port taken free; a second node with the same [gpu] config reuses
   the install, one with another config installs its own;
 - a failed launch under the handshake raises out of start(), and the
   failed start has released the data lock;
@@ -323,6 +323,24 @@ def test_block_sync_then_consensus_and_a_crash_replayed(tmp_path, served):
     assert gpu_verifier._VERIFIERS["ed25519"] is verifier
 
 
+def test_a_block_synced_node_is_scraped_before_its_stop(tmp_path, served):
+    """The checks chip_smoke's node_start part (1) makes on its scrape, on
+    the plain versions: the gpu_* counters moved as stats() did (the
+    gate of 2 sends each block's LastCommit to the device plane), no
+    fault, one block_processing observation a block applied, /healthz at
+    the store's height, three peers."""
+    genesis, chain, node, states = served
+    home = _catchup_home(tmp_path, genesis, gpu={"min_batch_size": 2, "bucket_sizes": [4]},
+                         instrumentation={"prometheus": True, "prometheus_listen_addr": "127.0.0.1:0"})
+    stats0, series0 = gpu_verifier.stats(), workloads.gpu_series()
+    run1 = workloads.run_node_start(home, node, SERVERS, SEED, device="cpu", timeout_s=60.0)
+    report = workloads.check_node_scrape(run1, stats0, series0, peers=len(SERVERS))
+    assert report["gpu_deltas"]["batches"] > 0 and report["blocks_processed"] == len(chain) - 1
+    assert run1.scraped.health["height"] == len(chain) - 1 and run1.scraped.nbytes > 0
+    with pytest.raises(AssertionError, match="p2p_peers"):
+        workloads.check_node_scrape(run1, stats0, series0, peers=2)
+
+
 def test_state_sync_then_block_sync_then_consensus(tmp_path, served):
     genesis, chain, node, states = served
     tip = len(chain)
@@ -363,11 +381,46 @@ def test_gpu_enable_without_cuda_raises_at_install(tmp_path):
     assert device_plane.installed_plane() is None and gpu_verifier.installed() is None
 
 
+async def _http_get(port: int, path: str):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+    await writer.drain()
+    data = await reader.read(-1)
+    writer.close()
+    head, _, body = data.decode().partition("\r\n\r\n")
+    return head.splitlines()[0], body
+
+
 def test_prometheus_is_refused_until_item_11(tmp_path):
+    """Item 11a ported the metrics plane, so prometheus = true is no
+    longer refused: the node serves its series on /metrics and its height
+    on /healthz, on the port it was given (127.0.0.1:0, taken free), and
+    closes that port when it stops."""
     priv = _privs(1, 31)[0]
-    home = _home(tmp_path, 0, _genesis([priv]), priv, instrumentation={"prometheus": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        make_node(_cfg(home), device="cpu")
+    home = _home(tmp_path, 0, _genesis([priv]), priv,
+                 instrumentation={"prometheus": True, "prometheus_listen_addr": "127.0.0.1:0"})
+
+    async def go():
+        node = make_node(_cfg(home), device="cpu")
+        await node.start()
+        try:
+            await node.consensus.wait_for_height(3, timeout=30.0)
+            status, text = await _http_get(node.metrics_port, "/metrics")
+            assert "200 OK" in status
+            for needle in ("tendermint_tpu_consensus_height ", "tendermint_tpu_gpu_verify_batches_total ",
+                           "tendermint_tpu_state_block_processing_seconds_count "):
+                assert needle in text, needle
+            status, body = await _http_get(node.metrics_port, "/healthz")
+            health = json.loads(body)
+            assert "200 OK" in status and health["node_id"] == node.node_key.node_id
+            assert 2 <= health["height"] <= node.block_store.height() and health["syncing"] is False
+            port = node.metrics_port
+        finally:
+            await node.stop()
+        with pytest.raises(OSError):
+            await _http_get(port, "/healthz")
+
+    run(go())
 
 
 def test_a_second_node_reuses_the_install_or_overrides_it(tmp_path, caplog):
@@ -544,7 +597,11 @@ def test_a_step_machine_ended_by_an_error_ends_start(tmp_path, monkeypatch):
 
 def test_cli_testnet_processes_reach_height_2_and_exit_0(tmp_path):
     nodes = workloads.cli_localnet(str(tmp_path / "net"), 2, 2, gpu=False, device="cpu", timeout_s=90.0,
-                                   settings={"consensus": FAST})
+                                   settings={"consensus": FAST}, prometheus=True)
     assert [nd.rc for nd in nodes] == [0] * 2
     assert all(nd.height >= 2 for nd in nodes)
     assert all(any("node started" in line for line in nd.log) for nd in nodes)
+    # each process served /metrics on its own port, scraped at height 2
+    assert len({nd.metrics_port for nd in nodes}) == 2
+    for nd in nodes:
+        assert workloads.check_cli_scrape(nd, 2)["consensus_height"] >= 2

@@ -189,9 +189,32 @@ def test_identity_commands_print_alike(tmp_path, capsys, monkeypatch, command):
 
 
 def test_secp256k1_keys_are_refused_until_the_port_has_them(tmp_path, capsys):
-    assert port_cmd.main(["gen-validator", "--key", "secp256k1"]) == 1
-    assert "key type: secp256k1 is not supported" in capsys.readouterr().err
-    assert port_cmd.main(["--home", str(tmp_path / "h"), "init", "--key", "secp256k1"]) == 1
+    """The port has the secp256k1 keys now (ROADMAP item 22): both
+    commands take the type as the JAX ones do. gen-validator prints a
+    FilePV key of that type; init writes a home whose key file each
+    package loads, with the address of its public key, and whose
+    genesis carries the key; an unknown type is still refused by the
+    key dispatch."""
+    capsys.readouterr()
+    outs = {}
+    for name, main in (("port", port_cmd.main), ("jax", jax_cmd.main)):
+        assert main(["gen-validator", "--key", "secp256k1"]) == 0
+        outs[name] = json.loads(capsys.readouterr().out)
+    assert outs["port"].keys() == outs["jax"].keys()
+    for out in outs.values():
+        assert out["pub_key"]["type"] == out["priv_key"]["type"] == "secp256k1"
+    for name, main in (("port", port_cmd.main), ("jax", jax_cmd.main)):
+        home = str(tmp_path / name)
+        assert main(["--home", home, "init", "--key", "secp256k1", "--chain-id", CHAIN_ID]) == 0
+        paths = (os.path.join(home, "config", "priv_validator_key.json"),
+                 os.path.join(home, "data", "priv_validator_state.json"))
+        port_pv, jax_pv = FilePV.load(*paths), JaxFilePV.load(*paths)
+        assert port_pv.key.pub_key.type() == "secp256k1" == jax_pv.key.pub_key.type()
+        assert port_pv.key.address == jax_pv.key.address == port_pv.key.pub_key.address()
+        genesis = json.load(open(os.path.join(home, "config", "genesis.json")))
+        assert genesis["validators"][0]["pub_key"]["type"].endswith("secp256k1")
+    with pytest.raises(ValueError, match="key type: rsa is not supported"):
+        FilePV.generate(*paths, key_type="rsa")
 
 
 # -- the offline data commands --
